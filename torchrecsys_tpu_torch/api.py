@@ -1,0 +1,317 @@
+"""User-facing facade: the serving half of ``RecSys`` (port of
+``torchrecsys_tpu/api.py``: the constructor :41-115, ``config`` :118-126,
+``predict`` :295-388, ``_patch_short_unseen_rows`` :391-410,
+``_filter_seen`` :412-437, ``similar_items`` :439-478, ``item_vectors`` /
+``user_vectors`` :481-549 and ``_decode_items`` :551-563).
+
+The port has no trainer yet: weights come from the JAX package through
+:meth:`RecSys.load_jax_tables` (utils/convert.py) or from
+:meth:`RecSys.init_tables`. ``self.state`` keeps the JAX shape,
+``{"tables", "dense", "model_state"}``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from torchrecsys_tpu_torch.config import ModelConfig
+from torchrecsys_tpu_torch.data.features import feature_tables
+from torchrecsys_tpu_torch.data.interactions import InteractionStore, prepare_data
+from torchrecsys_tpu_torch.eval.predict import catalog_topk
+from torchrecsys_tpu_torch.models import build_model
+from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, pack_seen_mask_torch
+from torchrecsys_tpu_torch.utils.convert import tables_from_jax
+
+
+def _resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    instead of quietly running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} was requested but torch finds no CUDA "
+            "device; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+class RecSys:
+    """Serving facade over an :class:`InteractionStore` and a model."""
+
+    def __init__(
+        self,
+        dataset: Any,
+        user_id_col: str = "user_id",
+        item_id_col: str = "item_id",
+        n_factors: int = 80,
+        net_type: str = "linear",
+        metadata_id_col: Optional[Sequence[str]] = None,
+        split_ratio: float = 0.8,
+        dynamic_neg_sampling: bool = False,
+        use_amp: bool = False,
+        use_cuda: bool = False,  # accepted for API parity; ignored
+        seed: int = 0,
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        del use_cuda  # the device is `device`
+        self.device = _resolve_device(device)
+        self.seed = seed
+        self.store: InteractionStore = prepare_data(
+            dataset,
+            user_id_col=user_id_col,
+            item_id_col=item_id_col,
+            metadata_id_col=metadata_id_col,
+            split_ratio=split_ratio,
+            dynamic_neg_sampling=dynamic_neg_sampling,
+            seed=seed + 42,
+        )
+        self.model_cfg = ModelConfig(
+            net_type=net_type,
+            n_factors=n_factors,
+            compute_dtype="bfloat16" if use_amp else "float32",
+        )
+        self.model = build_model(self.store.schema, self.model_cfg).to(self.device)
+        self.feat = feature_tables(self.store, self.device)
+        self.state: Optional[Dict[str, Any]] = None
+        # kept between calls; the store is fixed and the tables change only
+        # through _install
+        self._seen_index = None  # (train item rows sorted by user, offsets)
+        self._item_vocab = None  # raw item ids, int64 or object
+        self._catalog = None  # model.linearized_catalog of the tables
+
+    # ------------------------------------------------------------------
+    @property
+    def config(self) -> Dict[str, int]:
+        """Dataset stats, reference-shaped (dataset.py:199-203)."""
+        s = self.store.schema
+        return {
+            "num_users": s.num_users,
+            "num_items": s.num_items,
+            "num_metadata": sum(s.metadata_vocab_sizes),
+        }
+
+    def _install(self, tables: Mapping[str, torch.Tensor]) -> None:
+        self.model.set_tables(tables)
+        self.state = {"tables": dict(self.model.tables), "dense": {}, "model_state": {}}
+        self._catalog = None
+
+    def load_jax_tables(self, tables: Mapping[str, np.ndarray]) -> None:
+        """Serve the JAX package's trained tables: ``tables`` is its
+        ``state["tables"]`` as numpy arrays (see utils/convert.py)."""
+        self._install(tables_from_jax(tables, self.model, self.device))
+
+    def init_tables(self) -> None:
+        """Fresh seeded tables (the reference's init; draws differ from
+        jax.random's)."""
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        params, _ = self.model.init(gen)
+        self._install(params["tables"])
+
+    def _require_fitted(self, what: str) -> None:
+        if self.state is None:
+            raise RuntimeError(
+                f"{what} requires model weights -- install them with "
+                "load_jax_tables() or init_tables()"
+            )
+
+    def _params(self) -> Dict[str, Any]:
+        return {"tables": self.state["tables"], "dense": self.state["dense"]}
+
+    # ------------------------------------------------------------------
+    def _seen(self, rows: np.ndarray) -> List[np.ndarray]:
+        """Each user's unique train-split item rows, sorted, from a by-user
+        index built once (the JAX facade scans the whole split per user)."""
+        if self._seen_index is None:
+            tu, ti = self.store.train_users, self.store.train_items
+            order = np.argsort(tu, kind="stable")
+            offsets = np.searchsorted(
+                tu[order], np.arange(self.store.schema.num_users + 1)
+            )
+            self._seen_index = (ti[order], offsets)
+        items, offsets = self._seen_index
+        starts, lens = offsets[rows], offsets[rows + 1] - offsets[rows]
+        pos = np.repeat(np.arange(len(rows)), lens)
+        at = np.arange(lens.sum()) + np.repeat(starts - (np.cumsum(lens) - lens), lens)
+        n = self.store.schema.num_items
+        keys = np.unique(pos * n + items[at])  # distinct (user, item), sorted
+        counts = np.bincount(keys // n, minlength=len(rows))
+        return np.split(keys % n, np.cumsum(counts)[:-1])
+
+    def predict(
+        self,
+        user_id: Union[Any, Sequence[Any]],
+        top_k: int = 10,
+        prediction_batch_size: int = 4096,
+        return_raw_ids: bool = True,
+        exclude_seen: bool = False,
+        approx_recall: Optional[float] = None,
+    ) -> np.ndarray:
+        """Full-catalog top-k for one user or a batch of users.
+
+        ``exclude_seen=True`` drops each user's train-split items: a packed
+        per-user bitmask rides into the scorer, seen items score as the
+        float32 minimum, and the result is exactly the top-k unseen items.
+        ``approx_recall`` is accepted and exact (see ops/dot_topk.py).
+        Returns (top_k,) for a scalar user or (U, top_k) for a sequence."""
+        self._require_fitted("predict()")
+        scalar = not isinstance(user_id, (list, tuple, np.ndarray))
+        users_raw = [user_id] if scalar else list(user_id)
+        try:
+            rows = np.asarray(
+                [self.store.user_encoder.encode_one(u) for u in users_raw], np.int64
+            )
+        except KeyError as e:
+            raise KeyError(f"predict: unknown user_id -- {e.args[0]}") from None
+        num_items = self.store.schema.num_items
+        seen: Optional[List[np.ndarray]] = None
+        seen_mask = None
+        if exclude_seen:
+            if self.store.num_train == 0:
+                raise ValueError(
+                    "predict(exclude_seen=True) needs the train interactions; "
+                    "this RecSys has none"
+                )
+            seen = self._seen(rows)
+            pos = np.repeat(np.arange(len(rows)), [len(s) for s in seen])
+            seen_mask = pack_seen_mask_torch(
+                torch.as_tensor(pos, device=self.device),
+                torch.as_tensor(np.concatenate(seen), device=self.device),
+                len(rows),
+                num_items,
+            )
+        _, ids = catalog_topk(
+            self.model,
+            self._params(),
+            self.state["model_state"],
+            torch.as_tensor(rows, device=self.device),
+            num_items,
+            self.feat,
+            top_k=min(top_k, num_items),
+            chunk_size=prediction_batch_size,
+            approx_recall=approx_recall,
+            seen_mask=seen_mask,
+            catalog=self._linearized(),
+        )
+        ids = ids.cpu().numpy()
+        if seen_mask is not None:
+            ids = self._patch_short_unseen_rows(ids, seen, num_items)
+        return self._decode_items(ids, return_raw_ids, scalar)
+
+    @staticmethod
+    def _patch_short_unseen_rows(
+        ids: np.ndarray, seen: List[np.ndarray], num_items: int
+    ) -> np.ndarray:
+        """Masked items sort after every unseen item, so each row's first
+        ``num_items - |seen|`` entries are the top unseen items. A user with
+        fewer unseen items than ``top_k`` gets the tail filled with their
+        last unseen candidate; a user with nothing unseen is an error."""
+        for r, s in enumerate(seen):
+            n_unseen = num_items - len(s)
+            if n_unseen == 0:
+                raise ValueError(
+                    "predict(exclude_seen=True): a requested user has "
+                    "interacted with the entire catalog -- nothing unseen "
+                    "to recommend"
+                )
+            if n_unseen < ids.shape[1]:
+                ids[r, n_unseen:] = ids[r, n_unseen - 1]
+        return ids
+
+    @staticmethod
+    def _filter_seen(ids: np.ndarray, seen: List[np.ndarray], top_k: int) -> np.ndarray:
+        """Drop each row's seen items, keep rank order, truncate to top_k
+        (for scorers that over-fetch ``top_k + max(|seen|)`` candidates)."""
+        out = np.empty((ids.shape[0], min(top_k, ids.shape[1])), ids.dtype)
+        for r, (row, s) in enumerate(zip(ids, seen)):
+            keep = row[~np.isin(row, s)]
+            if len(keep) == 0:
+                raise ValueError(
+                    "predict(exclude_seen=True): a requested user has "
+                    "interacted with the entire catalog -- nothing unseen "
+                    "to recommend"
+                )
+            if len(keep) < out.shape[1]:
+                keep = np.concatenate([keep, np.repeat(keep[-1:], out.shape[1] - len(keep))])
+            out[r] = keep[: out.shape[1]]
+        return out
+
+    def similar_items(
+        self, item_id: Any, top_k: int = 10, return_raw_ids: bool = True
+    ) -> np.ndarray:
+        """Top-k catalog items by dot product of item factor vectors with
+        ``item_id``'s, through the fused kernels; the query item itself is
+        excluded."""
+        self._require_fitted("similar_items()")
+        try:
+            row = self.store.item_encoder.encode_one(item_id)
+        except KeyError:
+            raise KeyError(f"similar_items: unknown item_id -- {item_id!r}") from None
+        n = self.store.schema.num_items
+        k = min(top_k + 1, n)  # +1: the query item ranks first, drop it
+        vecs = self.state["tables"]["item"][:n].float()
+        bias = torch.zeros((n,), dtype=torch.float32, device=self.device)
+        _, ids = dot_topk(vecs[row][None, :], vecs, bias, k)
+        ids = ids.cpu().numpy()
+        keep = ids[0][ids[0] != row][: min(top_k, n - 1)]
+        return self._decode_items(keep[None, :], return_raw_ids, scalar=True)
+
+    # ------------------------------------------------------------------
+    def _linearized(self):
+        """The model's linearized catalog, kept until the tables change."""
+        self._require_fitted("factor-vector export")
+        if self._catalog is None:
+            self._catalog = self.model.linearized_catalog(self._params(), self.feat)
+        return self._catalog
+
+    def item_vectors(self) -> "tuple[np.ndarray, np.ndarray]":
+        """``(vecs (num_items, D) f32, bias (num_items,) f32)`` in encoded-row
+        order, metadata folded in: index ``[vecs[i], bias[i]]`` and query
+        with ``[user_vec, 1.0]`` in an external ANN engine."""
+        item_vecs, item_bias, _, _ = self._linearized()
+        return item_vecs.float().cpu().numpy(), item_bias.float().cpu().numpy()
+
+    def user_vectors(
+        self, user_id: Optional[Sequence[Any]] = None
+    ) -> "tuple[np.ndarray, np.ndarray]":
+        """``(vecs (U, D) f32, const (U,) f32)`` for every user (``None``,
+        encoded-row order) or for raw ids; ``const`` is the user's
+        row-constant score term (Linear's user bias)."""
+        _, _, user_fn, _ = self._linearized()
+        if user_id is None:
+            rows = torch.arange(self.store.schema.num_users, device=self.device)
+        else:
+            ids = [user_id] if np.ndim(user_id) == 0 else list(user_id)
+            try:
+                rows = torch.as_tensor(
+                    [self.store.user_encoder.encode_one(u) for u in ids],
+                    dtype=torch.int64,
+                    device=self.device,
+                )
+            except KeyError as e:
+                raise KeyError(f"user_vectors: unknown user_id -- {e}") from None
+        vecs, const = user_fn(self._params(), rows)
+        return vecs.float().cpu().numpy(), const.float().cpu().numpy()
+
+    def _decode_items(
+        self, ids: np.ndarray, return_raw_ids: bool, scalar: bool
+    ) -> np.ndarray:
+        if return_raw_ids:
+            if self._item_vocab is None:
+                vocab = self.store.item_encoder.to_list()
+                typed = np.asarray(vocab)
+                if typed.dtype.kind not in "iu":  # keep the raw objects
+                    typed = np.empty(len(vocab), dtype=object)
+                    typed[:] = vocab
+                self._item_vocab = typed
+            out = self._item_vocab[ids]
+            if out.dtype == object:
+                try:  # collapse to the dtype numpy gives the first row's raw ids
+                    out = out.astype(np.asarray(out[0].tolist()).dtype)
+                except (ValueError, TypeError):
+                    pass
+        else:
+            out = ids
+        return out[0] if scalar else out

@@ -1,0 +1,91 @@
+"""Explicit id <-> row encoding (port of ``torchrecsys_tpu/data/encoder.py``,
+:18-141).
+
+Every raw id (int, string, anything hashable) maps to a dense contiguous
+row index, and predictions decode back to raw ids. Only the numpy and
+Python paths are ported; the JAX package's C++ string encoder gives the
+same first-occurrence codes as the Python dict path used here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, List, Sequence, Tuple
+
+import numpy as np
+
+
+class IdEncoder:
+    """Bidirectional mapping raw id -> contiguous int32 row index."""
+
+    def __init__(self) -> None:
+        self._to_index: Dict[Any, int] = {}
+        self._to_raw: List[Any] = []
+
+    def __len__(self) -> int:
+        return len(self._to_raw)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._to_raw)
+
+    def fit(self, values: Iterable[Any]) -> "IdEncoder":
+        for v in values:
+            if v not in self._to_index:
+                self._to_index[v] = len(self._to_raw)
+                self._to_raw.append(v)
+        return self
+
+    def encode(self, values: Sequence[Any]) -> np.ndarray:
+        """Encode raw ids to int32 row indices, adding unseen ids."""
+        self.fit(values)
+        to_index = self._to_index
+        return np.fromiter((to_index[v] for v in values), np.int32, len(values))
+
+    def encode_one(self, value: Any) -> int:
+        try:
+            return self._to_index[value]
+        except KeyError:
+            sample = ", ".join(repr(v) for v in self._to_raw[:5])
+            raise KeyError(
+                f"unknown id {value!r}: not among the {len(self._to_raw)} raw "
+                f"ids this encoder was built from (e.g. {sample}). Ids are "
+                "matched by exact value and type -- an int 3 does not match a "
+                "string '3'."
+            ) from None
+
+    def decode(self, indices: Sequence[int]) -> List[Any]:
+        to_raw = self._to_raw
+        return [to_raw[int(i)] for i in indices]
+
+    def to_list(self) -> List[Any]:
+        """The vocabulary in row order."""
+        return list(self._to_raw)
+
+
+def encode_column(values: Sequence[Any]) -> Tuple[np.ndarray, IdEncoder]:
+    """Build an encoder over ``values`` and encode them (encoder.py:107-141).
+
+    Integer columns take vectorized ``np.unique`` (sorted vocab); everything
+    else -- strings included -- the Python dict path (first-occurrence
+    vocab, which is also what the JAX package's C++ string encoder yields).
+    Object columns of strings become numpy unicode first, as in JAX, so the
+    decoded raw ids have the same type."""
+    arr = np.asarray(values)
+    if arr.dtype.kind == "O":
+        sample = next((v for v in arr[: min(len(arr), 16)] if v is not None), None)
+        if isinstance(sample, str):
+            try:
+                arr = arr.astype("U")
+            except (ValueError, TypeError):
+                pass
+    if arr.dtype.kind in "iu":
+        uniq, inv = np.unique(arr, return_inverse=True)
+        enc = IdEncoder()
+        enc._to_raw = [int(u) for u in uniq]
+        enc._to_index = {int(u): i for i, u in enumerate(uniq)}
+        return inv.astype(np.int32), enc
+    if arr.dtype.kind in "US":
+        enc = IdEncoder()
+        return enc.encode(arr.tolist()), enc
+    enc = IdEncoder()
+    return enc.encode(list(values)), enc

@@ -1,0 +1,209 @@
+"""Batched full-catalog top-k prediction (port of
+``torchrecsys_tpu/eval/predict.py``, :37-135 and :248-433).
+
+Dot-factorizable models (``RecModel.linearized_catalog``: Linear) take the
+fused score + top-k kernels of ``ops/dot_topk.py``; any model can take the
+generic chunked scorer :func:`full_catalog_topk`, plain torch with a
+running top-k merge, which is also the fused path's second yardstick.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from torchrecsys_tpu_torch.data.features import Features, attach_features
+from torchrecsys_tpu_torch.models.base import Params, RecModel, State
+from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, mask_bits_for_items
+
+
+def _score_chunk(
+    model: RecModel,
+    params: Params,
+    state: State,
+    user_ids: torch.Tensor,  # (U,)
+    item_ids: torch.Tensor,  # (C,)
+    feat: Optional[Features],
+) -> torch.Tensor:
+    """Score the (U x C) user-item cross product -> (U, C)."""
+    u, c = user_ids.shape[0], item_ids.shape[0]
+    side = {
+        "user_id": user_ids.repeat_interleave(c),
+        "item_id": item_ids.repeat(u),
+    }
+    side = attach_features(side, feat)
+    scores, _ = model.score(params, state, side)
+    return scores.reshape(u, c)
+
+
+def full_catalog_topk(
+    model: RecModel,
+    params: Params,
+    state: State,
+    user_ids: torch.Tensor,  # (U,)
+    num_items: int,
+    feat: Optional[Features] = None,
+    top_k: int = 10,
+    chunk_size: int = 4096,
+    seen_mask: Optional[torch.Tensor] = None,  # ops.dot_topk.pack_seen_mask
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generic chunked top-k, for every model (predict.py:57-110).
+
+    Returns (scores (U, k), item rows (U, k)) descending. Each chunk's
+    scores join the running top-k and a stable descending sort keeps the
+    first k, so ties go to the lower item row, as ``lax.top_k`` does. Seen
+    items score -inf. The running list starts as k (-inf, row 0) entries,
+    as in the JAX scan, so a user with fewer than k unseen items gets row-0
+    fillers there too."""
+    dev = user_ids.device
+    k = min(top_k, num_items)
+    u = user_ids.shape[0]
+    top_v = torch.full((u, k), -torch.inf, dtype=torch.float32, device=dev)
+    top_i = torch.zeros((u, k), dtype=torch.int64, device=dev)
+    for s in range(0, num_items, chunk_size):
+        items = torch.arange(s, min(num_items, s + chunk_size), device=dev)
+        sc = _score_chunk(model, params, state, user_ids, items, feat)
+        if seen_mask is not None:
+            sc = torch.where(mask_bits_for_items(seen_mask, items), -torch.inf, sc)
+        cat_v = torch.cat([top_v, sc], dim=1)
+        cat_i = torch.cat([top_i, items[None, :].expand(u, -1)], dim=1)
+        v, pos = torch.sort(cat_v, dim=1, descending=True, stable=True)
+        top_v = v[:, :k]
+        top_i = torch.gather(cat_i, 1, pos[:, :k])
+    return top_v, top_i.to(torch.int32)
+
+
+def _fused_catalog_topk(
+    model: RecModel,
+    params: Params,
+    user_ids: torch.Tensor,
+    num_items: int,
+    feat: Optional[Features],
+    top_k: int,
+    approx_recall: Optional[float] = None,
+    seen_mask: Optional[torch.Tensor] = None,
+    catalog=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The linearized catalog through the fused kernels (predict.py:116-135).
+    ``catalog`` is ``model.linearized_catalog(params, feat)`` when the
+    caller keeps it between calls."""
+    if catalog is None:
+        catalog = model.linearized_catalog(params, feat)
+    item_vecs, item_bias, user_fn, transform = catalog
+    user_vecs, user_const = user_fn(params, user_ids)
+    raw, ids = dot_topk(
+        user_vecs, item_vecs, item_bias, min(top_k, num_items),
+        approx_recall=approx_recall, seen_mask=seen_mask,
+    )
+    return transform(raw, user_const), ids
+
+
+def catalog_topk(
+    model: RecModel,
+    params: Params,
+    state: State,
+    user_ids: torch.Tensor,
+    num_items: int,
+    feat: Optional[Features] = None,
+    top_k: int = 10,
+    chunk_size: int = 4096,
+    use_fused: bool = True,
+    approx_recall: Optional[float] = None,
+    seen_mask: Optional[torch.Tensor] = None,
+    catalog=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-catalog top-k with kernel dispatch (predict.py:248-335, without
+    the mesh): linearizable models take the fused kernels, everything else
+    the generic chunked scorer. ``approx_recall`` is exact in the port (see
+    ``ops.dot_topk.dot_topk``) and, as in JAX, refused off the fused path.
+    ``catalog`` optionally passes a kept ``model.linearized_catalog`` to the
+    fused path (the facade keeps it between table installs)."""
+    if use_fused and model.supports_linearized_catalog:
+        return _fused_catalog_topk(
+            model, params, user_ids, num_items, feat, top_k,
+            approx_recall=approx_recall, seen_mask=seen_mask, catalog=catalog,
+        )
+    if approx_recall is not None:
+        raise ValueError(
+            f"approx_recall is only supported for models with a dot-product "
+            f"catalog factorization (linearized_catalog); "
+            f"{type(model).__name__} scores the catalog through the generic "
+            f"chunked path, which is always exact -- drop approx_recall"
+        )
+    return full_catalog_topk(
+        model, params, state, user_ids, num_items, feat,
+        top_k=top_k, chunk_size=chunk_size, seen_mask=seen_mask,
+    )
+
+
+def ranking_eval(
+    model: RecModel,
+    params: Params,
+    state: State,
+    test_users: np.ndarray,  # (n_test,) encoded rows
+    test_items: np.ndarray,  # (n_test,) encoded rows
+    num_items: int,
+    feat: Optional[Features] = None,
+    ks: Tuple[int, ...] = (10,),
+    user_chunk: int = 512,
+    item_chunk: Optional[int] = 4096,
+    batch_size: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> Dict[str, float]:
+    """Per-user recall/precision/hit_rate/ndcg@k over a test split
+    (predict.py:338-389): top-k ids from :func:`catalog_topk`, aggregated
+    host-side by :func:`topk_ranking_metrics`. Items are not filtered by
+    train-set membership, matching the reference."""
+    if item_chunk is None:
+        item_chunk = batch_size or 4096
+    max_k = min(max(ks), num_items)
+    uniq, inv = np.unique(np.asarray(test_users), return_inverse=True)
+    parts = []
+    for s in range(0, len(uniq), user_chunk):
+        chunk = torch.as_tensor(uniq[s : s + user_chunk], device=device).long()
+        _, ids = catalog_topk(
+            model, params, state, chunk, num_items, feat,
+            top_k=max_k, chunk_size=item_chunk,
+        )
+        parts.append(ids.cpu().numpy())
+    topk = np.concatenate(parts, axis=0)
+    return topk_ranking_metrics(
+        topk, inv, np.asarray(test_items), len(uniq), ks, num_items
+    )
+
+
+def topk_ranking_metrics(
+    topk: np.ndarray,  # (n_uniq, max_k) item ids, descending score
+    inv: np.ndarray,  # (n_test,) test row -> uniq-user index
+    test_items: np.ndarray,  # (n_test,)
+    n_uniq: int,
+    ks: Tuple[int, ...],
+    num_items: int,
+) -> Dict[str, float]:
+    """Host-side per-user aggregation (predict.py:392-433). NDCG counts
+    distinct (user, item) pairs; recall/precision/hit_rate count rows."""
+    member = topk[inv] == test_items[:, None]  # (n_test, max_k)
+    n_rows_per_user = np.bincount(inv, minlength=n_uniq).astype(np.float64)
+    disc = 1.0 / np.log2(np.arange(topk.shape[1]) + 2.0)
+    pair_key = inv.astype(np.int64) * (num_items + 1) + test_items.astype(np.int64)
+    _, first_idx = np.unique(pair_key, return_index=True)
+    dedup = np.zeros(len(inv), bool)
+    dedup[first_idx] = True
+    inv_d = inv[dedup]
+    n_distinct = np.bincount(inv_d, minlength=n_uniq).astype(np.int64)
+    out: Dict[str, float] = {}
+    for k in ks:
+        kk = min(k, num_items)
+        hit_row = member[:, :kk].any(axis=1)
+        hits_per_user = np.bincount(inv, weights=hit_row, minlength=n_uniq)
+        out[f"recall@{k}"] = float(np.mean(hits_per_user / n_rows_per_user))
+        out[f"precision@{k}"] = float(np.mean(hits_per_user / kk))
+        out[f"hit_rate@{k}"] = float(np.mean(hits_per_user > 0))
+        gain_row = (member[dedup][:, :kk] * disc[:kk]).sum(axis=1)
+        dcg = np.bincount(inv_d, weights=gain_row, minlength=n_uniq)
+        ideal_cum = np.concatenate([[0.0], np.cumsum(disc[:kk])])
+        idcg = ideal_cum[np.minimum(n_distinct, kk)]
+        out[f"ndcg@{k}"] = float(np.mean(dcg / np.maximum(idcg, 1e-12)))
+    return out

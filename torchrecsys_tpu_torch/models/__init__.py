@@ -1,0 +1,41 @@
+"""Model factory (port of ``torchrecsys_tpu/models/__init__.py``).
+
+The serving slice ports ``linear``. The JAX package's other nets are still
+to be ported (ROADMAP.md, queue A) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from torchrecsys_tpu_torch.config import DataSchema, ModelConfig
+from torchrecsys_tpu_torch.models.base import RecModel, TableSpec
+from torchrecsys_tpu_torch.models.linear import LinearModel
+
+MODEL_REGISTRY = {"linear": LinearModel}
+
+# net_type -> the ROADMAP.md item that ports it
+_NOT_YET_PORTED = {
+    "fm": "A8 (FM)",
+    "mlp": "A11 (MLP and NeuCF)",
+    "neucf": "A11 (MLP and NeuCF)",
+    "lstm": "A13 (sequence models)",
+    "sasrec": "A13 (sequence models)",
+    "ease": "A14 (EASE)",
+}
+
+
+def build_model(schema: DataSchema, cfg: ModelConfig) -> RecModel:
+    if cfg.net_type in _NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"net_type {cfg.net_type!r} is not ported to torchrecsys_tpu_torch "
+            f"yet: ROADMAP.md item {_NOT_YET_PORTED[cfg.net_type]}"
+        )
+    try:
+        cls = MODEL_REGISTRY[cfg.net_type]
+    except KeyError:
+        raise ValueError(
+            f"unknown net_type {cfg.net_type!r}; available: {sorted(MODEL_REGISTRY)}"
+        ) from None
+    return cls(schema, cfg)
+
+
+__all__ = ["MODEL_REGISTRY", "build_model", "RecModel", "TableSpec", "LinearModel"]
