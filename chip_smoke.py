@@ -7,24 +7,47 @@ Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
 1. the card: its name and power limit (nvidia-smi); no card -> exit 1.
-2. build every hand-written kernel from ops/csrc (nvcc, sm_90a) and print
-   the build seconds and each kernel's -Xptxas -v register/shared lines.
-3. each kernel against its plain torch version on the card at the serving
-   shape (256 users x 1,000,000 items x 80 factors): f32, bf16 and masked
-   inputs, k in {10, 128, 1024}. Random inputs: values within
+2. build every hand-written kernel from ops/csrc (one nvcc per source, all
+   started together, sm_90a) and print the build seconds and each
+   kernel's -Xptxas -v register/shared/spill lines.
+3. the top-k kernels against their plain torch version on the card at the
+   serving shape (256 users x 1,000,000 items x 80 factors): f32, bf16 and
+   masked inputs, k in {10, 128, 1024}. Random inputs: values within
    atol=1e-4 + rtol=1e-5 (f32 sums in another order over 80 products), and
    an id may differ only if the kernel's item truly scores that value
    (recomputed in f64). Exact-arithmetic inputs (small integers): ids and
    values identical.
-4. the main path: RecSys over ~3M synthetic interactions (100K users, 1M
-   items, one int category column), seeded tables installed through the
-   JAX-table carry-over, 256-user predict batches at top_k=10, top_k=128
-   and exclude_seen=True. Kernel launch counts are zeroed just before and
-   read just after; every kernel must have launched. A batch of each is
-   checked against the plain path, and a small catalog against the CPU.
-5. per-kernel times (CUDA events over many launches) beside the bound, the
-   plain version's time and one library call (torch.topk of a matmul,
-   never used by the port), and predict users/s.
+4. the fused pairwise train kernel against its plain version on the card,
+   all 96 variants (3 losses x sigmoid x weights x emit_g x item_upd x bf16),
+   on B = 1024 and 8192 rows gathered from a 1M-item and a 100K-user
+   packed table at D=80: every output within rtol=1e-5, atol=1e-6 (f32
+   sums in another order, FMA contraction), rows whose hinge diff lies
+   within 1e-4 of the kink excluded (their subgradient may flip; counted).
+5. card against CPU: a small catalog served from integer tables (raw ids
+   identical) and a small dataset trained for two epochs from one start
+   with the same round keys (losses and tables within rtol=1e-4,
+   atol=1e-5: index_add_ on the card adds duplicate ids in no fixed order).
+6. the main paths, each driven with every launch count set to 0 just
+   before and read just after, over ~3M synthetic interactions (100K
+   users, 1M items, D=80; 2.4M train rows):
+   a. train with one int category column: the JAX-layout state carried
+      over, ``fit(epochs=1, batch_size=1024)`` with in-training uniform
+      negatives. The kernel must launch once per step, the epoch loss be
+      finite, and the loss of a fixed sample of 65,536 train pairs fall
+      below the fresh start's; then 20 steps from one state and
+      one epoch's batches with the kernel and with the plain version on the
+      card, tables and accumulators within rtol=1e-4, atol=1e-5 (at most 8
+      rows per table beyond it: a hinge flip).
+   b. predict from the trained tables: 256-user batches at top_k=10,
+      top_k=128 and exclude_seen=True; every top-k kernel must launch. A
+      batch of each is checked against the plain path.
+   c. train without metadata (static negatives, fused_pairwise_step), with
+      the checks of a.
+7. times: per-kernel CUDA-event ms beside the bound, the plain version
+   and, where one exists, one library call the port never uses; predict
+   users/s and fit examples/s; per-call breakdowns; device time per kernel
+   and the device's idle share over a window of train steps
+   (torch.profiler).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -42,6 +65,7 @@ import numpy as np
 
 U, N, D = 256, 1_000_000, 80  # serving shape: a request batch over the catalog
 N_USERS, N_INTERACTIONS = 100_000, 3_000_000
+TRAIN_B = 1024  # fit batch size on the main path
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATOL, RTOL = 1e-4, 1e-5
@@ -51,6 +75,8 @@ KERNEL_ROWS = {
     "dot_topk_large": ("torchrecsys_tpu/ops/dot_topk.py:362", 128),
 }
 SOURCE = "torchrecsys_tpu_torch/ops/csrc/dot_topk.cu"
+TRAIN_SOURCE = "torchrecsys_tpu_torch/ops/csrc/fused_pairwise.cu"
+TRAIN_REPLACES = "torchrecsys_tpu/ops/fused_pairwise.py:100"
 DEVICE = "cuda"
 
 
@@ -81,6 +107,7 @@ def build_kernels():
     for res in results.values():
         log(f"[build] {res.source}: nvcc {res.seconds:.2f} s -> {res.library}")
         name, frame = None, ""
+        per: dict = {}  # kernel name -> [(resources, frame)], one per template variant
         for line in res.log.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
@@ -88,8 +115,17 @@ def build_kernels():
             elif "stack frame" in line:
                 frame = line.strip()
             elif "Used" in line and name:
-                short = re.sub(r"^_ZN\w*?_cu_\w+?(dot_topk_\w+?kernel)", r"\1", name)
-                log(f"[build]   {short[:60]}: {line.split(':', 1)[1].strip()}; {frame}")
+                m = re.search(r"_cu_\w+?((?:dot_topk|fused_pairwise)_\w*?kernel)", name)
+                short = m.group(1) if m else name[:60]
+                per.setdefault(short, []).append((line.split(":", 1)[1].strip(), frame))
+        for short, entries in per.items():
+            if len(entries) == 1:
+                log(f"[build]   {short}: {entries[0][0]}; {entries[0][1]}")
+                continue
+            regs = [int(re.search(r"Used (\d+) registers", e).group(1)) for e, _ in entries]
+            spills = sum(1 for _, f in entries if "0 bytes spill stores, 0 bytes spill loads" not in f)
+            log(f"[build]   {short}: {len(entries)} template variants, {min(regs)}-{max(regs)} "
+                f"registers, {spills} with spills; e.g. {entries[0][0]}; {entries[0][1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +204,94 @@ def kernel_phase(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the fused pairwise train kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def packed_table(torch, rows: int, gen):
+    """A (rows, 128) packed side table (fused_pairwise.py layout): vectors
+    N(0, 0.2^2), accumulators |N(0, 0.5^2)|, biases N(0, 0.1^2)."""
+    t = torch.zeros((rows, 128), device=DEVICE)
+    t[:, :D] = torch.randn((rows, D), generator=gen, device=DEVICE) * 0.2
+    t[:, D] = torch.randn((rows,), generator=gen, device=DEVICE).abs() * 0.5
+    t[:, D + 1] = torch.randn((rows,), generator=gen, device=DEVICE) * 0.1
+    t[:, D + 2] = torch.randn((rows,), generator=gen, device=DEVICE).abs() * 0.5
+    return t
+
+
+def hinge_kink_rows(torch, u, p, n, sigmoid, bf16, width=1e-4):
+    """Rows whose hinge diff lies within ``width`` of 0 (f64 recompute)."""
+    def rnd(x):
+        return x.to(torch.bfloat16).double() if bf16 else x.double()
+
+    raw_p = (rnd(u[:, :D]) * rnd(p[:, :D])).sum(1) + rnd(u[:, D + 1]) + rnd(p[:, D + 1])
+    raw_n = (rnd(u[:, :D]) * rnd(n[:, :D])).sum(1) + rnd(u[:, D + 1]) + rnd(n[:, D + 1])
+    if sigmoid:
+        raw_p, raw_n = torch.sigmoid(raw_p), torch.sigmoid(raw_n)
+    return (raw_n - raw_p + 1.0).abs() < width
+
+
+def train_kernel_phase(torch):
+    """Every variant of the fused pairwise kernel against its plain version
+    on rows gathered from 1M-item / 100K-user packed tables. Returns the
+    largest |kernel - plain| over all variants' update rows (the loss sums,
+    over up to 8192 rows, are printed as relative differences)."""
+    import itertools
+
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    users, items = packed_table(torch, N_USERS, gen), packed_table(torch, N, gen)
+    batches = {}
+    for b in (1024, 8192):
+        uid = torch.randint(0, N_USERS, (b,), generator=gen, device=DEVICE)
+        iid = torch.randint(0, N, (2 * b,), generator=gen, device=DEVICE)
+        pn = items[iid]
+        batches[b] = (users[uid], pn[:b], pn[b:], torch.rand((b,), generator=gen, device=DEVICE))
+    del users, items
+    saved = fp.pairwise_updates_rows.launches
+    worst = 0.0
+    for loss, sig, use_w, (emit_g, item_upd), bf16 in itertools.product(
+        ("hinge", "bpr", "logistic"), (False, True), (False, True),
+        ((False, True), (True, True), (True, False), (False, False)), (False, True),
+    ):
+        kw = dict(d=D, margin=1.0, loss_kind=loss, sigmoid=sig, eps=1e-10,
+                  emit_g=emit_g, item_upd=item_upd, bf16=bf16)
+        parts = []
+        for b, (u, p, n, w) in batches.items():
+            w = w if use_w else None
+            inv = 1.0 / (float(w.sum()) if use_w else b)
+            got = fp.pairwise_updates_rows(u, p, n, w, inv, 0.05, **kw)
+            want = fp.pairwise_updates_rows_plain(u, p, n, w, inv, 0.05, **kw)
+            torch.cuda.synchronize()
+            keep = ~hinge_kink_rows(torch, u, p, n, sig, bf16) if loss == "hinge" else None
+            err = 0.0
+            loss_rel = abs(float(got[2]) - float(want[2])) / max(abs(float(want[2])), 1e-30)
+            for name, g, x in zip(("upd_u", "upd_items", "loss_sum"), got, want):
+                if x is None:
+                    check(g is None, f"{name}: the kernel wrote item rows with item_upd=False")
+                    continue
+                check(bool(torch.isfinite(g).all()), f"{loss} {kw}: non-finite {name}")
+                if keep is not None and name != "loss_sum":
+                    m = keep if name == "upd_u" else torch.cat([keep, keep])
+                    g, x = g[m], x[m]
+                bad = (g - x).abs() > 1e-6 + 1e-5 * x.abs()
+                check(not bool(bad.any()), f"{loss} {kw} B={b}: {name} differs from the plain "
+                      f"version by {float((g - x).abs().max()):.3g}")
+                if name != "loss_sum":
+                    err = max(err, float((g - x).abs().max()))
+            worst = max(worst, err)
+            kinks = 0 if keep is None else int((~keep).sum())
+            parts.append(f"B={b} rows max|d|={err:.3g} loss_sum rel {loss_rel:.2g}"
+                         + (f" ({kinks} kink rows)" if kinks else ""))
+        log(f"[train-kernel] {loss:8s} sigmoid={sig:d} use_w={use_w:d} emit_g={emit_g:d} "
+            f"item_upd={item_upd:d} bf16={bf16:d}: " + ", ".join(parts))
+    fp.pairwise_updates_rows.launches = saved  # comparison launches do not count
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: card against CPU, the main paths
 # ---------------------------------------------------------------------------
 
 
@@ -243,48 +366,183 @@ def small_catalog_check(torch):
     log("[main] small catalog: card == CPU at top_k 10/128/1500 and exclude_seen")
 
 
-def main_path(torch):
+def wrappers():
+    """Every kernel wrapper of the port (each counts its launches)."""
+    from torchrecsys_tpu_torch.ops import dot_topk as dt
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    return (dt.dot_topk_small, dt.dot_topk_large, fp.pairwise_updates_rows)
+
+
+def small_train_check(torch):
+    """A small dataset trained two epochs on the card (every step through
+    the kernel) and on the CPU (plain steps), from one start with the same
+    round keys and static negatives."""
+    from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
+    from torchrecsys_tpu_torch.data import prepare_data
+    from torchrecsys_tpu_torch.models import build_model
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+    from torchrecsys_tpu_torch.train import Trainer
+
+    r = np.random.default_rng(6)
+    data = {"user_id": r.integers(0, 300, 20000), "item_id": r.integers(0, 5000, 20000)}
+    data["category_id"] = data["item_id"] % 17
+    saved = fp.pairwise_updates_rows.launches
+    for meta in (False, True):
+        store = prepare_data(data, "user_id", "item_id", metadata_id_col=["category_id"] if meta else None)
+        cfg = TrainConfig(batch_size=1000, learning_rate=0.05)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            tr = Trainer(build_model(store.schema, ModelConfig(n_factors=D)), cfg, dev)
+            state = tr.init_state()
+            if dev == "cpu":
+                start = {k: v.clone() for k, v in state["tables"].items()}
+            state["tables"] = {k: v.to(dev) for k, v in start.items()}
+            data_d, feat = tr._device_train_data(store), tr.feature_tables(store)
+            losses = []
+            for e in range(2):
+                keys = torch.arange(6, device=dev) + 7 * e
+                state, loss = tr.train_epoch(state, data_d, feat, keys=keys)
+                losses.append(float(loss))
+            out[dev] = (np.asarray(losses), {k: v.cpu() for k, v in state["tables"].items()})
+        (lc, tc), (lg, tg) = out["cpu"], out[DEVICE]
+        check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"small train meta={meta}: losses {lg} != CPU {lc}")
+        err = 0.0
+        for k in tc:
+            check(torch.allclose(tg[k], tc[k], rtol=1e-4, atol=1e-5), f"small train meta={meta}: table {k}")
+            err = max(err, float((tg[k] - tc[k]).abs().max()))
+        log(f"[main] small train metadata={meta}: card == CPU over 2 epochs (losses {lg.round(6).tolist()}, "
+            f"max |table diff| {err:.3g})")
+    fp.pairwise_updates_rows.launches = saved
+
+
+def sample_loss(torch, rs, sample) -> float:
+    """Mean hinge loss of the installed tables on a fixed sample of train
+    pairs (the model's own score, plain torch)."""
+    from torchrecsys_tpu_torch.data.features import attach_features
+
+    users, pos, neg = (torch.as_tensor(x, device=rs.device) for x in sample)
+    scores = []
+    for items in (pos, neg):
+        side = attach_features({"user_id": users, "item_id": items}, rs.feat)
+        scores.append(rs.model.score(rs._params(), {}, side)[0])
+    return float(torch.clamp_min(scores[1] - scores[0] + 1.0, 0.0).mean())
+
+
+def compare_steps(torch, rs, steps: int = 20):
+    """From the installed state and one epoch's batches, ``steps`` steps
+    with the kernel and with the plain version on the card. Returns (max
+    |table diff|, rows beyond tolerance per table)."""
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    epoch = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 11 + 5,
+                           torch.Generator(device=DEVICE).manual_seed(21))
+    saved = fp.pairwise_updates_rows.launches
+    runs = []
+    for fn in (None, fp.pairwise_updates_rows_plain):
+        packed = tr.pack_state(rs.state)
+        losses = tr.run_steps(packed, epoch, feat, steps=range(steps), updates_fn=fn)
+        runs.append((losses, packed))
+    torch.cuda.synchronize()
+    fp.pairwise_updates_rows.launches = saved  # comparison launches do not count
+    (lk, pk), (lp, pp) = runs
+    check(bool(torch.allclose(lk, lp, rtol=1e-5, atol=1e-6)), f"step losses {lk} != plain {lp}")
+    worst, bad_rows = 0.0, {}
+    for name in pk:
+        diff = (pk[name] - pp[name]).abs()
+        bad = diff > 1e-5 + 1e-4 * pp[name].abs()
+        bad_rows[name] = int(bad.any(dim=1).sum())
+        check(bad_rows[name] <= 8, f"{steps} steps: {bad_rows[name]} rows of {name} differ from the "
+              f"plain path by up to {float(diff.max()):.3g}")
+        worst = max(worst, float(diff.max()))
+    return worst, bad_rows
+
+
+def train_path(torch, data, meta: bool):
+    """The training main path: RecSys -> JAX-layout state -> fit (one
+    epoch, batch 1024). Launch counts are zeroed just before fit and read
+    just after."""
     from torchrecsys_tpu_torch import RecSys
+
+    label = "metadata" if meta else "no metadata"
+    t0 = time.perf_counter()
+    cols = data if meta else {k: data[k] for k in ("user_id", "item_id")}
+    rs = RecSys(cols, metadata_id_col=["category_id"] if meta else None, n_factors=D,
+                device=DEVICE, dynamic_neg_sampling=meta)
+    t1 = time.perf_counter()
+    tables = seeded_tables(rs.model, seed=1)
+    emb_opt = {k: {"acc": np.zeros(v.shape[0], np.float32)} for k, v in tables.items()}
+    rs.load_jax_tables(tables, emb_opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(rs.config["num_items"] == N and rs.config["num_users"] == N_USERS, f"config {rs.config}")
+    st = rs.store
+    r = np.random.default_rng(8)
+    rows = r.choice(st.num_train, min(65536, st.num_train), replace=False)
+    negs = st.train_neg_items[rows] if st.train_neg_items is not None else r.integers(0, N, rows.size)
+    sample = (st.train_users[rows], st.train_items[rows], negs)
+    fresh = sample_loss(torch, rs, sample)
+    log(f"[train] {label}: RecSys ingest {t1 - t0:.2f} s, state carry-over {t2 - t1:.2f} s; "
+        f"{st.num_train} train rows; fresh-start sample loss {fresh:.5f}")
+    ws = wrappers()
+    for w in ws:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in ws}
+    steps = -(-st.num_train // TRAIN_B)
+    check(counts["pairwise_updates_rows"] == steps,
+          f"fit ran {steps} steps but the kernel launched {counts['pairwise_updates_rows']} times")
+    check(counts["dot_topk_small"] == counts["dot_topk_large"] == 0, f"fit launched top-k kernels: {counts}")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"epoch loss {losses} is not finite")
+    trained = sample_loss(torch, rs, sample)
+    check(trained < fresh, f"the trained tables' sample loss {trained} is not below the fresh "
+          f"start's {fresh}")
+    rate = st.num_train / fit_s
+    log(f"[train] {label}: fit {steps} steps of {TRAIN_B} in {fit_s:.3f} s = {rate:.1f} examples/s; "
+        f"epoch loss {losses[0]:.5f}, sample loss {fresh:.5f} -> {trained:.5f}; launches {counts}")
+    err, bad = compare_steps(torch, rs)
+    log(f"[train] {label}: 20 steps kernel vs plain on the card: max |table diff| {err:.3g}, "
+        f"rows beyond rtol=1e-4/atol=1e-5 {bad}")
+    return rs, {"launches": counts["pairwise_updates_rows"], "steps": steps, "fit_s": fit_s,
+                "examples_per_s": rate, "epoch_loss": losses[0], "fresh_loss": fresh,
+                "trained_loss": trained, "step_err": err}
+
+
+def main_path(torch, rs):
+    """Predict from ``rs``'s trained tables; launch counts are zeroed just
+    before and read just after."""
     from torchrecsys_tpu_torch.ops import dot_topk as dt
 
-    t0 = time.perf_counter()
-    data = synthetic_interactions()
-    t1 = time.perf_counter()
-    rs = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE)
-    t2 = time.perf_counter()
-    rs.load_jax_tables(seeded_tables(rs.model, seed=1))
-    if rs.device.type == "cuda":
-        torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    check(rs.config["num_items"] == N and rs.config["num_users"] == N_USERS, f"config {rs.config}")
-    log(
-        f"[main] data {t1 - t0:.2f} s, RecSys ingest {t2 - t1:.2f} s, table carry-over "
-        f"{t3 - t2:.2f} s; config {rs.config}"
-    )
     all_users = rs.store.user_encoder.to_list()
     batches = [all_users[s : s + U] for s in range(0, 40 * U, U)]
     cases = (("top_k=10", 10, False), ("top_k=128", 128, False), ("exclude_seen top_k=10", 10, True))
     rates = {}
-    wrappers = (dt.dot_topk_small, dt.dot_topk_large)
-    for w in wrappers:
+    for w in wrappers():
         w.launches = 0
+    wrappers_topk = (dt.dot_topk_small, dt.dot_topk_large)
     for label, top_k, excl in cases:
-        before = {w.__name__: w.launches for w in wrappers}
+        before = {w.__name__: w.launches for w in wrappers_topk}
         rs.predict(batches[0], top_k=top_k, exclude_seen=excl)  # warm-up
         t0 = time.perf_counter()
         outs = [rs.predict(b, top_k=top_k, exclude_seen=excl) for b in batches[1:]]
         dt_s = time.perf_counter() - t0
         rates[label] = U * len(outs) / dt_s
-        grew = {n: w.launches - before[n] for n, w in ((w.__name__, w) for w in wrappers)}
+        grew = {n: w.launches - before[n] for n, w in ((w.__name__, w) for w in wrappers_topk)}
         want = "dot_topk_small" if top_k <= 16 else "dot_topk_large"
         check(grew[want] == len(batches), f"{label}: {want} launched {grew[want]} times for {len(batches)} batches")
         log(f"[main] predict {label}: {len(outs)} batches of {U} users, {rates[label]:.1f} users/s, launches {grew}")
         check_predict(rs, batches[1], outs[0], top_k, excl, torch)
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: w.launches for w in wrappers_topk}
     for name, count in launches.items():
         check(count > 0, f"kernel {name} never launched on the main path")
-    log(f"[main] launches over the main path: {launches}")
-    return rs, batches[1], launches, rates
+    log(f"[main] launches over the predict path: {launches}")
+    return batches[1], launches, rates
 
 
 def host_ms(torch, fn, reps: int = 10):
@@ -333,7 +591,7 @@ def predict_breakdown(torch, rs, users_raw):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 7: times
 # ---------------------------------------------------------------------------
 
 
@@ -391,6 +649,153 @@ def timing_phase(torch, rs, users_raw, launches, errs):
     return rows_out
 
 
+def one_batch(torch, rs, b: int):
+    """Packed rows of one real batch of ``rs``'s epoch (b rows, weighted,
+    composite item rows when the model has metadata) and its weights."""
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    keys = torch.arange(6, device=DEVICE) * 3 + 1
+    if b != tr.cfg.batch_size:
+        from torchrecsys_tpu_torch.train import Trainer
+
+        tr = Trainer(rs.model, type(tr.cfg)(batch_size=b), DEVICE)
+    ep = tr.build_epoch(data, keys, gen)
+    packed = tr.pack_state(rs.state)
+    uid, pid, nid = (ep.batches[k][0] for k in ("user_id", "pos_item_id", "neg_item_id"))
+    w = ep.batches["_w"][0] if "_w" in ep.batches else None
+    u = packed["user"][uid]
+    pn = packed["item"][torch.cat([pid, nid])]
+    if feat:  # the metadata step's composite rows: item + masked sum of meta rows
+        iids = torch.cat([pid, nid])
+        mids, mm = feat["meta_ids"][iids], feat["meta_mask"][iids].float()
+        for f, name in enumerate(rs.model.schema.metadata_names):
+            rows = packed[f"meta_{name}"][mids[:, f, :]]
+            pn[:, :D] += (rows[..., :D] * mm[:, f, :, None]).sum(1)
+    return u, pn[:b], pn[b:], w, fp.step_inv(b, w)
+
+
+def train_timing(torch, rs, err: float):
+    """The fused pairwise kernel's JSON row: CUDA-event ms at the main
+    path's shape (one real 1024-row batch of the metadata model: weighted,
+    emit_g, item rows), its bound, the plain version's ms; also B=8192."""
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    saved = fp.pairwise_updates_rows.launches
+    row = None
+    for b in (TRAIN_B, 8192):
+        u, p, n, w, inv = one_batch(torch, rs, b)
+        kw = dict(d=D, margin=1.0, loss_kind="hinge", sigmoid=False, eps=1e-10, emit_g=True)
+        ms = cuda_ms(torch, lambda: fp.pairwise_updates_rows(u, p, n, w, inv, 0.01, **kw), reps=200)
+        plain_ms = cuda_ms(torch, lambda: fp.pairwise_updates_rows_plain(u, p, n, w, inv, 0.01, **kw))
+        nbytes = 6 * b * 128 * 4 + b * 4  # 3 row blocks in, 3 out, the weights
+        flops = 10 * b * 128  # cost_estimate's count (fused_pairwise.py:347)
+        bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS) * 1e3
+        log(f"[time] pairwise_updates_rows (B={b}, D={D}, hinge, weighted, emit_g): {ms:.4f} ms; "
+            f"bound {bound_ms:.5f} ms (bytes); plain {plain_ms:.4f} ms; library: none")
+        if b == TRAIN_B:
+            # host time per call: the whole wrapper against its bare C call
+            # (same arguments, outputs into one preallocated buffer)
+            lib, rows = fp._lib(), 3 * b * 128
+            blocks = lib.trs_fused_pairwise_blocks(b)
+            buf = torch.empty((rows + blocks + 1,), device=DEVICE)
+            ptr = buf.data_ptr()
+            args = (0, 0, 1, 1, 1, 0, u.data_ptr(), p.data_ptr(), n.data_ptr(), w.data_ptr(), b, D,
+                    fp._inv_d(D), inv, 0.01, 1.0, 1e-10, ptr, ptr + 4 * b * 128,
+                    ptr + 8 * b * 128, ptr + 4 * rows, ptr + 4 * (rows + blocks),
+                    torch.cuda.current_stream().cuda_stream)
+            wrap_us = host_ms(torch, lambda: fp.pairwise_updates_rows(u, p, n, w, inv, 0.01, **kw),
+                              reps=2000)[0] * 1e3
+            bare_us = host_ms(torch, lambda: check(lib.trs_fused_pairwise(*args) == 0, "bare call"),
+                              reps=2000)[0] * 1e3
+            log(f"[time] pairwise_updates_rows host us per call (B={b}): wrapper {wrap_us:.2f}, "
+                f"its bare C call {bare_us:.2f}")
+            row = {
+                "name": "pairwise_updates_rows", "route": "cuda", "source": TRAIN_SOURCE,
+                "replaces": TRAIN_REPLACES, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            }
+    fp.pairwise_updates_rows.launches = saved
+    return row
+
+
+def device_split(prof) -> dict:
+    """Device µs per kernel name from a torch.profiler run."""
+    out: dict = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t
+    return out
+
+
+def train_breakdown(torch, rs, label: str, window: int = 100):
+    """Per-step breakdown of fit: the epoch build (host clock, per epoch),
+    host ms per step, and device µs per step by part from torch.profiler
+    over ``window`` steps, with the device's idle share in that window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    saved = fp.pairwise_updates_rows.launches
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    keys = torch.arange(6, device=DEVICE) + 40
+    build_ms, _ = host_ms(torch, lambda: tr.build_epoch(data, keys, gen), reps=3)
+    ep = tr.build_epoch(data, keys, gen)
+    window = min(window, (ep.nb - 10) // 2)
+    pack_ms, packed = host_ms(torch, lambda: tr.pack_state(rs.state), reps=2)
+    unpack_ms, _ = host_ms(torch, lambda: tr.unpack_state(rs.state, packed, 0), reps=2)
+    tr.run_steps(packed, ep, feat, steps=range(10))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_steps(packed, ep, feat, steps=range(10, 10 + window))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / window * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_steps(packed, ep, feat, steps=range(10 + window, 10 + 2 * window))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    fp.pairwise_updates_rows.launches = saved
+    split = device_split(prof)
+    parts = {"kernel": 0.0, "gathers": 0.0, "scatters": 0.0, "elementwise": 0.0}
+    for name, us in split.items():
+        if "fused_pairwise" in name:
+            parts["kernel"] += us
+        elif "indexSelect" in name or "index_elementwise" in name or "gather" in name.lower():
+            parts["gathers"] += us
+        elif "indexFunc" in name or "index_add" in name or "scatter" in name.lower():
+            parts["scatters"] += us
+        else:  # elementwise, reductions, cat: the metadata composite and deltas
+            parts["elementwise"] += us
+    busy = sum(split.values())
+    log(f"[breakdown] fit {label}: epoch build {build_ms:.3f} ms per epoch "
+        f"({build_ms / ep.nb:.4f} ms per step over {ep.nb} steps), pack {pack_ms:.3f} ms + "
+        f"unpack {unpack_ms:.3f} ms per epoch; {step_ms:.4f} ms per step (host clock, {window} steps)")
+    log(f"[breakdown] fit {label}: device us per step (elementwise = the metadata composite "
+        f"and deltas, id concatenation, loss scaling): " + ", ".join(
+        f"{k} {v / window:.2f}" for k, v in parts.items()
+    ) + f"; device busy {busy / window:.2f} of {wall_us / window:.2f} us per step under the "
+        f"profiler = idle share {1 - busy / wall_us:.3f}")
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+
+    def short(k):
+        k = k.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return re.sub(r"[<(].*", "", k).removeprefix("at::native::")[:40]
+
+    log(f"[profile] fit {label}: top kernels, device us per step: " + "; ".join(
+        f"{short(k)} {v / window:.2f}" for k, v in top
+    ))
+    return {"build_ms": build_ms, "step_ms": step_ms, "idle_share": 1 - busy / wall_us,
+            "kernel_us": parts["kernel"] / window}
+
+
 def profile_phase(torch, rs, users_raw):
     """Device time per launch of each kernel and of the split merge, from
     torch.profiler, for K1 and K2 across k at the main-path shape."""
@@ -439,12 +844,31 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     errs = kernel_phase(torch)
+    train_err = train_kernel_phase(torch)
     small_catalog_check(torch)
-    rs, users_raw, launches, rates = main_path(torch)
+    small_train_check(torch)
+    t0 = time.perf_counter()
+    data = synthetic_interactions()
+    log(f"[main] {N_INTERACTIONS} synthetic interactions in {time.perf_counter() - t0:.2f} s")
+    rs, fit_meta = train_path(torch, data, meta=True)
+    users_raw, launches, rates = main_path(torch, rs)
     kernels = timing_phase(torch, rs, users_raw, launches, errs)
     predict_breakdown(torch, rs, users_raw)
     profile_phase(torch, rs, users_raw)
-    log(f"[main] predict users/s: {json.dumps(rates)}; total {time.perf_counter() - t_start:.1f} s")
+    split_meta = train_breakdown(torch, rs, "metadata")
+    train_row = train_timing(torch, rs, train_err)
+    del rs
+    torch.cuda.empty_cache()
+    rs, fit_plain = train_path(torch, data, meta=False)
+    split_plain = train_breakdown(torch, rs, "no metadata")
+    del rs
+    train_row["launches"] = fit_meta["launches"] + fit_plain["launches"]
+    kernels.append(train_row)
+    log(f"[main] predict users/s: {json.dumps(rates)}")
+    log(f"[main] fit examples/s: metadata {fit_meta['examples_per_s']:.1f}, no metadata "
+        f"{fit_plain['examples_per_s']:.1f}; device idle share in fit: metadata "
+        f"{split_meta['idle_share']:.3f}, no metadata {split_plain['idle_share']:.3f}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,13 +1,15 @@
-"""User-facing facade: the serving half of ``RecSys`` (port of
-``torchrecsys_tpu/api.py``: the constructor :41-115, ``config`` :118-126,
-``predict`` :295-388, ``_patch_short_unseen_rows`` :391-410,
+"""User-facing facade ``RecSys`` (port of ``torchrecsys_tpu/api.py``: the
+constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
+:128-202, ``predict`` :295-388, ``_patch_short_unseen_rows`` :391-410,
 ``_filter_seen`` :412-437, ``similar_items`` :439-478, ``item_vectors`` /
 ``user_vectors`` :481-549 and ``_decode_items`` :551-563).
 
-The port has no trainer yet: weights come from the JAX package through
+Weights come from :meth:`RecSys.fit` (the fused pairwise step,
+train/trainer.py), from the JAX package through
 :meth:`RecSys.load_jax_tables` (utils/convert.py) or from
 :meth:`RecSys.init_tables`. ``self.state`` keeps the JAX shape,
-``{"tables", "dense", "model_state"}``.
+``{"tables", "dense", "model_state", "emb_opt", "step"}`` (plus the
+trainer's generator, ``rng``, once fit has run).
 """
 
 from __future__ import annotations
@@ -17,13 +19,14 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from torchrecsys_tpu_torch.config import ModelConfig
+from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
 from torchrecsys_tpu_torch.data.features import feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore, prepare_data
 from torchrecsys_tpu_torch.eval.predict import catalog_topk
 from torchrecsys_tpu_torch.models import build_model
 from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, pack_seen_mask_torch
-from torchrecsys_tpu_torch.utils.convert import tables_from_jax
+from torchrecsys_tpu_torch.train.trainer import Trainer
+from torchrecsys_tpu_torch.utils.convert import emb_opt_from_jax, tables_from_jax
 
 
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -75,6 +78,8 @@ class RecSys:
         )
         self.model = build_model(self.store.schema, self.model_cfg).to(self.device)
         self.feat = feature_tables(self.store, self.device)
+        self.dynamic_neg_sampling = dynamic_neg_sampling
+        self.trainer: Optional[Trainer] = None
         self.state: Optional[Dict[str, Any]] = None
         # kept between calls; the store is fixed and the tables change only
         # through _install
@@ -93,28 +98,92 @@ class RecSys:
             "num_metadata": sum(s.metadata_vocab_sizes),
         }
 
-    def _install(self, tables: Mapping[str, torch.Tensor]) -> None:
-        self.model.set_tables(tables)
-        self.state = {"tables": dict(self.model.tables), "dense": {}, "model_state": {}}
+    def _install(self, state: Dict[str, Any]) -> None:
+        """Make ``state`` current: its tables become the model's and the
+        kept catalog is dropped, so predict serves these tables."""
+        self.model.set_tables(state["tables"])
+        self.state = dict(state, tables=dict(self.model.tables))
         self._catalog = None
 
-    def load_jax_tables(self, tables: Mapping[str, np.ndarray]) -> None:
-        """Serve the JAX package's trained tables: ``tables`` is its
-        ``state["tables"]`` as numpy arrays (see utils/convert.py)."""
-        self._install(tables_from_jax(tables, self.model, self.device))
+    def load_jax_tables(
+        self,
+        tables: Mapping[str, np.ndarray],
+        emb_opt: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
+    ) -> None:
+        """Serve, or go on training, the JAX package's tables: ``tables``
+        is its ``state["tables"]`` and ``emb_opt`` its ``state["emb_opt"]``
+        (rowwise-adagrad accumulators; None = zeros), as numpy arrays (see
+        utils/convert.py)."""
+        self._install_tables(tables_from_jax(tables, self.model, self.device), emb_opt)
 
     def init_tables(self) -> None:
         """Fresh seeded tables (the reference's init; draws differ from
-        jax.random's)."""
+        jax.random's) and zero accumulators."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         params, _ = self.model.init(gen)
-        self._install(params["tables"])
+        self._install_tables(params["tables"], None)
+
+    def _install_tables(self, tables: Dict[str, torch.Tensor], emb_opt) -> None:
+        """A fresh training state around ``tables``: ``emb_opt`` as in
+        :meth:`load_jax_tables`, step 0."""
+        self._install({
+            "tables": tables, "dense": {}, "model_state": {},
+            "emb_opt": emb_opt_from_jax(emb_opt, tables, self.device), "step": 0,
+        })
+
+    # ------------------------------------------------------------------
+    def _ensure_trainer(self, train_cfg: TrainConfig) -> Trainer:
+        if self.trainer is None or self.trainer.cfg != train_cfg:
+            self.trainer = Trainer(self.model, train_cfg, self.device)
+        return self.trainer
+
+    def fit(
+        self,
+        optimizer: str = "adam",
+        epochs: int = 1,
+        batch_size: int = 512,
+        learning_rate: float = 1e-2,
+        profile_epochs: int = 0,
+        loss: str = "hinge",
+        embedding_optimizer: str = "rowwise_adagrad",
+        lr_schedule: Any = None,
+        num_negatives: int = 1,
+        neg_sampling: str = "uniform",
+        verbose: bool = True,
+    ) -> List[float]:
+        """Train; returns per-epoch mean losses (api.py:145-202).
+
+        Every step runs the fused pairwise step (ops/fused_pairwise.py): on
+        the card, one launch of the hand-written kernel per batch. Training
+        starts from the installed tables and accumulators, or from fresh
+        seeded ones; afterwards ``predict`` serves the trained tables.
+        Options the port cannot run yet raise ``NotImplementedError``
+        naming their ROADMAP.md item (config.py)."""
+        train_cfg = TrainConfig(
+            batch_size=batch_size,
+            epochs=epochs,
+            learning_rate=learning_rate,
+            lr_schedule=lr_schedule,
+            dense_optimizer=optimizer,
+            embedding_optimizer=embedding_optimizer,
+            dynamic_neg_sampling=self.dynamic_neg_sampling,
+            loss=loss,
+            num_negatives=num_negatives,
+            neg_sampling=neg_sampling,
+            seed=self.seed,
+            profile_epochs=profile_epochs,
+        )
+        trainer = self._ensure_trainer(train_cfg)
+        state = self.state if self.state is not None else trainer.init_state()
+        state, losses = trainer.fit(state, self.store, epochs=epochs, verbose=verbose)
+        self._install(state)
+        return losses
 
     def _require_fitted(self, what: str) -> None:
         if self.state is None:
             raise RuntimeError(
-                f"{what} requires model weights -- install them with "
-                "load_jax_tables() or init_tables()"
+                f"{what} requires model weights -- call fit() or install them "
+                "with load_jax_tables() or init_tables()"
             )
 
     def _params(self) -> Dict[str, Any]:

@@ -1,7 +1,10 @@
-"""Configuration dataclasses (port of ``torchrecsys_tpu/config.py:17-107``).
+"""Configuration dataclasses (port of ``torchrecsys_tpu/config.py:17-208``).
 
-Only the fields the serving slice reads are kept. ``TrainConfig`` and the
-train-kernel switches arrive with the training slice.
+Only the fields the ported slices read are kept. ``TrainConfig`` carries
+the fields ``RecSys.fit`` sets plus the epoch knobs of the fused pairwise
+step; the kernel is chosen by the device, so the JAX package's
+``pallas_*`` switches have no counterpart. Values the port cannot run yet
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ class DataSchema:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Model hyperparameters the serving slice reads (config.py:59-89).
+    """Model hyperparameters the ported slices read (config.py:59-89).
 
     ``compute_dtype="bfloat16"`` (``use_amp``) keeps the factor vectors in
     bf16 for the catalog scorer, with f32 biases and accumulation."""
@@ -40,3 +43,81 @@ class ModelConfig:
     n_factors: int = 80
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+
+
+_SAMPLING_ITEM = "§A item 7 (in-step and K-negative sampling)"
+# loss -> the ROADMAP.md item that ports it
+_LOSSES_NOT_YET_PORTED = {
+    "adaptive_hinge": _SAMPLING_ITEM,
+    "warp": _SAMPLING_ITEM,
+    "sampled_softmax": "§A item 9 (sampled softmax)",
+}
+PORTED_LOSSES = ("hinge", "bpr", "logistic")
+DENSE_OPTIMIZERS = ("adam", "adamw", "adagrad", "sgd")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to torchrecsys_tpu_torch yet: ROADMAP.md {item}"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop hyperparameters (config.py:117-208).
+
+    Embedding tables train with rowwise adagrad through the fused pairwise
+    step (ops/fused_pairwise.py) on the augmented/packed layout
+    (``fused_embedding_update``). ``drop_remainder=False`` trains the
+    remainder rows in a zero-weighted, wrap-around-padded last batch;
+    ``sort_batch_by_user`` orders each batch's rows by user id (stable)."""
+
+    batch_size: int = 1024
+    epochs: int = 1
+    learning_rate: float = 1e-2
+    lr_schedule: Any = None
+    dense_optimizer: str = "adam"  # Linear has no dense parameters
+    embedding_optimizer: str = "rowwise_adagrad"
+    dynamic_neg_sampling: bool = False
+    avoid_collisions: bool = True  # in-step negatives never equal the positive
+    margin: float = 1.0  # hinge margin
+    loss: str = "hinge"
+    num_negatives: int = 1
+    neg_sampling: str = "uniform"
+    seed: int = 0
+    drop_remainder: bool = False
+    profile_epochs: int = 0
+    fused_embedding_update: bool = True
+    sort_batch_by_user: bool = True
+
+    def __post_init__(self) -> None:
+        if self.loss in _LOSSES_NOT_YET_PORTED:
+            raise _not_ported(f"loss={self.loss!r}", _LOSSES_NOT_YET_PORTED[self.loss])
+        if self.loss not in PORTED_LOSSES:
+            raise ValueError(f"unknown loss {self.loss!r}; expected one of {PORTED_LOSSES}")
+        if self.num_negatives < 1:
+            raise ValueError(f"num_negatives must be >= 1, got {self.num_negatives}")
+        if self.num_negatives > 1:
+            raise _not_ported("num_negatives > 1", _SAMPLING_ITEM)
+        if self.neg_sampling not in ("uniform", "popularity"):
+            raise ValueError(
+                f"neg_sampling must be 'uniform' or 'popularity', got {self.neg_sampling!r}"
+            )
+        if self.neg_sampling == "popularity":
+            raise _not_ported("neg_sampling='popularity'", _SAMPLING_ITEM)
+        if self.lr_schedule is not None:
+            raise _not_ported("lr_schedule", "§A item 8 (dense optimizers and lr schedules)")
+        if self.embedding_optimizer not in ("rowwise_adagrad", "sgd"):
+            raise ValueError(f"unknown embedding optimizer {self.embedding_optimizer!r}")
+        if self.embedding_optimizer == "sgd" or not self.fused_embedding_update:
+            raise _not_ported(
+                "the autograd train step (embedding_optimizer='sgd', "
+                "fused_embedding_update=False)",
+                "§A item 8 (the autograd step)",
+            )
+        if self.dense_optimizer not in DENSE_OPTIMIZERS:
+            raise ValueError(f"unknown dense optimizer {self.dense_optimizer!r}")
+        if self.profile_epochs > 0:
+            raise _not_ported("profile_epochs > 0", "§A item 15 (utils)")
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")

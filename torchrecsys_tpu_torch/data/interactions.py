@@ -4,12 +4,13 @@
 The store is host-side numpy: encoded int32 user/item rows per split, the
 static negatives, the item metadata table and the schema. Serving reads
 the encoders, the schema, the metadata and the train split (for
-``exclude_seen``); the batch iterators arrive with the training slice.
+``exclude_seen``); training reads :meth:`InteractionStore.train_arrays`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -35,9 +36,25 @@ class InteractionStore:
     train_neg_items: Optional[np.ndarray] = None
     test_neg_items: Optional[np.ndarray] = None
 
+    _token_counter = itertools.count()
+
+    def __post_init__(self) -> None:
+        # process-unique cache key for the trainer's device copy of the
+        # train split (``id(store)`` can be reused after collection)
+        self.token = next(InteractionStore._token_counter)
+
     @property
     def num_train(self) -> int:
         return int(self.train_users.shape[0])
+
+    def train_arrays(self) -> Dict[str, np.ndarray]:
+        """The train split's per-interaction columns (interactions.py:70-74):
+        ``user_id``, ``pos_item_id`` and, with static negatives,
+        ``neg_item_id``."""
+        d = {"user_id": self.train_users, "pos_item_id": self.train_items}
+        if self.train_neg_items is not None:
+            d["neg_item_id"] = self.train_neg_items
+        return d
 
 
 def _columns(dataset: Any) -> Dict[str, np.ndarray]:

@@ -1,6 +1,6 @@
 """Model factory (port of ``torchrecsys_tpu/models/__init__.py``).
 
-The serving slice ports ``linear``. The JAX package's other nets are still
+The ported slices cover ``linear``. The JAX package's other nets are still
 to be ported (ROADMAP.md, queue A) and raise ``NotImplementedError``.
 """
 
@@ -14,12 +14,12 @@ MODEL_REGISTRY = {"linear": LinearModel}
 
 # net_type -> the ROADMAP.md item that ports it
 _NOT_YET_PORTED = {
-    "fm": "A8 (FM)",
-    "mlp": "A11 (MLP and NeuCF)",
-    "neucf": "A11 (MLP and NeuCF)",
-    "lstm": "A13 (sequence models)",
-    "sasrec": "A13 (sequence models)",
-    "ease": "A14 (EASE)",
+    "fm": "§A item 5 (FM)",
+    "mlp": "§A item 8 (MLP and NeuCF)",
+    "neucf": "§A item 8 (MLP and NeuCF)",
+    "lstm": "§A item 10 (sequence models)",
+    "sasrec": "§A item 10 (sequence models)",
+    "ease": "§A item 11 (EASE)",
 }
 
 

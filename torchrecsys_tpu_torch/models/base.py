@@ -74,6 +74,21 @@ class RecModel(nn.Module, abc.ABC):
     name: str = "base"
     # True on models whose linearized_catalog returns a factorization
     supports_linearized_catalog: bool = False
+    # Gather sites (keys of gathers()) whose ids are exactly
+    # batch["user_id"]: the pairwise step gathers those rows once per pair,
+    # so rowwise adagrad sees one user occurrence with the summed pos + neg
+    # gradient (base.py:90-99).
+    user_gather_sites: frozenset = frozenset()
+    # Fused pairwise step (ops/fused_pairwise.py): side -> (vector table,
+    # bias table) packed into one 128-wide row per id, or None when the
+    # model's score does not fit the kernel.
+    pairwise_pack = None
+    # Metadata folds additively into the item vector (composite rows feed
+    # the same kernel); FM's per-field math is the other case.
+    pairwise_meta: bool = False
+    pairwise_fm_fields: bool = False
+    # Squash the raw score through a sigmoid before the loss (FM's quirk).
+    pairwise_sigmoid: bool = False
 
     def __init__(self, schema: DataSchema, cfg: ModelConfig) -> None:
         super().__init__()

@@ -1,5 +1,5 @@
 """LightFM-style linear factorization model (port of
-``torchrecsys_tpu/models/linear.py:47-130``).
+``torchrecsys_tpu/models/linear.py:29-130``).
 
 ``score = <u, i + sum_f m_f> + b_u + b_i``: each metadata feature adds the
 masked sum of its ids' embeddings into the item vector.
@@ -23,6 +23,14 @@ from torchrecsys_tpu_torch.models.base import (
 class LinearModel(RecModel):
     name = "linear"
     supports_linearized_catalog = True
+    user_gather_sites = frozenset({"user", "user_bias"})
+    # score = <u, i> + b_u + b_i: the bias tables ride the packed side rows
+    pairwise_pack = {"user": ("user", "user_bias"), "item": ("item", "item_bias")}
+    # every item-side row's gradient (item vector and each metadata slot)
+    # is g * u (linear.py:31-45)
+    pairwise_meta = True
+    pairwise_fm_fields = False
+    pairwise_sigmoid = False
 
     def table_specs(self) -> Dict[str, TableSpec]:
         d = self.cfg.n_factors
