@@ -23,10 +23,19 @@ result line:
    packed table at D=80: every output within rtol=1e-5, atol=1e-6 (f32
    sums in another order, FMA contraction), rows whose hinge diff lies
    within 1e-4 of the kink excluded (their subgradient may flip; counted).
+   The in-batch softmax CE kernels (forward; backward dh and dv/dvb)
+   against their plain versions: B=4096 x D=80 with a logQ-shifted bias,
+   duplicate-heavy positives (10 ids), a ragged B=1000, D in {16, 128},
+   a cotangent with zero rows. loss and lse within rtol=atol=1e-5 (f32 sums
+   in another order, a one-pass LSE); dh, dv, dvb within rtol=1e-4 plus
+   1e-5 of the largest |reference| entry (sums of B terms of both signs).
+   A second run of each kernel gives the same bits.
 5. card against CPU: a small catalog served from integer tables (raw ids
    identical) and a small dataset trained for two epochs from one start
    with the same round keys (losses and tables within rtol=1e-4,
-   atol=1e-5: index_add_ on the card adds duplicate ids in no fixed order).
+   atol=1e-5: index_add_ on the card adds duplicate ids in no fixed order),
+   with the pairwise loss and with sampled softmax; the softmax tables'
+   evaluate(loss, auc) with the same negatives on both.
 6. the main paths, each driven with every launch count set to 0 just
    before and read just after, over ~3M synthetic interactions (100K
    users, 1M items, D=80; 2.4M train rows):
@@ -43,11 +52,21 @@ result line:
       batch of each is checked against the plain path.
    c. train without metadata (static negatives, fused_pairwise_step), with
       the checks of a.
+   d. sampled softmax with the int category column: ``fit(epochs=1,
+      batch_size=4096, loss="sampled_softmax")`` from seeded tables. Each
+      CE kernel must launch once per step, the epoch loss be finite and
+      the in-batch CE of 16 fixed train batches fall below the fresh
+      start's; 10 steps with the kernels and with the plain versions on
+      the card agree (rtol=1e-4, atol=1e-5); then ``evaluate(batch_size=
+      4096, eval_metrics=("loss", "auc", "recall@10"))``: the forward
+      kernel launches once per eval batch, the top-k kernel serves
+      recall@10, and the AUC beats the fresh tables'.
+   e. sampled softmax without metadata, with the checks of d but evaluate.
 7. times: per-kernel CUDA-event ms beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
-   users/s and fit examples/s; per-call breakdowns; device time per kernel
-   and the device's idle share over a window of train steps
-   (torch.profiler).
+   users/s, fit examples/s (both losses) and evaluate rows/s; per-call
+   breakdowns; device time per kernel and the device's idle share over a
+   window of train steps (torch.profiler).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -66,6 +85,7 @@ import numpy as np
 U, N, D = 256, 1_000_000, 80  # serving shape: a request batch over the catalog
 N_USERS, N_INTERACTIONS = 100_000, 3_000_000
 TRAIN_B = 1024  # fit batch size on the main path
+SOFTMAX_B = 4096  # sampled-softmax fit and evaluate batch size
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATOL, RTOL = 1e-4, 1e-5
@@ -77,6 +97,11 @@ KERNEL_ROWS = {
 SOURCE = "torchrecsys_tpu_torch/ops/csrc/dot_topk.cu"
 TRAIN_SOURCE = "torchrecsys_tpu_torch/ops/csrc/fused_pairwise.cu"
 TRAIN_REPLACES = "torchrecsys_tpu/ops/fused_pairwise.py:100"
+CE_SOURCE = "torchrecsys_tpu_torch/ops/csrc/softmax_ce.cu"
+CE_REPLACES = {
+    "softmax_ce_fwd": "torchrecsys_tpu/ops/softmax_ce.py:67",
+    "softmax_ce_bwd": "torchrecsys_tpu/ops/softmax_ce.py:92",
+}
 DEVICE = "cuda"
 
 
@@ -115,7 +140,7 @@ def build_kernels():
             elif "stack frame" in line:
                 frame = line.strip()
             elif "Used" in line and name:
-                m = re.search(r"_cu_\w+?((?:dot_topk|fused_pairwise)_\w*?kernel)", name)
+                m = re.search(r"_cu_\w+?((?:dot_topk|fused_pairwise|softmax_ce|sum_splits)_\w*?kernel)", name)
                 short = m.group(1) if m else name[:60]
                 per.setdefault(short, []).append((line.split(":", 1)[1].strip(), frame))
         for short, entries in per.items():
@@ -291,6 +316,75 @@ def train_kernel_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the in-batch softmax CE kernels against their plain version
+# ---------------------------------------------------------------------------
+
+
+def ce_inputs(torch, gen, b: int, d: int, n_ids: int, zero_from=None):
+    """h, v ~ N(0, 0.5^2) (logits spread over a few units), vbq = item
+    bias - logq[pos] with logq ~ log(1/1M) + N(0, 0.5^2) (the main path's
+    column shift), pos from ``n_ids`` ids, and the cotangent of a weighted
+    mean: g = w / sum(w), w = 1 before row ``zero_from`` and 0 after."""
+    h = torch.randn(b, d, generator=gen, device=DEVICE) * 0.5
+    v = torch.randn(b, d, generator=gen, device=DEVICE) * 0.5
+    pos = torch.randint(0, n_ids, (b,), generator=gen, device=DEVICE)
+    logq = torch.randn(N, generator=gen, device=DEVICE) * 0.5 - float(np.log(N))
+    vbq = torch.randn(b, generator=gen, device=DEVICE) * 0.1 - logq[pos % N]
+    w = (torch.arange(b, device=DEVICE) < (b if zero_from is None else zero_from)).float()
+    return h, v, vbq, pos, w / w.sum()
+
+
+def ce_kernel_phase(torch):
+    """The CE forward and backward kernels against their plain versions on
+    the card. Returns {wrapper name: largest |kernel - plain| over all
+    cases} and the main-path-shaped inputs (B=4096, D=80) for timing."""
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    saved = (sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
+    errs = {"softmax_ce_fwd": 0.0, "softmax_ce_bwd": 0.0}
+    cases = (("B=4096 D=80 logq", SOFTMAX_B, D, N, None), ("duplicate-heavy (10 ids)", SOFTMAX_B, D, 10, None),
+             ("ragged B=1000", 1000, D, N, None), ("D=16", SOFTMAX_B, 16, N, None),
+             ("D=128", SOFTMAX_B, 128, N, None), ("weights with zeros", SOFTMAX_B, D, N, 2900))
+    main = None
+    for label, b, d, n_ids, zero_from in cases:
+        h, v, vbq, pos, g = ce_inputs(torch, gen, b, d, n_ids, zero_from)
+        loss, lse = sce.softmax_ce_fwd(h, v, vbq, pos)
+        loss2, lse2 = sce.softmax_ce_fwd(h, v, vbq, pos)
+        ploss, plse = sce.softmax_ce_fwd_plain(h, v, vbq, pos)
+        got = sce.softmax_ce_bwd(h, v, vbq, pos, plse, g)
+        again = sce.softmax_ce_bwd(h, v, vbq, pos, plse, g)
+        want = sce.softmax_ce_bwd_plain(h, v, vbq, pos, plse, g)
+        torch.cuda.synchronize()
+        fwd_err = 0.0
+        for name, x, y in (("loss", loss, ploss), ("lse", lse, plse)):
+            check(bool(torch.isfinite(x).all()), f"CE {label}: non-finite {name}")
+            diff = (x - y).abs()
+            check(bool((diff <= 1e-5 + 1e-5 * y.abs()).all()),
+                  f"CE {label}: {name} differs from the plain version by {float(diff.max()):.3g}")
+            fwd_err = max(fwd_err, float(diff.max()))
+        check(torch.equal(loss, loss2) and torch.equal(lse, lse2), f"CE {label}: forward not deterministic")
+        bwd_err, parts = 0.0, []
+        for name, x, y, z in zip(("dh", "dv", "dvb"), got, again, want):
+            diff = (x - z).abs()
+            scale = float(z.abs().max())
+            check(bool((diff <= 1e-4 * z.abs() + 1e-5 * scale).all()),
+                  f"CE {label}: {name} differs from the plain version by {float(diff.max()):.3g} "
+                  f"(largest |reference| {scale:.3g})")
+            check(torch.equal(x, y), f"CE {label}: {name} not deterministic")
+            bwd_err = max(bwd_err, float(diff.max()))
+            parts.append(f"{name} {float(diff.max()):.3g} of {scale:.3g}")
+        errs["softmax_ce_fwd"] = max(errs["softmax_ce_fwd"], fwd_err)
+        errs["softmax_ce_bwd"] = max(errs["softmax_ce_bwd"], bwd_err)
+        log(f"[ce-kernel] {label}: loss/lse max|d| {fwd_err:.3g}; backward max|d| " + ", ".join(parts)
+            + "; repeated runs bit-identical")
+        if main is None:
+            main = (h, v, vbq, pos, g, plse)
+    sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved  # comparisons do not count
+    return errs, main
+
+
+# ---------------------------------------------------------------------------
 # phases 5-6: card against CPU, the main paths
 # ---------------------------------------------------------------------------
 
@@ -370,8 +464,10 @@ def wrappers():
     """Every kernel wrapper of the port (each counts its launches)."""
     from torchrecsys_tpu_torch.ops import dot_topk as dt
     from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
 
-    return (dt.dot_topk_small, dt.dot_topk_large, fp.pairwise_updates_rows)
+    return (dt.dot_topk_small, dt.dot_topk_large, fp.pairwise_updates_rows,
+            sce.softmax_ce_fwd, sce.softmax_ce_bwd)
 
 
 def small_train_check(torch):
@@ -414,6 +510,54 @@ def small_train_check(torch):
         log(f"[main] small train metadata={meta}: card == CPU over 2 epochs (losses {lg.round(6).tolist()}, "
             f"max |table diff| {err:.3g})")
     fp.pairwise_updates_rows.launches = saved
+
+
+def small_softmax_check(torch):
+    """A small dataset trained two epochs with sampled softmax on the card
+    (both CE kernels every step) and on the CPU (plain versions), from one
+    start with the same round keys; then evaluate(loss, auc) on both with
+    the same negatives."""
+    from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
+    from torchrecsys_tpu_torch.data import prepare_data
+    from torchrecsys_tpu_torch.models import build_model
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+    from torchrecsys_tpu_torch.train import Trainer
+
+    r = np.random.default_rng(7)
+    data = {"user_id": r.integers(0, 300, 20000), "item_id": r.integers(0, 5000, 20000)}
+    data["category_id"] = data["item_id"] % 17
+    saved = (sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
+    for meta in (False, True):
+        store = prepare_data(data, "user_id", "item_id", metadata_id_col=["category_id"] if meta else None)
+        cfg = TrainConfig(loss="sampled_softmax", batch_size=1000, learning_rate=0.05)
+        negs = r.integers(0, store.schema.num_items, store.num_test)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            tr = Trainer(build_model(store.schema, ModelConfig(n_factors=D)), cfg, dev)
+            state = tr.init_state()
+            if dev == "cpu":
+                start = {k: v.clone() for k, v in state["tables"].items()}
+            state["tables"] = {k: v.to(dev) for k, v in start.items()}
+            data_d, feat = tr._device_train_data(store), tr.feature_tables(store)
+            losses = []
+            for e in range(2):
+                keys = torch.arange(6, device=dev) + 7 * e
+                state, loss = tr.train_epoch(state, data_d, feat, keys=keys)
+                losses.append(float(loss))
+            ev = tr.evaluate(state, store, batch_size=1000, verbose=False, negatives=negs)
+            out[dev] = (np.asarray(losses), {k: v.cpu() for k, v in state["tables"].items()}, ev)
+        (lc, tc, ec), (lg, tg, eg) = out["cpu"], out[DEVICE]
+        check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"small softmax meta={meta}: losses {lg} != CPU {lc}")
+        err = 0.0
+        for k in tc:
+            check(torch.allclose(tg[k], tc[k], rtol=1e-4, atol=1e-5), f"small softmax meta={meta}: table {k}")
+            err = max(err, float((tg[k] - tc[k]).abs().max()))
+        check(abs(eg["loss"] - ec["loss"]) <= 1e-5 + 1e-4 * abs(ec["loss"]) and
+              abs(eg["auc"] - ec["auc"]) <= 2.0 / store.num_test,
+              f"small softmax meta={meta}: evaluate {eg} != CPU {ec}")
+        log(f"[main] small softmax metadata={meta}: card == CPU over 2 epochs (losses "
+            f"{lg.round(6).tolist()}, max |table diff| {err:.3g}); evaluate card {eg} vs CPU {ec}")
+    sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved
 
 
 def sample_loss(torch, rs, sample) -> float:
@@ -512,6 +656,135 @@ def train_path(torch, data, meta: bool):
     return rs, {"launches": counts["pairwise_updates_rows"], "steps": steps, "fit_s": fit_s,
                 "examples_per_s": rate, "epoch_loss": losses[0], "fresh_loss": fresh,
                 "trained_loss": trained, "step_err": err}
+
+
+def ce_sample_loss(torch, rs, batches, logq) -> float:
+    """Mean in-batch CE (logQ-corrected, the plain formulation) of the
+    installed tables over fixed batches of train rows."""
+    from torchrecsys_tpu_torch.data.features import attach_features
+    from torchrecsys_tpu_torch.ops.softmax_ce import inbatch_softmax_rows_plain
+
+    st = rs.store
+    total = 0.0
+    for rows in batches:
+        u, p = (torch.as_tensor(x[rows], device=rs.device).long() for x in (st.train_users, st.train_items))
+        side = attach_features({"user_id": u, "item_id": p}, rs.feat)
+        h, v, vb, _ = rs.model.pair_vectors({}, {}, rs.model.gather_rows(rs.state["tables"], side), side,
+                                            train=False)
+        total += float(inbatch_softmax_rows_plain(h, v, vb, p, logq).mean())
+    return total / len(batches)
+
+
+def compare_softmax_steps(torch, rs, steps: int = 10):
+    """From the installed state and one epoch's batches, ``steps`` softmax
+    steps with the CE kernels and with their plain versions on the card.
+    Returns (max |table diff|, rows beyond rtol=1e-4/atol=1e-5 per table)."""
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+    from torchrecsys_tpu_torch.train.optim import augment_tables
+
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    epoch = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 13 + 2,
+                           torch.Generator(device=DEVICE).manual_seed(22))
+    saved = (sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
+    runs = []
+    for fns in (None, (sce.softmax_ce_fwd_plain, sce.softmax_ce_bwd_plain)):
+        aug = augment_tables(rs.state["tables"], rs.state["emb_opt"])
+        losses = tr.run_softmax_steps(rs.state, aug, epoch, feat, steps=range(steps), ce_fns=fns)
+        runs.append((losses, aug))
+    torch.cuda.synchronize()
+    sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved  # comparisons do not count
+    (lk, ak), (lp, ap) = runs
+    check(bool(torch.allclose(lk, lp, rtol=1e-5, atol=1e-5)), f"softmax step losses {lk} != plain {lp}")
+    worst, bad_rows = 0.0, {}
+    for name in ak:
+        diff = (ak[name] - ap[name]).abs()
+        bad_rows[name] = int((diff > 1e-5 + 1e-4 * ap[name].abs()).any(dim=1).sum())
+        check(bad_rows[name] == 0, f"{steps} softmax steps: {bad_rows[name]} rows of {name} differ from "
+              f"the plain path by up to {float(diff.max()):.3g}")
+        worst = max(worst, float(diff.max()))
+    return worst, bad_rows
+
+
+def softmax_train_path(torch, data, meta: bool, evaluate: bool):
+    """The sampled-softmax main path: RecSys -> seeded JAX-layout tables ->
+    fit(epochs=1, batch_size=4096, loss="sampled_softmax") and, with
+    ``evaluate``, RecSys.evaluate(loss, auc, recall@10). Launch counts are
+    zeroed just before each call and read just after."""
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.config import TrainConfig
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+    from torchrecsys_tpu_torch.train import Trainer
+
+    label = "softmax " + ("metadata" if meta else "no metadata")
+    cols = data if meta else {k: data[k] for k in ("user_id", "item_id")}
+    rs = RecSys(cols, metadata_id_col=["category_id"] if meta else None, n_factors=D,
+                device=DEVICE, dynamic_neg_sampling=True)
+    tables = seeded_tables(rs.model, seed=2)
+    rs.load_jax_tables(tables, {k: {"acc": np.zeros(v.shape[0], np.float32)} for k, v in tables.items()})
+    st = rs.store
+    fresh_tr = Trainer(rs.model, TrainConfig(loss="sampled_softmax", batch_size=SOFTMAX_B, seed=rs.seed,
+                                             dynamic_neg_sampling=True), DEVICE)
+    logq = fresh_tr._logq_from(st.train_items)
+    r = np.random.default_rng(10)
+    batches = [r.choice(st.num_train, SOFTMAX_B, replace=False) for _ in range(16)]
+    fresh = ce_sample_loss(torch, rs, batches, logq)
+    fresh_eval = fresh_tr.evaluate(rs.state, st, batch_size=SOFTMAX_B, verbose=False) if evaluate else None
+    ws = wrappers()
+    for w in ws:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = rs.fit(epochs=1, batch_size=SOFTMAX_B, loss="sampled_softmax", verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in ws}
+    steps = -(-st.num_train // SOFTMAX_B)
+    check(counts["softmax_ce_fwd"] == counts["softmax_ce_bwd"] == steps,
+          f"{label}: fit ran {steps} steps but the CE kernels launched {counts}")
+    check(counts["pairwise_updates_rows"] == counts["dot_topk_small"] == counts["dot_topk_large"] == 0,
+          f"{label}: fit launched other kernels: {counts}")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
+    trained = ce_sample_loss(torch, rs, batches, logq)
+    check(trained < fresh, f"{label}: the trained tables' CE {trained} is not below the fresh start's {fresh}")
+    rate = st.num_train / fit_s
+    log(f"[train] {label}: fit {steps} steps of {SOFTMAX_B} in {fit_s:.3f} s = {rate:.1f} examples/s; "
+        f"epoch loss {losses[0]:.5f}, CE of 16 fixed train batches {fresh:.5f} -> {trained:.5f}; "
+        f"launches {counts}")
+    err, bad = compare_softmax_steps(torch, rs)
+    log(f"[train] {label}: 10 steps kernels vs plain on the card: max |table diff| {err:.3g}, "
+        f"rows beyond rtol=1e-4/atol=1e-5 {bad}")
+    out = {"steps": steps, "fwd_launches": counts["softmax_ce_fwd"], "bwd_launches": counts["softmax_ce_bwd"],
+           "fit_s": fit_s, "examples_per_s": rate, "epoch_loss": losses[0], "eval_launches": 0}
+    if evaluate:
+        for w in ws:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = rs.evaluate(batch_size=SOFTMAX_B, eval_metrics=("loss", "auc", "recall@10"), verbose=False)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in ws}
+        nb = -(-st.num_test // SOFTMAX_B)
+        check(counts["softmax_ce_fwd"] == nb and counts["softmax_ce_bwd"] == 0,
+              f"{label}: evaluate ran {nb} batches but the CE kernels launched {counts}")
+        check(counts["dot_topk_small"] > 0, f"{label}: recall@10 did not launch the top-k kernel: {counts}")
+        check(np.isfinite(ev["loss"]) and ev["auc"] > fresh_eval["auc"],
+              f"{label}: evaluate {ev} vs the fresh tables' {fresh_eval}")
+        saved = {w.__name__: w.launches for w in ws}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs.evaluate(batch_size=SOFTMAX_B, eval_metrics=("loss", "auc"), verbose=False)
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        for w in ws:
+            w.launches = saved[w.__name__]
+        log(f"[main] evaluate {label}: {ev} in {eval_s:.3f} s ({st.num_test} test rows, {nb} batches; "
+            f"fresh tables {fresh_eval}); loss+auc alone {pair_s:.3f} s = {st.num_test / pair_s:.1f} rows/s; "
+            f"launches {counts}")
+        out.update(eval_launches=counts["softmax_ce_fwd"], eval_batches=nb, eval_s=eval_s,
+                   eval_rows_per_s=st.num_test / pair_s, auc=ev["auc"], fresh_auc=fresh_eval["auc"])
+    return rs, out
 
 
 def main_path(torch, rs):
@@ -796,6 +1069,112 @@ def train_breakdown(torch, rs, label: str, window: int = 100):
             "kernel_us": parts["kernel"] / window}
 
 
+def ce_timing(torch, inputs, errs, launches):
+    """The CE kernels' JSON rows: CUDA-event ms at the main path's shape
+    (B=4096, D=80), the bound, the plain versions' ms. No single PyTorch
+    call masks duplicate positives, so library_ms is null; the bare
+    ``torch.matmul(h, v.T)`` is printed as context only."""
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+
+    h, v, vbq, pos, g, lse = inputs
+    b, d = h.shape
+    torch.backends.cuda.matmul.allow_tf32 = False
+    saved = (sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
+    ms = {
+        "softmax_ce_fwd": cuda_ms(torch, lambda: sce.softmax_ce_fwd(h, v, vbq, pos), reps=50),
+        "softmax_ce_bwd": cuda_ms(torch, lambda: sce.softmax_ce_bwd(h, v, vbq, pos, lse, g), reps=50),
+    }
+    plain_ms = {
+        "softmax_ce_fwd": cuda_ms(torch, lambda: sce.softmax_ce_fwd_plain(h, v, vbq, pos)),
+        "softmax_ce_bwd": cuda_ms(torch, lambda: sce.softmax_ce_bwd_plain(h, v, vbq, pos, lse, g)),
+    }
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(h, v.T), reps=50)
+    sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved
+    in_bytes = 2 * b * d * 4 + b * 4 + b * 8  # h, v, vbq, pos (int64)
+    work = {  # (operations, bytes): each input read once, each output written once
+        "softmax_ce_fwd": (2.0 * b * b * d, in_bytes + 2 * b * 4),
+        "softmax_ce_bwd": (6.0 * b * b * d, in_bytes + 2 * b * 4 + 2 * b * d * 4 + b * 4),
+    }
+    rows = []
+    for name, (flops, nbytes) in work.items():
+        bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        log(f"[time] {name} (B={b}, D={d}, f32): {ms[name]:.4f} ms; bound {bound_ms:.4f} ms ({by}); "
+            f"plain {plain_ms[name]:.4f} ms; library: none")
+        rows.append({
+            "name": name, "route": "cuda", "source": CE_SOURCE, "replaces": CE_REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        })
+    log(f"[time] context, not a port path: torch.matmul(h, v.T) at ({b}, {d}) x ({d}, {b}) f32 "
+        f"{mm_ms:.4f} ms")
+    return rows
+
+
+def softmax_breakdown(torch, rs, label: str, window: int = 60):
+    """Per-step breakdown of the softmax fit: epoch build and table
+    augmentation (host clock, per epoch), host ms per step, and device us
+    per step by part from torch.profiler over ``window`` steps, with the
+    device's idle share in that window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+    from torchrecsys_tpu_torch.train.optim import augment_tables
+
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    saved = (sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    keys = torch.arange(6, device=DEVICE) + 50
+    build_ms, _ = host_ms(torch, lambda: tr.build_epoch(data, keys, gen), reps=3)
+    ep = tr.build_epoch(data, keys, gen)
+    window = min(window, (ep.nb - 5) // 2)
+    aug_ms, aug = host_ms(torch, lambda: augment_tables(rs.state["tables"], rs.state["emb_opt"]), reps=2)
+    tr.run_softmax_steps(rs.state, aug, ep, feat, steps=range(5))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_softmax_steps(rs.state, aug, ep, feat, steps=range(5, 5 + window))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / window * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_softmax_steps(rs.state, aug, ep, feat, steps=range(5 + window, 5 + 2 * window))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved
+    split = device_split(prof)
+    parts = {"gathers": 0.0, "ce_fwd": 0.0, "ce_bwd": 0.0, "autograd_elementwise": 0.0, "scatters": 0.0}
+    for name, us in split.items():
+        if "softmax_ce_fwd" in name:
+            parts["ce_fwd"] += us
+        elif "softmax_ce_d" in name or "sum_splits" in name:
+            parts["ce_bwd"] += us
+        elif "indexSelect" in name or "index_elementwise" in name or "gather" in name.lower():
+            parts["gathers"] += us
+        elif "indexFunc" in name or "index_add" in name or "scatter" in name.lower():
+            parts["scatters"] += us
+        else:  # autograd of pair_vectors, the loss weighting, the adagrad rows, cat
+            parts["autograd_elementwise"] += us
+    busy = sum(split.values())
+    log(f"[breakdown] fit {label}: epoch build {build_ms:.3f} ms, table augmentation {aug_ms:.3f} ms per "
+        f"epoch; {step_ms:.4f} ms per step (host clock, {window} steps of {ep.b})")
+    log(f"[breakdown] fit {label}: device us per step: " + ", ".join(
+        f"{k} {v / window:.2f}" for k, v in parts.items()
+    ) + f"; device busy {busy / window:.2f} of {wall_us / window:.2f} us per step under the "
+        f"profiler = idle share {1 - busy / wall_us:.3f}")
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+
+    def short(k):
+        k = k.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return re.sub(r"[<(].*", "", k).removeprefix("at::native::")[:40]
+
+    log(f"[profile] fit {label}: top kernels, device us per step: " + "; ".join(
+        f"{short(k)} {v / window:.2f}" for k, v in top
+    ))
+    return {"step_ms": step_ms, "idle_share": 1 - busy / wall_us,
+            "ce_fwd_us": parts["ce_fwd"] / window, "ce_bwd_us": parts["ce_bwd"] / window}
+
+
 def profile_phase(torch, rs, users_raw):
     """Device time per launch of each kernel and of the split merge, from
     torch.profiler, for K1 and K2 across k at the main-path shape."""
@@ -845,8 +1224,10 @@ def main() -> int:
     build_kernels()
     errs = kernel_phase(torch)
     train_err = train_kernel_phase(torch)
+    ce_errs, ce_inputs_main = ce_kernel_phase(torch)
     small_catalog_check(torch)
     small_train_check(torch)
+    small_softmax_check(torch)
     t0 = time.perf_counter()
     data = synthetic_interactions()
     log(f"[main] {N_INTERACTIONS} synthetic interactions in {time.perf_counter() - t0:.2f} s")
@@ -864,10 +1245,26 @@ def main() -> int:
     del rs
     train_row["launches"] = fit_meta["launches"] + fit_plain["launches"]
     kernels.append(train_row)
+    torch.cuda.empty_cache()
+    rs, sm_meta = softmax_train_path(torch, data, meta=True, evaluate=True)
+    split_sm_meta = softmax_breakdown(torch, rs, "softmax metadata")
+    del rs
+    torch.cuda.empty_cache()
+    rs, sm_plain = softmax_train_path(torch, data, meta=False, evaluate=False)
+    split_sm_plain = softmax_breakdown(torch, rs, "softmax no metadata")
+    del rs
+    kernels.extend(ce_timing(torch, ce_inputs_main, ce_errs, {
+        "softmax_ce_fwd": sm_meta["fwd_launches"] + sm_plain["fwd_launches"] + sm_meta["eval_launches"],
+        "softmax_ce_bwd": sm_meta["bwd_launches"] + sm_plain["bwd_launches"],
+    }))
     log(f"[main] predict users/s: {json.dumps(rates)}")
     log(f"[main] fit examples/s: metadata {fit_meta['examples_per_s']:.1f}, no metadata "
         f"{fit_plain['examples_per_s']:.1f}; device idle share in fit: metadata "
-        f"{split_meta['idle_share']:.3f}, no metadata {split_plain['idle_share']:.3f}; "
+        f"{split_meta['idle_share']:.3f}, no metadata {split_plain['idle_share']:.3f}")
+    log(f"[main] softmax fit examples/s: metadata {sm_meta['examples_per_s']:.1f}, no metadata "
+        f"{sm_plain['examples_per_s']:.1f}; host ms per step {split_sm_meta['step_ms']:.4f} / "
+        f"{split_sm_plain['step_ms']:.4f}; device idle share {split_sm_meta['idle_share']:.3f} / "
+        f"{split_sm_plain['idle_share']:.3f}; evaluate loss+auc rows/s {sm_meta['eval_rows_per_s']:.1f}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -236,7 +236,8 @@ def test_fit_continues_from_carried_over_state():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(loss="warp"), dict(loss="adaptive_hinge"), dict(loss="sampled_softmax"),
+    dict(loss="warp"), dict(loss="adaptive_hinge"),
+    dict(lr_schedule={"kind": "step", "boundaries_and_scales": {1: 0.5}}),
     dict(num_negatives=4), dict(neg_sampling="popularity"),
     dict(lr_schedule={"kind": "cosine"}), dict(embedding_optimizer="sgd"),
     dict(profile_epochs=1),
@@ -245,6 +246,14 @@ def test_unported_fit_options_raise(kw):
     rs = RecSys(_data(False), n_factors=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rs.fit(**kw)
+    assert rs.state is None
+
+
+@pytest.mark.parametrize("kw", [dict(num_negatives=2), dict(neg_sampling="popularity")])
+def test_sampled_softmax_refuses_explicit_negatives(kw):
+    rs = RecSys(_data(False), n_factors=8, device="cpu")
+    with pytest.raises(ValueError, match="sampled_softmax"):
+        rs.fit(loss="sampled_softmax", **kw)
     assert rs.state is None
 
 

@@ -1,11 +1,12 @@
 """User-facing facade ``RecSys`` (port of ``torchrecsys_tpu/api.py``: the
 constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
 :128-202, ``predict`` :295-388, ``_patch_short_unseen_rows`` :391-410,
-``_filter_seen`` :412-437, ``similar_items`` :439-478, ``item_vectors`` /
-``user_vectors`` :481-549 and ``_decode_items`` :551-563).
+``evaluate`` :205-269, ``_filter_seen`` :412-437, ``similar_items``
+:439-478, ``item_vectors`` / ``user_vectors`` :481-549 and
+``_decode_items`` :551-563).
 
-Weights come from :meth:`RecSys.fit` (the fused pairwise step,
-train/trainer.py), from the JAX package through
+Weights come from :meth:`RecSys.fit` (train/trainer.py: the fused
+pairwise step, or the sampled-softmax step), from the JAX package through
 :meth:`RecSys.load_jax_tables` (utils/convert.py) or from
 :meth:`RecSys.init_tables`. ``self.state`` keeps the JAX shape,
 ``{"tables", "dense", "model_state", "emb_opt", "step"}`` (plus the
@@ -14,7 +15,7 @@ trainer's generator, ``rng``, once fit has run).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,7 +23,7 @@ import torch
 from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
 from torchrecsys_tpu_torch.data.features import feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore, prepare_data
-from torchrecsys_tpu_torch.eval.predict import catalog_topk
+from torchrecsys_tpu_torch.eval.predict import catalog_topk, ranking_eval
 from torchrecsys_tpu_torch.models import build_model
 from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, pack_seen_mask_torch
 from torchrecsys_tpu_torch.train.trainer import Trainer
@@ -153,8 +154,11 @@ class RecSys:
     ) -> List[float]:
         """Train; returns per-epoch mean losses (api.py:145-202).
 
-        Every step runs the fused pairwise step (ops/fused_pairwise.py): on
-        the card, one launch of the hand-written kernel per batch. Training
+        ``hinge``/``bpr``/``logistic`` run the fused pairwise step
+        (ops/fused_pairwise.py): on the card, one launch of the hand-written
+        kernel per batch. ``loss="sampled_softmax"`` trains with in-batch
+        negatives, logQ-corrected: on the card every step launches the CE
+        forward and backward kernels (ops/softmax_ce.py) once. Training
         starts from the installed tables and accumulators, or from fresh
         seeded ones; afterwards ``predict`` serves the trained tables.
         Options the port cannot run yet raise ``NotImplementedError``
@@ -178,6 +182,54 @@ class RecSys:
         state, losses = trainer.fit(state, self.store, epochs=epochs, verbose=verbose)
         self._install(state)
         return losses
+
+    def evaluate(
+        self,
+        batch_size: int = 512,
+        eval_metrics: Sequence[str] = ("loss",),
+        verbose: bool = True,
+    ) -> Dict[str, float]:
+        """Test-split evaluation; returns exactly the requested metrics
+        (api.py:205-269). ``loss`` and ``auc`` come from the trainer
+        (:meth:`Trainer.evaluate`: the train loss and the pairwise win rate
+        against one negative per row; under sampled softmax the loss runs
+        the CE forward kernel). ``recall@K``, ``precision@K``,
+        ``hit_rate@K`` and ``ndcg@K`` come from full-catalog top-k through
+        the top-k kernels (eval/predict.py::ranking_eval). Unknown metrics
+        raise ``ValueError``; an empty test split gives ``{}``. Tables
+        installed without ``fit`` evaluate under the default hinge
+        config."""
+        self._require_fitted("evaluate()")
+        if self.store.num_test == 0:
+            return {}
+        pair_wanted = [m for m in eval_metrics if m in ("loss", "auc")]
+        rank_ks: List[int] = []
+        for m in eval_metrics:
+            if "@" in m:
+                kind, _, k_str = m.partition("@")
+                if kind not in ("recall", "precision", "hit_rate", "ndcg") or not k_str.isdigit():
+                    raise ValueError(f"unknown eval metric {m!r}")
+                rank_ks.append(int(k_str))
+            elif m not in ("loss", "auc"):
+                raise ValueError(f"unknown eval metric {m!r}")
+        out: Dict[str, float] = {}
+        if pair_wanted:
+            if self.trainer is None:
+                self._ensure_trainer(TrainConfig(
+                    dynamic_neg_sampling=self.dynamic_neg_sampling, seed=self.seed,
+                ))
+            out.update(self.trainer.evaluate(
+                self.state, self.store, batch_size=batch_size, verbose=verbose
+            ))
+        if rank_ks:
+            ks: Tuple[int, ...] = tuple(sorted(set(rank_ks)))
+            out.update(ranking_eval(
+                self.model, self._params(), self.state["model_state"],
+                self.store.test_users, self.store.test_items, self.store.schema.num_items,
+                self.feat, ks=ks, item_chunk=None, batch_size=batch_size, device=self.device,
+                catalog=self._linearized() if self.model.supports_linearized_catalog else None,
+            ))
+        return {m: out[m] for m in eval_metrics}
 
     def _require_fitted(self, what: str) -> None:
         if self.state is None:

@@ -2,9 +2,10 @@
 
 Only the fields the ported slices read are kept. ``TrainConfig`` carries
 the fields ``RecSys.fit`` sets plus the epoch knobs of the fused pairwise
-step; the kernel is chosen by the device, so the JAX package's
-``pallas_*`` switches have no counterpart. Values the port cannot run yet
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+and sampled-softmax steps; the kernel is chosen by the device, so the JAX
+package's ``pallas_*`` switches have no counterpart. Values the port cannot
+run yet raise ``NotImplementedError`` naming the ROADMAP.md item that ports
+them.
 """
 
 from __future__ import annotations
@@ -50,9 +51,8 @@ _SAMPLING_ITEM = "§A item 7 (in-step and K-negative sampling)"
 _LOSSES_NOT_YET_PORTED = {
     "adaptive_hinge": _SAMPLING_ITEM,
     "warp": _SAMPLING_ITEM,
-    "sampled_softmax": "§A item 9 (sampled softmax)",
 }
-PORTED_LOSSES = ("hinge", "bpr", "logistic")
+PORTED_LOSSES = ("hinge", "bpr", "logistic", "sampled_softmax")
 DENSE_OPTIMIZERS = ("adam", "adamw", "adagrad", "sgd")
 
 
@@ -66,11 +66,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class TrainConfig:
     """Training-loop hyperparameters (config.py:117-208).
 
-    Embedding tables train with rowwise adagrad through the fused pairwise
-    step (ops/fused_pairwise.py) on the augmented/packed layout
-    (``fused_embedding_update``). ``drop_remainder=False`` trains the
-    remainder rows in a zero-weighted, wrap-around-padded last batch;
-    ``sort_batch_by_user`` orders each batch's rows by user id (stable)."""
+    Embedding tables train with rowwise adagrad on the augmented layout
+    (``fused_embedding_update``): the pairwise losses through the fused
+    pairwise step (ops/fused_pairwise.py), ``loss="sampled_softmax"``
+    through the autograd step around the in-batch CE kernels
+    (ops/softmax_ce.py), with the logQ correction (``logq_correction``:
+    subtract log train frequency of each candidate column).
+    ``drop_remainder=False`` trains the remainder rows in a zero-weighted,
+    wrap-around-padded last batch; ``sort_batch_by_user`` orders each
+    batch's rows by user id (stable)."""
 
     batch_size: int = 1024
     epochs: int = 1
@@ -82,6 +86,7 @@ class TrainConfig:
     avoid_collisions: bool = True  # in-step negatives never equal the positive
     margin: float = 1.0  # hinge margin
     loss: str = "hinge"
+    logq_correction: bool = True
     num_negatives: int = 1
     neg_sampling: str = "uniform"
     seed: int = 0
@@ -95,6 +100,19 @@ class TrainConfig:
             raise _not_ported(f"loss={self.loss!r}", _LOSSES_NOT_YET_PORTED[self.loss])
         if self.loss not in PORTED_LOSSES:
             raise ValueError(f"unknown loss {self.loss!r}; expected one of {PORTED_LOSSES}")
+        if self.loss == "sampled_softmax":  # train/trainer.py:192-203
+            if self.num_negatives != 1:
+                raise ValueError(
+                    "sampled_softmax uses the batch itself as negatives; "
+                    "num_negatives must stay 1 (batch_size controls the "
+                    "negative count)"
+                )
+            if self.neg_sampling != "uniform":
+                raise ValueError(
+                    "neg_sampling is ignored under sampled_softmax (the "
+                    "in-batch negative distribution IS the train popularity "
+                    "distribution, logQ-corrected); leave it 'uniform'"
+                )
         if self.num_negatives < 1:
             raise ValueError(f"num_negatives must be >= 1, got {self.num_negatives}")
         if self.num_negatives > 1:

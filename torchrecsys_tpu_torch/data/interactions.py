@@ -56,6 +56,17 @@ class InteractionStore:
             d["neg_item_id"] = self.train_neg_items
         return d
 
+    @property
+    def num_test(self) -> int:
+        return int(self.test_users.shape[0])
+
+    def test_arrays(self) -> Dict[str, np.ndarray]:
+        """The test split's columns, as :meth:`train_arrays` (:76-80)."""
+        d = {"user_id": self.test_users, "pos_item_id": self.test_items}
+        if self.test_neg_items is not None:
+            d["neg_item_id"] = self.test_neg_items
+        return d
+
 
 def _columns(dataset: Any) -> Dict[str, np.ndarray]:
     if hasattr(dataset, "columns") and hasattr(dataset, "__getitem__"):

@@ -151,11 +151,13 @@ def ranking_eval(
     item_chunk: Optional[int] = 4096,
     batch_size: Optional[int] = None,
     device: Optional[torch.device] = None,
+    catalog=None,
 ) -> Dict[str, float]:
     """Per-user recall/precision/hit_rate/ndcg@k over a test split
     (predict.py:338-389): top-k ids from :func:`catalog_topk`, aggregated
     host-side by :func:`topk_ranking_metrics`. Items are not filtered by
-    train-set membership, matching the reference."""
+    train-set membership, matching the reference. ``catalog`` as in
+    :func:`catalog_topk`."""
     if item_chunk is None:
         item_chunk = batch_size or 4096
     max_k = min(max(ks), num_items)
@@ -165,7 +167,7 @@ def ranking_eval(
         chunk = torch.as_tensor(uniq[s : s + user_chunk], device=device).long()
         _, ids = catalog_topk(
             model, params, state, chunk, num_items, feat,
-            top_k=max_k, chunk_size=item_chunk,
+            top_k=max_k, chunk_size=item_chunk, catalog=catalog,
         )
         parts.append(ids.cpu().numpy())
     topk = np.concatenate(parts, axis=0)

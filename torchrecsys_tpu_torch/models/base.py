@@ -89,6 +89,9 @@ class RecModel(nn.Module, abc.ABC):
     pairwise_fm_fields: bool = False
     # Squash the raw score through a sigmoid before the loss (FM's quirk).
     pairwise_sigmoid: bool = False
+    # True on models whose score factorizes as <h_user, v_item> + b_item
+    # plus a row constant (pair_vectors): loss="sampled_softmax" needs it.
+    supports_sampled_softmax: bool = False
 
     def __init__(self, schema: DataSchema, cfg: ModelConfig) -> None:
         super().__init__()
@@ -144,6 +147,19 @@ class RecModel(nn.Module, abc.ABC):
     ) -> Tuple[torch.Tensor, State]:
         rows = self.gather_rows(params["tables"], batch)
         return self.score_rows(params["dense"], state, rows, batch)
+
+    def pair_vectors(
+        self, dense: Any, state: State, rows: Dict[str, torch.Tensor], batch: Batch,
+        train: bool,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, State]:
+        """Gathered rows -> ``(h (B, D), v (B, D), vb (B,), state)`` with
+        ``score(i, j) = <h_i, v_j> + vb_j`` up to a constant per row, for
+        the in-batch softmax (base.py:169-193). Models whose score does not
+        factorize raise."""
+        raise ValueError(
+            f"loss='sampled_softmax' needs a factorizable score "
+            f"(RecModel.pair_vectors); net_type={self.name!r} does not factorize"
+        )
 
     def linearized_catalog(self, params: Params, feat):
         """Optional dot-product factorization of the score (base.py:195-211):

@@ -31,6 +31,7 @@ class LinearModel(RecModel):
     pairwise_meta = True
     pairwise_fm_fields = False
     pairwise_sigmoid = False
+    supports_sampled_softmax = True
 
     def table_specs(self) -> Dict[str, TableSpec]:
         d = self.cfg.n_factors
@@ -67,6 +68,21 @@ class LinearModel(RecModel):
         dot = torch.sum(u * i, dim=-1)
         score = dot + rows["user_bias"][:, 0].to(cd) + rows["item_bias"][:, 0].to(cd)
         return score.float(), state
+
+    def pair_vectors(
+        self, dense: Any, state: State, rows: Dict[str, torch.Tensor], batch: Batch,
+        train: bool,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, State]:
+        """score(i, j) = u_i . (item_j + sum_f meta_j) + b_item_j (linear.py:
+        93-103). The user bias is constant along a row, so the softmax drops
+        it and its table gets no gradient."""
+        cd = self.compute_dtype
+        u = rows["user"].to(cd)
+        i = rows["item"].to(cd)
+        for f, fname in enumerate(self.schema.metadata_names[: self._meta_features(batch)]):
+            m = rows[f"meta:{fname}"].to(cd)
+            i = i + masked_sum(m, batch["meta_mask"][:, f, :])
+        return u, i, rows["item_bias"][:, 0].to(cd), state
 
     def linearized_catalog(self, params, feat):
         """score = <u, i + sum_f m_f> + b_i + b_u, factored for the fused

@@ -1,8 +1,10 @@
-"""The training loop of the fused pairwise step (port of
+"""The training loop and evaluation (port of
 ``torchrecsys_tpu/train/trainer.py``: ``Trainer.__init__`` :142-256,
-``_sample_negs`` :259-283, ``_apply_batch_order`` :368-403, the kernel
-branch of ``_epoch_fn`` :606-819, ``fit`` :822-869, ``_device_train_data``
-:870-891 and the metadata part of ``feature_tables`` :904-928).
+``_sample_negs`` :259-283, ``_softmax_rows`` :285-318, ``_apply_batch_order``
+:368-403, the softmax branch of ``_step_impl`` :405-574, ``_epoch_fn``
+:606-819, ``fit`` :822-869, ``_device_train_data`` :870-891,
+``feature_tables`` :904-928, ``_logq_from`` :930-941, ``_eval_fn`` and
+``evaluate`` :944-1074).
 
 The JAX package compiles a whole epoch (shuffle + ``lax.scan`` over
 batches). Here an epoch is
@@ -10,18 +12,25 @@ batches). Here an epoch is
 1. the epoch builder (:meth:`Trainer.build_epoch`): from six round keys, a
    Feistel permutation of the train split, the zero weights of the
    wrap-around-padded remainder batch (:623-636), one row gather of the
-   packed id columns (:637-675), the stable in-batch sort by user and the
-   uniform negatives when they are drawn in training
-   (``dynamic_neg_sampling``);
-2. a Python loop of :func:`~torchrecsys_tpu_torch.ops.fused_pairwise.fused_pairwise_step`
+   packed id columns (:637-675), the stable in-batch sort by user and, for
+   the pairwise losses, the uniform negatives when they are drawn in
+   training (``dynamic_neg_sampling``);
+2. a Python loop over the batches. The pairwise losses run
+   :func:`~torchrecsys_tpu_torch.ops.fused_pairwise.fused_pairwise_step`
    (or its metadata twin) over the packed ``(rows, 128)`` tables, as the
-   scan body ``body_pl`` (:720-790) does. Each step launches the fused
-   kernel once; no step syncs with the host: the step losses stay on the
-   device and are read once per epoch.
+   scan body ``body_pl`` (:720-790) does: one fused-kernel launch per step.
+   ``loss="sampled_softmax"`` runs the autograd step
+   (:meth:`Trainer.softmax_step`, ``_step_impl`` with ``fused=True``) over
+   the augmented ``(R, D+1)`` tables: gather, ``pair_vectors``, the
+   in-batch CE (ops/softmax_ce.py: one forward and one backward kernel
+   launch per step), ``torch.autograd.grad`` with respect to the gathered
+   rows and one rowwise-adagrad ``index_add_`` per table. No step syncs
+   with the host: the step losses stay on the device and are read once per
+   epoch.
 
-The autograd step ``_step_impl`` (:405-574), evaluation, checkpoints,
-meshes, lr schedules and K negatives are still to be ported (ROADMAP.md
-§A); a config that needs them raises ``NotImplementedError``.
+Checkpoints, meshes, lr schedules, K negatives and the autograd step of
+the pairwise losses are still to be ported (ROADMAP.md §A); a config that
+needs them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,12 +44,15 @@ import numpy as np
 import torch
 
 from torchrecsys_tpu_torch.config import TrainConfig
-from torchrecsys_tpu_torch.data.features import Features, feature_tables
+from torchrecsys_tpu_torch.data.features import Features, attach_features, feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore
 from torchrecsys_tpu_torch.data.sampling import sample_negatives
-from torchrecsys_tpu_torch.models.base import RecModel
+from torchrecsys_tpu_torch.models.base import Batch, RecModel
 from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+from torchrecsys_tpu_torch.ops import softmax_ce as sce
+from torchrecsys_tpu_torch.train.losses import get_per_row_loss
 from torchrecsys_tpu_torch.train.optim import (
+    apply_embedding_updates_fused,
     augment_tables,
     init_embedding_opt,
     split_augmented,
@@ -55,8 +67,9 @@ TrainState = Dict[str, Any]
 @dataclasses.dataclass
 class Epoch:
     """One epoch's batches: (nb, b) tensors ``user_id``, ``pos_item_id``,
-    ``neg_item_id`` and, when the last batch is padded, ``_w`` (1 for real
-    rows, 0 for filler), with each batch's weight sum known on the host."""
+    ``neg_item_id`` (pairwise losses only) and, when the last batch is
+    padded, ``_w`` (1 for real rows, 0 for filler), with each batch's
+    weight sum known on the host."""
 
     batches: Dict[str, torch.Tensor]
     nb: int
@@ -65,8 +78,9 @@ class Epoch:
 
 
 class Trainer:
-    """Trains a model with a packed pairwise layout through the fused
-    step, on the device of its tables."""
+    """Trains and evaluates a model on the device of its tables: the
+    pairwise losses through the fused pairwise step, sampled softmax
+    through the autograd step around the CE kernels."""
 
     def __init__(self, model: RecModel, cfg: TrainConfig, device: Any = "cuda") -> None:
         self.model = model
@@ -78,12 +92,28 @@ class Trainer:
                 "torchrecsys_tpu_torch yet: ROADMAP.md §A item 6 (metadata and "
                 "AMP in training)"
             )
-        if not fp.pairwise_kernel_applicable(model, cfg):
-            raise NotImplementedError(
-                f"net_type={model.name!r} with n_factors={model.cfg.n_factors} needs "
-                "the autograd train step, which is not ported to "
-                "torchrecsys_tpu_torch yet: ROADMAP.md §A item 8 (the autograd step)"
-            )
+        self._softmax = cfg.loss == "sampled_softmax"
+        if self._softmax:  # :178-191 (num_negatives and neg_sampling: config.py)
+            if not model.supports_sampled_softmax:
+                raise ValueError(
+                    f"loss='sampled_softmax' needs a factorizable score "
+                    f"(RecModel.pair_vectors); net_type={model.name!r} does "
+                    f"not factorize"
+                )
+            if model.pairwise_sigmoid:
+                raise ValueError(
+                    "loss='sampled_softmax' needs the raw score: a model that "
+                    "squashes it through a sigmoid saturates the softmax"
+                )
+            self.per_row_fn = None
+        else:
+            if not fp.pairwise_kernel_applicable(model, cfg):
+                raise NotImplementedError(
+                    f"net_type={model.name!r} with n_factors={model.cfg.n_factors} needs "
+                    "the autograd train step, which is not ported to "
+                    "torchrecsys_tpu_torch yet: ROADMAP.md §A item 8 (the autograd step)"
+                )
+            self.per_row_fn = get_per_row_loss(cfg.loss)
         self._data_cache_key = None
         self._data_cache: Dict[str, torch.Tensor] = {}
 
@@ -110,19 +140,39 @@ class Trainer:
 
     def _device_train_data(self, store: InteractionStore) -> Dict[str, torch.Tensor]:
         """The train split's columns as int64 on the device, uploaded once
-        per store (keyed on the store's process-unique token)."""
+        per store (keyed on the store's process-unique token). In-batch
+        softmax has no explicit negatives: a stored static column is not
+        uploaded (:222-224, :883-888)."""
         key = (store.token, store.num_train)
         if self._data_cache_key != key:
             self._data_cache = {
                 k: torch.as_tensor(np.asarray(v, np.int64), device=self.device)
                 for k, v in store.train_arrays().items()
+                if not (self._softmax and k == "neg_item_id")
             }
             self._data_cache_key = key
         return self._data_cache
 
     def feature_tables(self, store: InteractionStore) -> Features:
-        """Device-resident item-metadata tables (empty without metadata)."""
-        return feature_tables(store, self.device)
+        """Device-resident item-metadata tables (empty without metadata)
+        and, under sampled softmax with ``logq_correction``, ``logq``: the
+        train split's log item frequency."""
+        feat = feature_tables(store, self.device)
+        if self._softmax and self.cfg.logq_correction:
+            feat["logq"] = self._logq_from(store.train_items)
+        return feat
+
+    def _logq_from(self, items: np.ndarray) -> torch.Tensor:
+        """(num_items,) f32 log empirical frequency of ``items``, computed
+        in float64 numpy as the JAX package does (bit for bit). Items absent
+        from the split never appear as columns of its batches; the 1e-12
+        floor only keeps their logs finite."""
+        counts = np.bincount(
+            np.asarray(items, np.int64), minlength=self.model.schema.num_items
+        ).astype(np.float64)
+        q = counts / max(counts.sum(), 1.0)
+        logq = np.log(np.maximum(q, 1e-12)).astype(np.float32)
+        return torch.as_tensor(logq, device=self.device)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -167,7 +217,7 @@ class Trainer:
         if self.cfg.sort_batch_by_user:
             batches["_order"] = torch.argsort(batches["user_id"], dim=1, stable=True)
             batches = self._apply_batch_order(batches)
-        if "neg_item_id" not in batches:
+        if not self._softmax and "neg_item_id" not in batches:
             batches["neg_item_id"] = sample_negatives(
                 gen, batches["pos_item_id"], self.model.schema.num_items,
                 self.cfg.avoid_collisions,
@@ -232,6 +282,113 @@ class Trainer:
             losses.append(loss)
         return torch.stack(losses)
 
+    # ------------------------------------------------------------------
+    def _softmax_rows(
+        self,
+        h: torch.Tensor,
+        v: torch.Tensor,
+        vb: torch.Tensor,
+        pos: torch.Tensor,
+        logq: Optional[torch.Tensor],
+        ce_fns: Optional[sce.CeFns] = None,
+    ) -> torch.Tensor:
+        """Per-row in-batch CE (:285-318): the CE kernels when the shape
+        allows (``d <= 128``), else the XLA formulation in plain torch. The
+        choice is made by shape alone."""
+        if sce.softmax_kernel_applicable(h.shape[0], h.shape[1]):
+            vbq = vb.float()
+            if logq is not None:
+                vbq = vbq - logq[pos]
+            return sce.inbatch_softmax_ce(h, v, vbq, pos, ce_fns)
+        return sce.inbatch_softmax_rows_plain(h, v, vb, pos, logq)
+
+    def _gather_sites(self, side: Batch) -> Dict[str, Tuple[str, torch.Tensor]]:
+        """``model.gathers(side)``, with the declared user sites checked to
+        pass ``side["user_id"]`` through unchanged (:443-480): rowwise
+        adagrad sees one user occurrence per row only through them."""
+        gmap = self.model.gathers(side)
+        uid = side["user_id"]
+        declared = self.model.user_gather_sites & set(gmap)
+        for k in declared:
+            if gmap[k][1] is not uid:
+                raise ValueError(
+                    f"{self.model.name}.gathers() site {k!r} is declared in "
+                    "user_gather_sites but does not pass batch['user_id'] "
+                    "through unchanged"
+                )
+        for k, (_, ids) in gmap.items():
+            if k not in declared and ids is uid:
+                log.warning(
+                    "%s.gathers() site %r passes batch['user_id'] through but is "
+                    "not declared in user_gather_sites", self.model.name, k,
+                )
+        return gmap
+
+    def softmax_step(
+        self,
+        state: TrainState,
+        aug: Dict[str, torch.Tensor],
+        user: torch.Tensor,
+        pos: torch.Tensor,
+        w: Optional[torch.Tensor],
+        weight_sum: Optional[float],
+        feat: Features,
+        ce_fns: Optional[sce.CeFns] = None,
+    ) -> torch.Tensor:
+        """One sampled-softmax step on the augmented tables ``aug``, updated
+        in place (``_step_impl`` with ``fused=True``, :405-574): gather the
+        rows with their accumulators, ``pair_vectors``, the per-row CE
+        against the batch's own positives, the weighted mean
+        ``sum(per_row * w) / max(sum(w), 1)`` (the weight sum known on the
+        host), the gradients of the gathered rows, one rowwise-adagrad
+        ``index_add_`` per table. Returns the loss as a device scalar. A
+        site whose rows get no gradient (Linear's user bias: row-constant
+        under the softmax) is not scattered: its update would be exactly 0.
+        ``ce_fns`` replaces the CE kernels (see ops/softmax_ce.py)."""
+        side = attach_features({"user_id": user, "item_id": pos}, feat)
+        gmap = self._gather_sites(side)
+        raw = {k: aug[t][ids] for k, (t, ids) in gmap.items()}
+        rows = {k: r[..., :-1].detach().requires_grad_() for k, r in raw.items()}
+        h, v, vb, _ = self.model.pair_vectors(
+            state["dense"], state["model_state"], rows, side, train=True
+        )
+        per_row = self._softmax_rows(h, v, vb, pos, feat.get("logq"), ce_fns)
+        if w is None:
+            loss = per_row.mean()
+        else:
+            loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
+        keys = list(rows)
+        grads = torch.autograd.grad(loss, [rows[k] for k in keys], allow_unused=True)
+        per_table: Dict[str, list] = {}
+        for k, g in zip(keys, grads):
+            if g is not None:
+                tname, ids = gmap[k]
+                per_table.setdefault(tname, []).append((ids, g, raw[k][..., -1]))
+        apply_embedding_updates_fused(self.cfg.learning_rate, aug, per_table)
+        return loss.detach()
+
+    def run_softmax_steps(
+        self,
+        state: TrainState,
+        aug: Dict[str, torch.Tensor],
+        epoch: Epoch,
+        feat: Features,
+        steps: Optional[Sequence[int]] = None,
+        ce_fns: Optional[sce.CeFns] = None,
+    ) -> torch.Tensor:
+        """:meth:`softmax_step` over ``steps`` (default: every batch of the
+        epoch), updating ``aug`` in place; the step losses as a device
+        tensor."""
+        bt = epoch.batches
+        losses = []
+        for i in range(epoch.nb) if steps is None else steps:
+            w = bt["_w"][i] if "_w" in bt else None
+            ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
+            losses.append(self.softmax_step(
+                state, aug, bt["user_id"][i], bt["pos_item_id"][i], w, ws, feat, ce_fns
+            ))
+        return torch.stack(losses)
+
     def train_epoch(
         self,
         state: TrainState,
@@ -246,6 +403,12 @@ class Trainer:
         if keys is None:
             keys = round_keys(gen)
         epoch = self.build_epoch(data, keys.to(self.device), gen)
+        if self._softmax:  # the augmented layout for the epoch (:801-819)
+            aug = augment_tables(state["tables"], state["emb_opt"])
+            losses = self.run_softmax_steps(state, aug, epoch, feat or {})
+            tables, emb_opt = split_augmented(aug)
+            new = dict(state, tables=tables, emb_opt=emb_opt, step=state["step"] + epoch.nb)
+            return new, losses.mean()
         packed = self.pack_state(state)
         losses = self.run_steps(packed, epoch, feat)
         return self.unpack_state(state, packed, epoch.nb), losses.mean()
@@ -276,3 +439,108 @@ class Trainer:
         if not verbose:
             out = [float(x) for x in torch.stack(device_losses).cpu()] if device_losses else []
         return state, out
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _eval_sums(
+        self,
+        state: TrainState,
+        batches: Dict[str, torch.Tensor],
+        valid: torch.Tensor,
+        feat: Features,
+    ) -> Dict[str, torch.Tensor]:
+        """Mean loss and pairwise AUC over the valid rows of (nb, b)
+        batches (:944-1037), accumulated on the device. Sampled softmax:
+        the train objective (CE kernel forward) and, for the AUC, one
+        negative per row scored on the factorized vectors. Pairwise: the
+        model's scores of the positive and negative halves."""
+        model, cfg = self.model, self.cfg
+        params = {"tables": state["tables"], "dense": state["dense"]}
+        mstate = state["model_state"]
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        tot_n, tot_loss, tot_auc = zero, zero, zero
+        for i in range(valid.shape[0]):
+            user, pos, neg = (batches[k][i] for k in ("user_id", "pos_item_id", "neg_item_id"))
+            b = pos.shape[0]
+            if self._softmax:
+                side_p = attach_features({"user_id": user, "item_id": pos}, feat)
+                rows_p = model.gather_rows(params["tables"], side_p)
+                h, vp, vbp, _ = model.pair_vectors(params["dense"], mstate, rows_p, side_p, train=False)
+                loss_rows = self._softmax_rows(h, vp, vbp, pos, feat.get("logq"))
+                side_n = attach_features({"user_id": user, "item_id": neg}, feat)
+                rows_n = model.gather_rows(params["tables"], side_n)
+                _, vn, vbn, _ = model.pair_vectors(params["dense"], mstate, rows_n, side_n, train=False)
+                ps = (torch.sum(h * vp, dim=-1) + vbp).float()
+                ns = (torch.sum(h * vn, dim=-1) + vbn).float()
+            else:
+                side = attach_features(
+                    {"user_id": user.repeat(2), "item_id": torch.cat([pos, neg])}, feat
+                )
+                scores, _ = model.score(params, mstate, side)
+                ps, ns = scores[:b], scores[b:]
+                loss_rows = self.per_row_fn(ps, ns, cfg.margin)
+            w = valid[i]
+            tot_n = tot_n + torch.sum(w)
+            tot_loss = tot_loss + torch.sum(loss_rows * w)
+            tot_auc = tot_auc + torch.sum((ps > ns).float() * w)
+        n = torch.clamp_min(tot_n, 1.0)
+        return {"loss": tot_loss / n, "auc": tot_auc / n}
+
+    def evaluate(
+        self,
+        state: TrainState,
+        store: InteractionStore,
+        batch_size: Optional[int] = None,
+        verbose: bool = True,
+        negatives: Optional[np.ndarray] = None,
+    ) -> Dict[str, float]:
+        """Loss and pairwise AUC over the test split in ``batch_size``
+        batches (:1039-1074); rows past the last full batch ride a
+        wrap-around-padded final batch whose filler rows are masked.
+
+        Negatives: the store's static test negatives for a pairwise loss
+        when it has them, else one uniform draw per row from a generator
+        seeded afresh from ``cfg.seed`` on every call, so repeated calls
+        agree (the JAX package folds ``0x5EED + i`` into its key; its
+        threefry draws cannot be reproduced here). ``negatives`` (one item
+        row per test row) replaces them, e.g. with the JAX package's draws.
+        Under sampled softmax the logQ correction takes the TEST split's
+        item frequency: its candidate columns are test positives."""
+        if store.num_test == 0:
+            if verbose:
+                log.info("evaluate: empty test split")
+            return {}
+        n = store.num_test
+        b = min(batch_size or self.cfg.batch_size, n)
+        nb = -(-n // b)
+        pad = nb * b - n
+
+        def batched(arr: np.ndarray) -> torch.Tensor:
+            arr = np.asarray(arr, np.int64)
+            if pad:
+                arr = np.concatenate([arr, arr[:pad]])
+            return torch.as_tensor(arr, device=self.device).reshape(nb, b)
+
+        arrays = store.test_arrays()
+        batches = {k: batched(arrays[k]) for k in ("user_id", "pos_item_id")}
+        if negatives is not None:
+            if np.shape(negatives) != (n,):
+                raise ValueError(f"negatives must hold one item row per test row, ({n},)")
+            batches["neg_item_id"] = batched(negatives)
+        elif "neg_item_id" in arrays and not self._softmax:
+            batches["neg_item_id"] = batched(arrays["neg_item_id"])
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 0x5EED)
+            batches["neg_item_id"] = sample_negatives(
+                gen, batches["pos_item_id"], self.model.schema.num_items,
+                self.cfg.avoid_collisions,
+            )
+        valid = (torch.arange(nb * b, device=self.device) < n).to(torch.float32).reshape(nb, b)
+        feat = feature_tables(store, self.device)
+        if self._softmax and self.cfg.logq_correction:
+            feat["logq"] = self._logq_from(store.test_items)
+        out = self._eval_sums(state, batches, valid, feat)
+        result = {k: float(v) for k, v in out.items()}
+        if verbose:
+            log.info("eval: loss=%.5f auc=%.5f", result["loss"], result["auc"])
+        return result
