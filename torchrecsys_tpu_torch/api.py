@@ -6,11 +6,12 @@ constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
 ``_decode_items`` :551-563).
 
 Weights come from :meth:`RecSys.fit` (train/trainer.py: the fused
-pairwise step, or the sampled-softmax step), from the JAX package through
+pairwise step, the autograd pairwise step, e.g. the MLP's, or the
+sampled-softmax step), from the JAX package through
 :meth:`RecSys.load_jax_tables` (utils/convert.py) or from
 :meth:`RecSys.init_tables`. ``self.state`` keeps the JAX shape,
-``{"tables", "dense", "model_state", "emb_opt", "step"}`` (plus the
-trainer's generator, ``rng``, once fit has run).
+``{"tables", "dense", "model_state", "emb_opt", "dense_opt", "step"}``
+(plus the trainer's generator, ``rng``, once fit has run).
 """
 
 from __future__ import annotations
@@ -27,7 +28,12 @@ from torchrecsys_tpu_torch.eval.predict import catalog_topk, ranking_eval
 from torchrecsys_tpu_torch.models import build_model
 from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, pack_seen_mask_torch
 from torchrecsys_tpu_torch.train.trainer import Trainer
-from torchrecsys_tpu_torch.utils.convert import emb_opt_from_jax, tables_from_jax
+from torchrecsys_tpu_torch.utils.convert import (
+    dense_from_jax,
+    emb_opt_from_jax,
+    model_state_from_jax,
+    tables_from_jax,
+)
 
 
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -57,6 +63,8 @@ class RecSys:
         dynamic_neg_sampling: bool = False,
         use_amp: bool = False,
         use_cuda: bool = False,  # accepted for API parity; ignored
+        hidden_layers: Sequence[int] = (1024, 128),
+        use_batch_norm: bool = True,
         seed: int = 0,
         device: Union[str, torch.device] = "cuda",
     ) -> None:
@@ -75,6 +83,8 @@ class RecSys:
         self.model_cfg = ModelConfig(
             net_type=net_type,
             n_factors=n_factors,
+            hidden_layers=tuple(hidden_layers),
+            use_batch_norm=use_batch_norm,
             compute_dtype="bfloat16" if use_amp else "float32",
         )
         self.model = build_model(self.store.schema, self.model_cfg).to(self.device)
@@ -110,26 +120,43 @@ class RecSys:
         self,
         tables: Mapping[str, np.ndarray],
         emb_opt: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
+        dense: Any = None,
+        model_state: Any = None,
     ) -> None:
-        """Serve, or go on training, the JAX package's tables: ``tables``
-        is its ``state["tables"]`` and ``emb_opt`` its ``state["emb_opt"]``
-        (rowwise-adagrad accumulators; None = zeros), as numpy arrays (see
-        utils/convert.py)."""
-        self._install_tables(tables_from_jax(tables, self.model, self.device), emb_opt)
+        """Serve, or go on training, the JAX package's weights: ``tables``
+        is its ``state["tables"]``, ``emb_opt`` its ``state["emb_opt"]``
+        (rowwise-adagrad accumulators; None = zeros), ``dense`` its
+        ``state["dense"]`` (the MLP tower; None = a fresh seeded draw) and
+        ``model_state`` its ``state["model_state"]`` (batch-norm running
+        statistics; None = fresh), as numpy arrays (see utils/convert.py)."""
+        dev = self.device
+        self._install_tables(
+            tables_from_jax(tables, self.model, dev), emb_opt,
+            None if dense is None else dense_from_jax(dense, self.model, dev),
+            None if model_state is None else model_state_from_jax(model_state, self.model, dev),
+        )
 
     def init_tables(self) -> None:
-        """Fresh seeded tables (the reference's init; draws differ from
-        jax.random's) and zero accumulators."""
+        """Fresh seeded tables and dense parameters (the reference's init;
+        draws differ from jax.random's) and zero accumulators."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         params, _ = self.model.init(gen)
-        self._install_tables(params["tables"], None)
+        self._install_tables(params["tables"], None, params["dense"])
 
-    def _install_tables(self, tables: Dict[str, torch.Tensor], emb_opt) -> None:
+    def _install_tables(self, tables: Dict[str, torch.Tensor], emb_opt, dense=None,
+                        model_state=None) -> None:
         """A fresh training state around ``tables``: ``emb_opt`` as in
-        :meth:`load_jax_tables`, step 0."""
+        :meth:`load_jax_tables`; ``dense`` and ``model_state`` as given, or
+        the model's fresh ones (dense drawn from a generator seeded with
+        ``seed``); the dense optimizer's state starts with the first fit;
+        step 0."""
+        if dense is None:
+            dense = self.model.init_dense(torch.Generator(device=self.device).manual_seed(self.seed))
         self._install({
-            "tables": tables, "dense": {}, "model_state": {},
-            "emb_opt": emb_opt_from_jax(emb_opt, tables, self.device), "step": 0,
+            "tables": tables, "dense": dense,
+            "model_state": self.model.init_state(self.device) if model_state is None else model_state,
+            "emb_opt": emb_opt_from_jax(emb_opt, tables, self.device), "dense_opt": None,
+            "step": 0,
         })
 
     # ------------------------------------------------------------------
@@ -156,7 +183,11 @@ class RecSys:
 
         ``hinge``/``bpr``/``logistic`` run the fused pairwise step
         (ops/fused_pairwise.py): on the card, one launch of the hand-written
-        kernel per batch. ``loss="sampled_softmax"`` trains with in-batch
+        kernel per batch. Models that kernel does not take run the autograd
+        pairwise step; for the MLP with ``use_amp`` (bf16 compute) and batch
+        norm, each step launches the fused tower layer's forward and
+        backward kernels once per hidden layer (ops/fused_tower.py), and
+        ``optimizer`` trains the tower. ``loss="sampled_softmax"`` trains with in-batch
         negatives, logQ-corrected: on the card every step launches the CE
         forward and backward kernels (ops/softmax_ce.py) once. Training
         starts from the installed tables and accumulators, or from fresh
@@ -314,7 +345,7 @@ class RecSys:
             chunk_size=prediction_batch_size,
             approx_recall=approx_recall,
             seen_mask=seen_mask,
-            catalog=self._linearized(),
+            catalog=self._linearized() if self.model.supports_linearized_catalog else None,
         )
         ids = ids.cpu().numpy()
         if seen_mask is not None:
@@ -381,10 +412,18 @@ class RecSys:
 
     # ------------------------------------------------------------------
     def _linearized(self):
-        """The model's linearized catalog, kept until the tables change."""
+        """The model's linearized catalog, kept until the tables change; a
+        model whose score does not factorize raises ValueError (api.py:
+        482-501)."""
         self._require_fitted("factor-vector export")
         if self._catalog is None:
             self._catalog = self.model.linearized_catalog(self._params(), self.feat)
+        if self._catalog is None:
+            raise ValueError(
+                f"net_type {self.model_cfg.net_type!r} does not factorize "
+                "into user/item vectors (joint-tower scoring); factor "
+                "export needs linear/fm/lstm/sasrec"
+            )
         return self._catalog
 
     def item_vectors(self) -> "tuple[np.ndarray, np.ndarray]":

@@ -38,10 +38,15 @@ class ModelConfig:
     """Model hyperparameters the ported slices read (config.py:59-89).
 
     ``compute_dtype="bfloat16"`` (``use_amp``) keeps the factor vectors in
-    bf16 for the catalog scorer, with f32 biases and accumulation."""
+    bf16 for the catalog scorer, with f32 biases and accumulation, and runs
+    the MLP tower in bf16 (its training forward through the fused layer
+    kernels, ops/fused_tower.py). ``hidden_layers`` and ``use_batch_norm``
+    shape the MLP (mlp.py:57,75)."""
 
     net_type: str = "linear"
     n_factors: int = 80
+    hidden_layers: Tuple[int, ...] = (1024, 128)
+    use_batch_norm: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
 
@@ -68,10 +73,13 @@ class TrainConfig:
 
     Embedding tables train with rowwise adagrad on the augmented layout
     (``fused_embedding_update``): the pairwise losses through the fused
-    pairwise step (ops/fused_pairwise.py), ``loss="sampled_softmax"``
-    through the autograd step around the in-batch CE kernels
-    (ops/softmax_ce.py), with the logQ correction (``logq_correction``:
-    subtract log train frequency of each candidate column).
+    pairwise step (ops/fused_pairwise.py) where the model fits it and
+    otherwise through the autograd pairwise step (MLP: the fused tower
+    kernels under bf16 compute), ``loss="sampled_softmax"`` through the
+    autograd step around the in-batch CE kernels (ops/softmax_ce.py), with
+    the logQ correction (``logq_correction``: subtract log train frequency
+    of each candidate column). Dense parameters take ``dense_optimizer``
+    (train/optim.py, optax's defaults).
     ``drop_remainder=False`` trains the remainder rows in a zero-weighted,
     wrap-around-padded last batch; ``sort_batch_by_user`` orders each
     batch's rows by user id (stable)."""
@@ -80,7 +88,7 @@ class TrainConfig:
     epochs: int = 1
     learning_rate: float = 1e-2
     lr_schedule: Any = None
-    dense_optimizer: str = "adam"  # Linear has no dense parameters
+    dense_optimizer: str = "adam"  # adam | adamw | adagrad | sgd
     embedding_optimizer: str = "rowwise_adagrad"
     dynamic_neg_sampling: bool = False
     avoid_collisions: bool = True  # in-step negatives never equal the positive
@@ -129,9 +137,9 @@ class TrainConfig:
             raise ValueError(f"unknown embedding optimizer {self.embedding_optimizer!r}")
         if self.embedding_optimizer == "sgd" or not self.fused_embedding_update:
             raise _not_ported(
-                "the autograd train step (embedding_optimizer='sgd', "
+                "the unfused embedding update (embedding_optimizer='sgd', "
                 "fused_embedding_update=False)",
-                "§A item 8 (the autograd step)",
+                "§A item 8 (apply_embedding_updates)",
             )
         if self.dense_optimizer not in DENSE_OPTIMIZERS:
             raise ValueError(f"unknown dense optimizer {self.dense_optimizer!r}")

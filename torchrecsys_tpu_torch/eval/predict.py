@@ -4,7 +4,8 @@
 Dot-factorizable models (``RecModel.linearized_catalog``: Linear) take the
 fused score + top-k kernels of ``ops/dot_topk.py``; any model can take the
 generic chunked scorer :func:`full_catalog_topk`, plain torch with a
-running top-k merge, which is also the fused path's second yardstick.
+running top-k merge (the MLP's path, its eval tower on running batch-norm
+statistics), which is also the fused path's second yardstick.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def _score_chunk(
         "item_id": item_ids.repeat(u),
     }
     side = attach_features(side, feat)
-    scores, _ = model.score(params, state, side)
+    scores, _ = model.score(params, state, side, train=False)
     return scores.reshape(u, c)
 
 

@@ -5,7 +5,9 @@ A model is an ``nn.Module`` that describes its embedding tables
 gathered rows. Its tables live in ``self.tables`` (an ``nn.ParameterDict``
 without gradients: serving only); the functional methods take the same
 ``params = {"tables", "dense"}`` dict as the JAX package, so a caller can
-score any set of tables.
+score any set of tables. Dense parameters (the MLP tower) and the model
+state (batch-norm running statistics) are plain nested dicts and lists of
+tensors in the JAX package's layout.
 
 Batch layout (one "side"):
   user_id:   (B,)      int64
@@ -26,7 +28,7 @@ from torch import nn
 from torchrecsys_tpu_torch.config import DataSchema, ModelConfig
 
 Batch = Dict[str, torch.Tensor]
-Params = Dict[str, Any]  # {"tables": {name: (rows, dim)}, "dense": {}}
+Params = Dict[str, Any]  # {"tables": {name: (rows, dim)}, "dense": pytree}
 State = Dict[str, Any]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -68,6 +70,29 @@ def masked_sum(emb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.sum(emb * mask[..., None].to(emb.dtype), dim=-2)
 
 
+def masked_mean(emb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the width axis (base.py:80-83); a row without ids
+    divides by 1."""
+    n = torch.clamp_min(torch.sum(mask.to(emb.dtype), dim=-1, keepdim=True), 1.0)
+    return masked_sum(emb, mask) / n
+
+
+def uniform_linear_init(
+    generator: torch.Generator, fan_in: int, fan_out: int, dtype: torch.dtype
+) -> Dict[str, torch.Tensor]:
+    """torch.nn.Linear-style U(-1/sqrt(fan_in), 1/sqrt(fan_in)) ``w``
+    (fan_in, fan_out) and ``b`` (fan_out,) (base.py:244-253), drawn from
+    ``generator`` on its device."""
+    bound = 1.0 / (fan_in**0.5)
+    dev = generator.device
+
+    def draw(shape):
+        u = torch.rand(shape, generator=generator, device=dev)
+        return (u * (2.0 * bound) - bound).to(dtype)
+
+    return {"w": draw((fan_in, fan_out)), "b": draw((fan_out,))}
+
+
 class RecModel(nn.Module, abc.ABC):
     """A pairwise-scoring model."""
 
@@ -106,6 +131,14 @@ class RecModel(nn.Module, abc.ABC):
     def table_specs(self) -> Dict[str, TableSpec]:
         ...
 
+    def init_dense(self, generator: torch.Generator) -> Any:
+        """Fresh dense parameters (none by default)."""
+        return {}
+
+    def init_state(self, device: Any = None) -> State:
+        """Fresh model state (none by default)."""
+        return {}
+
     @abc.abstractmethod
     def gathers(self, batch: Batch) -> Dict[str, Tuple[str, torch.Tensor]]:
         """Map row-key -> (table name, index tensor) for one batch side."""
@@ -113,19 +146,23 @@ class RecModel(nn.Module, abc.ABC):
 
     @abc.abstractmethod
     def score_rows(
-        self, dense: Any, state: State, rows: Dict[str, torch.Tensor], batch: Batch
+        self, dense: Any, state: State, rows: Dict[str, torch.Tensor], batch: Batch,
+        train: bool = False,
     ) -> Tuple[torch.Tensor, State]:
-        """Gathered rows -> (B,) f32 scores."""
+        """Gathered rows -> ((B,) f32 scores, state): the new state in train
+        mode (batch-norm statistics), else ``state`` itself."""
         ...
 
     # ---- tables ---------------------------------------------------------
     def init(self, generator: torch.Generator) -> Tuple[Params, State]:
-        """Fresh tables, one draw per table in sorted-name order."""
+        """Fresh tables, one draw per table in sorted-name order, then the
+        dense parameters; and the fresh model state (base.py:138-146)."""
         tables = {
             name: init_table(generator, spec, self.param_dtype)
             for name, spec in sorted(self.table_specs().items())
         }
-        return {"tables": tables, "dense": {}}, {}
+        dense = self.init_dense(generator)
+        return {"tables": tables, "dense": dense}, self.init_state(generator.device)
 
     def set_tables(self, tables: Mapping[str, torch.Tensor]) -> None:
         """Install ``tables`` as this module's (gradient-free) tables."""
@@ -143,10 +180,10 @@ class RecModel(nn.Module, abc.ABC):
         }
 
     def score(
-        self, params: Params, state: State, batch: Batch
+        self, params: Params, state: State, batch: Batch, train: bool = False
     ) -> Tuple[torch.Tensor, State]:
         rows = self.gather_rows(params["tables"], batch)
-        return self.score_rows(params["dense"], state, rows, batch)
+        return self.score_rows(params["dense"], state, rows, batch, train)
 
     def pair_vectors(
         self, dense: Any, state: State, rows: Dict[str, torch.Tensor], batch: Batch,

@@ -57,7 +57,8 @@ class LinearModel(RecModel):
         return g
 
     def score_rows(
-        self, dense: Any, state: State, rows: Dict[str, torch.Tensor], batch: Batch
+        self, dense: Any, state: State, rows: Dict[str, torch.Tensor], batch: Batch,
+        train: bool = False,
     ) -> Tuple[torch.Tensor, State]:
         cd = self.compute_dtype
         u = rows["user"].to(cd)

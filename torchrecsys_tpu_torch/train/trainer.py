@@ -1,7 +1,7 @@
 """The training loop and evaluation (port of
 ``torchrecsys_tpu/train/trainer.py``: ``Trainer.__init__`` :142-256,
-``_sample_negs`` :259-283, ``_softmax_rows`` :285-318, ``_apply_batch_order``
-:368-403, the softmax branch of ``_step_impl`` :405-574, ``_epoch_fn``
+``_sample_negs`` :259-283, ``_softmax_rows`` :285-318, ``_paired_side``
+:321-356, ``_apply_batch_order`` :368-403, ``_step_impl`` :405-574, ``_epoch_fn``
 :606-819, ``fit`` :822-869, ``_device_train_data`` :870-891,
 ``feature_tables`` :904-928, ``_logq_from`` :930-941, ``_eval_fn`` and
 ``evaluate`` :944-1074).
@@ -19,6 +19,13 @@ batches). Here an epoch is
    :func:`~torchrecsys_tpu_torch.ops.fused_pairwise.fused_pairwise_step`
    (or its metadata twin) over the packed ``(rows, 128)`` tables, as the
    scan body ``body_pl`` (:720-790) does: one fused-kernel launch per step.
+   Models the kernel does not take (the MLP, a Linear wider than its
+   lanes) run the autograd pairwise step (:meth:`Trainer.pairwise_step`)
+   over the augmented ``(R, D+1)`` tables: the paired side, the model's
+   score (the MLP's bf16 training tower through the fused layer kernels,
+   ops/fused_tower.py: one forward and one backward launch per hidden
+   layer), ``torch.autograd.grad`` with respect to the gathered rows and
+   the dense parameters, rowwise adagrad and the dense optimizer.
    ``loss="sampled_softmax"`` runs the autograd step
    (:meth:`Trainer.softmax_step`, ``_step_impl`` with ``fused=True``) over
    the augmented ``(R, D+1)`` tables: gather, ``pair_vectors``, the
@@ -28,9 +35,9 @@ batches). Here an epoch is
    with the host: the step losses stay on the device and are read once per
    epoch.
 
-Checkpoints, meshes, lr schedules, K negatives and the autograd step of
-the pairwise losses are still to be ported (ROADMAP.md §A); a config that
-needs them raises ``NotImplementedError``.
+Checkpoints, meshes, lr schedules, K negatives and the unfused embedding
+update are still to be ported (ROADMAP.md §A); a config that needs them
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,10 +59,15 @@ from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 from torchrecsys_tpu_torch.ops import softmax_ce as sce
 from torchrecsys_tpu_torch.train.losses import get_per_row_loss
 from torchrecsys_tpu_torch.train.optim import (
+    apply_dense_update,
+    tree_map,
     apply_embedding_updates_fused,
     augment_tables,
+    init_dense_opt,
     init_embedding_opt,
     split_augmented,
+    tree_leaves,
+    tree_unflatten,
 )
 from torchrecsys_tpu_torch.utils.permute import random_permutation, round_keys
 
@@ -79,20 +91,16 @@ class Epoch:
 
 class Trainer:
     """Trains and evaluates a model on the device of its tables: the
-    pairwise losses through the fused pairwise step, sampled softmax
-    through the autograd step around the CE kernels."""
+    pairwise losses through the fused pairwise step where the model fits
+    it, else through the autograd pairwise step; sampled softmax through
+    the autograd step around the CE kernels."""
 
     def __init__(self, model: RecModel, cfg: TrainConfig, device: Any = "cuda") -> None:
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
-        if model.compute_dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "training with use_amp=True (bf16 compute) is not ported to "
-                "torchrecsys_tpu_torch yet: ROADMAP.md §A item 6 (metadata and "
-                "AMP in training)"
-            )
         self._softmax = cfg.loss == "sampled_softmax"
+        self._fused = False  # the fused pairwise kernel step (else autograd)
         if self._softmax:  # :178-191 (num_negatives and neg_sampling: config.py)
             if not model.supports_sampled_softmax:
                 raise ValueError(
@@ -107,21 +115,24 @@ class Trainer:
                 )
             self.per_row_fn = None
         else:
-            if not fp.pairwise_kernel_applicable(model, cfg):
-                raise NotImplementedError(
-                    f"net_type={model.name!r} with n_factors={model.cfg.n_factors} needs "
-                    "the autograd train step, which is not ported to "
-                    "torchrecsys_tpu_torch yet: ROADMAP.md §A item 8 (the autograd step)"
-                )
+            self._fused = fp.pairwise_kernel_applicable(model, cfg)
             self.per_row_fn = get_per_row_loss(cfg.loss)
+        if model.compute_dtype == torch.bfloat16 and (self._softmax or self._fused):
+            raise NotImplementedError(
+                "training with use_amp=True (bf16 compute) through the fused "
+                "pairwise kernel or sampled softmax is not ported to "
+                "torchrecsys_tpu_torch yet: ROADMAP.md §A item 6 (metadata and "
+                "AMP in training)"
+            )
         self._data_cache_key = None
         self._data_cache: Dict[str, torch.Tensor] = {}
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
-        """Fresh tables and zero accumulators from a ``torch.Generator``
-        seeded with ``cfg.seed``; the generator stays in the state
-        (``rng``) and draws every epoch's round keys and negatives."""
+        """Fresh tables, dense parameters and model state, zero accumulators
+        and the dense optimizer's state, from a ``torch.Generator`` seeded
+        with ``cfg.seed``; the generator stays in the state (``rng``) and
+        draws every epoch's round keys and negatives."""
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         params, model_state = self.model.init(gen)
         return {
@@ -129,6 +140,7 @@ class Trainer:
             "dense": params["dense"],
             "model_state": model_state,
             "emb_opt": init_embedding_opt(self.cfg.embedding_optimizer, params["tables"]),
+            "dense_opt": init_dense_opt(self.cfg.dense_optimizer, params["dense"]),
             "step": 0,
             "rng": gen,
         }
@@ -389,6 +401,99 @@ class Trainer:
             ))
         return torch.stack(losses)
 
+    def _paired_side(
+        self, user: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, feat: Optional[Features]
+    ) -> Batch:
+        """The positive and negative halves as ONE side of 2B rows (:321-356):
+        batch-norm statistics then cover both halves alike."""
+        side = {"user_id": user.repeat(2), "item_id": torch.cat([pos, neg])}
+        return attach_features(side, feat)
+
+    def pairwise_step(
+        self,
+        state: TrainState,
+        aug: Dict[str, torch.Tensor],
+        user: torch.Tensor,
+        pos: torch.Tensor,
+        neg: torch.Tensor,
+        w: Optional[torch.Tensor],
+        weight_sum: Optional[float],
+        feat: Features,
+    ) -> torch.Tensor:
+        """One pairwise step through autograd (``_step_impl`` with
+        ``fused=True``, :405-574) for models the fused pairwise kernel does
+        not take (the MLP; Linear wider than the kernel's lanes): score the
+        paired side, the weighted mean ``sum(per_row * w) / max(sum(w), 1)``
+        (the weight sum known on the host), ``torch.autograd.grad`` with
+        respect to the gathered rows and the dense parameters, one
+        rowwise-adagrad ``index_add_`` per table into the augmented tables
+        ``aug`` (in place), the dense optimizer's step. User sites declared
+        in ``user_gather_sites`` gather B rows once and repeat them inside
+        the loss, so rowwise adagrad sees one occurrence with the summed
+        gradient. ``state``'s ``dense``, ``dense_opt`` and ``model_state``
+        (batch-norm running statistics) are replaced. Returns the loss as a
+        device scalar."""
+        model, cfg = self.model, self.cfg
+        b = pos.shape[0]
+        side = self._paired_side(user, pos, neg, feat)
+        gmap = self._gather_sites(side)
+        halved = model.user_gather_sites & set(gmap)
+        gmap = {k: (t, user if k in halved else ids) for k, (t, ids) in gmap.items()}
+        raw = {k: aug[t][ids] for k, (t, ids) in gmap.items()}
+        rows = {k: r[..., :-1].detach().requires_grad_() for k, r in raw.items()}
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(state["dense"])]
+        dense = tree_unflatten(state["dense"], leaves)
+        full = {k: torch.cat([v, v]) if k in halved else v for k, v in rows.items()}
+        scores, new_ms = model.score_rows(dense, state["model_state"], full, side, train=True)
+        per_row = self.per_row_fn(scores[:b], scores[b:], cfg.margin)
+        if w is None:
+            loss = per_row.mean()
+        else:
+            loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
+        keys = list(rows)
+        grads = torch.autograd.grad(loss, [rows[k] for k in keys] + leaves, allow_unused=True)
+        per_table: Dict[str, list] = {}
+        for k, g in zip(keys, grads):
+            if g is not None:
+                tname, ids = gmap[k]
+                per_table.setdefault(tname, []).append((ids, g, raw[k][..., -1]))
+        apply_embedding_updates_fused(cfg.learning_rate, aug, per_table)
+        g_dense = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads[len(keys):])]
+        state["dense"], state["dense_opt"] = apply_dense_update(
+            cfg.dense_optimizer, cfg.learning_rate, state["dense"],
+            tree_unflatten(state["dense"], g_dense), self._dense_opt(state),
+        )
+        state["model_state"] = tree_map(torch.Tensor.detach, new_ms)
+        return loss.detach()
+
+    def _dense_opt(self, state: TrainState) -> Dict[str, Any]:
+        """The state's dense optimizer state; a state installed without one
+        starts from optax's init."""
+        if state.get("dense_opt") is None:
+            state["dense_opt"] = init_dense_opt(self.cfg.dense_optimizer, state["dense"])
+        return state["dense_opt"]
+
+    def run_pairwise_steps(
+        self,
+        state: TrainState,
+        aug: Dict[str, torch.Tensor],
+        epoch: Epoch,
+        feat: Features,
+        steps: Optional[Sequence[int]] = None,
+    ) -> torch.Tensor:
+        """:meth:`pairwise_step` over ``steps`` (default: every batch of the
+        epoch), updating ``aug`` and ``state`` in place; the step losses as
+        a device tensor."""
+        bt = epoch.batches
+        losses = []
+        for i in range(epoch.nb) if steps is None else steps:
+            w = bt["_w"][i] if "_w" in bt else None
+            ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
+            losses.append(self.pairwise_step(
+                state, aug, bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i], w, ws, feat
+            ))
+        return torch.stack(losses)
+
     def train_epoch(
         self,
         state: TrainState,
@@ -403,11 +508,15 @@ class Trainer:
         if keys is None:
             keys = round_keys(gen)
         epoch = self.build_epoch(data, keys.to(self.device), gen)
-        if self._softmax:  # the augmented layout for the epoch (:801-819)
+        if not self._fused:  # the augmented layout for the epoch (:801-819)
             aug = augment_tables(state["tables"], state["emb_opt"])
-            losses = self.run_softmax_steps(state, aug, epoch, feat or {})
+            new = dict(state)
+            if self._softmax:
+                losses = self.run_softmax_steps(new, aug, epoch, feat or {})
+            else:
+                losses = self.run_pairwise_steps(new, aug, epoch, feat or {})
             tables, emb_opt = split_augmented(aug)
-            new = dict(state, tables=tables, emb_opt=emb_opt, step=state["step"] + epoch.nb)
+            new.update(tables=tables, emb_opt=emb_opt, step=state["step"] + epoch.nb)
             return new, losses.mean()
         packed = self.pack_state(state)
         losses = self.run_steps(packed, epoch, feat)
@@ -473,10 +582,8 @@ class Trainer:
                 ps = (torch.sum(h * vp, dim=-1) + vbp).float()
                 ns = (torch.sum(h * vn, dim=-1) + vbn).float()
             else:
-                side = attach_features(
-                    {"user_id": user.repeat(2), "item_id": torch.cat([pos, neg])}, feat
-                )
-                scores, _ = model.score(params, mstate, side)
+                side = self._paired_side(user, pos, neg, feat)
+                scores, _ = model.score(params, mstate, side, train=False)
                 ps, ns = scores[:b], scores[b:]
                 loss_rows = self.per_row_fn(ps, ns, cfg.margin)
             w = valid[i]

@@ -5,9 +5,14 @@ array per table name, rows padded to ``ROW_ALIGN``. :func:`tables_from_jax`
 takes those tables as numpy arrays (``np.asarray`` of each), checks them
 against the port model's ``table_specs`` and returns the port's tensors,
 so a port ``RecSys`` can serve, or go on training, weights trained by the
-JAX package (``RecSys.load_jax_tables``). :func:`train_state_from_jax`
-also carries the rowwise-adagrad accumulators (``state["emb_opt"]``) and
-the step counter.
+JAX package (``RecSys.load_jax_tables``). :func:`dense_from_jax` and
+:func:`model_state_from_jax` carry the dense parameters (the MLP tower,
+``state["dense"]``) and the model state (batch-norm running statistics,
+``state["model_state"]``), checked against the port model's own layout;
+:func:`dense_opt_from_jax` the optax state of the dense optimizer
+(``state["dense_opt"]``). :func:`train_state_from_jax` carries all of
+these, the rowwise-adagrad accumulators (``state["emb_opt"]``) and the
+step counter.
 """
 
 from __future__ import annotations
@@ -80,18 +85,82 @@ def emb_opt_from_jax(
     return out
 
 
+def _tree_from_jax(tree: Any, template: Any, what: str, device) -> Any:
+    """A nested dict/list of numpy arrays -> the same tree of tensors on
+    ``device``, checked against ``template`` (a tree of tensors): the same
+    keys, list lengths, shapes and dtypes."""
+    if isinstance(template, dict):
+        if not isinstance(tree, Mapping) or set(tree) != set(template):
+            got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+            raise ValueError(f"{what}: keys {got} != {sorted(template)}")
+        return {k: _tree_from_jax(tree[k], template[k], f"{what}[{k!r}]", device) for k in template}
+    if isinstance(template, (list, tuple)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(template):
+            raise ValueError(f"{what}: expected a list of {len(template)}")
+        return [_tree_from_jax(a, t, f"{what}[{i}]", device) for i, (a, t) in enumerate(zip(tree, template))]
+    arr = np.asarray(tree)
+    want = str(template.dtype).removeprefix("torch.")
+    if tuple(arr.shape) != tuple(template.shape) or arr.dtype.name != want:
+        raise ValueError(f"{what}: {arr.shape} {arr.dtype.name} != {tuple(template.shape)} {want}")
+    return _to_tensor(arr).to(device)
+
+
+def dense_from_jax(dense: Any, model: RecModel, device) -> Any:
+    """JAX ``state["dense"]`` (numpy tree) -> the port's dense tree on
+    ``device``, in the layout of ``model.init_dense``."""
+    return _tree_from_jax(dense, model.init_dense(torch.Generator()), "dense", device)
+
+
+def model_state_from_jax(model_state: Any, model: RecModel, device) -> Any:
+    """JAX ``state["model_state"]`` (numpy tree; the MLP's batch-norm
+    running means and variances) -> the port's on ``device``."""
+    return _tree_from_jax(model_state, model.init_state(), "model_state", device)
+
+
+def dense_opt_from_jax(opt_state: Any, kind: str, dense: Any, device) -> Dict[str, Any]:
+    """The optax state of ``make_dense_optimizer(kind)`` (numpy tree: a
+    tuple of optax states) -> the port's dense optimizer state on
+    ``device`` (train/optim.py::init_dense_opt's layout), checked against
+    ``dense`` (the port's dense tree)."""
+    from torchrecsys_tpu_torch.train.optim import init_dense_opt
+
+    template = init_dense_opt(kind, dense)
+    parts = list(opt_state) if isinstance(opt_state, (list, tuple)) else [opt_state]
+    out: Dict[str, Any] = {}
+    for key in template:
+        found = [getattr(p, key) for p in parts if key in getattr(p, "_fields", ())]
+        if not found:
+            raise ValueError(f"dense_opt: the {kind!r} state has no {key!r}")
+        if key == "count":
+            out[key] = int(np.asarray(found[0]))
+        else:
+            out[key] = _tree_from_jax(found[0], template[key], f"dense_opt.{key}", device)
+    return out
+
+
 def train_state_from_jax(
-    state_np: Mapping[str, Any], model: RecModel, device
+    state_np: Mapping[str, Any], model: RecModel, device, dense_optimizer: str = "adam"
 ) -> Dict[str, Any]:
-    """The JAX trainer's ``{"tables", "emb_opt": {name: {"acc"}}, "step"}``
-    (numpy) -> the port trainer's state on ``device``, with the dense,
-    model-state and rng entries the port's state carries."""
+    """The JAX trainer's ``{"tables", "dense", "model_state", "emb_opt":
+    {name: {"acc"}}, "dense_opt", "step"}`` (numpy) -> the port trainer's
+    state on ``device``. ``dense``, ``model_state`` and ``dense_opt`` (the
+    state of ``dense_optimizer``) may be absent: the model's fresh (empty
+    for Linear) ones, and optax's init, take their place."""
     tables = tables_from_jax(state_np["tables"], model, device)
+    dense = (
+        dense_from_jax(state_np["dense"], model, device) if "dense" in state_np
+        else model.init_dense(torch.Generator(device=device))
+    )
+    opt = state_np.get("dense_opt")
     return {
         "tables": tables,
-        "dense": {},
-        "model_state": {},
+        "dense": dense,
+        "model_state": (
+            model_state_from_jax(state_np["model_state"], model, device)
+            if "model_state" in state_np else model.init_state(device)
+        ),
         "emb_opt": emb_opt_from_jax(state_np["emb_opt"], tables, device),
+        "dense_opt": None if opt is None else dense_opt_from_jax(opt, dense_optimizer, dense, device),
         "step": int(np.asarray(state_np.get("step", 0))),
         "rng": None,
     }
