@@ -23,17 +23,19 @@ result line:
    packed table at D=80: every output within rtol=1e-5, atol=1e-6 (f32
    sums in another order, FMA contraction), rows whose hinge diff lies
    within 1e-4 of the kink excluded (their subgradient may flip; counted).
-   The in-batch softmax CE kernels (forward; backward dh and dv/dvb)
-   against their plain versions: B=4096 x D=80 with a logQ-shifted bias,
-   duplicate-heavy positives (10 ids), a ragged B=1000, D in {16, 128},
-   a cotangent with zero rows. loss and lse within rtol=atol=1e-5 (f32 sums
+   The in-batch softmax CE kernels (forward; the one-pass backward of dh,
+   dv and dvb) against their plain versions: B=4096 x D=80 with a
+   logQ-shifted bias, duplicate-heavy positives (10 ids), a ragged B=1000,
+   D in {16, 128}, a cotangent with zero rows, D=13 (rows with no 16-byte
+   copies) and B=7 (below one tile). loss and lse within rtol=atol=1e-5 (f32 sums
    in another order, a one-pass LSE); dh, dv, dvb within rtol=1e-4 plus
    1e-5 of the largest |reference| entry (sums of B terms of both signs).
    A second run of each kernel gives the same bits.
-   The fused MLP tower layer kernels (forward; backward dh and dW/db)
-   against their plain versions in bf16: both main-path layers (16,384
-   rows, 160 -> 1024 and 1024 -> 128 with batch norm), Din=240, a ragged
-   R=1000 and a tiny odd shape. z and din within one bf16 ulp of their
+   The fused MLP tower layer kernels (forward; backward dh and dW/db on
+   wgmma) against their plain versions in bf16: both main-path layers
+   (16,384 rows, 160 -> 1024 and 1024 -> 128 with batch norm), Din=240, a
+   ragged R=1000, a tiny odd shape, widths that are not multiples of 8
+   (100 -> 60) and R=40 (below one wgmma tile). z and din within one bf16 ulp of their
    product; every f32 sum (s, ss against an f64 sum of the kernel's own z;
    dW, db and the BN sums against the plain version) within 1e-5 of the
    sum of its absolute terms (f32 order); repeated runs bit-identical.
@@ -93,7 +95,8 @@ result line:
       seed, tables and two epochs with f32 compute (the plain tower, no
       kernel) as a witness: the AMP run's test AUC at most 0.02 below its
       AUC, and its sample loss at most 10% above.
-7. times: per-kernel CUDA-event ms beside the bound, the plain version
+7. times: per-kernel CUDA-event ms and, for the CE and tower kernels,
+   device us per call from torch.profiler, beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
    users/s, fit examples/s (hinge, softmax, MLP) and evaluate rows/s; per-call
    breakdowns; device time per kernel and the device's idle share over a
@@ -120,6 +123,8 @@ SOFTMAX_B = 4096  # sampled-softmax fit and evaluate batch size
 MLP_B = 8192  # MLP fit and evaluate batch size (bench.py:140-173)
 MLP_HIDDEN = (1024, 128)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
+SPLIT_F32_FLOPS = PEAK_TF32_FLOPS / 3  # f32-accurate products as 3xTF32 on the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATOL, RTOL = 1e-4, 1e-5
@@ -386,7 +391,8 @@ def ce_kernel_phase(torch):
     errs = {"softmax_ce_fwd": 0.0, "softmax_ce_bwd": 0.0}
     cases = (("B=4096 D=80 logq", SOFTMAX_B, D, N, None), ("duplicate-heavy (10 ids)", SOFTMAX_B, D, 10, None),
              ("ragged B=1000", 1000, D, N, None), ("D=16", SOFTMAX_B, 16, N, None),
-             ("D=128", SOFTMAX_B, 128, N, None), ("weights with zeros", SOFTMAX_B, D, N, 2900))
+             ("D=128", SOFTMAX_B, 128, N, None), ("weights with zeros", SOFTMAX_B, D, N, 2900),
+             ("D=13 (no 16-byte rows)", 1000, 13, N, None), ("B=7 (below one tile)", 7, D, 5, None))
     main = None
     for label, b, d, n_ids, zero_from in cases:
         h, v, vbq, pos, g = ce_inputs(torch, gen, b, d, n_ids, zero_from)
@@ -472,7 +478,9 @@ def tower_kernel_phase(torch):
     cases = [(f"main layer {i}", *shape) for i, shape in enumerate(TOWER_LAYERS)]
     cases += [("Din=240 (one metadata feature)", 2 * MLP_B, 3 * D, MLP_HIDDEN[0], False),
               ("ragged R=1000", 1000, MLP_HIDDEN[0], MLP_HIDDEN[1], True),
-              ("tiny 37 x 20 -> 13", 37, 20, 13, True)]
+              ("tiny 37 x 20 -> 13", 37, 20, 13, True),
+              ("widths not multiples of 8", 1000, 100, 60, True),
+              ("R=40 (below one wgmma tile)", 40, MLP_HIDDEN[0], MLP_HIDDEN[1], False)]
     main = []
 
     def within(name, label, got, want, slack):
@@ -1568,6 +1576,32 @@ def train_breakdown(torch, rs, label: str, window: int = 100):
             "kernel_us": parts["kernel"] / window}
 
 
+def device_call(torch, fn, calls: int = 20):
+    """(device us per call, kernels per call) of ``fn`` from torch.profiler
+    over ``calls`` calls after one warm call: a fast kernel's back-to-back
+    CUDA-event time can be its wrapper's host time. Each kernel counts at
+    its mean time per launch, so a launch the profiler drops does not
+    lower the sum (every wrapper here launches each of its kernels once
+    per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0 and e.count:
+            us += t / e.count
+            n += 1
+    return us, n
+
+
 def ce_timing(torch, inputs, errs, launches):
     """The CE kernels' JSON rows: CUDA-event ms at the main path's shape
     (B=4096, D=80), the bound, the plain versions' ms. No single PyTorch
@@ -1588,6 +1622,12 @@ def ce_timing(torch, inputs, errs, launches):
         "softmax_ce_bwd": cuda_ms(torch, lambda: sce.softmax_ce_bwd_plain(h, v, vbq, pos, lse, g)),
     }
     mm_ms = cuda_ms(torch, lambda: torch.matmul(h, v.T), reps=50)
+    dev = {
+        "softmax_ce_fwd": device_call(torch, lambda: sce.softmax_ce_fwd(h, v, vbq, pos)),
+        "softmax_ce_bwd": device_call(torch, lambda: sce.softmax_ce_bwd(h, v, vbq, pos, lse, g)),
+    }
+    check(dev["softmax_ce_bwd"][1] <= 2, f"CE backward: {dev['softmax_ce_bwd'][1]} kernels per call "
+          "(one pass and one sum expected)")
     sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved
     in_bytes = 2 * b * d * 4 + b * 4 + b * 8  # h, v, vbq, pos (int64)
     work = {  # (operations, bytes): each input read once, each output written once
@@ -1596,10 +1636,15 @@ def ce_timing(torch, inputs, errs, launches):
     }
     rows = []
     for name, (flops, nbytes) in work.items():
-        bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        log(f"[time] {name} (B={b}, D={d}, f32): {ms[name]:.4f} ms; bound {bound_ms:.4f} ms ({by}); "
-            f"plain {plain_ms[name]:.4f} ms; library: none")
+        # the least time for f32-accurate products: split products on the
+        # tensor cores (3xTF32 at a third of the TF32 peak)
+        bound_ms = max(flops / SPLIT_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if flops / SPLIT_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        us, n_k = dev[name]
+        log(f"[time] {name} (B={b}, D={d}, f32): {ms[name]:.4f} ms (device {us:.2f} us per call over "
+            f"{n_k} kernel(s), torch.profiler); bound {bound_ms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP at "
+            f"{SPLIT_F32_FLOPS / 1e12:.0f} TFLOP/s; {flops / PEAK_F32_FLOPS * 1e3:.4f} ms at the CUDA cores' "
+            f"{PEAK_F32_FLOPS / 1e12:.0f}); plain {plain_ms[name]:.4f} ms; library: none")
         rows.append({
             "name": name, "route": "cuda", "source": CE_SOURCE, "replaces": CE_REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms[name],
@@ -1646,7 +1691,7 @@ def softmax_breakdown(torch, rs, label: str, window: int = 60):
     for name, us in split.items():
         if "softmax_ce_fwd" in name:
             parts["ce_fwd"] += us
-        elif "softmax_ce_d" in name or "sum_splits" in name:
+        elif "softmax_ce_bwd" in name:  # the one pass and its sum
             parts["ce_bwd"] += us
         elif "indexSelect" in name or "index_elementwise" in name or "gather" in name.lower():
             parts["gathers"] += us
@@ -1685,7 +1730,7 @@ def tower_timing(torch, inputs, errs, launches):
     from torchrecsys_tpu_torch.ops import fused_tower as ft
 
     saved = (ft.fused_tower_fwd.launches, ft.fused_tower_bwd.launches)
-    acc = {name: {"ms": [], "plain_ms": [], "bound_ms": [], "by": []} for name in TOWER_REPLACES}
+    acc = {name: {"ms": [], "plain_ms": [], "bound_ms": [], "by": [], "device_ms": []} for name in TOWER_REPLACES}
     for x, w, b, bn, z, dz, dstat, has_bn in inputs:
         r, din = x.shape
         dout = w.shape[1]
@@ -1703,6 +1748,8 @@ def tower_timing(torch, inputs, errs, launches):
         plain = {"fused_tower_fwd": cuda_ms(torch, lambda: ft.fused_tower_fwd_plain(x, w, b, bn, has_bn)),
                  "fused_tower_bwd": cuda_ms(torch, lambda: ft.fused_tower_bwd_plain(x, z, dz, w, bn, dstat,
                                                                                     has_bn))}
+        dev = {"fused_tower_fwd": device_call(torch, lambda: ft.fused_tower_fwd(x, w, b, bn, has_bn)),
+               "fused_tower_bwd": device_call(torch, lambda: ft.fused_tower_bwd(x, z, dz, w, bn, dstat, has_bn))}
         mm = {"fused_tower_fwd": cuda_ms(torch, lambda: torch.matmul(h, w), reps=50),
               "fused_tower_bwd": cuda_ms(torch, lambda: (torch.matmul(dz, w.T), torch.matmul(h.T, dz)),
                                          reps=50)}
@@ -1710,9 +1757,12 @@ def tower_timing(torch, inputs, errs, launches):
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
             bound_ms = max(t_ops, t_bytes) * 1e3
             by = "operations" if t_ops >= t_bytes else "bytes"
-            for key, v in (("ms", ms[name]), ("plain_ms", plain[name]), ("bound_ms", bound_ms), ("by", by)):
+            us, n_k = dev[name]
+            for key, v in (("ms", ms[name]), ("plain_ms", plain[name]), ("bound_ms", bound_ms), ("by", by),
+                           ("device_ms", us / 1e3)):
                 acc[name][key].append(v)
-            log(f"[time] {name} (R={r}, {din} -> {dout}, bn={has_bn}, bf16): {ms[name]:.4f} ms; bound "
+            log(f"[time] {name} (R={r}, {din} -> {dout}, bn={has_bn}, bf16): {ms[name]:.4f} ms (device "
+                f"{us:.2f} us per call over {n_k} kernel(s), torch.profiler); bound "
                 f"{bound_ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); plain "
                 f"{plain[name]:.4f} ms; library: none (context: bf16 torch.matmul of its product(s) "
                 f"{mm[name]:.4f} ms)")
@@ -1726,7 +1776,8 @@ def tower_timing(torch, inputs, errs, launches):
             "plain_ms": float(np.mean(a["plain_ms"])), "bound_ms": float(np.mean(a["bound_ms"])),
             "bound_by": a["by"][0], "library_ms": None,
         })
-        log(f"[time] {name}: mean per launch over the two main-path layers {rows[-1]['ms']:.4f} ms, "
+        log(f"[time] {name}: mean per launch over the two main-path layers {rows[-1]['ms']:.4f} ms "
+            f"(device {np.mean(a['device_ms']):.4f} ms), "
             f"bound {rows[-1]['bound_ms']:.4f} ms, plain {rows[-1]['plain_ms']:.4f} ms")
     return rows
 
@@ -1769,10 +1820,10 @@ def mlp_breakdown(torch, rs, window: int = 40):
     for name, us in split.items():
         if "fused_tower_fwd" in name:
             parts["tower_fwd"] += us
-        elif "fused_tower_d" in name:  # the dh and dW passes
-            parts["tower_bwd"] += us
-        elif "sum_splits" in name:  # both directions' fixed-order partial sums
+        elif "sum_splits" in name or "fused_tower_bwd_sum" in name:  # fixed-order partial sums
             parts["tower_sums"] += us
+        elif "fused_tower_bwd" in name:  # the dh and dW products
+            parts["tower_bwd"] += us
         elif "indexSelect" in name or "index_elementwise" in name or "gather" in name.lower():
             parts["gathers"] += us
         elif "indexFunc" in name or "index_add" in name or "scatter" in name.lower():

@@ -300,7 +300,8 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,din,dout,has_bn", [(16384, 160, 1024, False), (16384, 1024, 128, True),
-                                               (1000, 240, 1024, False), (37, 20, 13, True)])
+                                               (1000, 240, 1024, False), (37, 20, 13, True),
+                                               (1000, 100, 60, True), (40, 1024, 128, False)])
 def test_kernels_match_plain_on_card(cuda_device, r, din, dout, has_bn):
     """Kernel against plain version on the card: z within one bf16 ulp of
     the product (f32 sums in another order), sums within 2^-7 of their

@@ -218,7 +218,8 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,d,dup", [(4096, 80, False), (4096, 80, True), (1000, 80, False),
-                                     (513, 16, False), (300, 128, True)])
+                                     (513, 16, False), (300, 128, True), (1000, 13, False),
+                                     (7, 80, True)])
 def test_kernels_match_plain_on_card(cuda_device, b, d, dup):
     """loss and lse within rtol=atol=1e-5 (f32 sums in another order, a
     one-pass LSE); dh, dv, dvb within rtol 1e-4 and atol 1e-5 of the

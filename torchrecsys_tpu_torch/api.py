@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
+from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig, _not_ported
 from torchrecsys_tpu_torch.data.features import feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore, prepare_data
 from torchrecsys_tpu_torch.eval.predict import catalog_topk, ranking_eval
@@ -34,6 +34,11 @@ from torchrecsys_tpu_torch.utils.convert import (
     model_state_from_jax,
     tables_from_jax,
 )
+
+
+_CHECKPOINT_ITEM = "§A item 4 (checkpoints)"
+_INCREMENTAL_ITEM = "§A item 12 (incremental training)"
+_PARALLEL_ITEM = "§A item 14 (parallel)"
 
 
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -63,14 +68,31 @@ class RecSys:
         dynamic_neg_sampling: bool = False,
         use_amp: bool = False,
         use_cuda: bool = False,  # accepted for API parity; ignored
+        debug: bool = False,
+        path: str = "./",
         hidden_layers: Sequence[int] = (1024, 128),
         use_batch_norm: bool = True,
+        mesh: Any = None,
+        history_len: int = 20,
         seed: int = 0,
+        ease_lam: float = 100.0,
+        fm_sigmoid: bool = True,
         device: Union[str, torch.device] = "cuda",
     ) -> None:
+        """The JAX constructor's keywords, in its order and with its
+        defaults, then ``device``. ``history_len``, ``ease_lam`` and
+        ``fm_sigmoid`` are kept: only unported nets read them, and those
+        nets raise at ``build_model``. ``debug=True`` and a ``mesh`` raise
+        ``NotImplementedError`` naming their ROADMAP.md item."""
         del use_cuda  # the device is `device`
+        if debug:
+            raise _not_ported("debug=True (write_data to `path`)", _CHECKPOINT_ITEM)
+        if mesh is not None:
+            raise _not_ported("mesh", _PARALLEL_ITEM)
         self.device = _resolve_device(device)
         self.seed = seed
+        self.debug, self.path, self.mesh = debug, path, mesh
+        self.history_len, self.ease_lam, self.fm_sigmoid = history_len, ease_lam, fm_sigmoid
         self.store: InteractionStore = prepare_data(
             dataset,
             user_id_col=user_id_col,
@@ -475,3 +497,27 @@ class RecSys:
         else:
             out = ids
         return out[0] if scalar else out
+
+    # ------------------------------------------------------------------
+    # the JAX facade's incremental training and checkpoints (api.py:566-790)
+    def update_data(
+        self,
+        dataset: Any,
+        user_id_col: Optional[str] = None,
+        item_id_col: Optional[str] = None,
+        split_ratio: Optional[float] = None,
+    ) -> None:
+        raise _not_ported("RecSys.update_data", _INCREMENTAL_ITEM)
+
+    def partial_fit(self, dataset: Any, **fit_kwargs) -> List[float]:
+        raise _not_ported("RecSys.partial_fit", _INCREMENTAL_ITEM)
+
+    def save(self, directory: str) -> None:
+        raise _not_ported("RecSys.save", _CHECKPOINT_ITEM)
+
+    def restore(self, directory: str) -> None:
+        raise _not_ported("RecSys.restore", _CHECKPOINT_ITEM)
+
+    @classmethod
+    def load(cls, directory: str, mesh: Any = None) -> "RecSys":
+        raise _not_ported("RecSys.load", _CHECKPOINT_ITEM)

@@ -24,35 +24,50 @@
 //   no BN: din = dh
 //
 // with every bf16 rounding where the TPU kernel rounds, so the two agree up
-// to the order of f32 sums.
+// to the order of f32 sums. Any R, Din, Dout >= 1 run: tiles are zero-filled
+// past each edge and the edges masked; a padded row's h is 0, not bn(0).
 //
-// What differs from the TPU design:
-// - The TPU grid walks its row tiles in order and carries s, ss, dW, db and
-//   the BN sums across them in VMEM. Blocks here run in no order, so every
-//   block writes its partial sums (a row tile's column sums; a row range's
-//   dW and db) and a launch adds the partials in a fixed order. No atomics:
-//   two runs give the same bits.
-// - The products run on the tensor cores: mma.sync m16n8k16, bf16 inputs
-//   and f32 accumulators, a 128 x 128 block tile (8 warps of 32 x 64) over
-//   32-deep k steps staged in shared memory. h and dz' are formed while a
-//   tile is staged (BN and ReLU on x; dz' from dz, z, ds and dss) and are
-//   never written to device memory: the backward recomputes h from x, as
-//   the TPU kernel does.
-// - The backward is two product launches over the same tiles: dh (rows x
-//   Din, over Dout) with the BN epilogue, and dW (Din x Dout, over a range
-//   of rows) with db, the rows split into ranges so the card has enough
-//   blocks. The TPU kernel does both in one pass.
-// - The TPU needs R divisible by its row tile; here any R >= 1, Din >= 1,
-//   Dout >= 1 run: tiles are zero-filled past each edge, the edges masked.
+// The TPU grid walks its row tiles in order and carries s, ss, dW, db and
+// the BN sums across them in VMEM. Blocks here run in no order, so every
+// block writes its partial sums (a row tile's column sums; a row range's dW
+// and db) and one launch adds the partials in a fixed order. No atomics:
+// two runs give the same bits.
 //
-// Bound at the main path (R = 16,384 paired rows; layer 0 160 -> 1024,
-// layer 1 1024 -> 128, bf16): the forward does 2.R.Din.Dout operations
-// (5.4 / 4.3 GFLOP, ~5 us at 989 TFLOP/s) and moves its inputs and z once
-// (39 / 38 MB, ~12 us at 3.35 TB/s); the backward does twice the operations
-// and moves x, z, dz, din and f32 dW (~79 / 76 MB, ~23 us). Every launch is
-// bound by bytes. This first design re-reads tiles from L2 (x once per 128
-// output columns) and writes dW partials per row range, so it moves more
-// than the bound counts; PERF.md has its times.
+// Forward: mma.sync m16n8k16 (bf16 in, f32 accumulators) over a 128 x 128
+// block tile and 32-deep k steps staged synchronously; h is formed while x
+// is staged and never stored.
+//
+// Backward. Bound at the main path (R = 16,384 paired rows; layer 0
+// 160 -> 1024, layer 1 1024 -> 128 with BN): 4.R.Din.Dout operations (10.7 /
+// 8.6 GFLOP, ~11 / 9 us at 989 TFLOP/s bf16) against x, z, dz, din and f32
+// dW moved once (79 / 76 MB, ~23.5 / 22.8 us at 3.35 TB/s): bound by bytes.
+// Two product launches and one sum launch:
+// - dh (din and the BN sums): a block tile of 128 rows x 128 input columns,
+//   k over Dout in 64-deep steps. dz, z, W and the step's (ds, dss) arrive
+//   by cp.async in a 2-stage ring (~100 KB: two blocks per SM, so one
+//   block's loads and BN epilogue overlap the other's products); dz' is
+//   formed in place, once per element, while the previous step's products
+//   run, and both operands are K-major as stored, so wgmma m64n128k16 reads
+//   them through 128-byte-swizzled descriptors. The block's x tile is
+//   staged by 16-byte copies under the last step's products, and the BN
+//   rows come from shared memory.
+// - dW and db: a block tile of 128 input x 128 output columns, k over a
+//   range of rows (8 / 16 ranges: about one wave of 132 SMs), in a 4-stage
+//   ring (loads three steps ahead) where the range is long. x, dz and z are
+//   staged row-major as stored; h (BN, ReLU) and dz' are formed in place
+//   with the thread's column scalars held in registers, and wgmma
+//   m64n64k16 reads both transposed (MN-major), so nothing is transposed by
+//   scalar stores.
+// - The wgmma accumulators stay in registers; each row range writes one f32
+//   dW slab (8 x 0.66 MB / 16 x 0.52 MB) that the sum launch adds in range
+//   order with db and the BN row-tile sums.
+// - Bytes: the products do not share their staging (fusing them would hold
+//   a 128-row tile of dz' for all of Dout = 1024, 256 KB, past one block's
+//   227 KB), so dz and z are read by both launches, and by each 128-column
+//   tile of the other side from L2: ~150 / ~135 MB from device memory at
+//   the main path, about twice the bound. Rows of other widths than a
+//   multiple of 8 (e.g. 26-byte rows) have no 16-byte copies; they are
+//   staged by plain loads into the same layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +82,6 @@ constexpr int kBN = 128;  // block tile columns (N)
 constexpr int kBK = 32;   // k step staged in shared memory
 constexpr int kLds = kBK + 8;  // shared row stride in bf16: 80 bytes, conflict-free fragments
 constexpr int kThreads = 256;  // 8 warps: 4 along M x 2 along N, 32 x 64 each
-constexpr int kTargetBlocks = 264;  // two waves of 132 SMs for the dW launch
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
@@ -197,34 +211,12 @@ __device__ __forceinline__ float col_sum(float v) {
 struct Args {
   const bf16* x;
   const bf16* w;
-  const bf16* b;   // forward
+  const bf16* b;
   const bf16* bn;
-  const bf16* z;   // backward
-  const bf16* dz;  // backward
-  const float* dstat;  // backward: ds (Dout,), then dss (Dout,)
   int R, Din, Dout, has_bn;
-  int rows_per_split;  // backward dW
-  bf16* out;      // z (forward) or din (backward)
-  float* part;    // forward (row tile, 2, Dout); backward BN (row tile, 4, Din)
-  float* part_dw;  // (split, Din, Dout)
-  float* part_db;  // (split, Dout)
+  bf16* out;    // z
+  float* part;  // (row tile, 2, Dout)
 };
-
-// dz' of eight columns of one row (0 outside the matrix).
-__device__ __forceinline__ void load_dzp8(const Args& a, int rows, int r, int c, float (&v)[8]) {
-  float dz[8], z[8];
-  load8(a.dz, rows, a.Dout, r, c, dz);
-  load8(a.z, rows, a.Dout, r, c, z);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = c + j;
-    v[j] = 0.0f;
-    if (r < rows && col < a.Dout) {
-      const float ds = a.dstat[col], dss = a.dstat[a.Dout + col];
-      v[j] = rbf(__fadd_rn(__fadd_rn(dz[j], ds), __fmul_rn(__fmul_rn(2.0f, z[j]), dss)));
-    }
-  }
-}
 
 // Forward: block (column tile, row tile) -> z of its tile and the tile's
 // partial column sums of z and bf16(z * z).
@@ -293,151 +285,533 @@ __global__ void __launch_bounds__(kThreads) fused_tower_fwd_kernel(const Args a)
   }
 }
 
-// Backward, dh and the BN epilogue: block (Din tile, row tile) -> din of its
-// tile and, with BN, the tile's partial column sums (dscale, dbias, dmean,
-// dinv).
-__global__ void __launch_bounds__(kThreads) fused_tower_dh_kernel(const Args a) {
-  __shared__ __align__(16) bf16 As[kBM][kLds];
-  __shared__ __align__(16) bf16 Bs[kBN][kLds];
-  __shared__ float red[4][4][kBN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
-  float acc[2][8][4];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < a.Dout; k0 += kBK) {
-    __syncthreads();
-    for (int c = tid; c < kBM * (kBK / 8); c += kThreads) {
-      const int i = c >> 2, kc = (c & 3) * 8;
-      float v[8];
-      load_dzp8(a, a.R, r0 + i, k0 + kc, v);  // A = dz', [row][k = Dout]
-      store8(&As[i][kc], v);
-      load8(a.w, a.Din, a.Dout, n0 + i, k0 + kc, v);  // B = W, [n = Din][k = Dout]
-      store8(&Bs[i][kc], v);
-    }
-    __syncthreads();
-    mma_tile(As, Bs, wm, wn, lane, acc);
+// ---------------------------------------------------------------------------
+// Backward: both products on wgmma, fed by a 4-stage cp.async ring.
+// ---------------------------------------------------------------------------
+
+constexpr int kWK = 64;          // k step: 64 bf16 = one 128-byte swizzle row
+constexpr int kWThreads = 256;   // two warpgroups, 64 rows of the block tile each
+constexpr int kTile = 128;       // block tile: 128 x 128 outputs
+constexpr int kWave = 132;       // one block per SM
+constexpr int kDhStage = 50176;  // dz/dz' 16 KB, z 16 KB, W 16 KB, (ds, dss) of 64 columns; 1024-aligned
+constexpr int kDwStage = 49152;  // x/h 16 KB, dz/dz' 16 KB, z 16 KB
+
+struct BwdArgs {
+  const bf16* x;
+  const bf16* z;
+  const bf16* dz;
+  const bf16* w;
+  const bf16* bn;
+  const float* dstat;  // ds (Dout,), then dss (Dout,)
+  int R, Din, Dout, has_bn;
+  int vec;             // rows 16-byte aligned: cp.async; else plain loads
+  int rows_per_split;  // dW: a multiple of kWK
+  bf16* din;
+  float* part_bn;  // (row tiles, 4, Din)
+  float* part_dw;  // (splits, Din, Dout)
+  float* part_db;  // (splits, Dout)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c8 (0..7) of 128-byte row ``row`` in the
+// 128-byte swizzle that wgmma's SWIZZLE_128B descriptors read: chunk index
+// XOR (row mod 8), in 1024-byte atoms of 8 rows.
+__device__ __forceinline__ int sw128(int row, int c8) { return row * 128 + ((c8 ^ (row & 7)) << 4); }
+
+// A shared-memory matrix descriptor, 128-byte swizzle. lbo: bytes between
+// 64-element blocks along MN (MN-major; unused for K-major); sbo: bytes
+// between 8-row groups.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A . B on one warpgroup: m64n128k16, both operands K-major.
+__device__ __forceinline__ void wgmma_128_kk(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A . B on one warpgroup: m64n64k16, both operands MN-major
+// (the transposed form 16-bit types allow).
+__device__ __forceinline__ void wgmma_64_mn(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Row r, columns c..c+7 of a row-major (rows x cols) bf16 matrix into the 16
+// shared bytes at dst, zero outside: one 16-byte cp.async where rows are
+// 16-byte aligned (then cols % 8 == 0 and a chunk is all in or all out),
+// else eight plain loads (any shape, e.g. 26-byte rows).
+__device__ __forceinline__ void load_chunk(uint8_t* dst, const bf16* __restrict__ m, int rows, int cols, int r,
+                                           int c, bool vec) {
+  if (vec) {
+    const bool in = r < rows && c < cols;
+    cp16(dst, in ? m + (size_t)r * cols + c : m, in);
+    return;
   }
-  const int g = lane >> 2, t = lane & 3;
+  float v[8];
 #pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
+  for (int j = 0; j < 8; ++j)
+    v[j] = (r < rows && c + j < cols) ? __bfloat162float(m[(size_t)r * cols + c + j]) : 0.0f;
+  store8(reinterpret_cast<bf16*>(dst), v);
+}
+
+// Four floats f[c..c+3] (n of them) into dst, zero past n.
+__device__ __forceinline__ void load_f4(float* dst, const float* __restrict__ f, int n, int c, bool vec) {
+  if (vec) {
+    cp16(dst, c < n ? f + c : f, c < n);
+    return;
+  }
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int cl = wn * 64 + ni * 8 + 2 * t + q, col = n0 + cl;
-      const bool col_in = col < a.Din;
-      BnCol p{0.0f, 0.0f, 0.0f, 0.0f};
-      if (a.has_bn && col_in) p = bn_col(a.bn, a.Din, col);
-      float sums[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < 4; ++j) dst[j] = c + j < n ? f[c + j] : 0.0f;
+}
+
+__device__ __forceinline__ void read8(const uint8_t* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  unpack2(u.x, v[0], v[1]);
+  unpack2(u.y, v[2], v[3]);
+  unpack2(u.z, v[4], v[5]);
+  unpack2(u.w, v[6], v[7]);
+}
+
+// Eight floats from 32-byte-aligned shared memory: two 16-byte loads.
+__device__ __forceinline__ void load8f(const float* p, float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p), hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
+// dz' = bf16(dz + ds + 2 z dss) of one chunk in place (f32 arithmetic,
+// no FMA contraction, one rounding); 0 outside the matrix. ds, dss: the
+// chunk's eight columns, in registers.
+__device__ __forceinline__ void dzp_chunk(uint8_t* pdz, const uint8_t* pz, const float (&ds)[8],
+                                          const float (&dss)[8], bool row_in, int col, int cols, float (&v)[8]) {
+  float dz[8], z[8];
+  read8(pdz, dz);
+  read8(pz, z);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
+  for (int j = 0; j < 8; ++j)
+    v[j] = (row_in && col + j < cols)
+               ? rbf(__fadd_rn(__fadd_rn(dz[j], ds[j]), __fmul_rn(__fmul_rn(2.0f, z[j]), dss[j])))
+               : 0.0f;
+  store8(reinterpret_cast<bf16*>(pdz), v);
+}
+
+// The layer's BN rows (mean, inv, scale, bias) of columns c0..c0+127 as
+// floats, zero past Din.
+__device__ __forceinline__ void load_bn(float* bnp, const BwdArgs& a, int c0) {
+  for (int e = threadIdx.x; e < 4 * kTile; e += kWThreads) {
+    const int k = e / kTile, c = c0 + e % kTile;
+    bnp[e] = c < a.Din ? __bfloat162float(a.bn[(size_t)k * a.Din + c]) : 0.0f;
+  }
+}
+
+// Product 1: din over a block tile of 128 rows x 128 input columns, K =
+// Dout. A = dz' (rows x Dout, K-major) formed in place in the ring from
+// dz, z and the step's (ds, dss); B = W's rows (Din x Dout: K-major as
+// stored). Epilogue: bf16(dh), the BN backward against the x tile staged
+// in shared memory, and the tile's four column sums.
+template <int S>
+__global__ void __launch_bounds__(kWThreads, 2) fused_tower_bwd_dh_kernel(const BwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* bnp = reinterpret_cast<float*>(ring + S * kDhStage);  // 4 x 128
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
+  const int ksteps = (a.Dout + kWK - 1) / kWK;
+  const bool vec = a.vec;
+
+  auto load_step = [&](int ks) {
+    uint8_t* st = ring + (ks % S) * kDhStage;
+    const int k0 = ks * kWK;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = r0 + wm * 32 + mi * 16 + g + 8 * half;
-          if (!col_in || r >= a.R) continue;
-          const float dh = rbf(acc[mi][ni][2 * half + q]);
-          float d = dh;
-          if (a.has_bn) {
-            const float x = bfv(a.x + (size_t)r * a.Din + col);
-            float xhat;
-            const float y = bn_y(x, p, xhat);
-            const float dy = y > 0.0f ? dh : 0.0f;
-            const float dys = __fmul_rn(dy, p.scale);
-            d = __fmul_rn(dys, p.inv);
-            sums[0] += __fmul_rn(dy, xhat);
-            sums[1] += dy;
-            sums[2] += __fmul_rn(__fmul_rn(-dy, p.scale), p.inv);
-            sums[3] += __fmul_rn(dys, __fsub_rn(x, p.mean));
-          }
-          a.out[(size_t)r * a.Din + col] = __float2bfloat16_rn(d);
+    for (int j = 0; j < 4; ++j) {
+      const int e = tid + j * kWThreads, row = e >> 3, c8 = e & 7, off = sw128(row, c8);
+      load_chunk(st + off, a.dz, a.R, a.Dout, r0 + row, k0 + 8 * c8, vec);
+      load_chunk(st + 16384 + off, a.z, a.R, a.Dout, r0 + row, k0 + 8 * c8, vec);
+      load_chunk(st + 32768 + off, a.w, a.Din, a.Dout, n0 + row, k0 + 8 * c8, vec);
+    }
+    if (tid < 32) {
+      float* f = reinterpret_cast<float*>(st + 49152);
+      const int half = tid >> 4, c = 4 * (tid & 15);
+      load_f4(f + 64 * half + c, a.dstat + (size_t)half * a.Dout, a.Dout, k0 + c, vec);
+    }
+  };
+
+  // the block's x tile (128 rows x 128 columns, 256-byte rows, chunks XOR
+  // row mod 8) into stage ``s`` of the ring, for the BN epilogue
+  auto load_x = [&](int s) {
+    uint8_t* xs = ring + s * kDhStage;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = tid + j * kWThreads, row = e >> 4, c16 = e & 15;
+      load_chunk(xs + row * 256 + ((c16 ^ (row & 7)) << 4), a.x, a.R, a.Din, r0 + row, n0 + 8 * c16, vec);
+    }
+  };
+  auto transform = [&](int ks) {  // dz' in place, once per element
+    uint8_t* st = ring + (ks % S) * kDhStage;
+    const float* dsf = reinterpret_cast<const float*>(st + 49152);
+    const int c8 = tid & 7;  // the same 8 columns in each of this thread's chunks
+    float ds[8], dss[8];
+    load8f(dsf + 8 * c8, ds);
+    load8f(dsf + 64 + 8 * c8, dss);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = (tid + j * kWThreads) >> 3, off = sw128(row, c8);
+      float v[8];
+      dzp_chunk(st + off, st + 16384 + off, ds, dss, r0 + row < a.R, ks * kWK + 8 * c8, a.Dout, v);
+    }
+  };
+
+  if (a.has_bn) load_bn(bnp, a, n0);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ksteps) load_step(s);
+    cp_commit();
+  }
+  cp_wait<S - 2>();
+  __syncthreads();
+  transform(0);
+  fence_async();
+  __syncthreads();
+  fence_acc(acc);
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint8_t* st = ring + (ks % S) * kDhStage;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWK / 16; ++kk)
+      wgmma_128_kk(acc, make_desc(st + wg * 8192 + kk * 32, 16, 1024), make_desc(st + 32768 + kk * 32, 16, 1024), 1);
+    wg_commit();
+    wg_wait<1>();  // this warpgroup's products of step ks - 1 are done
+    if (ks + 1 == ksteps && a.has_bn) {
+      // the last step multiplies: stage the epilogue's x tile into the
+      // stage after it (free once every product of step ks - 1 is done)
+      __syncthreads();
+      load_x((ks + 1) % S);
+      cp_commit();
+    }
+    if (ks + 1 < ksteps) {
+      // while step ks multiplies: refill the stage of step ks - 1, then
+      // form dz' of step ks + 1
+      __syncthreads();
+      if (ks + S - 1 < ksteps) load_step(ks + S - 1);
+      cp_commit();
+      cp_wait<S - 2>();
+      __syncthreads();
+      transform(ks + 1);
+      fence_async();
+      __syncthreads();
+    }
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  cp_wait<0>();
+  __syncthreads();  // the x tile is in; the rest of the ring is free
+
+  const uint8_t* xs = ring + (ksteps % S) * kDhStage;
+  float* red = reinterpret_cast<float*>(ring + ((ksteps + 1) % S) * kDhStage);  // 4 sums x 8 warps x 128
+  const bool pair_store = vec;  // Din even and rows 4-byte aligned
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float sums[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sums[q][e] = 0.0f;
+    const int cl = 8 * j + 2 * tq, col = n0 + cl;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rl = 64 * wg + 16 * (warp & 3) + g + 8 * hh, r = r0 + rl;
+      float d[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float dh = rbf(acc[4 * j + 2 * hh + q]);
+        d[q] = dh;
+        if (a.has_bn && r < a.R && col + q < a.Din) {
+          const BnCol p{bnp[cl + q], bnp[kTile + cl + q], bnp[2 * kTile + cl + q], bnp[3 * kTile + cl + q]};
+          const bf16* xp = reinterpret_cast<const bf16*>(xs + rl * 256 + (((cl >> 3) ^ (rl & 7)) << 4)) + (cl & 7);
+          const float x = __bfloat162float(xp[q]);
+          float xhat;
+          const float y = bn_y(x, p, xhat);
+          const float dy = y > 0.0f ? dh : 0.0f;
+          const float dys = __fmul_rn(dy, p.scale);
+          d[q] = __fmul_rn(dys, p.inv);
+          sums[q][0] += __fmul_rn(dy, xhat);
+          sums[q][1] += dy;
+          sums[q][2] += __fmul_rn(__fmul_rn(-dy, p.scale), p.inv);
+          sums[q][3] += __fmul_rn(dys, __fsub_rn(x, p.mean));
         }
       }
-      if (a.has_bn) {
+      if (r < a.R) {
+        bf16* out = a.din + (size_t)r * a.Din + col;
+        if (pair_store && col + 1 < a.Din) {
+          *reinterpret_cast<uint32_t*>(out) = pack2(d[0], d[1]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (col + q < a.Din) out[q] = __float2bfloat16_rn(d[q]);
+        }
+      }
+    }
+    if (a.has_bn) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float v = col_sum(sums[e]);
-          if (g == 0) red[e][wm][cl] = v;
+          const float v = col_sum(sums[q][e]);
+          if (g == 0) red[(e * 8 + warp) * kTile + cl + q] = v;
         }
-      }
     }
   }
   if (!a.has_bn) return;
   __syncthreads();
-  if (tid < kBN && n0 + tid < a.Din) {
-    float* out = a.part + (size_t)blockIdx.y * 4 * a.Din + n0 + tid;
+  if (tid < kTile && n0 + tid < a.Din) {
+    float* out = a.part_bn + (size_t)blockIdx.y * 4 * a.Din + n0 + tid;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[(size_t)e * a.Din] = ((red[e][0][tid] + red[e][1][tid]) + red[e][2][tid]) + red[e][3][tid];
+    for (int e = 0; e < 4; ++e) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[(e * 8 + w) * kTile + tid];
+      out[(size_t)e * a.Din] = s;
+    }
   }
 }
 
-// Backward, dW and db: block (Dout tile, Din tile, row range) -> the range's
-// partial dW of its tile and, for the first Din tile, partial db.
-__global__ void __launch_bounds__(kThreads) fused_tower_dw_kernel(const Args a) {
-  __shared__ __align__(16) bf16 As[kBM][kLds];
-  __shared__ __align__(16) bf16 Bs[kBN][kLds];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int kb = blockIdx.z * a.rows_per_split;
-  const int ke = min(kb + a.rows_per_split, a.R);
-  float acc[2][8][4];
-  zero_acc(acc);
-  float dbacc[2][8];
+// Product 2: dW over a block tile of 128 input x 128 output columns, K = a
+// range of rows, and db. A = h^T, B = dz', both MN-major: the x, dz and z
+// row tiles are staged as stored (64 rows of 2 x 64 columns) and wgmma
+// reads them transposed. h (BN and ReLU; 0 on rows outside the range) and
+// dz' are formed in place, once per element.
+template <int S>
+__global__ void __launch_bounds__(kWThreads, S == 2 ? 2 : 1) fused_tower_bwd_dw_kernel(const BwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* bnp = reinterpret_cast<float*>(ring + S * kDwStage);  // 4 x 128 (input columns)
+  float* dsp = bnp + 4 * kTile;                                       // 2 x 128 (output columns)
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int o0 = blockIdx.x * kTile, i0 = blockIdx.y * kTile;
+  const int kb = blockIdx.z * a.rows_per_split, ke = min(kb + a.rows_per_split, a.R);
+  const int ksteps = (ke - kb + kWK - 1) / kWK;
+  const bool vec = a.vec;
+  const int c16 = tid & 15;  // this thread's 8-column chunk in every step
+  // this chunk's (ds, dss) and BN rows, in registers for the whole k loop
+  float db[8], ds[8], dss[8], bnr[4][8];
+
+  auto load_step = [&](int ks) {
+    uint8_t* st = ring + (ks % S) * kDwStage;
 #pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
+    for (int j = 0; j < 4; ++j) {
+      const int e = tid + j * kWThreads, row = e >> 4, r = kb + ks * kWK + row;
+      const int off = (c16 >> 3) * 8192 + sw128(row, c16 & 7);
+      load_chunk(st + off, a.x, ke, a.Din, r, i0 + 8 * c16, vec);
+      load_chunk(st + 16384 + off, a.dz, ke, a.Dout, r, o0 + 8 * c16, vec);
+      load_chunk(st + 32768 + off, a.z, ke, a.Dout, r, o0 + 8 * c16, vec);
+    }
+  };
+
+  if (a.has_bn) load_bn(bnp, a, i0);
+  for (int e = tid; e < 2 * kTile; e += kWThreads) {
+    const int k = e / kTile, c = o0 + e % kTile;
+    dsp[e] = c < a.Dout ? a.dstat[(size_t)k * a.Dout + c] : 0.0f;
+  }
+  auto transform = [&](int ks) {  // h and dz' in place, once per element; db
+    uint8_t* st = ring + (ks % S) * kDwStage;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dbacc[jj][j] = 0.0f;
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int c = tid + jj * kThreads;
-      const int kk = c & 31, oc = (c >> 5) * 8;
+    for (int j = 0; j < 4; ++j) {
+      const int e = tid + j * kWThreads, row = e >> 4, r = kb + ks * kWK + row;
+      const int off = (c16 >> 3) * 8192 + sw128(row, c16 & 7);
       float v[8];
-      load8(a.x, ke, a.Din, k0 + kk, m0 + oc, v);  // A = h^T, [m = Din][k = row]
-      if (a.has_bn) bn_relu8(a.bn, a.Din, m0 + oc, k0 + kk < ke, v);
+      dzp_chunk(st + 16384 + off, st + 32768 + off, ds, dss, r < ke, o0 + 8 * c16, a.Dout, v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) As[oc + j][kk] = __float2bfloat16_rn(v[j]);
-      load_dzp8(a, ke, k0 + kk, n0 + oc, v);  // B = dz'^T, [n = Dout][k = row]
+      for (int q = 0; q < 8; ++q) db[q] += v[q];
+      if (a.has_bn && r < ke) {
+        read8(st + off, v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        Bs[oc + j][kk] = __float2bfloat16_rn(v[j]);
-        dbacc[jj][j] += v[j];
+        for (int q = 0; q < 8; ++q) {
+          const int cl = 8 * c16 + q;
+          if (i0 + cl >= a.Din) break;
+          const BnCol p{bnr[0][q], bnr[1][q], bnr[2][q], bnr[3][q]};
+          float xhat;
+          const float y = bn_y(v[q], p, xhat);
+          v[q] = y > 0.0f ? y : 0.0f;
+        }
+        store8(reinterpret_cast<bf16*>(st + off), v);
       }
     }
-    __syncthreads();
-    mma_tile(As, Bs, wm, wn, lane, acc);
+  };
+  float acc[2][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) db[i] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ksteps) load_step(s);
+    cp_commit();
   }
+  cp_wait<S - 2>();
+  __syncthreads();  // bnp, dsp and step 0
+  load8f(dsp + 8 * c16, ds);
+  load8f(dsp + kTile + 8 * c16, dss);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) load8f(bnp + k * kTile + 8 * c16, bnr[k]);
+  transform(0);
+  fence_async();
+  __syncthreads();
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint8_t* st = ring + (ks % S) * kDwStage;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWK / 16; ++kk) {
+      const uint64_t da = make_desc(st + wg * 8192 + kk * 2048, 8192, 1024);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+        wgmma_64_mn(acc[nb], da, make_desc(st + 16384 + nb * 8192 + kk * 2048, 8192, 1024), 1);
+    }
+    wg_commit();
+    wg_wait<1>();
+    if (ks + 1 < ksteps) {
+      __syncthreads();
+      if (ks + S - 1 < ksteps) load_step(ks + S - 1);
+      cp_commit();
+      cp_wait<S - 2>();
+      __syncthreads();
+      transform(ks + 1);
+      fence_async();
+      __syncthreads();
+    }
+  }
+  wg_wait<0>();
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+  __syncthreads();  // the ring is free for the db reduction
+
   const size_t split = blockIdx.z;
-  if (blockIdx.y == 0) {
-    // the 32 lanes of a warp hold the 32 rows of one 8-column chunk
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int oc = ((tid + jj * kThreads) >> 5) * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v = dbacc[jj][j];
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(kFull, v, off);
-        const int col = n0 + oc + j;
-        if (lane == 0 && col < a.Dout) a.part_db[split * a.Dout + col] = v;
-      }
-    }
-  }
-  const int g = lane >> 2, t = lane & 3;
   float* out = a.part_dw + split * a.Din * a.Dout;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 32 + mi * 16 + g + 8 * half;
-      if (m >= a.Din) continue;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int n = n0 + wn * 64 + ni * 8 + 2 * t + q;
-          if (n < a.Dout) out[(size_t)m * a.Dout + n] = acc[mi][ni][2 * half + q];
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = i0 + 64 * wg + 16 * (warp & 3) + g + 8 * hh;
+        const int n = o0 + 64 * nb + 8 * j + 2 * tq;
+        if (m >= a.Din) continue;
+        const float v0 = acc[nb][4 * j + 2 * hh], v1 = acc[nb][4 * j + 2 * hh + 1];
+        float* p = out + (size_t)m * a.Dout + n;
+        if (vec && n + 1 < a.Dout) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          if (n < a.Dout) p[0] = v0;
+          if (n + 1 < a.Dout) p[1] = v1;
         }
+      }
+  if (blockIdx.y != 0) return;
+  float* red = reinterpret_cast<float*>(ring);  // 16 row groups x 128 columns
+#pragma unroll
+  for (int q = 0; q < 8; ++q) red[(tid >> 4) * kTile + 8 * c16 + q] = db[q];
+  __syncthreads();
+  if (tid < kTile && o0 + tid < a.Dout) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) s += red[k * kTile + tid];
+    a.part_db[split * a.Dout + o0 + tid] = s;
+  }
+}
+
+// The backward's partials, each summed in slab order: the BN sums over row
+// tiles (zeros without BN), dW and db over row ranges.
+__global__ void fused_tower_bwd_sum_kernel(const BwdArgs a, int tiles, int splits, float* __restrict__ dbn,
+                                           float* __restrict__ dw, float* __restrict__ db) {
+  const size_t nbn = (size_t)4 * a.Din, nw = (size_t)a.Din * a.Dout;
+  const size_t total = nbn + nw + a.Dout;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    if (e < nbn) {
+      if (a.has_bn) {
+#pragma unroll 8
+        for (int k = 0; k < tiles; ++k) s += a.part_bn[(size_t)k * nbn + e];
+      }
+      dbn[e] = s;
+    } else if (e < nbn + nw) {
+#pragma unroll 8
+      for (int k = 0; k < splits; ++k) s += a.part_dw[(size_t)k * nw + e - nbn];
+      dw[e - nbn] = s;
+    } else {
+#pragma unroll 8
+      for (int k = 0; k < splits; ++k) s += a.part_db[(size_t)k * a.Dout + e - nbn - nw];
+      db[e - nbn - nw] = s;
     }
+  }
 }
 
 // out[e] = sum over splits of part[split][e], in split order.
@@ -461,15 +835,49 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 int row_tiles(int R) { return cdiv(R, kBM); }
 
-// Rows per dW range: a multiple of the k step, about kTargetBlocks blocks.
+// Rows per dW range: a multiple of the k step, about one wave of blocks.
 int rows_per_split(int R, int Din, int Dout) {
-  const int tiles = cdiv(Din, kBM) * cdiv(Dout, kBN);
-  const int ksteps = cdiv(R, kBK);
-  int splits = cdiv(kTargetBlocks, tiles);
+  const int tiles = cdiv(Din, kTile) * cdiv(Dout, kTile);
+  const int ksteps = cdiv(R, kWK);
+  int splits = kWave / tiles;
   if (splits > ksteps) splits = ksteps;
   if (splits < 1) splits = 1;
-  return cdiv(ksteps, splits) * kBK;
+  return cdiv(ksteps, splits) * kWK;
 }
+
+// Above 48 KB a kernel's dynamic shared memory must be opted into.
+cudaError_t allow_smem(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Ring depth: two stages (~100 KB: two blocks per SM, each block's loads
+// and epilogue overlapping the other's products) for dh; for dW, whose
+// blocks walk long k loops with little epilogue, four (one block per SM,
+// loads three steps ahead) where its k loop is long.
+int dw_stages(int ksteps) { return ksteps <= 4 ? 2 : 4; }
+
+size_t dh_smem(int S) { return 1024 + (size_t)S * kDhStage + 4 * kTile * sizeof(float); }
+
+size_t dw_smem(int S) { return 1024 + (size_t)S * kDwStage + 6 * kTile * sizeof(float); }
+
+template <int S>
+cudaError_t launch_dh(const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t e = allow_smem((const void*)fused_tower_bwd_dh_kernel<S>, dh_smem(S));
+  if (e != cudaSuccess) return e;
+  fused_tower_bwd_dh_kernel<S><<<dim3(cdiv(a.Din, kTile), row_tiles(a.R)), kWThreads, dh_smem(S), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch_dw(const BwdArgs& a, int splits, cudaStream_t stream) {
+  cudaError_t e = allow_smem((const void*)fused_tower_bwd_dw_kernel<S>, dw_smem(S));
+  if (e != cudaSuccess) return e;
+  fused_tower_bwd_dw_kernel<S>
+      <<<dim3(cdiv(a.Dout, kTile), cdiv(a.Din, kTile), splits), kWThreads, dw_smem(S), stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 bool bad_shape(int R, int Din, int Dout) {
   return R < 1 || Din < 1 || Dout < 1 || row_tiles(R) > 65535;
@@ -521,13 +929,13 @@ int trs_fused_tower_fwd(const void* x, const void* w, const void* b, const void*
 // Backward on ``stream``. x, z, dz, w, bn as the forward's (z its output,
 // dz (R, Dout) bf16 its cotangent), dstat (2, Dout) f32 = (ds, dss); part:
 // the backward's scratch; din (R, Din) bf16; dw (Din, Dout), db (Dout,) and,
-// when has_bn, dbn (4, Din) = (dscale, dbias, dmean, dinv) f32. Returns a
-// cudaError_t.
+// when has_bn, dbn (4, Din) = (dscale, dbias, dmean, dinv) f32. Three
+// launches: dh, dW, the sums. Returns a cudaError_t.
 int trs_fused_tower_bwd(const void* x, const void* z, const void* dz, const void* w, const void* bn,
                         const float* dstat, int R, int Din, int Dout, int has_bn, float* part, void* din,
                         float* dw, float* db, float* dbn, cudaStream_t stream) {
   if (bad_shape(R, Din, Dout)) return cudaErrorInvalidValue;
-  Args a{};
+  BwdArgs a{};
   a.x = static_cast<const bf16*>(x);
   a.z = static_cast<const bf16*>(z);
   a.dz = static_cast<const bf16*>(dz);
@@ -538,25 +946,26 @@ int trs_fused_tower_bwd(const void* x, const void* z, const void* dz, const void
   a.Din = Din;
   a.Dout = Dout;
   a.has_bn = has_bn;
+  a.vec = Din % 8 == 0 && Dout % 8 == 0 && aligned16(x) && aligned16(z) && aligned16(dz) && aligned16(w) &&
+          aligned16(dstat) && aligned16(din);
   a.rows_per_split = rows_per_split(R, Din, Dout);
   const int splits = cdiv(R, a.rows_per_split);
-  a.out = static_cast<bf16*>(din);
+  a.din = static_cast<bf16*>(din);
   float* p = part;
   if (has_bn) {
-    a.part = p;
+    a.part_bn = p;
     p += (size_t)row_tiles(R) * 4 * Din;
   }
   a.part_dw = p;
   a.part_db = p + (size_t)splits * Din * Dout;
-  fused_tower_dh_kernel<<<dim3(cdiv(Din, kBN), row_tiles(R)), kThreads, 0, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_dh<2>(a, stream);
   if (e != cudaSuccess) return e;
-  fused_tower_dw_kernel<<<dim3(cdiv(Dout, kBN), cdiv(Din, kBM), splits), kThreads, 0, stream>>>(a);
-  e = cudaGetLastError();
+  e = dw_stages(a.rows_per_split / kWK) == 2 ? launch_dw<2>(a, splits, stream) : launch_dw<4>(a, splits, stream);
   if (e != cudaSuccess) return e;
-  if (has_bn) launch_sum(a.part, row_tiles(R), (size_t)4 * Din, dbn, stream);
-  launch_sum(a.part_dw, splits, (size_t)Din * Dout, dw, stream);
-  launch_sum(a.part_db, splits, (size_t)Dout, db, stream);
+  const size_t total = (size_t)4 * Din + (size_t)Din * Dout + Dout;
+  size_t blocks = (total + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  fused_tower_bwd_sum_kernel<<<(unsigned)blocks, 256, 0, stream>>>(a, row_tiles(R), splits, dbn, dw, db);
   return cudaGetLastError();
 }
 

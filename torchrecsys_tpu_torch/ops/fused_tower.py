@@ -194,9 +194,9 @@ def fused_tower_bwd(
     has_bn: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(din, dw, db, dbn)``; the contract of :func:`fused_tower_bwd_plain`.
-    CUDA tensors launch the dh pass (with the BN epilogue), the dW/db pass
-    over row ranges and the fixed-order sums of their partials; CPU tensors
-    take the plain version."""
+    CUDA tensors launch the dh product (wgmma, with the BN epilogue), the
+    dW/db product over row ranges (wgmma) and the fixed-order sums of
+    their partials; CPU tensors take the plain version."""
     r, din, dout = _check("fused_tower_bwd", x, w, bn, z, dz)
     if tuple(dstat.shape) != (2, dout) or dstat.device != x.device:
         raise ValueError(f"fused_tower_bwd: dstat must be (2, {dout}) on {x.device}")
@@ -209,7 +209,7 @@ def fused_tower_bwd(
     part = torch.empty((lib.trs_fused_tower_bwd_scratch(r, din, dout, int(has_bn)),),
                        dtype=torch.float32, device=dev)
     din_g = torch.empty((r, din), dtype=BF16, device=dev)
-    out = torch.zeros((din * dout + dout + 4 * din,), dtype=torch.float32, device=dev)
+    out = torch.empty((din * dout + dout + 4 * din,), dtype=torch.float32, device=dev)
     dw = out[: din * dout].view(din, dout)
     db = out[din * dout : din * dout + dout]
     dbn = out[din * dout + dout :].view(4, din)

@@ -28,7 +28,8 @@ every row's positive:
   ``d > 128`` (:func:`softmax_kernel_applicable`), as the JAX package does.
 
 The matmuls are f32 (IEEE on the card: the plain versions switch TF32 off
-around their products). The data-parallel wrapper ``inbatch_softmax_ce_dp``
+around their products; the backward kernel's products are 3xTF32 on the
+tensor cores, f32-accurate to ~2^-21). The data-parallel wrapper ``inbatch_softmax_ce_dp``
 (:240-264) waits for ROADMAP.md §A item 14.
 """
 
@@ -131,6 +132,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_trs_bound", False):
         lib.trs_softmax_ce_splits.argtypes = [_CI]
         lib.trs_softmax_ce_splits.restype = _CI
+        lib.trs_softmax_ce_bwd_scratch.argtypes = [_CI] * 2
+        lib.trs_softmax_ce_bwd_scratch.restype = ctypes.c_longlong
         lib.trs_softmax_ce_fwd.argtypes = [_VP] * 4 + [_CI] * 2 + [_VP] * 4
         lib.trs_softmax_ce_fwd.restype = _CI
         lib.trs_softmax_ce_bwd.argtypes = [_VP] * 6 + [_CI] * 2 + [_VP] * 5
@@ -206,9 +209,9 @@ def softmax_ce_bwd(
     g: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dh, dv, dvb)``; the contract of :func:`softmax_ce_bwd_plain`.
-    CUDA tensors launch the two backward passes (dh over row tiles; dv and
-    dvb over column tiles) and the fixed-order sums of their partials;
-    CPU tensors take the plain version."""
+    CUDA tensors launch the one-pass backward (every logit computed once,
+    its three products on the tensor cores in 3xTF32) and the fixed-order
+    sum of its partials; CPU tensors take the plain version."""
     b, d = _check("softmax_ce_bwd", h, v, vbq, pos, lse, g)
     if h.device.type == "cpu":
         return softmax_ce_bwd_plain(h, v, vbq, pos, lse, g)
@@ -217,8 +220,7 @@ def softmax_ce_bwd(
     h, v, vbq, lse, g = _f32(h, v, vbq, lse, g)
     pos = pos.to(torch.int64).contiguous()
     lib = _lib()
-    splits = lib.trs_softmax_ce_splits(b)
-    part = torch.empty((splits * b * (2 * d + 1),), dtype=torch.float32, device=dev)
+    part = torch.empty((lib.trs_softmax_ce_bwd_scratch(b, d),), dtype=torch.float32, device=dev)
     out = torch.empty((b * (2 * d + 1),), dtype=torch.float32, device=dev)
     dh, dv = out[: b * d].view(b, d), out[b * d : 2 * b * d].view(b, d)
     dvb = out[2 * b * d :]
