@@ -27,7 +27,10 @@ result line:
    dv and dvb) against their plain versions: B=4096 x D=80 with a
    logQ-shifted bias, duplicate-heavy positives (10 ids), a ragged B=1000,
    D in {16, 128}, a cotangent with zero rows, D=13 (rows with no 16-byte
-   copies) and B=7 (below one tile). loss and lse within rtol=atol=1e-5 (f32 sums
+   copies), B=7 (below one tile), D=84 (16-byte rows, not a multiple of 8),
+   B=4097 (one row past a tile) and, for the forward, spread logits (h
+   and v x 8: most exponentials underflow, the running max moves often). loss and lse
+   within rtol=atol=1e-5 (f32 sums
    in another order, a one-pass LSE); dh, dv, dvb within rtol=1e-4 plus
    1e-5 of the largest |reference| entry (sums of B terms of both signs).
    A second run of each kernel gives the same bits.
@@ -35,7 +38,8 @@ result line:
    wgmma) against their plain versions in bf16: both main-path layers
    (16,384 rows, 160 -> 1024 and 1024 -> 128 with batch norm), Din=240, a
    ragged R=1000, a tiny odd shape, widths that are not multiples of 8
-   (100 -> 60) and R=40 (below one wgmma tile). z and din within one bf16 ulp of their
+   (100 -> 60), R=40 (below one wgmma tile), Dout=1000 (not a multiple of
+   the column tile) and R=16383. z and din within one bf16 ulp of their
    product; every f32 sum (s, ss against an f64 sum of the kernel's own z;
    dW, db and the BN sums against the plain version) within 1e-5 of the
    sum of its absolute terms (f32 order); repeated runs bit-identical.
@@ -366,13 +370,15 @@ def train_kernel_phase(torch):
 # ---------------------------------------------------------------------------
 
 
-def ce_inputs(torch, gen, b: int, d: int, n_ids: int, zero_from=None):
-    """h, v ~ N(0, 0.5^2) (logits spread over a few units), vbq = item
-    bias - logq[pos] with logq ~ log(1/1M) + N(0, 0.5^2) (the main path's
-    column shift), pos from ``n_ids`` ids, and the cotangent of a weighted
-    mean: g = w / sum(w), w = 1 before row ``zero_from`` and 0 after."""
-    h = torch.randn(b, d, generator=gen, device=DEVICE) * 0.5
-    v = torch.randn(b, d, generator=gen, device=DEVICE) * 0.5
+def ce_inputs(torch, gen, b: int, d: int, n_ids: int, zero_from=None, spread: float = 1.0):
+    """h, v ~ N(0, (0.5 spread)^2) (at spread 1 the logits spread over a few
+    units; at 8 over hundreds, so most exponentials underflow and a row's
+    running max moves often), vbq = item bias - logq[pos] with logq ~
+    log(1/1M) + N(0, 0.5^2) (the main path's column shift), pos from
+    ``n_ids`` ids, and the cotangent of a weighted mean: g = w / sum(w),
+    w = 1 before row ``zero_from`` and 0 after."""
+    h = torch.randn(b, d, generator=gen, device=DEVICE) * (0.5 * spread)
+    v = torch.randn(b, d, generator=gen, device=DEVICE) * (0.5 * spread)
     pos = torch.randint(0, n_ids, (b,), generator=gen, device=DEVICE)
     logq = torch.randn(N, generator=gen, device=DEVICE) * 0.5 - float(np.log(N))
     vbq = torch.randn(b, generator=gen, device=DEVICE) * 0.1 - logq[pos % N]
@@ -389,13 +395,17 @@ def ce_kernel_phase(torch):
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     saved = (sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
     errs = {"softmax_ce_fwd": 0.0, "softmax_ce_bwd": 0.0}
-    cases = (("B=4096 D=80 logq", SOFTMAX_B, D, N, None), ("duplicate-heavy (10 ids)", SOFTMAX_B, D, 10, None),
-             ("ragged B=1000", 1000, D, N, None), ("D=16", SOFTMAX_B, 16, N, None),
-             ("D=128", SOFTMAX_B, 128, N, None), ("weights with zeros", SOFTMAX_B, D, N, 2900),
-             ("D=13 (no 16-byte rows)", 1000, 13, N, None), ("B=7 (below one tile)", 7, D, 5, None))
+    cases = (("B=4096 D=80 logq", SOFTMAX_B, D, N, None, 1.0),
+             ("duplicate-heavy (10 ids)", SOFTMAX_B, D, 10, None, 1.0),
+             ("ragged B=1000", 1000, D, N, None, 1.0), ("D=16", SOFTMAX_B, 16, N, None, 1.0),
+             ("D=128", SOFTMAX_B, 128, N, None, 1.0), ("weights with zeros", SOFTMAX_B, D, N, 2900, 1.0),
+             ("D=13 (no 16-byte rows)", 1000, 13, N, None, 1.0), ("B=7 (below one tile)", 7, D, 5, None, 1.0),
+             ("D=84 (16-byte rows, not a multiple of 8)", SOFTMAX_B, 84, N, None, 1.0),
+             ("B=4097 (one row past a tile)", SOFTMAX_B + 1, D, N, None, 1.0),
+             ("spread logits (h, v x 8)", SOFTMAX_B, D, N, None, 8.0))
     main = None
-    for label, b, d, n_ids, zero_from in cases:
-        h, v, vbq, pos, g = ce_inputs(torch, gen, b, d, n_ids, zero_from)
+    for label, b, d, n_ids, zero_from, spread in cases:
+        h, v, vbq, pos, g = ce_inputs(torch, gen, b, d, n_ids, zero_from, spread)
         loss, lse = sce.softmax_ce_fwd(h, v, vbq, pos)
         loss2, lse2 = sce.softmax_ce_fwd(h, v, vbq, pos)
         ploss, plse = sce.softmax_ce_fwd_plain(h, v, vbq, pos)
@@ -411,6 +421,15 @@ def ce_kernel_phase(torch):
                   f"CE {label}: {name} differs from the plain version by {float(diff.max()):.3g}")
             fwd_err = max(fwd_err, float(diff.max()))
         check(torch.equal(loss, loss2) and torch.equal(lse, lse2), f"CE {label}: forward not deterministic")
+        errs["softmax_ce_fwd"] = max(errs["softmax_ce_fwd"], fwd_err)
+        if spread != 1.0:
+            # a forward case: at logits of ~500 an f32 logit's own rounding
+            # (~3e-5) moves a softmax probability by more than the backward
+            # check's atol (1e-5 of the largest dh entry) allows, in any f32
+            # implementation, the plain version included
+            log(f"[ce-kernel] {label}: loss/lse max|d| {fwd_err:.3g}; repeated runs bit-identical "
+                "(forward only)")
+            continue
         bwd_err, parts = 0.0, []
         for name, x, y, z in zip(("dh", "dv", "dvb"), got, again, want):
             diff = (x - z).abs()
@@ -421,7 +440,6 @@ def ce_kernel_phase(torch):
             check(torch.equal(x, y), f"CE {label}: {name} not deterministic")
             bwd_err = max(bwd_err, float(diff.max()))
             parts.append(f"{name} {float(diff.max()):.3g} of {scale:.3g}")
-        errs["softmax_ce_fwd"] = max(errs["softmax_ce_fwd"], fwd_err)
         errs["softmax_ce_bwd"] = max(errs["softmax_ce_bwd"], bwd_err)
         log(f"[ce-kernel] {label}: loss/lse max|d| {fwd_err:.3g}; backward max|d| " + ", ".join(parts)
             + "; repeated runs bit-identical")
@@ -457,8 +475,9 @@ def tower_inputs(torch, gen, r: int, din: int, dout: int):
 def tower_kernel_phase(torch):
     """The fused tower layer kernels against their plain versions on the
     card: both main-path layers (16,384 rows, 160 -> 1024 and 1024 -> 128
-    with BN), a metadata model's first layer (Din = 240), a ragged R=1000
-    and a tiny odd shape. Products and sums differ only in f32 order, so z
+    with BN), a metadata model's first layer (Din = 240), a ragged R=1000,
+    a tiny odd shape, widths that are not multiples of 8, R=40, Dout=1000
+    (not a multiple of the column tile) and R=16383. Products and sums differ only in f32 order, so z
     and din, rounded to bf16, may move one bf16 ulp of their product (2^-7
     of the sum of the product's absolute terms, plus 2^-7 of the value).
     The f32 sums add bf16-exact terms in another order: s and ss within
@@ -466,8 +485,7 @@ def tower_kernel_phase(torch):
     own z (a z one ulp apart moves them by more than that), dW, db and the
     BN sums within 1e-5 of theirs of the plain version (the BN sums'
     terms bounded through |dz'| |W|^T, which also covers the one-ulp
-    flips of bf16 dh that feed them). A row tile or row range left out
-    A row tile or a row range left out of a sum, or a BN sum without the
+    flips of bf16 dh that feed them). A row tile or a row range left out of a sum, or a BN sum without the
     ReLU mask, fails this check. A second run of each gives the same bits.
     Returns {wrapper: largest |kernel - plain|} and the main-path inputs."""
     from torchrecsys_tpu_torch.ops import fused_tower as ft
@@ -480,7 +498,9 @@ def tower_kernel_phase(torch):
               ("ragged R=1000", 1000, MLP_HIDDEN[0], MLP_HIDDEN[1], True),
               ("tiny 37 x 20 -> 13", 37, 20, 13, True),
               ("widths not multiples of 8", 1000, 100, 60, True),
-              ("R=40 (below one wgmma tile)", 40, MLP_HIDDEN[0], MLP_HIDDEN[1], False)]
+              ("R=40 (below one wgmma tile)", 40, MLP_HIDDEN[0], MLP_HIDDEN[1], False),
+              ("Dout=1000 (not a multiple of the column tile)", 2 * MLP_B, 2 * D, 1000, False),
+              ("R=16383 (one row short of the main path)", 2 * MLP_B - 1, MLP_HIDDEN[0], MLP_HIDDEN[1], True)]
     main = []
 
     def within(name, label, got, want, slack):
@@ -1587,18 +1607,21 @@ def device_call(torch, fn, calls: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = n = 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0 and e.count:
-            us += t / e.count
-            n += 1
+    for _ in range(3):  # a window in which the profiler recorded no kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = n = 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            if t > 0 and e.count:
+                us += t / e.count
+                n += 1
+        if n:
+            break
     return us, n
 
 
@@ -1626,6 +1649,8 @@ def ce_timing(torch, inputs, errs, launches):
         "softmax_ce_fwd": device_call(torch, lambda: sce.softmax_ce_fwd(h, v, vbq, pos)),
         "softmax_ce_bwd": device_call(torch, lambda: sce.softmax_ce_bwd(h, v, vbq, pos, lse, g)),
     }
+    check(dev["softmax_ce_fwd"][1] <= 3, f"CE forward: {dev['softmax_ce_fwd'][1]} kernels per call "
+          "(split, products and combine expected)")
     check(dev["softmax_ce_bwd"][1] <= 2, f"CE backward: {dev['softmax_ce_bwd'][1]} kernels per call "
           "(one pass and one sum expected)")
     sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved

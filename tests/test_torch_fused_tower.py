@@ -286,6 +286,29 @@ def test_wrapper_checks():
         ft.fused_tower_bwd(x, dz, dz, w, bn, dstat[:, :2], True)
 
 
+@pytest.mark.parametrize("scale", [1.0, 30.0], ids=["unit", "wide"])
+def test_bn_chain_in_single_rounding_bf16_ops_matches_plain(scale):
+    """The forward kernel forms h = relu(bn(x)), z = bf16(acc) + b and
+    bf16(z * z) in bf16x2 arithmetic: each op rounds its exact result to
+    bf16 once. The plain version rounds an f32 op on bf16 operands. The
+    two agree bit for bit: the f32 op is exact, or its rounding cannot
+    reach a bf16 tie. Exact results here come from f64."""
+    g = torch.Generator().manual_seed(int(scale))
+    n, bf = 1_000_000, torch.bfloat16
+    x = (torch.randn(n, generator=g) * scale).to(bf)
+    bn = torch.stack([torch.randn(n, generator=g) * 0.3 * scale, torch.rand(n, generator=g) + 0.5,
+                      1 + 0.1 * torch.randn(n, generator=g), 0.1 * torch.randn(n, generator=g)]).to(bf)
+    f64 = lambda t: t.double()  # noqa: E731
+    xhat = (f64((f64(x) - f64(bn[0])).to(bf)) * f64(bn[1])).to(bf)
+    h = torch.relu((f64((f64(xhat) * f64(bn[2])).to(bf)) + f64(bn[3])).to(bf))
+    assert torch.equal(h.view(torch.int16), ft.bn_relu(x, bn)[0].view(torch.int16))
+    acc = torch.randn(n, generator=g) * 5 * scale
+    b = bn[3]
+    z = (f64(acc.to(bf)) + f64(b)).to(bf)
+    assert torch.equal(z.view(torch.int16), (acc.to(bf) + b).view(torch.int16))
+    assert torch.equal((f64(z) * f64(z)).to(bf).view(torch.int16), (z * z).view(torch.int16))
+
+
 # ---------------------------------------------------------------------------
 # on the card (needs a CUDA card)
 # ---------------------------------------------------------------------------
@@ -301,7 +324,8 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,din,dout,has_bn", [(16384, 160, 1024, False), (16384, 1024, 128, True),
                                                (1000, 240, 1024, False), (37, 20, 13, True),
-                                               (1000, 100, 60, True), (40, 1024, 128, False)])
+                                               (1000, 100, 60, True), (40, 1024, 128, False),
+                                               (16384, 160, 1000, False), (16383, 1024, 128, True)])
 def test_kernels_match_plain_on_card(cuda_device, r, din, dout, has_bn):
     """Kernel against plain version on the card: z within one bf16 ulp of
     the product (f32 sums in another order), sums within 2^-7 of their

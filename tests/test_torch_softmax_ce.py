@@ -205,6 +205,83 @@ def test_wrappers_check_their_inputs():
 
 
 # ---------------------------------------------------------------------------
+# the forward kernel's 3xTF32 arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x with its low 13 mantissa bits cleared: the TF32 value the tensor
+    cores read from an f32 operand."""
+    return (np.ascontiguousarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_logits(h, v, terms):
+    """h . v^T from TF32 parts: x = big + small with big = tf32(x) and
+    small = tf32(x - big), as the forward kernel splits both operands. The
+    products of the parts are exact here (f64) and the logit rounds to f32,
+    as the kernel's f32 accumulators do. ``terms`` names the products kept
+    beside big.big: "h_small" (h_small.v_big), "v_small" (h_big.v_small)."""
+    hb, vb = _tf32(h), _tf32(v)
+    hs, vs = _tf32(h - hb), _tf32(v - vb)
+    f = lambda x: x.astype(np.float64)  # noqa: E731
+    small = np.zeros((h.shape[0], v.shape[0]))
+    if "h_small" in terms:
+        small += f(hs) @ f(vb).T
+    if "v_small" in terms:
+        small += f(hb) @ f(vs).T
+    return (small + f(hb) @ f(vb).T).astype(np.float32)
+
+
+def _main_path_ce_inputs(d, seed):
+    """B = 1024 rows at the main path's scale: h, v ~ N(0, 0.5^2), vbq = a
+    small item bias minus logQ, logq ~ log(1/1M) + N(0, 0.5^2)."""
+    r = np.random.default_rng(seed)
+    b, n = 1024, 1_000_000
+    h = (r.normal(size=(b, d)) * 0.5).astype(np.float32)
+    v = (r.normal(size=(b, d)) * 0.5).astype(np.float32)
+    pos = r.integers(0, n, b)
+    logq = (r.normal(size=n) * 0.5 - np.log(n)).astype(np.float32)
+    vbq = ((r.normal(size=b) * 0.1).astype(np.float32) - logq[pos]).astype(np.float32)
+    return h, v, vbq, pos
+
+
+def _ce_from_logits(s, vbq, pos):
+    """(loss, lse) of f32 logits s (B, B) + vbq with duplicates masked: the
+    forward's fold, as logsumexp."""
+    t = torch.from_numpy(s) + torch.from_numpy(vbq)[None, :]
+    dup, _ = sce._dup_mask(torch.from_numpy(pos))
+    t = t.masked_fill(dup, -torch.inf)
+    lse = torch.logsumexp(t, dim=1)
+    return lse - torch.diagonal(t), lse
+
+
+def _within_forward_tolerance(got, want):
+    return all(bool(((g - w).abs() <= 1e-5 + 1e-5 * w.abs()).all()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("d", [80, 128])
+def test_3xtf32_logits_meet_the_forward_tolerance(d):
+    """Logits from big.big + big.small + small.big (the forward kernel's
+    3xTF32 products) give (loss, lse) within the card check's rtol = atol =
+    1e-5 of softmax_ce_fwd_plain, at the main path's scale and logQ shift."""
+    h, v, vbq, pos = _main_path_ce_inputs(d, seed=d)
+    want = sce.softmax_ce_fwd_plain(_t(h), _t(v), _t(vbq), _t(pos))
+    got = _ce_from_logits(_split_logits(h, v, ("h_small", "v_small")), vbq, pos)
+    assert _within_forward_tolerance(got, want)
+
+
+@pytest.mark.parametrize("terms", [("h_small",), ("v_small",), ()], ids=["no_v_small", "no_h_small", "1xtf32"])
+@pytest.mark.parametrize("d", [80, 128])
+def test_fewer_tf32_terms_miss_the_forward_tolerance(d, terms):
+    """The same check catches a dropped remainder: with one operand's small
+    part left out, or both (plain TF32), (loss, lse) leave the tolerance."""
+    h, v, vbq, pos = _main_path_ce_inputs(d, seed=d)
+    want = sce.softmax_ce_fwd_plain(_t(h), _t(v), _t(vbq), _t(pos))
+    got = _ce_from_logits(_split_logits(h, v, terms), vbq, pos)
+    assert not _within_forward_tolerance(got, want)
+
+
+# ---------------------------------------------------------------------------
 # on the card (needs a CUDA card)
 # ---------------------------------------------------------------------------
 
@@ -219,12 +296,14 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,d,dup", [(4096, 80, False), (4096, 80, True), (1000, 80, False),
                                      (513, 16, False), (300, 128, True), (1000, 13, False),
-                                     (7, 80, True)])
+                                     (7, 80, True), (4096, 84, False), (4097, 80, False)])
 def test_kernels_match_plain_on_card(cuda_device, b, d, dup):
     """loss and lse within rtol=atol=1e-5 (f32 sums in another order, a
     one-pass LSE); dh, dv, dvb within rtol 1e-4 and atol 1e-5 of the
-    largest reference entry (sums of B terms of both signs). The backward
-    is deterministic: a second run gives the same bits."""
+    largest reference entry (sums of B terms of both signs). The forward
+    and the backward are deterministic: a second run gives the same bits.
+    D = 84 has 16-byte rows that are not a multiple of 8 floats; B = 4097
+    is one row past a tile."""
     h, v, vb, pos, logq = _inputs(b, d=d, n=5000, dup_heavy=dup, seed=b + d)
     args = [torch.from_numpy(x).to(cuda_device) for x in (h, v, vb - logq[pos])]
     args.append(torch.from_numpy(pos.astype(np.int64)).to(cuda_device))
@@ -232,6 +311,8 @@ def test_kernels_match_plain_on_card(cuda_device, b, d, dup):
     g[::5] = 0.0
     f0, b0 = sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches
     loss, lse = sce.softmax_ce_fwd(*args)
+    loss2, lse2 = sce.softmax_ce_fwd(*args)
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
     ploss, plse = sce.softmax_ce_fwd_plain(*args)
     torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
@@ -241,4 +322,23 @@ def test_kernels_match_plain_on_card(cuda_device, b, d, dup):
     for x, y, z in zip(got, again, want):
         torch.testing.assert_close(x, z, rtol=1e-4, atol=1e-5 * float(z.abs().max()))
         assert torch.equal(x, y)
-    assert (sce.softmax_ce_fwd.launches - f0, sce.softmax_ce_bwd.launches - b0) == (1, 2)
+    assert (sce.softmax_ce_fwd.launches - f0, sce.softmax_ce_bwd.launches - b0) == (2, 2)
+
+
+@pytest.mark.gpu
+def test_forward_with_spread_logits_matches_plain_on_card(cuda_device):
+    """h and v at 8x the main path's scale (0.5 -> 4): logits of hundreds,
+    so most exponentials underflow and a row's running max moves often.
+    loss and lse within rtol=atol=1e-5 of the plain version, bit-identical
+    across two runs. The backward is not held here: at such logits an f32
+    logit's own rounding moves a probability by more than its check allows,
+    in any f32 implementation."""
+    h, v, vb, pos, logq = _inputs(4096, d=80, n=5000, seed=21)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (h * np.float32(4), v * np.float32(4), vb - logq[pos])]
+    args.append(torch.from_numpy(pos.astype(np.int64)).to(cuda_device))
+    loss, lse = sce.softmax_ce_fwd(*args)
+    loss2, lse2 = sce.softmax_ce_fwd(*args)
+    ploss, plse = sce.softmax_ce_fwd_plain(*args)
+    torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)

@@ -33,9 +33,36 @@
 // and db) and one launch adds the partials in a fixed order. No atomics:
 // two runs give the same bits.
 //
-// Forward: mma.sync m16n8k16 (bf16 in, f32 accumulators) over a 128 x 128
-// block tile and 32-deep k steps staged synchronously; h is formed while x
-// is staged and never stored.
+// Forward. Bound at the main path (R = 16,384 rows; layer 0 160 -> 1024, layer
+// 1 1024 -> 128 with BN): 2.R.Din.Dout operations (5.4 / 4.3 GFLOP, ~5.4 /
+// 4.3 us at 989 TFLOP/s bf16) against x, W, z and the sums moved once
+// (39.2 / 38.0 MB, ~11.7 / 11.3 us at 3.35 TB/s): bound by bytes, and at
+// layer 0 by z (33.5 MB). One product launch and one sum launch:
+// - A block owns a 128-row tile (two warpgroups of 64 rows) and walks the
+//   output column tiles of 128 in order; wgmma m64n64k16 (two per k16
+//   step, f32 accumulators) reads h K-major and W MN-major (the transpose
+//   16-bit types allow), so W is staged as stored, from 128-byte-swizzled
+//   tiles fed by cp.async rings.
+// - Din <= 192 (layer 0): the row tile's x (128 x 160 bf16 = 40 KB, padded
+//   to 48) is staged once and serves every column tile; W's slab for one
+//   column tile (Din x 128, L2-resident) streams through a 2-slot ring,
+//   loaded under the previous tile's epilogue. Wider inputs (layer 1)
+//   stream x with W in 64-deep steps through a 5-slot ring, one block per
+//   row tile: 128 blocks of 16 steps, loads four steps ahead.
+// - With BN, h = relu(bn(x)) is formed in place in shared memory, once per
+//   element (the resident tile once; a streamed step one step ahead, under
+//   the products), in bf16x2 arithmetic that rounds where bn_y does; padded
+//   rows and columns stay 0. The step's BN rows arrive with its x. The f32
+//   form of that chain spends four conversions per element, which the card
+//   runs at a quarter of its f32 rate.
+// - The epilogue forms z = bf16(bf16(acc) + b) (one packed conversion and
+//   one bf16x2 add per pair) into a staged tile whose rows are padded to
+//   272 bytes (conflict-free), sends each row out as one bulk copy on the
+//   copy engine (asynchronous: it runs under the next tile's loads and
+//   products), and sums z and bf16(z * z) per column from the staged tile
+//   in a fixed order; each row tile's sums go to its slab, added in
+//   row-tile order by the sum launch. Where the rows fill less than a wave
+//   (R < 16,384), the column tiles are split across blocks.
 //
 // Backward. Bound at the main path (R = 16,384 paired rows; layer 0
 // 160 -> 1024, layer 1 1024 -> 128 with BN): 4.R.Din.Dout operations (10.7 /
@@ -77,11 +104,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBM = 128;  // block tile rows (M)
-constexpr int kBN = 128;  // block tile columns (N)
-constexpr int kBK = 32;   // k step staged in shared memory
-constexpr int kLds = kBK + 8;  // shared row stride in bf16: 80 bytes, conflict-free fragments
-constexpr int kThreads = 256;  // 8 warps: 4 along M x 2 along N, 32 x 64 each
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
@@ -99,23 +121,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
-// v[j] = m[r][c + j] (row-major rows x cols), 0 outside; c is a multiple of 8.
-__device__ __forceinline__ void load8(const bf16* __restrict__ m, int rows, int cols, int r, int c,
-                                      float (&v)[8]) {
-  const bool vec = (cols & 7) == 0 && (reinterpret_cast<uintptr_t>(m) & 15) == 0;
-  if (vec && r < rows && c < cols) {
-    const uint4 u = *reinterpret_cast<const uint4*>(m + (size_t)r * cols + c);
-    unpack2(u.x, v[0], v[1]);
-    unpack2(u.y, v[2], v[3]);
-    unpack2(u.z, v[4], v[5]);
-    unpack2(u.w, v[6], v[7]);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    v[j] = (r < rows && c + j < cols) ? __bfloat162float(m[(size_t)r * cols + c + j]) : 0.0f;
-}
-
 // Eight values (exact bf16) into one 16-byte shared store.
 __device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(dst) =
@@ -126,77 +131,10 @@ struct BnCol {
   float mean, inv, scale, bias;
 };
 
-__device__ __forceinline__ BnCol bn_col(const bf16* __restrict__ bn, int din, int col) {
-  return {bfv(bn + col), bfv(bn + din + col), bfv(bn + 2 * din + col), bfv(bn + 3 * din + col)};
-}
-
 // The pre-ReLU value y and xhat of one input, each step rounded to bf16.
 __device__ __forceinline__ float bn_y(float x, const BnCol& p, float& xhat) {
   xhat = rbf(__fmul_rn(rbf(__fsub_rn(x, p.mean)), p.inv));
   return rbf(__fadd_rn(rbf(__fmul_rn(xhat, p.scale)), p.bias));
-}
-
-// h of eight inputs of one row in place (row and columns inside the matrix
-// only: padding stays 0).
-__device__ __forceinline__ void bn_relu8(const bf16* __restrict__ bn, int din, int c, bool row_in,
-                                         float (&v)[8]) {
-  if (!row_in) return;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (c + j >= din) break;
-    float xhat;
-    const float y = bn_y(v[j], bn_col(bn, din, c + j), xhat);
-    v[j] = y > 0.0f ? y : 0.0f;
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc += As (128 x 32, [m][k]) . Bs^T (Bs is 128 x 32, [n][k]) for this
-// warp's 32 x 64 sub-tile. Fragment of lane (g = lane / 4, t = lane % 4):
-// acc[mi][ni] = rows wm*32 + mi*16 + g (+8), columns wn*64 + ni*8 + 2t (+1).
-__device__ __forceinline__ void mma_tile(const bf16 (*As)[kLds], const bf16 (*Bs)[kLds], int wm, int wn,
-                                         int lane, float (&acc)[2][8][4]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < kBK; ks += 16) {
-    uint32_t a[2][4], b[8][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = wm * 32 + mi * 16 + g;
-      a[mi][0] = ld32(&As[r][ks + 2 * t]);
-      a[mi][1] = ld32(&As[r + 8][ks + 2 * t]);
-      a[mi][2] = ld32(&As[r][ks + 2 * t + 8]);
-      a[mi][3] = ld32(&As[r + 8][ks + 2 * t + 8]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int n = wn * 64 + ni * 8 + g;
-      b[ni][0] = ld32(&Bs[n][ks + 2 * t]);
-      b[ni][1] = ld32(&Bs[n][ks + 2 * t + 8]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[2][8][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
 }
 
 // Sum over the 8 lanes of a fragment column (same t): a butterfly, so every
@@ -206,83 +144,6 @@ __device__ __forceinline__ float col_sum(float v) {
   v += __shfl_xor_sync(kFull, v, 8);
   v += __shfl_xor_sync(kFull, v, 16);
   return v;
-}
-
-struct Args {
-  const bf16* x;
-  const bf16* w;
-  const bf16* b;
-  const bf16* bn;
-  int R, Din, Dout, has_bn;
-  bf16* out;    // z
-  float* part;  // (row tile, 2, Dout)
-};
-
-// Forward: block (column tile, row tile) -> z of its tile and the tile's
-// partial column sums of z and bf16(z * z).
-__global__ void __launch_bounds__(kThreads) fused_tower_fwd_kernel(const Args a) {
-  __shared__ __align__(16) bf16 As[kBM][kLds];
-  __shared__ __align__(16) bf16 Bs[kBN][kLds];
-  __shared__ float red[2][4][kBN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
-  float acc[2][8][4];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < a.Din; k0 += kBK) {
-    __syncthreads();
-    for (int c = tid; c < kBM * (kBK / 8); c += kThreads) {  // A = h, [row][k]
-      const int i = c >> 2, kc = (c & 3) * 8;
-      float v[8];
-      load8(a.x, a.R, a.Din, r0 + i, k0 + kc, v);
-      if (a.has_bn) bn_relu8(a.bn, a.Din, k0 + kc, r0 + i < a.R, v);
-      store8(&As[i][kc], v);
-    }
-    for (int c = tid; c < kBK * (kBN / 8); c += kThreads) {  // B = W^T, [n][k]
-      const int kk = c & 31, nc = (c >> 5) * 8;
-      float v[8];
-      load8(a.w, a.Din, a.Dout, k0 + kk, n0 + nc, v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Bs[nc + j][kk] = __float2bfloat16_rn(v[j]);
-    }
-    __syncthreads();
-    mma_tile(As, Bs, wm, wn, lane, acc);
-  }
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int cl = wn * 64 + ni * 8 + 2 * t + q, col = n0 + cl;
-      const bool col_in = col < a.Dout;
-      const float bias = col_in ? bfv(a.b + col) : 0.0f;
-      float s = 0.0f, ss = 0.0f;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = r0 + wm * 32 + mi * 16 + g + 8 * half;
-          const float zf = rbf(__fadd_rn(rbf(acc[mi][ni][2 * half + q]), bias));
-          if (col_in && r < a.R) {
-            a.out[(size_t)r * a.Dout + col] = __float2bfloat16_rn(zf);
-            s += zf;
-            ss += rbf(__fmul_rn(zf, zf));
-          }
-        }
-      }
-      s = col_sum(s);
-      ss = col_sum(ss);
-      if (g == 0) {
-        red[0][wm][cl] = s;
-        red[1][wm][cl] = ss;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < kBN && n0 + tid < a.Dout) {
-    float* out = a.part + (size_t)blockIdx.y * 2 * a.Dout + n0 + tid;
-    out[0] = ((red[0][0][tid] + red[0][1][tid]) + red[0][2][tid]) + red[0][3][tid];
-    out[a.Dout] = ((red[1][0][tid] + red[1][1][tid]) + red[1][2][tid]) + red[1][3][tid];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -787,6 +648,347 @@ __global__ void __launch_bounds__(kWThreads, S == 2 ? 2 : 1) fused_tower_bwd_dw_
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward: wgmma over a row tile that walks its output column tiles.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdResident = 192;       // widest Din whose x tile stays in shared memory
+constexpr int kFwdStreamStages = 5;     // streamed steps in flight
+constexpr int kFwdStreamStage = 33792;  // x 16 KB, W 16 KB, BN rows of 64 columns; 1024-aligned
+constexpr int kOutRow = 272;            // bytes per staged z row: 128 bf16 and 16 of padding
+constexpr int kFwdOut = kTile * kOutRow;
+constexpr int kFwdRed = (8 * 2 + 1) * kTile * 4;  // the column sums' row-quarter partials; the bias
+
+struct FwdArgs {
+  const bf16* x;
+  const bf16* w;
+  const bf16* b;
+  const bf16* bn;
+  int R, Din, Dout, has_bn;
+  int vec;        // rows 16-byte aligned: cp.async and 16-byte z stores; else plain
+  int col_tiles;  // output column tiles per block
+  bf16* out;      // z
+  float* part;    // (row tile, 2, Dout)
+};
+
+// d (+)= A . B on one warpgroup: m64n64k16, A K-major (rows of x), B
+// MN-major (rows of W as stored).
+__device__ __forceinline__ void wgmma_64_kmn(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// bf16x2 arithmetic with an explicit .rn: each op rounds its exact result
+// to bf16 once (without the modifier ptxas may fuse a mul and an add into
+// one fma, which rounds once for both).
+__device__ __forceinline__ uint32_t bsub2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t badd2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bmax2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// bf16x2 of (lo, hi), each rounded to nearest even.
+__device__ __forceinline__ uint32_t cvt2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// relu(bn(x)) of two columns in bf16x2 arithmetic. Each op rounds once, as
+// bn_y's f32 op and bf16 rounding do (the f32 op on bf16 operands is exact,
+// or its rounding cannot reach a bf16 tie), so h has the same bits; the
+// f32 form costs a conversion per rounding, which the card runs at a
+// quarter of its f32 rate.
+__device__ __forceinline__ uint32_t bn_relu2(uint32_t x, uint32_t mean, uint32_t inv, uint32_t scale, uint32_t bias) {
+  return bmax2(badd2(bmul2(bmul2(bsub2(x, mean), inv), scale), bias), 0u);
+}
+
+// One row of z (``bytes``, a multiple of 16) from shared to global memory
+// by the copy engine, in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// This thread's bulk copies have read their source / are complete.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// h = relu(bn(x)) of one 16-byte chunk (8 columns) in place; prm: the
+// columns' (mean, inv, scale, bias) rows, zero past Din, so padded columns
+// stay 0.
+__device__ __forceinline__ void bn_chunk(uint8_t* p, const uint4 (&prm)[4]) {
+  uint4 v = *reinterpret_cast<const uint4*>(p);
+  v.x = bn_relu2(v.x, prm[0].x, prm[1].x, prm[2].x, prm[3].x);
+  v.y = bn_relu2(v.y, prm[0].y, prm[1].y, prm[2].y, prm[3].y);
+  v.z = bn_relu2(v.z, prm[0].z, prm[1].z, prm[2].z, prm[3].z);
+  v.w = bn_relu2(v.w, prm[0].w, prm[1].w, prm[2].w, prm[3].w);
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// Block (row tile of 128, group of output column tiles of 128): z of the
+// tiles and each tile's partial column sums of z and bf16(z * z). Two
+// warpgroups, 64 rows each; wgmma reads h K-major and W MN-major (as
+// stored), both from 128-byte-swizzled tiles. RES (Din <= 192): the row
+// tile's x is staged once and h formed in place once; a step is a whole
+// column tile, whose W slab (Din x 128) streams through a 2-slot ring. Else
+// a step is a (column tile, 64-deep k) pair: x, W and the step's BN rows
+// stream through a 5-slot ring and h is formed in place one step ahead of
+// the products. After a column tile's products its z goes through shared
+// memory and leaves as one asynchronous bulk copy per row, which runs
+// under the next tile's loads and products.
+template <int KQ>
+__global__ void __launch_bounds__(kWThreads, 1) fused_tower_fwd_kernel(const FwdArgs a) {
+  constexpr bool RES = KQ > 0;  // KQ: the resident x tile's 64-deep chunks, 0 when streamed
+  constexpr int S = RES ? 2 : kFwdStreamStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int ksteps = RES ? KQ : (a.Din + kWK - 1) / kWK;
+  const int kStage = RES ? KQ * 16384 : kFwdStreamStage;
+  uint8_t* xres = base;  // RES: ksteps chunks of [128 rows][128 bytes]
+  uint8_t* ring = base + (RES ? ksteps * 16384 : 0);
+  uint8_t* outs = ring + S * kStage;  // the z tile, [128 rows][256 bytes + 16 of padding]
+  float* red = reinterpret_cast<float*>(outs + kFwdOut);  // [4 row quarters][4][64 column pairs]
+  bf16* bsm = reinterpret_cast<bf16*>(red + 8 * 2 * kTile);  // the column tile's bias
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.x * kTile;
+  const int n_first = blockIdx.y * a.col_tiles;
+  const int ntiles = min(a.col_tiles, (a.Dout + kTile - 1) / kTile - n_first);
+  const int inner = RES ? 1 : ksteps;  // steps per column tile
+  const int T = ntiles * inner;
+  const bool vec = a.vec;
+
+  auto load_step = [&](int s) {
+    if (s < T) {
+      uint8_t* st = ring + (s % S) * kStage;
+      const int n0 = (n_first + s / inner) * kTile;
+#pragma unroll
+      for (int q = 0; q < (RES ? KQ : 1); ++q) {
+        uint8_t* sw = RES ? st + q * 16384 : st + 16384;
+        const int k0 = (RES ? q : s % inner) * kWK;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // W rows k0.., columns n0.. as two [64 k][64 n] blocks
+          const int e = tid + j * kWThreads, row = e >> 4, c16 = e & 15;
+          load_chunk(sw + (c16 >> 3) * 8192 + sw128(row, c16 & 7), a.w, a.Din, a.Dout, k0 + row, n0 + 8 * c16, vec);
+        }
+      }
+      if (!RES) {
+        const int k0 = (s % inner) * kWK;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // x rows r0.., columns k0..
+          const int e = tid + j * kWThreads, row = e >> 3, c8 = e & 7;
+          load_chunk(st + sw128(row, c8), a.x, a.R, a.Din, r0 + row, k0 + 8 * c8, vec);
+        }
+        if (a.has_bn && tid < 32)  // the BN rows of columns k0..k0+63
+          load_chunk(st + 32768 + (tid >> 3) * 128 + (tid & 7) * 16, a.bn, 4, a.Din, tid >> 3, k0 + 8 * (tid & 7),
+                     vec);
+      }
+    }
+    cp_commit();
+  };
+  // STREAM: h of step s in place; this thread's 8 columns in each chunk
+  auto transform = [&](int s) {
+    uint8_t* st = ring + (s % S) * kStage;
+    const int c8 = tid & 7;
+    uint4 prm[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) prm[k] = *reinterpret_cast<const uint4*>(st + 32768 + k * 128 + c8 * 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = (tid + j * kWThreads) >> 3;
+      if (r0 + row < a.R) bn_chunk(st + sw128(row, c8), prm);
+    }
+  };
+  // the column tile's z = bf16(bf16(acc) + b) (bf16x2: one rounding each,
+  // as the f32 add of bf16 values and its rounding), staged in shared
+  // memory (rows padded to 272 bytes: conflict-free fragment stores, and
+  // each row's 256 bytes contiguous for its bulk copy), stored as whole
+  // rows; then its column sums of z and bf16(z * z) from the staged tile,
+  // 4 row quarters in order
+  auto epilogue = [&](float (&acc)[2][32], int n) {
+    const int n0 = n * kTile;
+    if (tid < kTile) bulk_wait_read();  // the last tile's row copies have read the tile
+    __syncthreads();
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 64 * nb + 8 * j + 2 * tq;
+        const uint32_t bias = *reinterpret_cast<const uint32_t*>(bsm + cl);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rl = 64 * wg + 16 * (warp & 3) + g + 8 * hh;
+          *reinterpret_cast<uint32_t*>(outs + rl * kOutRow + cl * 2) =
+              badd2(cvt2(acc[nb][4 * j + 2 * hh], acc[nb][4 * j + 2 * hh + 1]), bias);
+        }
+      }
+    fence_async();  // the bulk copies read the tile through the async proxy
+    __syncthreads();
+    if (vec) {  // rows of 16-byte multiples: one bulk copy per row
+      if (tid < kTile && r0 + tid < a.R) {
+        bulk_store(a.out + (size_t)(r0 + tid) * a.Dout + n0, outs + tid * kOutRow, 2 * min(kTile, a.Dout - n0));
+        bulk_commit();
+      }
+    } else {
+      for (int e = tid; e < kTile * kTile; e += kWThreads) {
+        const int row = e >> 7, c = e & 127;
+        if (r0 + row < a.R && n0 + c < a.Dout)
+          a.out[(size_t)(r0 + row) * a.Dout + n0 + c] = *reinterpret_cast<const bf16*>(outs + row * kOutRow + c * 2);
+      }
+    }
+    {  // columns 2 cp, 2 cp + 1 over rows 32 rq .. +32 (inside R)
+      const int cp = tid & 63, rq = tid >> 6;
+      const int rows = min(32, a.R - r0 - 32 * rq);
+      float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // z, z, bf16(z^2), bf16(z^2) of the two columns
+      for (int i = 0; i < rows; ++i) {
+        const uint32_t z = *reinterpret_cast<const uint32_t*>(outs + (32 * rq + i) * kOutRow + cp * 4);
+        const uint32_t zz = bmul2(z, z);
+        sum[0] += __uint_as_float(z << 16);
+        sum[1] += __uint_as_float(z & 0xffff0000u);
+        sum[2] += __uint_as_float(zz << 16);
+        sum[3] += __uint_as_float(zz & 0xffff0000u);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) red[(rq * 4 + k) * 64 + cp] = sum[k];
+    }
+    __syncthreads();
+    if (tid < kTile && n0 + tid < a.Dout) {
+      const int cp = tid >> 1, q = tid & 1;
+      float s = 0.0f, ss = 0.0f;
+#pragma unroll
+      for (int rq = 0; rq < 4; ++rq) {
+        s += red[(rq * 4 + q) * 64 + cp];
+        ss += red[(rq * 4 + 2 + q) * 64 + cp];
+      }
+      float* out = a.part + (size_t)blockIdx.x * 2 * a.Dout + n0 + tid;
+      out[0] = s;
+      out[a.Dout] = ss;
+    }
+  };
+
+  if (RES) {  // the row tile's x, in the first commit group
+    for (int e = tid; e < ksteps * 1024; e += kWThreads) {
+      const int q = e >> 10, row = (e >> 3) & 127, c8 = e & 7;
+      load_chunk(xres + q * 16384 + sw128(row, c8), a.x, a.R, a.Din, r0 + row, q * kWK + 8 * c8, vec);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) load_step(s);
+  cp_wait<S - 2>();
+  fence_async();
+  __syncthreads();
+  if (a.has_bn) {
+    if (RES) {
+      for (int e = tid; e < ksteps * 1024; e += kWThreads) {
+        const int q = e >> 10, row = (e >> 3) & 127, c8 = e & 7, col = q * kWK + 8 * c8;
+        if (r0 + row >= a.R) continue;  // padded rows stay 0
+        uint4 prm[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          uint32_t w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = col + 2 * i;
+            const uint32_t lo = c < a.Din ? __bfloat16_as_ushort(a.bn[(size_t)k * a.Din + c]) : 0u;
+            const uint32_t hi = c + 1 < a.Din ? __bfloat16_as_ushort(a.bn[(size_t)k * a.Din + c + 1]) : 0u;
+            w[i] = lo | (hi << 16);
+          }
+          prm[k] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        bn_chunk(xres + q * 16384 + sw128(row, c8), prm);
+      }
+    } else {
+      transform(0);
+    }
+    fence_async();
+    __syncthreads();
+  }
+
+  float acc[2][32];
+  for (int n = 0, s = 0; n < ntiles; ++n) {
+    if (tid < kTile) {  // read by the epilogue, after the step's barriers
+      const int col = (n_first + n) * kTile + tid;
+      bsm[tid] = col < a.Dout ? a.b[col] : __float2bfloat16_rn(0.0f);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.0f;
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    for (int kq = 0; kq < inner; ++kq, ++s) {
+      if (RES) {  // this tile's W slab has landed (loaded under the last tile's epilogue)
+        cp_wait<S - 2>();
+        fence_async();
+        __syncthreads();
+      }
+      const uint8_t* st = ring + (s % S) * kStage;
+      wg_fence();
+#pragma unroll
+      for (int q = 0; q < (RES ? KQ : 1); ++q) {
+        const uint8_t* xa = RES ? xres + q * 16384 : st;
+        const uint8_t* wb = RES ? st + q * 16384 : st + 16384;
+#pragma unroll
+        for (int kk = 0; kk < kWK / 16; ++kk) {
+          const uint64_t da = make_desc(xa + wg * 8192 + kk * 32, 16, 1024);
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+            wgmma_64_kmn(acc[nb], da, make_desc(wb + nb * 8192 + kk * 2048, 8192, 1024), 1);
+        }
+      }
+      wg_commit();
+      wg_wait<1>();     // this warpgroup's products of step s - 1 are done
+      __syncthreads();  // everyone's: the slot of step s - 1 is free
+      load_step(s + S - 1);
+      if (!RES && s + 1 < T) {
+        cp_wait<S - 2>();
+        fence_async();
+        __syncthreads();  // step s + 1 has landed
+        if (a.has_bn) {
+          transform(s + 1);
+          fence_async();
+          __syncthreads();
+        }
+      }
+    }
+    wg_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    epilogue(acc, n_first + n);
+  }
+  if (tid < kTile) bulk_wait_all();  // the tile stays until its row copies are done
+}
+
 // The backward's partials, each summed in slab order: the BN sums over row
 // tiles (zeros without BN), dW and db over row ranges.
 __global__ void fused_tower_bwd_sum_kernel(const BwdArgs a, int tiles, int splits, float* __restrict__ dbn,
@@ -814,26 +1016,30 @@ __global__ void fused_tower_bwd_sum_kernel(const BwdArgs a, int tiles, int split
   }
 }
 
-// out[e] = sum over splits of part[split][e], in split order.
+// out[e] = sum over splits of part[split][e] in a fixed order: one warp
+// per output, lane l adding splits l, l + 32, ... in order, then the lanes
+// by a butterfly (every lane holds the same bits). A thread per output
+// walking 128 row-tile slabs in turn was latency-bound.
 __global__ void sum_splits_kernel(const float* __restrict__ part, int splits, size_t n,
                                   float* __restrict__ out) {
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * n + e];
-    out[e] = s;
-  }
+  const size_t e = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (e >= n) return;  // uniform across the warp
+  float s = 0.0f;
+  for (int sp = lane; sp < splits; sp += 32) s += part[(size_t)sp * n + e];
+  s = col_sum(s);  // lanes 4, 8, 16 apart
+  s += __shfl_xor_sync(kFull, s, 1);
+  s += __shfl_xor_sync(kFull, s, 2);
+  if (lane == 0) out[e] = s;
 }
 
 void launch_sum(const float* part, int splits, size_t n, float* out, cudaStream_t stream) {
-  size_t blocks = (n + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  sum_splits_kernel<<<(unsigned)blocks, 256, 0, stream>>>(part, splits, n, out);
+  sum_splits_kernel<<<(unsigned)((n * 32 + 255) / 256), 256, 0, stream>>>(part, splits, n, out);
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-int row_tiles(int R) { return cdiv(R, kBM); }
+int row_tiles(int R) { return cdiv(R, kTile); }
 
 // Rows per dW range: a multiple of the k step, about one wave of blocks.
 int rows_per_split(int R, int Din, int Dout) {
@@ -877,6 +1083,33 @@ cudaError_t launch_dw(const BwdArgs& a, int splits, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+size_t fwd_smem(bool res, int Din) {
+  const size_t ring = res ? 3 * (size_t)((Din + kWK - 1) / kWK) * 16384  // x and two W slabs
+                          : (size_t)kFwdStreamStages * kFwdStreamStage;
+  return 1024 + ring + kFwdOut + kFwdRed;
+}
+
+// Output column tiles per block: all of them when the row tiles fill a
+// wave, else split so that about one wave of blocks runs.
+int fwd_col_tiles(int R, int Dout) {
+  const int tiles = (Dout + kTile - 1) / kTile, rows = (R + kTile - 1) / kTile;
+  int groups = kWave / rows;
+  if (groups < 1) groups = 1;
+  if (groups > tiles) groups = tiles;
+  return (tiles + groups - 1) / groups;
+}
+
+template <int KQ>
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem = fwd_smem(KQ > 0, a.Din);
+  cudaError_t e = allow_smem((const void*)fused_tower_fwd_kernel<KQ>, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = (a.Dout + kTile - 1) / kTile;
+  const dim3 grid((a.R + kTile - 1) / kTile, (tiles + a.col_tiles - 1) / a.col_tiles);
+  fused_tower_fwd_kernel<KQ><<<grid, kWThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 bool bad_shape(int R, int Din, int Dout) {
@@ -908,7 +1141,7 @@ long long trs_fused_tower_bwd_scratch(int R, int Din, int Dout, int has_bn) {
 int trs_fused_tower_fwd(const void* x, const void* w, const void* b, const void* bn, int R, int Din,
                         int Dout, int has_bn, float* part, void* z, float* stats, cudaStream_t stream) {
   if (bad_shape(R, Din, Dout)) return cudaErrorInvalidValue;
-  Args a{};
+  FwdArgs a{};
   a.x = static_cast<const bf16*>(x);
   a.w = static_cast<const bf16*>(w);
   a.b = static_cast<const bf16*>(b);
@@ -917,10 +1150,18 @@ int trs_fused_tower_fwd(const void* x, const void* w, const void* b, const void*
   a.Din = Din;
   a.Dout = Dout;
   a.has_bn = has_bn;
+  a.vec = Din % 8 == 0 && Dout % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(z) &&
+          (!has_bn || aligned16(bn));
+  a.col_tiles = fwd_col_tiles(R, Dout);
   a.out = static_cast<bf16*>(z);
   a.part = part;
-  fused_tower_fwd_kernel<<<dim3(cdiv(Dout, kBN), row_tiles(R)), kThreads, 0, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  switch (Din <= kFwdResident ? (Din + kWK - 1) / kWK : 0) {
+    case 1: e = launch_fwd<1>(a, stream); break;
+    case 2: e = launch_fwd<2>(a, stream); break;
+    case 3: e = launch_fwd<3>(a, stream); break;
+    default: e = launch_fwd<0>(a, stream); break;
+  }
   if (e != cudaSuccess) return e;
   launch_sum(part, row_tiles(R), (size_t)2 * Dout, stats, stream);
   return cudaGetLastError();

@@ -16,13 +16,34 @@
 // past B and past D, and the ragged edges are masked.
 //
 // Forward. The TPU kernel holds a (TR, B) logit row block in VMEM and takes
-// the row max, then the sum. A 64-row block over B = 4096 columns would
-// need 1 MB here, so the forward streams 64-column tiles and keeps a running
-// (max, sum) per row and thread, flash-style; the 16 threads that share a
-// row merge theirs at the end (a few f32 ulps of the LSE from the two-pass
-// form). Each (row tile, column range) block writes a partial that a small
-// launch merges in a fixed order. 4 x 4 f32 register tiles on the CUDA
-// cores, fed by float4 reads of k-major shared copies of h and v.
+// the row max, then the sum. Here a block owns 128 rows and a range of
+// 64-column tiles and keeps a running (max, sum) per row, flash-style, on
+// the accumulators of the products (FlashAttention-3's online softmax).
+// - S = h . v^T is the one product, with both operands K-major as stored,
+//   so it runs on wgmma (m64n64k8 tf32, f32 accumulators) as 3xTF32 (the
+//   split below, small terms first): f32-accurate to ~2^-21.
+// - A split pass writes each 64-column tile of v once per call as the image
+//   its shared-memory slot takes: v_big and v_small in 128-byte-swizzled
+//   [row][32 floats] chunks (D padded with zeros to a multiple of 16, then
+//   to 32), vbq (-inf past B, so padded columns drop out) and the ids. A
+//   producer warp copies each image whole (one bulk copy on the copy
+//   engine) into a 3-slot ring, its arrival counted on an mbarrier. Each
+//   warpgroup's h (64 rows, split once) lives in registers as wgmma's A
+//   operand for the whole walk, which leaves the shared memory to the ring.
+// - A warpgroup multiplies a tile, waits for its products and folds them
+//   into its rows' (max, sum): the duplicate mask from the tile's ids in
+//   shared memory, the tile's row max by two quad shuffles, one exp2 per
+//   logit, no branch per logit; the label is taken in the one tile that
+//   holds the diagonal. Then it releases the slot on the slot's "empty"
+//   mbarrier. The two warpgroups take turns to issue (named barriers), so
+//   one's fold runs under the other's products. (Folding tile i under tile i + 1's
+//   products within one warpgroup reads accumulators while a wgmma is in
+//   flight, which ptxas answers by serialising every wgmma.)
+// - Column ranges split the 4096 columns of the main path so that 32 row
+//   tiles x 4 ranges make about one wave of 132 SMs; each (row tile, range)
+//   block writes a (max, sum, label) partial per row, and a third launch
+//   merges them in range order. No atomics: repeated runs give the same
+//   bits. Three launches per call: split, products, combine.
 //
 // Backward. Like the TPU kernel (which forms s, p and dlog once per row
 // tile and feeds dh and dv from it), it computes every logit once and
@@ -55,7 +76,14 @@
 // - A D that is not a multiple of 4 (or an unaligned row) has no 16-byte
 //   copies; those tiles are staged by plain loads into the same layout.
 //
-// Bound at the main path's B = 4096, D = 80. Forward: 2.B^2.D = 2.68 GFLOP.
+// Bound at the main path's B = 4096, D = 80. Forward: 2.B^2.D = 2.68 GFLOP
+// of f32 products, 8.05 GFLOP of TF32 as 3xTF32, 16.3 us at 495 TFLOP/s
+// (40 us at the CUDA cores' 67); its inputs and outputs are ~2.7 MB (~0.8
+// us at 3.35 TB/s): bound by operations. What this design spends beyond
+// that: the split pass (1.3 MB read, 3.2 MB of images written; each image
+// is read back from L2 by the 32 row tiles' blocks, 103 MB in all), the
+// fold's ~10 instructions per logit where they do not hide under the other
+// warpgroup's products, 4 of 132 SMs idle, and the combine launch.
 // Backward: 6.B^2.D = 8.05 GFLOP of f32 products, 24.2 GFLOP of TF32 as
 // 3xTF32, ~49 us at 495 TFLOP/s (120 us at the CUDA cores' 67). Its inputs
 // and outputs are ~5.3 MB (~1.6 us at 3.35 TB/s): bound by operations.
@@ -72,193 +100,8 @@
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kLd = kTile + 4;  // row stride of the k-major tiles, in floats
 constexpr int kMaxDim = 128;
-constexpr int kHeader = 256;    // floats of per-tile ids and scalars
-constexpr int kTargetBlocks = 512;
 constexpr unsigned kFull = 0xffffffffu;
-
-struct Args {
-  const float* h;
-  const float* v;
-  const float* vbq;
-  const long long* pos;
-  const float* lse;  // backward only
-  const float* g;    // backward only
-  int B;
-  int D;
-  int DP;         // D rounded up to a multiple of 4
-  int tiles;      // ceil(B / 64)
-  int per_split;  // inner tiles per block
-  float* p0;      // partial outputs, split-major
-  float* p1;
-  float* p2;
-};
-
-int tiles_of(int B) { return (B + kTile - 1) / kTile; }
-
-int per_split_of(int tiles) {
-  int splits = (kTargetBlocks + tiles - 1) / tiles;
-  if (splits > tiles) splits = tiles;
-  if (splits < 1) splits = 1;
-  return (tiles + splits - 1) / splits;
-}
-
-int splits_of(int B) {
-  const int t = tiles_of(B);
-  const int per = per_split_of(t);
-  return (t + per - 1) / per;
-}
-
-// Rows [x0, x0 + 64) of X (B, D) into XT[k * kLd + i] (k-major) and, with
-// ROW, into XR[i * DP + k]; zero past B and, in XR, in columns D..DP-1.
-template <bool ROW>
-__device__ void load_tile(const float* __restrict__ X, int x0, const Args& a, float* XT,
-                          float* XR) {
-  const float* base = X + (size_t)x0 * a.D;
-  const int rows = min(kTile, a.B - x0);
-  const int n = kTile * a.D, valid = rows * a.D;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int i = e / a.D, k = e - i * a.D;
-    const float val = e < valid ? base[e] : 0.0f;
-    XT[k * kLd + i] = val;
-    if constexpr (ROW) XR[i * a.DP + k] = val;
-  }
-  if constexpr (ROW) {
-    const int pad = a.DP - a.D;
-    for (int e = threadIdx.x; e < kTile * pad; e += kThreads)
-      XR[(e / pad) * a.DP + a.D + e % pad] = 0.0f;
-  }
-}
-
-// acc[i][j] = sum_k AT[k][ty*4 + i] * BT[k][tx*4 + j]
-__device__ __forceinline__ void logit_tile(const float* AT, const float* BT, int D, int ty,
-                                           int tx, float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    const float4 a4 = *reinterpret_cast<const float4*>(AT + k * kLd + ty * 4);
-    const float4 b4 = *reinterpret_cast<const float4*>(BT + k * kLd + tx * 4);
-    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// One logit into a running (max m, sum s of exp(x - m)).
-__device__ __forceinline__ void lse_push(float x, float& m, float& s) {
-  if (x > m) {
-    s = s * expf(m - x) + 1.0f;
-    m = x;
-  } else {
-    s += expf(x - m);
-  }
-}
-
-// Merge (m2, s2) into (m, s); a part with m == -inf holds no logit. The
-// merge is symmetric, so both lanes of a shuffle pair agree bit for bit.
-__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
-  const float mx = fmaxf(m, m2);
-  if (mx == -INFINITY) return;
-  s = (m == -INFINITY ? 0.0f : s * expf(m - mx)) + (m2 == -INFINITY ? 0.0f : s2 * expf(m2 - mx));
-  m = mx;
-}
-
-// Forward: block (row tile, column range) -> per-row partial (max, sum,
-// label) over its columns.
-__global__ void __launch_bounds__(kThreads) softmax_ce_fwd_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  long long* pos_c = reinterpret_cast<long long*>(smem);
-  float* vbq_c = smem + 2 * kTile;
-  float* HT = smem + kHeader;
-  float* VT = HT + a.D * kLd;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int r0 = blockIdx.x * kTile;
-  load_tile<false>(a.h, r0, a, HT, nullptr);
-  int rr[4];
-  long long prow[4];
-  float m[4], s[4], lab[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rr[i] = r0 + ty * 4 + i;
-    prow[i] = rr[i] < a.B ? a.pos[rr[i]] : 0;
-    m[i] = -INFINITY;
-    s[i] = 0.0f;
-    lab[i] = 0.0f;
-  }
-  const int t0 = blockIdx.y * a.per_split, t1 = min(t0 + a.per_split, a.tiles);
-  for (int t = t0; t < t1; ++t) {
-    const int c0 = t * kTile;
-    __syncthreads();
-    load_tile<false>(a.v, c0, a, VT, nullptr);
-    if (threadIdx.x < kTile) {
-      const int c = c0 + threadIdx.x;
-      pos_c[threadIdx.x] = c < a.B ? a.pos[c] : 0;
-      vbq_c[threadIdx.x] = c < a.B ? a.vbq[c] : 0.0f;
-    }
-    __syncthreads();
-    float acc[4][4];
-    logit_tile(HT, VT, a.D, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx * 4 + j, c = c0 + cl;
-        if (rr[i] >= a.B || c >= a.B) continue;
-        const bool diag = c == rr[i];
-        if (!diag && pos_c[cl] == prow[i]) continue;  // accidental hit
-        const float x = acc[i][j] + vbq_c[cl];
-        if (diag) lab[i] = x;
-        lse_push(x, m[i], s[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float m2 = __shfl_xor_sync(kFull, m[i], off);
-      const float s2 = __shfl_xor_sync(kFull, s[i], off);
-      lab[i] += __shfl_xor_sync(kFull, lab[i], off);  // one lane holds the label
-      lse_merge(m[i], s[i], m2, s2);
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (rr[i] >= a.B) continue;
-      const size_t o = (size_t)blockIdx.y * a.B + rr[i];
-      a.p0[o] = m[i];
-      a.p1[o] = s[i];
-      a.p2[o] = lab[i];
-    }
-  }
-}
-
-// Forward: the column ranges' partials, merged in order, -> loss and lse.
-__global__ void softmax_ce_fwd_combine_kernel(const Args a, int splits, float* __restrict__ loss,
-                                              float* __restrict__ lse) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.B) return;
-  float m = -INFINITY, s = 0.0f, lab = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) {
-    const size_t o = (size_t)sp * a.B + r;
-    lse_merge(m, s, a.p0[o], a.p1[o]);
-    lab += a.p2[o];
-  }
-  const float l = m + logf(s);
-  lse[r] = l;
-  loss[r] = l - lab;
-}
 
 // ---------------------------------------------------------------------------
 // Backward: one pass on the tensor cores.
@@ -643,6 +486,331 @@ __global__ void softmax_ce_bwd_sum_kernel(const BwdArgs a, int groups, int range
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward: 3xTF32 wgmma products with a running (max, sum) per row.
+// ---------------------------------------------------------------------------
+
+constexpr int kFM = 128;      // rows of a forward block: two warpgroups of 64
+constexpr int kFN = 64;       // columns per step: wgmma m64n64k8
+constexpr int kFThreads = 256;
+constexpr int kFStages = 3;   // column tile images in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct FwdArgs {
+  const float* h;
+  const float* v;
+  const float* vbq;
+  const long long* pos;
+  int B, D;
+  int KP;         // floats per staged row: D rounded up to 16, then to 32 (128-byte chunks)
+  int SB;         // bytes of one column tile's image (a multiple of 1024)
+  int col_tiles;  // ceil(B / 64)
+  int per_split;  // column tiles per block
+  uint8_t* img;   // col_tiles images, each as the stage it is copied into
+  float* p0;      // per-split partials (splits, B): running max, sum, label
+  float* p1;
+  float* p2;
+};
+
+// The big part of a 3xTF32 split: x with its low 13 bits cleared (a TF32
+// value); the small part is tf32(x - big).
+__device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(__float_as_uint(x) & 0xffffe000u); }
+
+// One column tile's image, as it sits in shared memory: v_big and v_small
+// (64 rows x KP floats each, KP / 32 chunks of [row][128 bytes] in the
+// 128-byte swizzle, zero past B and past D), then vbq (-inf past B, so a
+// padded column drops out of every sum) and pos of the 64 columns.
+__device__ __forceinline__ int img_small(int KP) { return kFN * KP * 4; }
+__device__ __forceinline__ int img_cols(int KP) { return 2 * kFN * KP * 4; }
+
+__global__ void softmax_ce_fwd_split_kernel(const FwdArgs a) {
+  const int q4 = a.KP / 4;  // 16-byte units per row
+  const long long units = (long long)a.col_tiles * kFN * q4;
+  const long long total = units + (long long)a.col_tiles * kFN;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (e < units) {
+      const int tile = (int)(e / (kFN * q4)), rem = (int)(e - (long long)tile * kFN * q4);
+      const int n = rem / q4, u = rem - n * q4, c = tile * kFN + n;
+      float big[4], small[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * u + j;
+        const float x = (c < a.B && k < a.D) ? a.v[(size_t)c * a.D + k] : 0.0f;
+        big[j] = tf32_big(x);
+        small[j] = tf32_big(x - big[j]);
+      }
+      uint8_t* p = a.img + (size_t)tile * a.SB + (u >> 3) * (kFN * 128) + n * 128 + (((u & 7) ^ (n & 7)) << 4);
+      *reinterpret_cast<float4*>(p) = make_float4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<float4*>(p + img_small(a.KP)) = make_float4(small[0], small[1], small[2], small[3]);
+    } else {
+      const int c = (int)(e - units), tile = c / kFN, n = c - tile * kFN;
+      uint8_t* p = a.img + (size_t)tile * a.SB + img_cols(a.KP);
+      reinterpret_cast<float*>(p)[n] = c < a.B ? a.vbq[c] : -INFINITY;
+      reinterpret_cast<long long*>(p + kFN * 4)[n] = c < a.B ? a.pos[c] : 0;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A K-major shared-memory matrix descriptor in the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;            // leading byte offset (unused for K-major swizzled)
+  d |= (uint64_t)(1024 >> 4) << 32;  // stride byte offset
+  d |= (uint64_t)1 << 62;            // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A . B on one warpgroup, m64n64k8 tf32: A (64 x 8) from registers
+// (rows 16 w + g (+8), k t (+4) of warp w, as mma.sync's m16n8k8), B (64
+// columns x 8, K-major) from shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of ``bar`` with parity ``phase`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(phase)
+        : "memory");
+  }
+}
+
+// Named barriers 1 and 2 order the two warpgroups' products: a warpgroup
+// waits for its turn (bar.sync, its own 128 threads and the other's 128
+// arrivals), issues, then hands the turn over (bar.arrive).
+__device__ __forceinline__ void turn_wait(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+
+__device__ __forceinline__ void turn_pass(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
+// One contiguous copy of ``bytes`` (a multiple of 16) from global to shared
+// memory by the copy engine, counted on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Block (row tile of 128, range of column tiles): two consumer warpgroups
+// and one producer warp. Warpgroup wg owns rows 64 wg .. +64 of the tile;
+// their h (big and small parts) sits in registers for the whole walk, as
+// wgmma's A operand. The producer copies each column tile's image whole
+// into a 3-slot ring (one bulk copy, completion counted on the slot's
+// "full" barrier); a warpgroup multiplies a tile, waits for its products,
+// folds the logits into its rows' running (max, sum) and releases the slot
+// on its "empty" barrier. The two warpgroups take turns to issue their
+// products (two named barriers), so that one's fold runs under the other's
+// products. NK2: D rounded up to 16, in 16s.
+template <int NK2>
+__global__ void __launch_bounds__(kFThreads + 32, 1) softmax_ce_fwd_kernel(const FwdArgs a) {
+  constexpr int NK = 2 * NK2;  // k8 steps
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kFStages * a.SB);
+  uint64_t* empty = full + kFStages;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.y * a.per_split, nt = min(a.per_split, a.col_tiles - t0);
+  const int bytes = img_cols(a.KP) + kFN * 12;  // a multiple of 16
+  if (tid == 0) {
+    for (int s = 0; s < kFStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kFThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kFThreads) {  // the producer warp
+    if (tid == kFThreads) {
+      for (int i = 0; i < nt; ++i) {
+        const int slot = i % kFStages;
+        if (i >= kFStages) mbar_wait(empty + slot, (i / kFStages - 1) & 1);
+        mbar_expect_tx(full + slot, bytes);
+        bulk_load(ring + slot * a.SB, a.img + (size_t)(t0 + i) * a.SB, bytes, full + slot);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw0 = blockIdx.x * kFM + 64 * wg;  // the warpgroup's first row
+  const int row[2] = {rw0 + 16 * warp + g, rw0 + 16 * warp + g + 8};
+  uint32_t hb[NK][4], hs[NK][4];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row[i & 1], k = 8 * kk + t + 4 * (i >> 1);
+      const float x = (r < a.B && k < a.D) ? a.h[(size_t)r * a.D + k] : 0.0f;
+      const float big = tf32_big(x);
+      hb[kk][i] = __float_as_uint(big);
+      hs[kk][i] = __float_as_uint(tf32_big(x - big));
+    }
+  long long prow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) prow[hh] = row[hh] < a.B ? a.pos[row[hh]] : 0;
+
+  float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.0f, 0.0f}, lab[2] = {0.0f, 0.0f};
+  float acc[32];
+  if (wg == 1) turn_pass(1);  // warpgroup 0 issues first
+  for (int i = 0; i < nt; ++i) {
+    const int slot = i % kFStages;
+    const uint8_t* vb = ring + slot * a.SB;
+    const uint8_t* vs = vb + img_small(a.KP);
+    mbar_wait(full + slot, (i / kFStages) & 1);
+    turn_wait(1 + wg);
+    // S = h . v^T of the tile: the small terms first
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      wgmma_tf32(acc, hs[kk], kmajor_desc(vb + (kk >> 2) * (kFN * 128) + (kk & 3) * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) wgmma_tf32(acc, hb[kk], kmajor_desc(vs + (kk >> 2) * (kFN * 128) + (kk & 3) * 32), 1);
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) wgmma_tf32(acc, hb[kk], kmajor_desc(vb + (kk >> 2) * (kFN * 128) + (kk & 3) * 32), 1);
+    wg_commit();
+    if (wg == 0 || i + 1 < nt) turn_pass(2 - wg);  // the other's products queue behind these
+    wg_wait<0>();
+    fence_acc(acc);
+
+    // the logits into the running (max, sum): acc[4 j + 2 hh + q] is
+    // row[hh], column 8 j + 2 t + q of the tile
+    const int c0 = (t0 + i) * kFN;
+    const uint8_t* cs = vb + img_cols(a.KP);
+    const float* cv = reinterpret_cast<const float*>(cs);
+    const long long* cp = reinterpret_cast<const long long*>(cs + kFN * 4);
+    const bool diag = c0 == rw0;  // the tile that holds the warpgroup's labels
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x[16];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 8 * j + 2 * t;
+        const float2 vq = *reinterpret_cast<const float2*>(cv + cl);
+        const longlong2 pc = *reinterpret_cast<const longlong2*>(cp + cl);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float val = acc[4 * j + 2 * hh + q] + (q ? vq.y : vq.x);
+          bool keep = (q ? pc.y : pc.x) != prow[hh];
+          if (diag && c0 + cl + q == row[hh]) {
+            keep = true;
+            lab[hh] = val;
+          }
+          x[2 * j + q] = keep ? val : -INFINITY;
+          mx = fmaxf(mx, x[2 * j + q]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float mn = fmaxf(m[hh], mx);
+      const float mu = mn == -INFINITY ? 0.0f : mn;  // no logit yet: every term is 0
+      float sum = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sum += ex2((x[e] - mu) * kLog2e);
+      s[hh] = s[hh] * ex2((m[hh] - mu) * kLog2e) + sum;
+      m[hh] = mn;
+    }
+    mbar_arrive(empty + slot);  // this thread is done with the slot
+  }
+
+  // the four lanes of a row share its max: add their sums (and the one
+  // label) in a symmetric order, so all four hold the same bits
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    s[hh] += __shfl_xor_sync(kFull, s[hh], 1);
+    s[hh] += __shfl_xor_sync(kFull, s[hh], 2);
+    lab[hh] += __shfl_xor_sync(kFull, lab[hh], 1);
+    lab[hh] += __shfl_xor_sync(kFull, lab[hh], 2);
+    if (t == 0 && row[hh] < a.B) {
+      const size_t o = (size_t)blockIdx.y * a.B + row[hh];
+      a.p0[o] = m[hh];
+      a.p1[o] = s[hh];
+      a.p2[o] = lab[hh];
+    }
+  }
+}
+
+// One logit part (m2, s2) into (m, s); a part with m == -inf holds no
+// logit.
+__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
+  const float mx = fmaxf(m, m2);
+  if (mx == -INFINITY) return;
+  s = (m == -INFINITY ? 0.0f : s * expf(m - mx)) + (m2 == -INFINITY ? 0.0f : s2 * expf(m2 - mx));
+  m = mx;
+}
+
+// The column ranges' partials, merged in range order, -> loss and lse.
+__global__ void softmax_ce_fwd_combine_kernel(const FwdArgs a, int splits, float* __restrict__ loss,
+                                              float* __restrict__ lse) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.B) return;
+  float m = -INFINITY, s = 0.0f, lab = 0.0f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const size_t o = (size_t)sp * a.B + r;
+    lse_merge(m, s, a.p0[o], a.p1[o]);
+    lab += a.p2[o];
+  }
+  const float l = m + logf(s);
+  lse[r] = l;
+  loss[r] = l - lab;
+}
+
 // The backward's block grid: column groups x row ranges, about one wave.
 struct BwdPlan {
   int groups, ranges, tiles;
@@ -670,28 +838,44 @@ size_t bwd_scratch(int B, int D) {
   return ((size_t)p.groups + p.ranges) * B * D + (size_t)p.ranges * B;
 }
 
-size_t fwd_smem(int D) { return sizeof(float) * (kHeader + 2 * (size_t)D * kLd); }
+// The forward's layout and grid: row tiles of 128 x column ranges, about
+// one wave of 132 SMs; the column tiles' images sit in the scratch first,
+// the (m, s, label) partials after them.
+struct FwdPlan {
+  int KP, SB, col_tiles, row_tiles, splits, per_split;
+};
 
-Args make_args(const float* h, const float* v, const float* vbq, const long long* pos,
-               const float* lse, const float* g, int B, int D) {
-  Args a{};
-  a.h = h;
-  a.v = v;
-  a.vbq = vbq;
-  a.pos = pos;
-  a.lse = lse;
-  a.g = g;
-  a.B = B;
-  a.D = D;
-  a.DP = (D + 3) / 4 * 4;
-  a.tiles = tiles_of(B);
-  a.per_split = per_split_of(a.tiles);
-  return a;
+FwdPlan fwd_plan(int B, int D) {
+  FwdPlan p;
+  p.KP = ((D + 15) / 16 * 16 + 31) / 32 * 32;
+  p.SB = (2 * kFN * p.KP * 4 + kFN * 12 + 1023) / 1024 * 1024;
+  p.col_tiles = (B + kFN - 1) / kFN;
+  p.row_tiles = (B + kFM - 1) / kFM;
+  int splits = kWave / p.row_tiles;
+  if (splits > p.col_tiles) splits = p.col_tiles;
+  if (splits < 1) splits = 1;
+  p.per_split = (p.col_tiles + splits - 1) / splits;
+  p.splits = (p.col_tiles + p.per_split - 1) / p.per_split;
+  return p;
+}
+
+size_t fwd_scratch(int B, int D) {
+  const FwdPlan p = fwd_plan(B, D);
+  return (size_t)p.col_tiles * p.SB / 4 + 3 * (size_t)p.splits * B;
 }
 
 // Above 48 KB a kernel's dynamic shared memory must be opted into.
 cudaError_t allow_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int NK2>
+cudaError_t launch_fwd(const FwdArgs& a, dim3 grid, cudaStream_t stream) {
+  const size_t smem = 1024 + (size_t)kFStages * a.SB + 2 * kFStages * sizeof(uint64_t);
+  cudaError_t e = allow_smem((const void*)softmax_ce_fwd_kernel<NK2>, smem);
+  if (e != cudaSuccess) return e;
+  softmax_ce_fwd_kernel<NK2><<<grid, kFThreads + 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int NF>
@@ -709,9 +893,13 @@ extern "C" {
 
 int trs_softmax_ce_max_dim() { return kMaxDim; }
 
-// Column ranges per row tile of the forward for a batch of B: its partial
-// buffers are this many (B,) slabs.
-int trs_softmax_ce_splits(int B) { return B < 1 ? 0 : splits_of(B); }
+// Floats of scratch the forward needs for a batch of B at width D: the
+// column tiles' split images, then the column ranges' (max, sum, label)
+// partials.
+long long trs_softmax_ce_fwd_scratch(int B, int D) {
+  if (B < 1 || D < 1 || D > kMaxDim) return -1;
+  return (long long)fwd_scratch(B, D);
+}
 
 // Floats of scratch the backward needs for a batch of B at width D: the
 // column groups' dh slabs, the row ranges' dv and dvb slabs.
@@ -721,23 +909,49 @@ long long trs_softmax_ce_bwd_scratch(int B, int D) {
 }
 
 // Forward on ``stream``. h, v: (B, D) f32; vbq: (B,) f32; pos: (B,) int64,
-// all contiguous; part: 3 * splits * B floats of scratch; loss, lse: (B,)
-// f32. Returns a cudaError_t (cudaGetLastError after the launches).
+// all contiguous; part: trs_softmax_ce_fwd_scratch(B, D) floats (16-byte
+// aligned); loss, lse: (B,) f32. Three launches: the split of v into its
+// column tiles' images, the products with the running (max, sum), the
+// combine. Returns a cudaError_t (cudaGetLastError after the launches).
 int trs_softmax_ce_fwd(const float* h, const float* v, const float* vbq, const long long* pos,
                        int B, int D, float* part, float* loss, float* lse, cudaStream_t stream) {
   if (B < 1 || D < 1 || D > kMaxDim) return cudaErrorInvalidValue;
-  Args a = make_args(h, v, vbq, pos, nullptr, nullptr, B, D);
-  const int splits = splits_of(B);
-  a.p0 = part;
-  a.p1 = part + (size_t)splits * B;
-  a.p2 = part + 2 * (size_t)splits * B;
-  const size_t smem = fwd_smem(D);
-  cudaError_t e = allow_smem((const void*)softmax_ce_fwd_kernel, smem);
+  const FwdPlan p = fwd_plan(B, D);
+  FwdArgs a{};
+  a.h = h;
+  a.v = v;
+  a.vbq = vbq;
+  a.pos = pos;
+  a.B = B;
+  a.D = D;
+  a.KP = p.KP;
+  a.SB = p.SB;
+  a.col_tiles = p.col_tiles;
+  a.per_split = p.per_split;
+  a.img = reinterpret_cast<uint8_t*>(part);
+  float* partials = part + (size_t)p.col_tiles * p.SB / 4;
+  a.p0 = partials;
+  a.p1 = partials + (size_t)p.splits * B;
+  a.p2 = partials + 2 * (size_t)p.splits * B;
+  const long long units = (long long)p.col_tiles * kFN * (p.KP / 4 + 1);
+  long long blocks = (units + 255) / 256;
+  if (blocks > 2048) blocks = 2048;
+  softmax_ce_fwd_split_kernel<<<(unsigned)blocks, 256, 0, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  softmax_ce_fwd_kernel<<<dim3(a.tiles, splits), kThreads, smem, stream>>>(a);
-  e = cudaGetLastError();
+  const dim3 grid(p.row_tiles, p.splits);
+  switch ((D + 15) / 16) {
+    case 1: e = launch_fwd<1>(a, grid, stream); break;
+    case 2: e = launch_fwd<2>(a, grid, stream); break;
+    case 3: e = launch_fwd<3>(a, grid, stream); break;
+    case 4: e = launch_fwd<4>(a, grid, stream); break;
+    case 5: e = launch_fwd<5>(a, grid, stream); break;
+    case 6: e = launch_fwd<6>(a, grid, stream); break;
+    case 7: e = launch_fwd<7>(a, grid, stream); break;
+    default: e = launch_fwd<8>(a, grid, stream); break;
+  }
   if (e != cudaSuccess) return e;
-  softmax_ce_fwd_combine_kernel<<<(B + 255) / 256, 256, 0, stream>>>(a, splits, loss, lse);
+  softmax_ce_fwd_combine_kernel<<<(B + 255) / 256, 256, 0, stream>>>(a, p.splits, loss, lse);
   return cudaGetLastError();
 }
 

@@ -191,6 +191,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev`` as an int for a C launch: torch's
+    raw accessor where the build has one (the public one builds a Stream
+    object, several microseconds a call)."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return _RAW_STREAM(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

@@ -40,7 +40,7 @@ import torch
 
 from torchrecsys_tpu_torch.ops import _build
 from torchrecsys_tpu_torch.ops.dot_topk import _check as _raise_on
-from torchrecsys_tpu_torch.ops.dot_topk import _ieee_f32_matmul
+from torchrecsys_tpu_torch.ops.dot_topk import _ieee_f32_matmul, _stream
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 BF16 = torch.bfloat16
@@ -156,9 +156,10 @@ def fused_tower_fwd(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bn: torch.Tensor, has_bn: bool
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(z, s, ss)``; the contract of :func:`fused_tower_fwd_plain`. CUDA
-    tensors launch the forward kernel and the fixed-order sum of its
-    per-tile statistics on the current stream; CPU tensors take the plain
-    version."""
+    tensors launch the forward (``wgmma`` over a row tile that walks its
+    output column tiles, h formed in place, z stored through shared
+    memory) and the fixed-order sum of its per-tile statistics on the
+    current stream; CPU tensors take the plain version."""
     r, din, dout = _check("fused_tower_fwd", x, w, bn)
     if tuple(b.shape) != (dout,) or b.dtype != BF16 or b.device != x.device:
         raise ValueError(f"fused_tower_fwd: b must be ({dout},) bf16 on {x.device}")
@@ -167,18 +168,18 @@ def fused_tower_fwd(
     dev = x.device
     x, w, b, bn = (t.contiguous() for t in (x, w, b, bn))
     lib = _lib()
-    part = torch.empty((lib.trs_fused_tower_fwd_scratch(r, din, dout),), dtype=torch.float32, device=dev)
+    n = int(lib.trs_fused_tower_fwd_scratch(r, din, dout))
+    buf = torch.empty((n + 2 * dout,), dtype=torch.float32, device=dev)  # scratch, s, ss
     z = torch.empty((r, dout), dtype=BF16, device=dev)
-    stats = torch.empty((2, dout), dtype=torch.float32, device=dev)
+    p = buf.data_ptr()
     with torch.cuda.device(dev):
         rc = lib.trs_fused_tower_fwd(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), bn.data_ptr(), r, din, dout, int(has_bn),
-            part.data_ptr(), z.data_ptr(), stats.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            p, z.data_ptr(), p + 4 * n, _stream(dev),
         )
     _raise_on(rc, "fused_tower_fwd")
     fused_tower_fwd.launches += 1
-    return z, stats[0], stats[1]
+    return z, buf[n : n + dout], buf[n + dout :]
 
 
 fused_tower_fwd.launches = 0
@@ -218,7 +219,7 @@ def fused_tower_bwd(
             x.data_ptr(), z.data_ptr(), dz.data_ptr(), w.data_ptr(), bn.data_ptr(),
             dstat.data_ptr(), r, din, dout, int(has_bn), part.data_ptr(), din_g.data_ptr(),
             dw.data_ptr(), db.data_ptr(), dbn.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _stream(dev),
         )
     _raise_on(rc, "fused_tower_bwd")
     fused_tower_bwd.launches += 1

@@ -28,9 +28,9 @@ every row's positive:
   ``d > 128`` (:func:`softmax_kernel_applicable`), as the JAX package does.
 
 The matmuls are f32 (IEEE on the card: the plain versions switch TF32 off
-around their products; the backward kernel's products are 3xTF32 on the
-tensor cores, f32-accurate to ~2^-21). The data-parallel wrapper ``inbatch_softmax_ce_dp``
-(:240-264) waits for ROADMAP.md §A item 14.
+around their products; both kernels' products are 3xTF32 on the tensor
+cores, f32-accurate to ~2^-21). The data-parallel wrapper
+``inbatch_softmax_ce_dp`` (:240-264) waits for ROADMAP.md §A item 14.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import torch
 
 from torchrecsys_tpu_torch.ops import _build
 from torchrecsys_tpu_torch.ops.dot_topk import _check as _raise_on
-from torchrecsys_tpu_torch.ops.dot_topk import _ieee_f32_matmul
+from torchrecsys_tpu_torch.ops.dot_topk import _ieee_f32_matmul, _stream
 
 LANES = 128  # widest D the kernels take (the TPU kernel's lane width)
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -130,8 +130,8 @@ def softmax_ce_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("softmax_ce.cu")
     if not getattr(lib, "_trs_bound", False):
-        lib.trs_softmax_ce_splits.argtypes = [_CI]
-        lib.trs_softmax_ce_splits.restype = _CI
+        lib.trs_softmax_ce_fwd_scratch.argtypes = [_CI] * 2
+        lib.trs_softmax_ce_fwd_scratch.restype = ctypes.c_longlong
         lib.trs_softmax_ce_bwd_scratch.argtypes = [_CI] * 2
         lib.trs_softmax_ce_bwd_scratch.restype = ctypes.c_longlong
         lib.trs_softmax_ce_fwd.argtypes = [_VP] * 4 + [_CI] * 2 + [_VP] * 4
@@ -173,8 +173,10 @@ def softmax_ce_fwd(
     h: torch.Tensor, v: torch.Tensor, vbq: torch.Tensor, pos: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row CE and LSE; the contract of :func:`softmax_ce_fwd_plain`.
-    CUDA tensors launch the forward kernel and its combine on the current
-    stream; CPU tensors take the plain version."""
+    CUDA tensors launch the forward on the current stream (the split of v
+    into tile images, the 3xTF32 ``wgmma`` products with a running max and
+    sum per row, the fixed-order combine); CPU tensors take the plain
+    version."""
     b, d = _check("softmax_ce_fwd", h, v, vbq, pos)
     if h.device.type == "cpu":
         return softmax_ce_fwd_plain(h, v, vbq, pos)
@@ -183,18 +185,17 @@ def softmax_ce_fwd(
     h, v, vbq = _f32(h, v, vbq)
     pos = pos.to(torch.int64).contiguous()
     lib = _lib()
-    splits = lib.trs_softmax_ce_splits(b)
-    part = torch.empty((3 * splits * b,), dtype=torch.float32, device=dev)
-    out = torch.empty((2, b), dtype=torch.float32, device=dev)
+    n = int(lib.trs_softmax_ce_fwd_scratch(b, d))
+    buf = torch.empty((n + 2 * b,), dtype=torch.float32, device=dev)  # scratch, loss, lse
+    p = buf.data_ptr()
     with torch.cuda.device(dev):
         rc = lib.trs_softmax_ce_fwd(
             h.data_ptr(), v.data_ptr(), vbq.data_ptr(), pos.data_ptr(), b, d,
-            part.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            p, p + 4 * n, p + 4 * (n + b), _stream(dev),
         )
     _raise_on(rc, "softmax_ce_fwd")
     softmax_ce_fwd.launches += 1
-    return out[0], out[1]
+    return buf[n : n + b], buf[n + b :]
 
 
 softmax_ce_fwd.launches = 0
@@ -228,7 +229,7 @@ def softmax_ce_bwd(
         rc = lib.trs_softmax_ce_bwd(
             h.data_ptr(), v.data_ptr(), vbq.data_ptr(), pos.data_ptr(), lse.data_ptr(),
             g.data_ptr(), b, d, part.data_ptr(), dh.data_ptr(), dv.data_ptr(),
-            dvb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            dvb.data_ptr(), _stream(dev),
         )
     _raise_on(rc, "softmax_ce_bwd")
     softmax_ce_bwd.launches += 1
