@@ -12,11 +12,14 @@ result line:
    kernel's -Xptxas -v register/shared/spill lines.
 3. the top-k kernels against their plain torch version on the card at the
    serving shape (256 users x 1,000,000 items x 80 factors): f32, bf16 and
-   masked inputs, k in {10, 128, 1024}. Random inputs: values within
-   atol=1e-4 + rtol=1e-5 (f32 sums in another order over 80 products), and
-   an id may differ only if the kernel's item truly scores that value
-   (recomputed in f64). Exact-arithmetic inputs (small integers): ids and
-   values identical.
+   masked inputs, k in {10, 128, 1024}; then at edge shapes (U = 1 and 257,
+   N = 1,000,003, D = 13, 84 and 128), random and exact, f32 and bf16, with
+   and without a mask, k in {10, 16, 17, 128, 1024}. Random inputs: values
+   within atol=1e-4 + rtol=1e-5 (3xTF32 products, f32 sums in another
+   order), and an id may differ only if the kernel's item truly scores that
+   value (recomputed in f64). Exact-arithmetic inputs (small integers): ids
+   and values identical. Every call is made twice: the same bits. The build
+   log shows no ptxas line that serialises the top-k kernel's wgmmas.
 4. the fused pairwise train kernel against its plain version on the card,
    all 96 variants (3 losses x sigmoid x weights x emit_g x item_upd x bf16),
    on B = 1024 and 8192 rows gathered from a 1M-item and a 100K-user
@@ -99,8 +102,8 @@ result line:
       seed, tables and two epochs with f32 compute (the plain tower, no
       kernel) as a witness: the AMP run's test AUC at most 0.02 below its
       AUC, and its sample loss at most 10% above.
-7. times: per-kernel CUDA-event ms and, for the CE and tower kernels,
-   device us per call from torch.profiler, beside the bound, the plain version
+7. times: per-kernel CUDA-event ms and device us per call from
+   torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
    users/s, fit examples/s (hinge, softmax, MLP) and evaluate rows/s; per-call
    breakdowns; device time per kernel and the device's idle share over a
@@ -181,6 +184,10 @@ def build_kernels():
     log(f"[build] {len(results)} source(s) in {time.perf_counter() - t0:.2f} s")
     for res in results.values():
         log(f"[build] {res.source}: nvcc {res.seconds:.2f} s -> {res.library}")
+        if res.source == "dot_topk.cu":  # ptxas says so only in an info line
+            serial = [line.strip() for line in res.log.splitlines() if "C75" in line]
+            check(not serial, "dot_topk.cu: ptxas serialises wgmma: " + "; ".join(serial)[:400])
+            wgmma_sass(res.library)
         name, frame = None, ""
         per: dict = {}  # kernel name -> [(resources, frame)], one per template variant
         for line in res.log.splitlines():
@@ -201,6 +208,25 @@ def build_kernels():
             spills = sum(1 for _, f in entries if "0 bytes spill stores, 0 bytes spill loads" not in f)
             log(f"[build]   {short}: {len(entries)} template variants, {min(regs)}-{max(regs)} "
                 f"registers, {spills} with spills; e.g. {entries[0][0]}; {entries[0][1]}")
+
+
+def wgmma_sass(library: str) -> None:
+    """The SASS of the top-k kernel's variants: its products must stay
+    asynchronous: a serialised kernel waits after every HGMMA; this one
+    waits once per pass of k steps."""
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", library], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts = []
+    for block in sass.split("Function : ")[1:]:
+        if "dot_topk_tc_kernel" not in block.split("\n", 1)[0]:
+            continue
+        hgmma, waits = block.count("HGMMA"), block.count("WARPGROUP.DEPBAR.LE gsb0, 0x0")
+        check(hgmma > 0 and (waits <= 2 or 4 * waits < hgmma),
+              f"dot_topk_tc_kernel: {hgmma} HGMMA, {waits} full waits: serialised")
+        counts.append((hgmma, waits))
+    check(bool(counts), "dot_topk_tc_kernel: no SASS found")
+    log(f"[build]   dot_topk_tc_kernel SASS: {len(counts)} variants, HGMMA per variant "
+        f"{min(c[0] for c in counts)}-{max(c[0] for c in counts)}, full waits {max(c[1] for c in counts)} at most")
 
 
 # ---------------------------------------------------------------------------
@@ -236,37 +262,71 @@ def compare_topk(uv, iv, ib, mask, k, v, i, pv, pi, exact: bool):
     return err, mism
 
 
+def topk_inputs(torch, gen, u: int, n: int, d: int, exact: bool):
+    """(users, items, bias) on the card: small integers (every score exact
+    in f32 whatever the order) or standard normals."""
+    dev = torch.device(DEVICE)
+    if exact:
+        return (torch.randint(-3, 4, (u, d), generator=gen, device=dev).float(),
+                torch.randint(-3, 4, (n, d), generator=gen, device=dev).float(),
+                torch.randint(-3, 4, (n,), generator=gen, device=dev).float())
+    return (torch.randn(u, d, generator=gen, device=dev), torch.randn(n, d, generator=gen, device=dev),
+            torch.randn(n, generator=gen, device=dev))
+
+
+def seen_mask(torch, u: int, n: int, seed: int):
+    """A packed seen mask: up to 400 seen items per user; the first user has
+    seen all but 5 (fewer unseen items than k: the masked tail)."""
+    from torchrecsys_tpu_torch.ops import dot_topk as dt
+
+    rng = np.random.default_rng(seed)
+    seen = [rng.choice(n, size=int(rng.integers(0, min(400, n))), replace=False) for _ in range(u)]
+    seen[0] = np.setdiff1d(np.arange(n), rng.choice(n, size=5, replace=False))
+    return torch.as_tensor(dt.pack_seen_mask(seen, n), device=DEVICE)
+
+
+def check_topk_call(torch, fn, u_, i_, ib, k, m, exact):
+    """One kernel call against the plain version, and a second call that
+    must give the same bits. Returns (max |dv|, id mismatches)."""
+    from torchrecsys_tpu_torch.ops import dot_topk as dt
+
+    v, i = fn(u_, i_, ib, k, seen_mask=m)
+    v2, i2 = fn(u_, i_, ib, k, seen_mask=m)
+    pv, pi = dt.dot_topk_plain(u_, i_, ib, k, seen_mask=m)
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+    check(torch.equal(v, v2) and torch.equal(i, i2), f"{fn.__name__} k={k}: a repeated call differs")
+    return compare_topk(u_.float(), i_.float(), ib, m, min(k, i_.shape[0]), v, i, pv, pi, exact)
+
+
+# Edge shapes of the top-k kernels: (U, N, D). A partial user tile (U = 1,
+# 257), a partial item tile and split (N = 1,000,003), rows that are not
+# whole 16-byte units (D = 13: the wrapper pads them), D = 84 and the
+# widest D = 128.
+TOPK_EDGES = ((1, 200_000, D), (257, 200_000, D), (U, 1_000_003, D), (U, 200_000, 13), (U, 200_000, 84),
+              (U, 200_000, 128))
+TOPK_EDGE_KS = (10, 16, 17, 128, 1024)
+
+
 def kernel_phase(torch):
     from torchrecsys_tpu_torch.ops import dot_topk as dt
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rng = np.random.default_rng(0)
-    seen = [rng.choice(N, size=int(rng.integers(0, 400)), replace=False) for _ in range(U)]
-    mask = torch.as_tensor(dt.pack_seen_mask(seen, N), device=dev)
+    mask = seen_mask(torch, U, N, 0)
     errs = {name: 0.0 for name in KERNEL_ROWS}
     for exact in (False, True):
-        if exact:
-            uv = torch.randint(-3, 4, (U, D), generator=gen, device=dev).float()
-            iv = torch.randint(-3, 4, (N, D), generator=gen, device=dev).float()
-            ib = torch.randint(-3, 4, (N,), generator=gen, device=dev).float()
-        else:
-            uv = torch.randn(U, D, generator=gen, device=dev)
-            iv = torch.randn(N, D, generator=gen, device=dev)
-            ib = torch.randn(N, generator=gen, device=dev)
+        uv, iv, ib = topk_inputs(torch, gen, U, N, D, exact)
         for dtype, m in ((torch.float32, None), (torch.bfloat16, None), (torch.float32, mask)):
             u_, i_ = uv.to(dtype), iv.to(dtype)
             for k in (10, 128, 1024):
                 fn = dt.dot_topk_small if k <= 16 else dt.dot_topk_large
                 if dev.type == "cuda" and not exact and m is None:
-                    splits, _, cap, smem = dt.plan(k > 16, U, N, D, dtype == torch.bfloat16, k)
-                    log(f"[kernel] {fn.__name__} k={k}: {splits} catalog splits, "
-                        f"{smem} B dynamic shared memory per block, pool {cap}")
-                v, i = fn(u_, i_, ib, k, seen_mask=m)
-                pv, pi = dt.dot_topk_plain(u_, i_, ib, k, seen_mask=m)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
-                err, mism = compare_topk(u_.float(), i_.float(), ib, m, k, v, i, pv, pi, exact)
+                    splits, list_len, cap, smem, stages, keys = dt.plan(k > 16, U, N, D, dtype == torch.bfloat16, k)
+                    log(f"[kernel] {fn.__name__} k={k} {str(dtype).removeprefix('torch.')}: {splits} catalog "
+                        f"splits, lists of {list_len}, buffers of {cap} per user, {smem} B dynamic shared memory "
+                        f"per block, {stages} ring slots, {keys} published keys per user")
+                err, mism = check_topk_call(torch, fn, u_, i_, ib, k, m, exact)
                 if not exact:
                     errs[fn.__name__] = max(errs[fn.__name__], err)
                 log(
@@ -275,6 +335,24 @@ def kernel_phase(torch):
                     f"max|dv|={err:.3g} id mismatches={mism}"
                 )
         del uv, iv, ib
+    edges = 0
+    for u, n, d in TOPK_EDGES:
+        masks = {False: None, True: seen_mask(torch, u, n, u + n + d)}
+        worst = 0.0
+        for exact in (False, True):
+            uv, iv, ib = topk_inputs(torch, gen, u, n, d, exact)
+            for dtype in (torch.float32, torch.bfloat16):
+                u_, i_ = uv.to(dtype), iv.to(dtype)
+                for masked in (False, True):
+                    for k in TOPK_EDGE_KS:
+                        fn = dt.dot_topk_small if k <= 16 else dt.dot_topk_large
+                        err, _ = check_topk_call(torch, fn, u_, i_, ib, k, masks[masked], exact)
+                        worst = max(worst, err)
+                        edges += 1
+            del uv, iv, ib
+        log(f"[kernel] edge shape U={u} N={n} D={d}: random and exact, f32 and bf16, with and without a mask, "
+            f"k in {TOPK_EDGE_KS}: every call matches, repeated calls bit-identical; max|dv|={worst:.3g}")
+    log(f"[kernel] {edges} edge-shape calls checked")
     return errs
 
 
@@ -1429,20 +1507,27 @@ def timing_phase(torch, rs, users_raw, launches, errs):
             return torch.topk(torch.matmul(uv, q.T) + ib, k, dim=1)
 
         library_ms = cuda_ms(torch, library, reps=5)
+        dev_us, per_call = device_call(torch, lambda: fn(uv, q, ib, k))
+        check(per_call <= 3, f"{name}: {per_call} kernels per call (memset, kernel and merge expected)")
         flops = 2.0 * u * n * d
         nbytes = (u * d + n * d) * q.element_size() + n * 4 + u * k * 8
-        bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        # f32-accurate products as 3xTF32 on the tensor cores (a third of
+        # the TF32 peak); bf16 products at the bf16 peak
+        peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else SPLIT_F32_FLOPS
+        bound_ms = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
         rows_out.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+            "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes",
             "library_ms": library_ms,
         })
         log(
             f"[time] {name} (U={u}, N={n}, D={d}, k={k}, {str(q.dtype).removeprefix('torch.')}): "
-            f"{ms:.4f} ms; bound {bound_ms:.4f} ms; plain {plain_ms:.4f} ms; "
-            f"torch.topk(matmul) {library_ms:.4f} ms"
+            f"{ms:.4f} ms (device {dev_us:.1f} us per call over {per_call} kernel(s), torch.profiler); "
+            f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s; "
+            f"{max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms at the CUDA cores' "
+            f"{PEAK_F32_FLOPS / 1e12:.0f}); plain {plain_ms:.4f} ms; torch.topk(matmul) {library_ms:.4f} ms"
         )
     for w in (dt.dot_topk_small, dt.dot_topk_large):  # timing launches are not main-path launches
         w.launches = saved[w.__name__]
@@ -1911,7 +1996,10 @@ def profile_phase(torch, rs, users_raw):
             for e in prof.key_averages()
             if "dot_topk" in e.key
         }
-        log(f"[profile] {fn.__name__} k={k}: device us per launch " + ", ".join(f"{n} {t:.1f}" for n, t in per.items()))
+        total = sum(per.values())
+        merge = per.get("dot_topk_merge", 0.0)
+        log(f"[profile] {fn.__name__} k={k}: device us per launch " + ", ".join(f"{n} {t:.1f}" for n, t in per.items())
+            + f"; main {total - merge:.1f}, merge {merge:.1f} ({merge / max(total, 1e-9):.1%} of the call)")
 
 
 def main() -> int:

@@ -286,6 +286,63 @@ def test_approx_recall_is_exact():
 
 
 # ---------------------------------------------------------------------------
+# The kernel's 3xTF32 scores, emulated
+# ---------------------------------------------------------------------------
+
+CARD_ATOL, CARD_RTOL = 1e-4, 1e-5  # chip_smoke.py's tolerance for random inputs
+
+
+def _tf32(x):
+    """x with its low 13 mantissa bits cleared: the TF32 value the tensor
+    cores read from an f32 operand."""
+    return (np.ascontiguousarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_scores(uv, iv, ib, terms):
+    """users . items^T + bias from TF32 parts, as the kernel computes f32
+    scores: x = big + small with big = tf32(x) and small = tf32(x - big)
+    for both operands; the products of the parts are exact here (f64), the
+    sum rounds to f32 as the kernel's accumulators do, and the bias is added
+    in f32. ``terms`` names the products kept beside big.big: "item_small"
+    (item small . user big), "user_small" (item big . user small)."""
+    ub, ibg = _tf32(uv), _tf32(iv)
+    us, isml = _tf32(uv - ub), _tf32(iv - ibg)
+    f = lambda x: x.astype(np.float64)  # noqa: E731
+    acc = f(ub) @ f(ibg).T
+    if "item_small" in terms:
+        acc += f(ub) @ f(isml).T
+    if "user_small" in terms:
+        acc += f(us) @ f(ibg).T
+    return acc.astype(np.float32) + ib[None, :]
+
+
+def _within_card_tolerance(uv, iv, ib, got):
+    truth = uv.astype(np.float64) @ iv.astype(np.float64).T + ib.astype(np.float64)[None, :]
+    return bool((np.abs(got.astype(np.float64) - truth) <= CARD_ATOL + CARD_RTOL * np.abs(truth)).all())
+
+
+@pytest.mark.parametrize("d", [13, 80, 128])
+def test_3xtf32_scores_meet_the_card_tolerance(d):
+    """big.big + big.small + small.big (the kernel's f32 scores) land within
+    chip_smoke.py's atol = 1e-4 + rtol = 1e-5 of an f64 truth on randn
+    inputs, at the main path's D = 80, a D that is not a multiple of 4, and
+    the widest D."""
+    uv, iv, ib = _normal(64, 4096, d, seed=d)
+    assert _within_card_tolerance(uv, iv, ib, _split_scores(uv, iv, ib, ("item_small", "user_small")))
+
+
+@pytest.mark.parametrize("terms", [("user_small",), ("item_small",), ()],
+                         ids=["no_item_small", "no_user_small", "1xtf32"])
+@pytest.mark.parametrize("d", [13, 80, 128])
+def test_fewer_tf32_terms_miss_the_card_tolerance(d, terms):
+    """The same check catches a dropped remainder: with the items' small
+    part left out, the users', or both (plain TF32), scores leave the
+    tolerance, so all three products are needed."""
+    uv, iv, ib = _normal(64, 4096, d, seed=d)
+    assert not _within_card_tolerance(uv, iv, ib, _split_scores(uv, iv, ib, terms))
+
+
+# ---------------------------------------------------------------------------
 # On the card: each kernel against the plain version
 # ---------------------------------------------------------------------------
 
@@ -301,17 +358,28 @@ def cuda_device():
 @pytest.mark.parametrize("k", [10, 16, 17, 128, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, k, dtype, masked):
-    n = 20000
-    uv, iv, ib = (torch.from_numpy(a).to(cuda_device) for a in _exact(40, n, 80, seed=k))
+@pytest.mark.parametrize(
+    "u,n,d",
+    [(40, 20000, 80), (1, 20000, 80), (257, 20000, 80), (40, 1_000_003, 80), (40, 20000, 13), (40, 20000, 84),
+     (40, 20000, 128)],
+    ids=["main", "U1", "U257", "N1000003", "D13", "D84", "D128"],
+)
+def test_kernel_matches_plain_on_card(cuda_device, k, dtype, masked, u, n, d):
+    """Exact inputs: ids and values equal to the plain version's, at the
+    main width and at edge shapes (a partial user tile, a partial item tile
+    and split, rows that are not whole 16-byte units, the widest D); a
+    repeated call gives the same bits."""
+    uv, iv, ib = (torch.from_numpy(a).to(cuda_device) for a in _exact(u, n, d, seed=k))
     uv, iv = uv.to(dtype), iv.to(dtype)
     mask = None
     if masked:
-        mask = torch.from_numpy(tdt.pack_seen_mask(_seen(40, n, most=3), n)).to(cuda_device)
+        mask = torch.from_numpy(tdt.pack_seen_mask(_seen(u, n, most=3), n)).to(cuda_device)
     fn = tdt.dot_topk_small if k <= 16 else tdt.dot_topk_large
     before = fn.launches
     v, i = fn(uv, iv, ib, k, seen_mask=mask)
+    v2, i2 = fn(uv, iv, ib, k, seen_mask=mask)
     pv, pi = tdt.dot_topk_plain(uv, iv, ib, k, seen_mask=mask)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert fn.launches == before + 2
     assert torch.equal(i, pi) and torch.equal(v, pv)
+    assert torch.equal(i2, i) and torch.equal(v2, v)

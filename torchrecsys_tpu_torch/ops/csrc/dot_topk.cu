@@ -1,40 +1,91 @@
-// Full-catalog score + top-k for Hopper (sm_90a): two kernels and their
-// split merge, behind a plain C interface (bound with ctypes in
+// Full-catalog score + top-k for Hopper (sm_90a): one tensor-core kernel
+// and a split merge, behind a plain C interface (bound with ctypes in
 // torchrecsys_tpu_torch/ops/dot_topk.py, built by ops/_build.py).
 //
-// Both kernels compute, for every user u, the k best items of
+// Replaces the two TPU kernels of torchrecsys_tpu/ops/dot_topk.py:
+//   #1 _dot_topk_kernel (:136, called by dot_topk_pallas :202), k <= 16;
+//   #2 _dot_topk_threshold_kernel (:362, called by dot_topk_pallas_thresh
+//      :445), 16 < k <= 1024.
+// Both compute, for every user u, the k best items of
 //     score[u, g] = users[u] . items[g] + bias[g]
-// (products widened to f32 before accumulation, as preferred_element_type
-// does on the TPU), with a masked item scoring kNegInf, in ONE total order:
-// (value desc, item index asc). That order is jax.lax.top_k's lowest-index
-// tie rule, and every comparison below -- insertion, compaction, merge --
-// uses it, so no merge can reorder ties (the CUDA twin of the Mosaic argmax
-// trap at torchrecsys_tpu/ops/dot_topk.py:98-109).
+// (f32 results, int32 rows), with a masked item scoring kNegInf, in ONE
+// total order: (value desc, item index asc). That order is jax.lax.top_k's
+// lowest-index tie rule, and every comparison below -- gate, compaction,
+// block merge, split merge -- uses it, so no merge can reorder ties (the
+// CUDA twin of the Mosaic argmax trap at torchrecsys_tpu/ops/dot_topk.py:
+// 98-109). Both TPU kernels become one kernel here, dot_topk_tc_kernel,
+// whose per-user list length is 16 for #1 and k for #2.
 //
-// The TPU kernels walk the catalog as a sequential grid carrying a running
-// top-k in VMEM (ops/dot_topk.py:151-198, 399-441). Blocks here run in
-// parallel and carry nothing, so the catalog is cut into S splits: a block
-// owns (user tile x split) and writes one sorted partial list per
-// (user, split) to scratch that the wrapper allocates; a second launch,
-// dot_topk_merge_kernel, sorts each user's S lists and keeps the first k.
+// Bound at the main path (U=256, N=1,000,000, D=80): 2.U.N.D = 40.96 GFLOP
+// of f32-accurate products. As 3xTF32 on the tensor cores (three TF32
+// products per f32 product at 495 TFLOP/s) that is 0.2482 ms; on the CUDA
+// cores' f32 FMA (67 TFLOP/s) 0.6113 ms. The item stream (items + bias,
+// 324 MB) takes 0.097 ms at 3.35 TB/s: bound by operations. bf16 vectors
+// take one exact bf16 product per pair (989 TFLOP/s, 0.041 ms) and stream
+// 164 MB (0.049 ms): bound by bytes.
 //
-// Bound at the main-path shape (U=256, N=1,000,000, D=80):
-//   f32:  2*U*N*D = 40.96 GFLOP over 67 TFLOP/s (f32 FMA, no tensor cores)
-//         = 0.61 ms, against 324 MB (items + bias) over 3.35 TB/s = 0.10 ms:
-//         compute-bound.
-//   bf16: the same 0.61 ms of f32 FMAs; the item stream halves to 164 MB
-//         (0.05 ms). Still compute-bound, because the products run as f32
-//         FMAs (bf16 is widened on the way into shared memory).
-// What the design does about it: item tiles come into shared memory with
-// 16-byte loads and are widened to f32 once per block, not per thread; the
-// FMAs run in independent chains from registers (K1: the user vector in
-// registers, one broadcast shared load per 4 FMAs; K2: a 4-user x 4-item
-// register tile, one shared load per 8 FMAs); and the top-k bookkeeping is
-// a compare against a register threshold for all but a few percent of the
-// scores. Tensor cores (wgmma) and TMA-fed tiles are later work.
+// What the design does about it:
+// - Scores run on wgmma. Items are the M operand (64-item tiles), the
+//   block's users the N operand (UT = 64, 32 or 8 users). f32 runs as
+//   3xTF32: x = big + small with big = x (the tensor cores read its top 19
+//   bits) and small = x - tf32(x); big.big + big.small + small.big, small
+//   terms first, in two accumulator chains (even and odd k steps) so that
+//   two products of a warpgroup are in flight (as softmax_ce.cu's forward
+//   splits). bf16 runs one m64nNk16 bf16 product per k step: exact
+//   products, f32 sums.
+// - Items stream from device memory once per user tile: one thread of a
+//   producer warpgroup bulk-copies each tile's rows (one contiguous
+//   cp.async.bulk, counted on an mbarrier) into a ring of 2 or 4 slots.
+//   Each consumer warpgroup loads its tile's A fragments into registers,
+//   splits them there, and frees the slot at once (after a proxy fence:
+//   the next bulk copy into the slot is another proxy's write). The
+//   fragments are read with 16-byte (f32) or 8-byte (bf16) shared loads
+//   because the k axis is permuted: wgmma's logical k position
+//   8kk + t + 4h (tf32) is physical dim t*C + 2kk + h, so lane t's dims are
+//   one contiguous run of C. The users' image (formed once per block in
+//   the 128-byte swizzle, big and small parts for f32) carries the same
+//   permutation, so the dot products are unchanged. The producer
+//   warpgroup gives its registers to the two consumer warpgroups
+//   (setmaxnreg).
+// - Two warpgroups take alternate item tiles, so one's selection runs
+//   under the other's products; each keeps its own per-user state and the
+//   two lists are merged at the end of the block.
+// - Selection is gated: a score is compared with its user's threshold
+//   value (registers, one compare, no branch); only a score that ties or
+//   passes takes the exact (value, index) compare against the threshold's
+//   64-bit key (tiles do not arrive in index order) and is appended to the
+//   user's shared buffer (position from a shared atomic: the buffer is
+//   later sorted in the total order, so append order decides no result).
+//   A buffer that overflows is compacted by one warp in registers (a
+//   bitonic sort of 64 or 256 entries; k > 128 sorts in shared memory),
+//   cut to the list length L, and the rejected entries gated again. The
+//   seen mask is read only there, for the buffered entries: a seen item's
+//   entry sorts as kNegInf (so masked items still fill the tail in index
+//   order), and since kNegInf is below its score, gating the score as it
+//   is drops nothing that belongs.
+// - Thresholds are shared across blocks: each compaction publishes the
+//   list's best P keys per user; after a warpgroup's 16th, 32nd, 64th, ...
+//   tile it takes the L-th best of all published keys (distinct items, so
+//   at least L items, and the user's k-th best, are at or above it) as a
+//   lower bound. Appends then fall from ~L (1 + ln(n / L)) per (user,
+//   split) to a few.
+// - The catalog is cut into S tile-aligned splits, one wave of blocks
+//   (user tile x split); each block writes one sorted list of L per
+//   (user, split), and dot_topk_merge_kernel sorts each user's S lists
+//   and keeps the first k. A memset of the published keys, the kernel and
+//   the merge: three launches per call, and no atomic decides a result
+//   (the published bounds only prune items that cannot be in the top k):
+//   repeated calls give the same bits.
+// What still holds it back (PERF.md): the products reach about 40% of the
+// 3xTF32 rate (a 64 x 64 x 8 wgmma with A from registers does little work
+// per instruction, and each warpgroup waits for its products before its
+// selection); the selection's slow path, the compactions and the sorts of
+// published keys run on the CUDA cores beside them; the 32-user tiles of
+// 16 < k <= 128 do half the work per A fragment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -46,21 +97,38 @@ namespace {
 // fewer unseen items than k gets the masked tail in index order, as in JAX.
 constexpr float kNegInf = -3.40282346638528859811704183484516925e+38f;
 constexpr int kIntMax = 0x7fffffff;
-constexpr int kMaskTile = 4096;               // ops/dot_topk.py:59
-constexpr int kMaskWords = kMaskTile / 32;    // 128 words per mask tile
+constexpr int kMaskTile = 4096;             // ops/dot_topk.py:59
+constexpr int kMaskWords = kMaskTile / 32;  // 128 words per mask tile
+constexpr int kMaxDim = 128;
+constexpr int kTile = 64;                   // items per tile: wgmma's M
+constexpr int kConsumers = 128;             // threads of one warpgroup
+constexpr int kSmemLimit = 232448;          // a block's shared memory on sm_90
+constexpr int kSmallList = 16;              // entries kept per (user, split) for k <= 16
+constexpr int kWideMaxK = 128;              // k up to which two warpgroups share a 32-user tile
+constexpr int kRefresh = 16;                // a warpgroup's tiles before its first read of the published keys
+constexpr int kMaxShared = 512;             // published keys per user that a refresh reads at most
 
 __device__ __forceinline__ float sentinel_value() {
   return __int_as_float(0xff800000);  // -inf: loses to every real score
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // (va, ia) strictly precedes (vb, ib) in (value desc, index asc) order.
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
+}
+
+// (value, index) as one unsigned 64-bit key that orders as the total
+// order: a larger key is better. A threshold kept as one key is read and
+// written whole, so a reader never sees a value with another index.
+__device__ __forceinline__ unsigned long long order_key(float v, int i) {
+  uint32_t b = __float_as_uint(v);
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)b << 32) | (uint32_t)~i;
+}
+
+__device__ __forceinline__ float key_value(unsigned long long k) {
+  const uint32_t b = (uint32_t)(k >> 32);
+  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
 }
 
 // Packed seen-mask bit of item g: ops/dot_topk.py:62-87 layout, where item
@@ -71,280 +139,6 @@ __device__ __forceinline__ bool is_masked(const int* __restrict__ mrow, int g) {
   const int bit = lg / kMaskWords;
   return (__ldg(mrow + word) >> bit) & 1;
 }
-
-// One user's vector, zero-padded to 4*D4, into registers.
-template <typename T, int D4>
-__device__ __forceinline__ void load_user(float4 (&uv)[D4],
-                                          const T* __restrict__ users, int u,
-                                          int U, int D) {
-#pragma unroll
-  for (int c = 0; c < D4; ++c) {
-    float x[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * c + e;
-      x[e] = (u < U && d < D) ? to_f32(users[(size_t)u * D + d]) : 0.f;
-    }
-    uv[c] = make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-// 4 bf16 (two 32-bit words, low half first) -> 4 f32, exactly.
-__device__ __forceinline__ float4 bf16x4_lo(uint2 w) {
-  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-}
-
-// The 16-byte unit a thread loads: 4 f32 or 8 bf16 values.
-template <typename T>
-struct Chunk;
-template <>
-struct Chunk<float> {
-  using type = float4;
-  static constexpr int floats = 4;
-};
-template <>
-struct Chunk<__nv_bfloat16> {
-  using type = uint4;
-  static constexpr int floats = 8;
-};
-
-// Chunk c of a tile row, widened to f32.
-__device__ __forceinline__ void put_chunk(float4* row, int c, int, float4 v) {
-  row[c] = v;
-}
-__device__ __forceinline__ void put_chunk(float4* row, int c, int d4, uint4 v) {
-  row[2 * c] = bf16x4_lo(make_uint2(v.x, v.y));
-  if (2 * c + 1 < d4) row[2 * c + 1] = bf16x4_lo(make_uint2(v.z, v.w));
-}
-
-// 16-byte chunks each of NT threads moves for one TILE-row tile.
-template <typename T, int D4, int TILE, int NT>
-__host__ __device__ constexpr int chunks_per_thread() {
-  return (TILE * ((4 * D4 + Chunk<T>::floats - 1) / Chunk<T>::floats) + NT - 1) / NT;
-}
-
-// Tile rows in 16-byte chunks, read from the first `cnt` rows at `rows` of
-// an item matrix with 16-byte aligned rows (D a multiple of
-// Chunk<T>::floats). `fetch` loads into registers and `store` writes the
-// shared tile, so a caller can keep the next tile's loads in flight while
-// it scores the current one.
-template <typename T, int D4, int DS4, int TILE, int NT, int ITERS>
-struct TileChunks {
-  using C = typename Chunk<T>::type;
-  static constexpr int CH = (4 * D4 + Chunk<T>::floats - 1) / Chunk<T>::floats;
-  static constexpr int TOTAL = TILE * CH;
-  C r[ITERS];
-
-  // chunks first, first + NT, ..., first + (ITERS - 1) * NT of the tile
-  __device__ __forceinline__ void fetch(const T* __restrict__ rows, int cnt,
-                                        int D, int first) {
-    const int dq = D / Chunk<T>::floats;
-    const C* src = reinterpret_cast<const C*>(rows);
-#pragma unroll
-    for (int i = 0; i < ITERS; ++i) {
-      const int e = first + i * NT;
-      const int row = e / CH;
-      const int c = e - row * CH;
-      r[i] = (e < TOTAL && row < cnt && c < dq) ? __ldg(src + (size_t)row * dq + c) : C{};
-    }
-  }
-
-  __device__ __forceinline__ void store(float4* __restrict__ dst, int first) const {
-#pragma unroll
-    for (int i = 0; i < ITERS; ++i) {
-      const int e = first + i * NT;
-      if (e < TOTAL) {
-        const int row = e / CH;
-        put_chunk(dst + row * DS4, e - row * CH, D4, r[i]);
-      }
-    }
-  }
-};
-
-// A whole tile, G chunks per thread at a time: a tile costs about
-// ceil(chunks per thread / G) memory latencies, not one per load.
-template <typename T, int D4, int DS4, int TILE, int NT, int G>
-__device__ __forceinline__ void load_rows_vec(float4* __restrict__ dst,
-                                              const T* __restrict__ rows,
-                                              int cnt, int D, int tid) {
-  using Chunks = TileChunks<T, D4, DS4, TILE, NT, G>;
-  constexpr int ITERS = chunks_per_thread<T, D4, TILE, NT>();
-#pragma unroll
-  for (int i0 = 0; i0 < ITERS; i0 += G) {
-    Chunks part;
-    part.fetch(rows, cnt, D, tid + i0 * NT);
-    part.store(dst, tid + i0 * NT);
-  }
-}
-
-// Items [t0, t0 + cnt) into a shared f32 tile of TILE rows, D4 float4
-// columns (zero-padded past D and past cnt) and a row stride of DS4 float4,
-// plus their biases. Row-major items make the tile one contiguous stretch
-// of device memory. With `vec` (D a multiple of 4 for f32 or of 8 for bf16,
-// 16-byte aligned rows) every thread moves 16 bytes per load.
-template <typename T, int D4, int DS4, int TILE, int NT, int G>
-__device__ __forceinline__ void load_tile(float4* __restrict__ dst,
-                                          float* __restrict__ tb,
-                                          const T* __restrict__ items,
-                                          const float* __restrict__ bias,
-                                          int t0, int cnt, int D, bool vec,
-                                          int tid) {
-  const T* src = items + (size_t)t0 * D;
-  if (vec) {
-    load_rows_vec<T, D4, DS4, TILE, NT, G>(dst, src, cnt, D, tid);
-  } else {
-    float* df = reinterpret_cast<float*>(dst);
-    for (int e = tid; e < TILE * 4 * D4; e += NT) {
-      const int r = e / (4 * D4);
-      const int c = e - r * (4 * D4);
-      df[r * 4 * DS4 + c] =
-          (r < cnt && c < D) ? to_f32(src[(size_t)r * D + c]) : 0.f;
-    }
-  }
-  for (int e = tid; e < TILE; e += NT) {
-    tb[e] = e < cnt ? bias[t0 + e] : 0.f;
-  }
-}
-
-// f32 dot of a register user vector with one shared-memory item row: four
-// independent FMA chains, so an FMA never waits on the previous one.
-template <int D4>
-__device__ __forceinline__ float dot_row(const float4 (&uv)[D4],
-                                         const float4* row) {
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-  for (int c = 0; c < D4; ++c) {
-    const float4 w = row[c];
-    a0 = fmaf(uv[c].x, w.x, a0);
-    a1 = fmaf(uv[c].y, w.y, a1);
-    a2 = fmaf(uv[c].z, w.z, a2);
-    a3 = fmaf(uv[c].w, w.w, a3);
-  }
-  return (a0 + a1) + (a2 + a3);
-}
-
-// ---------------------------------------------------------------------------
-// K1: dot_topk_small (k <= 16). Replaces _dot_topk_kernel,
-// torchrecsys_tpu/ops/dot_topk.py:136-198 (called by dot_topk_pallas
-// :202-306). Bound: see the file header (0.61 ms f32 at the main path).
-//
-// One thread per (user, split): the thread streams its split's items in
-// index order and keeps a sorted top-16 in registers. A new score enters
-// only if it beats the 16th value: its index is the largest seen so far,
-// so an equal value loses the tie and the gate is a single compare. The
-// thread's list IS the (user, split) partial top-16, so no block merge is
-// needed; the split merge runs in dot_topk_merge_kernel. Splits are as long
-// as one full wave of resident blocks allows (dot_topk_plan), because the
-// insertion rate falls with the length of a thread's stream.
-// ---------------------------------------------------------------------------
-
-constexpr int kSmallThreads = 64;   // users per block
-constexpr int kSmallTile = 64;      // items per shared-memory tile
-constexpr int kSmallList = 16;      // entries kept per (user, split)
-
-template <typename T, int D4>
-__global__ void __launch_bounds__(kSmallThreads)
-dot_topk_small_kernel(const T* __restrict__ users, const T* __restrict__ items,
-                      const float* __restrict__ bias,
-                      const int* __restrict__ mask, int mask_words, int U,
-                      int N, int D, int split_len, int vec,
-                      float* __restrict__ part_v, int* __restrict__ part_i) {
-  constexpr int K = kSmallList;
-  extern __shared__ float4 smem4[];
-  float4* tile = smem4;
-  float* tbias = reinterpret_cast<float*>(smem4 + kSmallTile * D4);
-
-  const int tid = threadIdx.x;
-  const int u = blockIdx.x * kSmallThreads + tid;
-  const int s = blockIdx.y;
-  const bool active = u < U;
-  const int g_begin = s * split_len;
-  const int g_end = min(N, g_begin + split_len);
-
-  float4 uv[D4];
-  load_user<T, D4>(uv, users, u, U, D);
-  const int* mrow =
-      (mask != nullptr && active) ? mask + (size_t)u * mask_words : nullptr;
-
-  float kv[K];
-  int ki[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    kv[t] = sentinel_value();
-    ki[t] = kIntMax;
-  }
-
-  for (int t0 = g_begin; t0 < g_end; t0 += kSmallTile) {
-    const int cnt = min(kSmallTile, g_end - t0);
-    __syncthreads();  // the previous tile is no longer read
-    load_tile<T, D4, D4, kSmallTile, kSmallThreads, 4>(
-        tile, tbias, items, bias, t0, cnt, D, vec != 0, tid);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < cnt; ++j) {
-      const int g = t0 + j;
-      float sc = dot_row<D4>(uv, tile + j * D4) + tbias[j];
-      if (mrow != nullptr && is_masked(mrow, g)) sc = kNegInf;
-      if (sc > kv[K - 1]) {
-        // sorted insertion: carry the displaced entry down the list
-        float cv = sc;
-        int ci = g;
-#pragma unroll
-        for (int t = 0; t < K; ++t) {
-          const float tv = kv[t];
-          const int ti = ki[t];
-          const bool take = better(cv, ci, tv, ti);
-          kv[t] = take ? cv : tv;
-          ki[t] = take ? ci : ti;
-          cv = take ? tv : cv;
-          ci = take ? ti : ci;
-        }
-      }
-    }
-  }
-  if (active) {
-    const size_t base = ((size_t)u * gridDim.y + s) * K;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-      part_v[base + t] = kv[t];
-      part_i[base + t] = ki[t];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2: dot_topk_large (16 < k <= 1024). Replaces _dot_topk_threshold_kernel,
-// torchrecsys_tpu/ops/dot_topk.py:362-441 (called by dot_topk_pallas_thresh
-// :445-536). Bound: the same 0.61 ms of f32 FMAs at the main path.
-//
-// A block holds 8 warps and 8 * UPW users (UPW = 4 for k <= 128, else 1)
-// and walks one split in 128-item shared tiles; the next tile's loads are
-// in flight in registers while the current one is scored. Each warp
-// computes a (UPW users x 128 items) score tile: lane l owns items l, l+32,
-// l+64, l+96, the users' vectors are broadcast from shared memory, so every
-// shared load feeds UPW*4 (or 4) FMAs, and the scores stay in registers.
-//
-// Selection keeps, per user, a candidate pool of `cap` entries (pool_cap:
-// a power of two with room for at least 64 appends past k) in shared
-// memory: the first k slots hold the running top-k, the rest is an append
-// buffer. The threshold idea of :373-393: a score is appended only if it
-// beats the pool's current k-th entry. One warp vote per tile finds the
-// common case where no score does; otherwise one ballot per 32 scores
-// appends (the warp owns its users' pools, so no block sync). When the
-// buffer would overflow, the warp compacts the pool with a bitonic sort by
-// (value desc, index asc), keeps the first k and raises the threshold to
-// the new k-th entry. Expected appends over a split of n items are about
-// k * (1 + ln(n / k)), so a few compactions per split. The list written out
-// is fully sorted, so the wrapper needs no lexsort, and it is exact under
-// ties at the k-th value too (stricter than the TPU kernel,
-// whose strict `>` admits the first-seen tied candidates).
-// ---------------------------------------------------------------------------
-
-constexpr int kLargeWarps = 8;
-constexpr int kLargeThreads = kLargeWarps * 32;
-constexpr int kLargeTile = 128;                 // items per shared tile
-constexpr int kLargeWideMaxK = 128;             // k up to which UPW = 4
 
 __host__ __device__ inline int next_pow2(int x) {
   int p = 1;
@@ -399,201 +193,811 @@ __device__ void block_sort(float* v, int* id, int n) {
   }
 }
 
-template <int D4, int UPW>
-struct LargeLayout {
-  static constexpr int UB = kLargeWarps * UPW;  // users per block
-  // odd float4 row stride: the 8 lanes of a 128-bit shared load phase hit
-  // 8 distinct bank groups when they read 8 different item rows
-  static constexpr int DS4 = D4 | 1;
-  static size_t smem_bytes(int cap) {
-    return (size_t)kLargeTile * DS4 * sizeof(float4) +
-           (size_t)UB * D4 * sizeof(float4) + (size_t)kLargeTile * sizeof(float) +
-           (size_t)UB * cap * (sizeof(float) + sizeof(int));
+// Sorts the n = 32 E entries of (v, id) that one warp holds, E per lane,
+// into (value desc, index asc) order in registers (a bitonic network:
+// strides below E within a lane, the others across lanes by shuffles), and
+// writes back the first ``keep``. Entries at ``fill`` and past read as
+// sentinels; with a mask row, a seen item's entry reads as kNegInf.
+template <int E>
+__device__ __forceinline__ void sort_regs(float* v, int* id, int fill, int keep, const int* mrow, int lane) {
+  float x[E];
+  int y[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {  // any placement: the network sorts what it holds
+    const int e = 32 * r + lane;
+    x[r] = e < fill ? v[e] : sentinel_value();
+    y[r] = e < fill ? id[e] : kIntMax;
+    if (mrow != nullptr && e < fill && is_masked(mrow, y[r])) x[r] = kNegInf;
   }
+  __syncwarp();
+#pragma unroll
+  for (int size = 2; size <= 32 * E; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const int e = lane * E + r;  // sorted position of x[r]
+        const bool first = (e & size) == 0;  // this run is sorted better-first
+        if (stride >= E) {
+          const int ls = stride / E;
+          const float pv = __shfl_xor_sync(0xffffffffu, x[r], ls);
+          const int pi = __shfl_xor_sync(0xffffffffu, y[r], ls);
+          const bool keep_better = ((lane & ls) == 0) == first;
+          if (better(pv, pi, x[r], y[r]) == keep_better) {
+            x[r] = pv;
+            y[r] = pi;
+          }
+        } else if ((r & stride) == 0) {
+          const int p = r | stride;
+          if (better(x[p], y[p], x[r], y[r]) == first) {
+            const float tv = x[r];
+            const int ti = y[r];
+            x[r] = x[p];
+            y[r] = y[p];
+            x[p] = tv;
+            y[p] = ti;
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int e = lane * E + r;
+    if (e < keep) {
+      v[e] = x[r];
+      id[e] = y[r];
+    }
+  }
+  __syncwarp();
+}
+
+// Sorts a candidate buffer of ``cap`` entries by one warp, those at
+// ``fill`` and past read as sentinels and, with a mask row, seen items as
+// kNegInf; the first ``keep`` are then in (value desc, index asc) order.
+// CAP: the buffer size of the variant, held in registers (E = CAP / 32 per
+// lane); 0: a runtime size (k > 128), sorted in shared memory.
+template <int CAP>
+__device__ __forceinline__ void sort_list(float* v, int* id, int fill, int keep, int cap, const int* mrow,
+                                          int lane) {
+  if constexpr (CAP > 0) {
+    sort_regs<CAP / 32>(v, id, fill, keep, mrow, lane);
+  } else {
+    for (int e = lane; e < cap; e += 32) {
+      if (e >= fill) {
+        v[e] = sentinel_value();
+        id[e] = kIntMax;
+      } else if (mrow != nullptr && is_masked(mrow, id[e])) {
+        v[e] = kNegInf;
+      }
+    }
+    warp_sort(v, id, cap, lane);
+  }
+}
+
+// The key of rank ``rank`` (0 = best) among the m keys at ``src`` (global
+// memory, read past L1: other blocks write them), by one warp: a bitonic
+// sort of E keys per lane in registers, descending, padded with zeros.
+// Returns it in every lane.
+template <int E>
+__device__ __forceinline__ unsigned long long select_key_regs(const unsigned long long* src, int m, int rank,
+                                                             int lane) {
+  unsigned long long x[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int e = 32 * r + lane;
+    x[r] = e < m ? __ldcg(src + e) : 0ull;
+  }
+#pragma unroll
+  for (int size = 2; size <= 32 * E; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const int e = lane * E + r;
+        const bool first = (e & size) == 0;  // this run is sorted larger-first
+        if (stride >= E) {
+          const int ls = stride / E;
+          const unsigned long long p = __shfl_xor_sync(0xffffffffu, x[r], ls);
+          const bool keep_larger = ((lane & ls) == 0) == first;
+          if ((p > x[r]) == keep_larger) x[r] = p;
+        } else if ((r & stride) == 0) {
+          const int q = r | stride;
+          if ((x[q] > x[r]) == first) {
+            const unsigned long long tq = x[r];
+            x[r] = x[q];
+            x[q] = tq;
+          }
+        }
+      }
+    }
+  }
+  unsigned long long mine = 0;
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+    if (lane * E + r == rank) mine = x[r];
+  return __shfl_sync(0xffffffffu, mine, rank / E);
+}
+
+__device__ __noinline__ unsigned long long select_key(const unsigned long long* src, int m, int rank, int lane) {
+  const int n = next_pow2(m < 32 ? 32 : m);
+  switch (n) {
+    case 32: return select_key_regs<1>(src, m, rank, lane);
+    case 64: return select_key_regs<2>(src, m, rank, lane);
+    case 128: return select_key_regs<4>(src, m, rank, lane);
+    case 256: return select_key_regs<8>(src, m, rank, lane);
+    default: return select_key_regs<16>(src, m, rank, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Hopper primitives: shared-memory descriptors, wgmma, mbarriers, bulk
+// copies, named barriers.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A K-major shared-memory matrix descriptor in the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;            // leading byte offset (unused for K-major swizzled)
+  d |= (uint64_t)(1024 >> 4) << 32;  // stride byte offset
+  d |= (uint64_t)1 << 62;            // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int NA>
+__device__ __forceinline__ void fence_acc(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int NR>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[NR][4]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (+)= A . B on one warpgroup, m64nNk8 tf32 (N = 2 NA): A (64 items x 8)
+// from registers (rows 16 w + g (+8), k t (+4) of warp w), B (N users x 8,
+// K-major) from shared memory.
+#define TRS_WGMMA_TF32_TAIL "p, 1, 1;\n}\n"
+#define TRS_WGMMA_BF16_TAIL "p, 1, 1, 0;\n}\n"
+
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc, float) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, " TRS_WGMMA_TF32_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc, float) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, " TRS_WGMMA_TF32_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[4], const uint32_t (&a)[4], uint64_t db, int acc, float) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, " TRS_WGMMA_TF32_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The same, m64nNk16 bf16 (A: 4 registers of two bf16 each, rows g (+8), k
+// 2t, 2t+1 (+8)).
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc,
+                                      __nv_bfloat16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, " TRS_WGMMA_BF16_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc,
+                                      __nv_bfloat16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, " TRS_WGMMA_BF16_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[4], const uint32_t (&a)[4], uint64_t db, int acc,
+                                      __nv_bfloat16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, " TRS_WGMMA_BF16_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+#undef TRS_WGMMA_TF32_TAIL
+#undef TRS_WGMMA_BF16_TAIL
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of ``bar`` with parity ``phase`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(phase)
+        : "memory");
+  }
+}
+
+// One contiguous copy of ``bytes`` (a multiple of 16) from global to shared
+// memory by the copy engine, counted on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Named barriers: 3 + wg synchronises one warpgroup, 5 the two consumer
+// warpgroups.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A barrier of one warpgroup (id, 128 threads) that also returns whether
+// any of its threads passed ``v``.
+__device__ __forceinline__ bool wg_any(int id, bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, 128, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)v), "r"(id)
+      : "memory");
+  return r != 0;
+}
+
+// Shared stores that wgmma (the async proxy) reads afterwards.
+__device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------------------
+// The score + selection kernel.
+// ---------------------------------------------------------------------------
+
+// Per element type: logical k per wgmma step, user images (f32: big and
+// small; bf16: one), the 4-element vector a lane loads.
+template <typename T>
+struct Elt;
+template <>
+struct Elt<float> {
+  static constexpr int step = 8;
+  static constexpr int imgs = 2;
+  using Vec = float4;
+};
+template <>
+struct Elt<__nv_bfloat16> {
+  static constexpr int step = 16;
+  static constexpr int imgs = 1;
+  using Vec = uint2;
 };
 
-template <typename T, int D4, int UPW>
-__global__ void __launch_bounds__(kLargeThreads)
-dot_topk_large_kernel(const T* __restrict__ users, const T* __restrict__ items,
-                      const float* __restrict__ bias,
-                      const int* __restrict__ mask, int mask_words, int U,
-                      int N, int D, int split_len, int k, int cap, int vec,
-                      float* __restrict__ part_v, int* __restrict__ part_i) {
-  using L = LargeLayout<D4, UPW>;
-  constexpr int DS4 = L::DS4;
-  constexpr int UB = L::UB;
-  constexpr int M = kLargeTile / 32;  // items per lane per tile
-  extern __shared__ float4 smem4[];
-  float4* tile = smem4;
-  float4* ushared = tile + kLargeTile * DS4;
-  float* tbias = reinterpret_cast<float*>(ushared + UB * D4);
-  float* pool_v_all = tbias + kLargeTile;
-  int* pool_i_all = reinterpret_cast<int*>(pool_v_all + UB * cap);
+// k steps of each variant: D up to 32, 64, 80 (the reference default
+// n_factors) and 128, zero-padded past D.
+template <typename T>
+int pick_nk(int D) {
+  const int s = Elt<T>::step;
+  for (int dmax : {32, 64, 80, 128})
+    if (D <= dmax) return dmax / s;
+  return 0;
+}
+
+// Bytes of one user's image row: the logical k extent rounded up to whole
+// 128-byte swizzle rows.
+template <typename T, int NK>
+__host__ __device__ constexpr int image_row_bytes() {
+  return (Elt<T>::step * NK * (int)sizeof(T) + 127) / 128 * 128;
+}
+
+// Physical dim of logical k position l (the permutation that gives lane t
+// one contiguous run of C = step * NK / 4 dims).
+template <typename T, int NK>
+__device__ __forceinline__ int perm_k(int l) {
+  constexpr int C = Elt<T>::step * NK / 4;
+  if (Elt<T>::step == 8) {  // tf32: l = 8 kk + t + 4 h -> t C + 2 kk + h
+    const int kk = l >> 3, r = l & 7;
+    return (r & 3) * C + 2 * kk + (r >> 2);
+  }
+  // bf16: l = 16 kk + 2 t + 8 h + e -> t C + 4 kk + 2 h + e
+  const int kk = l >> 4, r = l & 15;
+  return ((r & 7) >> 1) * C + 4 * kk + 2 * (r >> 3) + (r & 1);
+}
+
+// Shared-memory layout of a block, in bytes from its 1024-aligned base:
+// the users' images, the ring of item tiles, the candidate buffers
+// (values, then indices), the per-user state (threshold value, threshold
+// index, fill) and the ring's mbarriers.
+struct Layout {
+  int ring, buf, state, bars, total;
+};
+
+__host__ __device__ inline Layout layout(int img_total, int slot_bytes, int stages, int users, int cap) {
+  Layout l;
+  l.ring = img_total;
+  l.buf = l.ring + stages * slot_bytes;
+  l.state = l.buf + users * cap * 8;
+  l.bars = (l.state + users * 12 + 7) / 8 * 8;
+  l.total = l.bars + 2 * stages * 8;
+  return l;
+}
+
+struct Args {
+  const void* users;     // (U, D)
+  const void* items;     // (N, D), 16-byte aligned rows
+  const float* bias;     // (N,)
+  const int* mask;       // (U, mask_words) packed seen bits, or null
+  int mask_words;
+  unsigned long long* gtop;  // (U, S, NWG, P), zeroed: each list's P best keys, as last published
+  int top_p;                 // P; 0: no sharing
+  int U, N, D;
+  int L;                 // entries kept per (user, split)
+  int cap;               // candidate buffer entries per user (a power of two)
+  int tiles_per_split;
+  int stages;            // ring slots
+  int slot_bytes;
+  float* part_v;         // (U, S, L)
+  int* part_i;
+};
+
+// Words [w0, w0 + NW) of a lane's run of one item row (C dims from t C,
+// zero past D), as 32-bit words: f32 values, or bf16 pairs. w0: a multiple
+// of the words of a vector.
+template <typename T, int NK, int NW>
+__device__ __forceinline__ void load_run(const T* row, int t, int D, int w0, uint32_t (&w)[NW]) {
+  using V = typename Elt<T>::Vec;
+  constexpr int C = Elt<T>::step * NK / 4;
+  constexpr int WV = sizeof(V) / 4;  // words per vector
+  constexpr int EW = 4 / WV;         // elements per word
+  static_assert(NW % WV == 0, "whole vectors");
+#pragma unroll
+  for (int v = 0; v < NW / WV; ++v) {
+    const int p = t * C + (w0 + WV * v) * EW;
+    V x{};
+    if (p < D) x = *reinterpret_cast<const V*>(row + p);
+    const uint32_t* xw = reinterpret_cast<const uint32_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < WV; ++e) w[WV * v + e] = xw[e];
+  }
+}
+
+__device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(__float_as_uint(x) & 0xffffe000u); }
+
+// Block (user tile of UT, catalog split): NWG consumer warpgroups and one
+// producer warpgroup. See the file header for the design.
+template <typename T, int NK, int UT, int NWG, int CAP>
+__global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(const Args a) {
+  constexpr int NA = UT / 2;  // accumulators per thread
+  constexpr int NJ = UT / 8;  // 8-user column groups
+  constexpr int KB = image_row_bytes<T, NK>();
+  constexpr int IMG = UT * KB;  // bytes of one user image
+  constexpr int NC = NWG * kConsumers;
+  constexpr bool F32 = Elt<T>::step == 8;
+  constexpr int KC = NK > 10 ? NK / 2 : NK;  // k steps per pass
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const Layout lay = layout(Elt<T>::imgs * IMG, a.slot_bytes, a.stages, NWG * UT, a.cap);
+  uint8_t* ring = base + lay.ring;
+  float* buf_v = reinterpret_cast<float*>(base + lay.buf);
+  int* buf_i = reinterpret_cast<int*>(buf_v + NWG * UT * a.cap);
+  unsigned long long* tkeys = reinterpret_cast<unsigned long long*>(base + lay.state);
+  int* fills = reinterpret_cast<int*>(tkeys + NWG * UT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + lay.bars);
+  uint64_t* empty = full + a.stages;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int s = blockIdx.y;
-  const int u_base = blockIdx.x * UB + warp * UPW;  // this warp's users
-  const int g_begin = s * split_len;
-  const int g_end = min(N, g_begin + split_len);
+  const int u0 = blockIdx.x * UT, ucnt = min(UT, a.U - u0);
+  const int tile0 = blockIdx.y * a.tiles_per_split;
+  const int nt = min(a.tiles_per_split, (a.N + kTile - 1) / kTile - tile0);
+  const int cap = CAP > 0 ? CAP : a.cap, L = a.L, D = a.D;
 
-  {  // the block's users into shared memory, zero-padded
-    float* uf = reinterpret_cast<float*>(ushared);
-    for (int e = tid; e < UB * 4 * D4; e += kLargeThreads) {
-      const int r = e / (4 * D4);
-      const int c = e - r * (4 * D4);
-      const int u = blockIdx.x * UB + r;
-      uf[e] = (u < U && c < D) ? to_f32(users[(size_t)u * D + c]) : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < UB * cap; i += kLargeThreads) {
-    pool_v_all[i] = sentinel_value();
-    pool_i_all[i] = kIntMax;
-  }
-
-  // per-user selection state; warp-uniform
-  float thr_v[UPW];
-  int thr_i[UPW];
-  int fill[UPW];
-  const int* mrow[UPW];
+  if (tid < NC) {
+    // the users' images, 16 bytes at a time: unit q of user n's row sits
+    // at (q / 8) * IMG / (KB / 128) + n * 128 + ((q ^ n) & 7) * 16
+    const T* users = static_cast<const T*>(a.users);
+    constexpr int EPU = 16 / sizeof(T);  // elements per 16-byte unit
+    for (int e = tid; e < UT * (KB / 16); e += NC) {
+      const int n = e / (KB / 16), q = e - n * (KB / 16), u = u0 + n;
+      uint8_t* dst = base + (q >> 3) * (UT * 128) + n * 128 + (((q & 7) ^ (n & 7)) << 4);
+      alignas(16) T x[EPU];
 #pragma unroll
-  for (int uu = 0; uu < UPW; ++uu) {
-    thr_v[uu] = sentinel_value();
-    thr_i[uu] = kIntMax;
-    fill[uu] = 0;
-    const int u = u_base + uu;
-    mrow[uu] = (mask != nullptr && u < U) ? mask + (size_t)u * mask_words : nullptr;
+      for (int i = 0; i < EPU; ++i) {
+        const int l = q * EPU + i;
+        const int d = l < Elt<T>::step * NK ? perm_k<T, NK>(l) : D;
+        x[i] = (u < a.U && d < D) ? users[(size_t)u * D + d] : T(0.0f);
+      }
+      if constexpr (F32) {
+        float4 big, small;
+        float* bp = reinterpret_cast<float*>(&big);
+        float* sp = reinterpret_cast<float*>(&small);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          bp[i] = tf32_big(x[i]);
+          sp[i] = tf32_big(x[i] - bp[i]);
+        }
+        *reinterpret_cast<float4*>(dst) = big;
+        *reinterpret_cast<float4*>(dst + IMG) = small;
+      } else {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(x);
+      }
+    }
+    for (int i = tid; i < NWG * UT * cap; i += NC) {
+      buf_v[i] = sentinel_value();
+      buf_i[i] = kIntMax;
+    }
+    for (int i = tid; i < NWG * UT; i += NC) {
+      tkeys[i] = order_key(sentinel_value(), kIntMax);
+      fills[i] = 0;
+    }
+    fence_async();
   }
-  const unsigned lanes_below = (1u << lane) - 1u;
+  __syncthreads();
 
-  // Software pipeline (vector path): the next tile's rows and biases wait
-  // in registers while the current tile is scored, so their load latency
-  // hides behind the FMAs instead of stalling the block at the barrier.
-  using Chunks = TileChunks<T, D4, DS4, kLargeTile, kLargeThreads,
-                            chunks_per_thread<T, D4, kLargeTile, kLargeThreads>()>;
-  static_assert(kLargeThreads >= kLargeTile, "one bias per thread");
-  Chunks next;
-  float next_bias = 0.f;
-  auto fetch = [&](int t1) {
-    const int c1 = min(kLargeTile, g_end - t1);
-    next.fetch(items + (size_t)t1 * D, c1, D, tid);
-    next_bias = tid < c1 ? __ldg(bias + t1 + tid) : 0.f;
+  if (tid >= NC) {  // the producer warpgroup: one thread, one bulk copy per item tile
+    if (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == NC) {
+      const T* items = static_cast<const T*>(a.items);
+      for (int i = 0; i < nt; ++i) {
+        const int slot = i % a.stages;
+        if (i >= a.stages) mbar_wait(empty + slot, (i / a.stages - 1) & 1);
+        const int g0 = (tile0 + i) * kTile;
+        const int bytes = min(kTile, a.N - g0) * D * (int)sizeof(T);
+        mbar_expect_tx(full + slot, bytes);
+        bulk_load(ring + slot * a.slot_bytes, items + (size_t)g0 * D, bytes, full + slot);
+      }
+    }
+    return;
+  }
+
+  // two consumer warpgroups take the producer's registers: 2 x 128 x 232 +
+  // 128 x 40 <= 65536
+  if (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  // warpgroup and warp from a shuffle: provably warp-uniform to the
+  // compiler, which otherwise serialises the wgmmas of a "divergent" path
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = __shfl_sync(0xffffffffu, (tid >> 5) & 3, 0);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float* bv = buf_v + wg * UT * cap;
+  int* bi = buf_i + wg * UT * cap;
+  unsigned long long* tkey = tkeys + wg * UT;  // the users' thresholds
+  int* fill = fills + wg * UT;
+  const uint8_t* img_big = base;
+  const uint8_t* img_small = base + IMG;
+
+  // threshold values of the thread's users (columns 8 j + 2 t + q), in
+  // registers for the gate's first compare (+inf past the user tile: no
+  // score passes); the exact compare reads the key in shared memory. A
+  // user's threshold is the better of this list's L-th entry and the best
+  // bound the published lists give (refreshed after the kRefresh-th tile,
+  // then at each doubling).
+  float thr_v[2 * NJ];
+  auto load_thresholds = [&]() {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = 8 * j + 2 * t + q;
+        thr_v[2 * j + q] = c < ucnt ? key_value(tkey[c]) : INFINITY;
+      }
   };
-  if (vec && g_begin < g_end) fetch(g_begin);
+  load_thresholds();
 
-  for (int t0 = g_begin; t0 < g_end; t0 += kLargeTile) {
-    const int cnt = min(kLargeTile, g_end - t0);
-    __syncthreads();  // the previous tile is no longer read
-    if (vec) {
-      next.store(tile, tid);
-      if (tid < kLargeTile) tbias[tid] = next_bias;
-      if (t0 + kLargeTile < g_end) fetch(t0 + kLargeTile);
-    } else {
-      load_tile<T, D4, DS4, kLargeTile, kLargeThreads, 16>(
-          tile, tbias, items, bias, t0, cnt, D, false, tid);
-    }
-    __syncthreads();
-    if (u_base >= U) continue;  // warp-uniform
+  // Seen items are masked where a buffer is sorted, not at the gate: a
+  // score is compared with the threshold as it is (a seen item's true
+  // score, kNegInf, is lower, so nothing that passes is wrongly dropped),
+  // and the sort reads a seen item's entry as kNegInf before any
+  // threshold is taken from it.
+  auto mask_row = [&](int c) -> const int* {
+    return a.mask != nullptr ? a.mask + (size_t)(u0 + c) * a.mask_words : nullptr;
+  };
 
-    float acc[UPW][M];
-#pragma unroll
-    for (int uu = 0; uu < UPW; ++uu)
-#pragma unroll
-      for (int m = 0; m < M; ++m) acc[uu][m] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D4; ++c) {
-      float4 it[M];
-#pragma unroll
-      for (int m = 0; m < M; ++m) it[m] = tile[(lane + 32 * m) * DS4 + c];
-#pragma unroll
-      for (int uu = 0; uu < UPW; ++uu) {
-        const float4 w = ushared[(warp * UPW + uu) * D4 + c];  // broadcast
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          acc[uu][m] = fmaf(w.x, it[m].x, acc[uu][m]);
-          acc[uu][m] = fmaf(w.y, it[m].y, acc[uu][m]);
-          acc[uu][m] = fmaf(w.z, it[m].z, acc[uu][m]);
-          acc[uu][m] = fmaf(w.w, it[m].w, acc[uu][m]);
+  // Compacts every user of this warpgroup whose buffer overflowed: sorted,
+  // cut to L, threshold raised to the L-th entry.
+  auto compact = [&]() {
+    for (int c = warp; c < ucnt; c += 4) {
+      if (fill[c] > cap) {  // warp-uniform
+        sort_list<CAP>(bv + c * cap, bi + c * cap, cap, L, cap, mask_row(c), lane);
+        if (lane == 0) {
+          // this list holds L entries at or above its L-th: no item below
+          // it is in the user's top k
+          const unsigned long long lk = order_key(bv[c * cap + L - 1], bi[c * cap + L - 1]);
+          if (lk > tkey[c]) tkey[c] = lk;
+          fill[c] = L;
         }
+        if (lane < a.top_p)  // publish the list's best P keys
+          a.gtop[((size_t)(u0 + c) * gridDim.y + blockIdx.y) * (NWG * a.top_p) + wg * a.top_p + lane] =
+              order_key(bv[c * cap + lane], bi[c * cap + lane]);
       }
     }
+    bar_sync(3 + wg, kConsumers);
+    load_thresholds();
+  };
 
-    // scores, and one vote on whether any of them beats its user's
-    // threshold: the common answer is no, and then the tile costs nothing
-    // more
-    bool any = false;
+  // One candidate (s, gg) of user column c: appended if it beats the
+  // user's threshold; false if the buffer was full (the caller compacts
+  // and tries again).
+  auto offer = [&](float s, int gg, int c) {
+    if (order_key(s, gg) <= tkey[c]) return true;
+    const int pos = atomicAdd(fill + c, 1);
+    if (pos >= cap) return false;
+    bv[c * cap + pos] = s;
+    bi[c * cap + pos] = gg;
+    return true;
+  };
+
+  // the biases of the thread's two items (rows 16 warp + g (+8) of a
+  // tile), loaded one tile ahead
+  auto load_bias = [&](int i, float (&b)[2]) {
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int j = lane + 32 * m;
-      const float b = tbias[j];
-#pragma unroll
-      for (int uu = 0; uu < UPW; ++uu) {
-        float sc = acc[uu][m] + b;
-        if (j < cnt && mrow[uu] != nullptr && is_masked(mrow[uu], t0 + j)) sc = kNegInf;
-        acc[uu][m] = sc;
-        any |= j < cnt && u_base + uu < U && better(sc, t0 + j, thr_v[uu], thr_i[uu]);
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gg = (tile0 + i) * kTile + 16 * warp + g + 8 * hh;
+      b[hh] = (i < nt && gg < a.N) ? __ldg(a.bias + gg) : 0.0f;
     }
-    if (!__any_sync(0xffffffffu, any)) continue;
+  };
+  float next_bias[2];
+  load_bias(wg, next_bias);
 
+  // two accumulator chains (even and odd k steps), so that two products
+  // of a warpgroup are in flight at a time
+  float acc0[NA], acc1[NA];
+  for (int i = wg; i < nt; i += NWG) {
+    const float bias[2] = {next_bias[0], next_bias[1]};
+    load_bias(i + NWG, next_bias);
+    const int slot = i % a.stages;
+    mbar_wait(full + slot, (i / a.stages) & 1);
+    const T* tile = reinterpret_cast<const T*>(ring + slot * a.slot_bytes);
+    // the products in passes of KC k steps: each pass's A fragments (rows
+    // 16 warp + g, +8) come from the slot into registers, and a pass waits
+    // for the one before it, so that D = 128 keeps its registers
 #pragma unroll
-    for (int uu = 0; uu < UPW; ++uu) {
-      if (u_base + uu >= U) break;  // warp-uniform
-      float* pv = pool_v_all + (warp * UPW + uu) * cap;
-      int* pi = pool_i_all + (warp * UPW + uu) * cap;
+    for (int k0 = 0; k0 < NK; k0 += KC) {
+      uint32_t w0[2 * KC], w1[2 * KC];
+      load_run<T, NK, 2 * KC>(tile + (16 * warp + g) * D, t, D, 2 * k0, w0);
+      load_run<T, NK, 2 * KC>(tile + (16 * warp + g + 8) * D, t, D, 2 * k0, w1);
+      if (k0 + KC >= NK) {
+        // the tile now lives in registers: order these reads before the
+        // producer's next bulk copy (another proxy) into the slot
+        fence_async();
+        mbar_arrive(empty + slot);
+      }
+      uint32_t ab[KC][4];
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int j = lane + 32 * m;
-        const int g = t0 + j;
-        const bool valid = j < cnt;
-        const float sc = acc[uu][m];
-        bool admit = valid && better(sc, g, thr_v[uu], thr_i[uu]);
-        unsigned ballot = __ballot_sync(0xffffffffu, admit);
-        if (ballot == 0u) continue;
-        if (fill[uu] + __popc(ballot) > cap) {
-          warp_sort(pv, pi, cap, lane);
-          for (int i = k + lane; i < cap; i += 32) {
-            pv[i] = sentinel_value();
-            pi[i] = kIntMax;
+      for (int kk = 0; kk < KC; ++kk) {
+        ab[kk][0] = w0[2 * kk];
+        ab[kk][1] = w1[2 * kk];
+        ab[kk][2] = w0[2 * kk + 1];
+        ab[kk][3] = w1[2 * kk + 1];
+      }
+      uint32_t as[F32 ? KC : 1][4];  // f32: the items' small parts
+      if constexpr (F32) {
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float x = __uint_as_float(ab[kk][r]);
+            as[kk][r] = __float_as_uint(x - tf32_big(x));
           }
-          thr_v[uu] = pv[k - 1];
-          thr_i[uu] = pi[k - 1];
-          fill[uu] = k;
-          __syncwarp();
-          admit = valid && better(sc, g, thr_v[uu], thr_i[uu]);
-          ballot = __ballot_sync(0xffffffffu, admit);
+      }
+      wg_fence();
+#define TRS_MMA(A, IMG, FIRST)                                                                 \
+  _Pragma("unroll") for (int kc = 0; kc < KC; ++kc) {                                          \
+    const int kk = k0 + kc;                                                                    \
+    const uint64_t db = kmajor_desc((IMG) + (kk >> 2) * (UT * 128) + (kk & 3) * 32);           \
+    if (kk & 1)                                                                                \
+      wgmma(acc1, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                                      \
+    else                                                                                       \
+      wgmma(acc0, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                                      \
+  }
+      if constexpr (F32) {
+        // items . users: the small terms first
+        TRS_MMA(as, img_big, true)
+        TRS_MMA(ab, img_small, false)
+        TRS_MMA(ab, img_big, false)
+      } else {
+        TRS_MMA(ab, img_big, true)
+      }
+#undef TRS_MMA
+      wg_commit();
+      wg_wait0();
+      // the tensor cores read A from these registers until the wait: keep
+      // the compiler from reusing them before it
+      fence_regs(ab);
+      if constexpr (F32) fence_regs(as);
+    }
+    const int gi[2] = {(tile0 + i) * kTile + 16 * warp + g, (tile0 + i) * kTile + 16 * warp + g + 8};
+    // refreshes after this warpgroup's kRefresh-th tile and then at each
+    // doubling: the published bounds rise fastest early, and a refresh
+    // costs a sort of the keys per user
+    const int done = i / NWG + 1;
+    const bool refresh = a.top_p > 0 && done >= kRefresh && (done & (done - 1)) == 0;
+    fence_acc(acc0);
+    fence_acc(acc1);
+
+    // the gate: acc[4 j + 2 hh + q] is item gi[hh], user column 8 j + 2 t
+    // + q. One compare per score, no branch: a score that ties or beats
+    // its threshold value sets a bit. Only those (rarely any) take the
+    // exact compare and are appended.
+    uint32_t hot = 0;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int x = 4 * j + 2 * hh + q;
+          const float s = (acc0[x] + acc1[x]) + bias[hh];
+          acc0[x] = s;
+          hot |= (s >= thr_v[2 * j + q] ? 1u : 0u) << x;
         }
-        if (admit) {
-          const int pos = fill[uu] + __popc(ballot & lanes_below);
-          pv[pos] = sc;
-          pi[pos] = g;
-        }
-        fill[uu] += __popc(ballot);
+    hot &= (gi[0] < a.N ? 0x33333333u : 0u) | (gi[1] < a.N ? 0xccccccccu : 0u);
+    uint32_t pend = 0;
+    if (hot != 0) {
+      // in batches, so that the loads and atomics of several candidates
+      // are in flight at once: the exact compare against the threshold
+      // keys, then the appends
+      unsigned long long tk[2 * NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) tk[2 * j + q] = tkey[8 * j + 2 * t + q];
+      uint32_t go = 0;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int x = 4 * j + 2 * hh + q;
+            go |= (((hot >> x) & 1u) && order_key(acc0[x], gi[hh]) > tk[2 * j + q] ? 1u : 0u) << x;
+          }
+      int pos[NA];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int x = 4 * j + 2 * hh + q;
+            pos[x] = ((go >> x) & 1u) ? atomicAdd(fill + 8 * j + 2 * t + q, 1) : 0;
+          }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int x = 4 * j + 2 * hh + q, c = 8 * j + 2 * t + q;
+            if (!((go >> x) & 1u)) continue;
+            if (pos[x] < cap) {
+              bv[c * cap + pos[x]] = acc0[x];
+              bi[c * cap + pos[x]] = gi[hh];
+            } else {
+              pend |= 1u << x;
+            }
+          }
+    }
+    if (refresh) {
+      // The published keys are distinct items' scores: if L of them are at
+      // or above key T, so is the user's k-th best item, in any split, and
+      // no item below T can be in its top k. T: the L-th best published.
+      const int m = gridDim.y * NWG * a.top_p;
+      for (int c = warp; c < ucnt; c += 4) {
+        const unsigned long long T = select_key(a.gtop + (size_t)(u0 + c) * m, m, L - 1, lane);
+        if (lane == 0 && T != 0 && T - 1 > tkey[c]) tkey[c] = T - 1;  // keep keys >= T
       }
     }
-  }
+    // overflowed buffers: compact, gate the rejected entries again, retry
+    while (wg_any(3 + wg, pend != 0)) {
+      compact();
 #pragma unroll
-  for (int uu = 0; uu < UPW; ++uu) {
-    const int u = u_base + uu;
-    if (u >= U) break;
-    float* pv = pool_v_all + (warp * UPW + uu) * cap;
-    int* pi = pool_i_all + (warp * UPW + uu) * cap;
-    // entries past `fill` are sentinels: sorting the first next_pow2 of
-    // max(fill, k) entries orders every real one
-    warp_sort(pv, pi, next_pow2(max(fill[uu], k)), lane);
-    const size_t base = ((size_t)u * gridDim.y + s) * k;
-    for (int t = lane; t < k; t += 32) {
-      part_v[base + t] = pv[t];
-      part_i[base + t] = pi[t];
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int x = 4 * j + 2 * hh + q;
+            if (((pend >> x) & 1u) && offer(acc0[x], gi[hh], 8 * j + 2 * t + q)) pend &= ~(1u << x);
+          }
+    }
+    if (refresh) load_thresholds();  // the last wg_any ordered the new keys before these reads
+  }
+
+  // each warpgroup's lists, sorted
+  for (int c = warp; c < ucnt; c += 4)
+    sort_list<CAP>(bv + c * cap, bi + c * cap, fill[c], L, cap, mask_row(c), lane);
+  bar_sync(NWG == 2 ? 5 : 3, NC);  // every list sorted before any is read
+  const int S = gridDim.y;
+  for (int c = tid; c < ucnt; c += NC) {
+    const size_t o = ((size_t)(u0 + c) * S + blockIdx.y) * L;
+    const float* av = buf_v + c * cap;
+    const int* ai = buf_i + c * cap;
+    if (NWG == 1) {
+      for (int r = 0; r < L; ++r) {
+        a.part_v[o + r] = av[r];
+        a.part_i[o + r] = ai[r];
+      }
+      continue;
+    }
+    // the two warpgroups' lists merged, the first L kept
+    const float* cv = buf_v + (UT + c) * cap;
+    const int* ci = buf_i + (UT + c) * cap;
+    int x = 0, y = 0;
+    for (int r = 0; r < L; ++r) {
+      const bool from_a = better(av[x], ai[x], cv[y], ci[y]);
+      a.part_v[o + r] = from_a ? av[x] : cv[y];
+      a.part_i[o + r] = from_a ? ai[x] : ci[y];
+      x += from_a;
+      y += !from_a;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Split merge, shared by K1 and K2: one block per user sorts that user's
-// S sorted partial lists (C = S * list_len candidates, padded to n_pow2 with
-// sentinels) in shared memory and writes the first k.
+// Split merge: one block per user sorts that user's S sorted partial lists
+// (C = S * L candidates, padded to n_pow2 with sentinels) in shared memory
+// and writes the first k.
 // ---------------------------------------------------------------------------
 
 constexpr int kMergeThreads = 512;
@@ -622,205 +1026,179 @@ dot_topk_merge_kernel(const float* __restrict__ part_v,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// One call's plan: the kernel variant, its shared memory and grid.
+struct Plan {
+  const void* fn;
+  int ut, nwg, L, cap, stages, slot_bytes, smem, user_tiles, total_tiles;
+};
+
+template <typename T, int NK, int UT, int NWG, int CAP>
+Plan plan_t(int N, int D, int L, int cap) {
+  Plan p;
+  p.fn = reinterpret_cast<const void*>(dot_topk_tc_kernel<T, NK, UT, NWG, CAP>);
+  p.ut = UT;
+  p.nwg = NWG;
+  p.L = L;
+  p.cap = cap;
+  p.slot_bytes = (kTile * D * (int)sizeof(T) + 127) / 128 * 128;
+  p.total_tiles = cdiv(N, kTile);
+  const int img = Elt<T>::imgs * UT * image_row_bytes<T, NK>();
+  const int fixed = 1024 + layout(img, p.slot_bytes, 0, NWG * UT, cap).total;
+  p.stages = std::min(4, (kSmemLimit - fixed) / (p.slot_bytes + 16));
+  // two warpgroups take alternate tiles: an even ring gives each slot to
+  // one warpgroup, so no warpgroup can wait on a slot's phase a lap ahead
+  if (NWG == 2) p.stages &= ~1;
+  p.smem = 1024 + layout(img, p.slot_bytes, p.stages, NWG * UT, cap).total;
+  return p;
+}
+
+// The variant for (large, k): k <= 16 keeps 16 per (user, split) over
+// 64-user tiles in 64-entry buffers; k <= 128 keeps k over 32-user tiles
+// in 256-entry buffers (both warpgroups' buffers fit); k > 128 keeps k over
+// 8-user tiles with one warpgroup, in buffers of the next power of two of
+// k + 64. The first two sort their buffers in registers.
+template <typename T, int NK>
+Plan plan_nk(int large, int N, int D, int k) {
+  if (!large) return plan_t<T, NK, 64, 2, 64>(N, D, kSmallList, 64);
+  if (k <= kWideMaxK) return plan_t<T, NK, 32, 2, 256>(N, D, k, 256);
+  return plan_t<T, NK, 8, 1, 0>(N, D, k, next_pow2(k + 64));
+}
+
+template <typename T>
+Plan plan_of(int large, int N, int D, int k) {
+  constexpr int s = Elt<T>::step;
+  switch (pick_nk<T>(D)) {
+    case 32 / s: return plan_nk<T, 32 / s>(large, N, D, k);
+    case 64 / s: return plan_nk<T, 64 / s>(large, N, D, k);
+    case 80 / s: return plan_nk<T, 80 / s>(large, N, D, k);
+    case 128 / s: return plan_nk<T, 128 / s>(large, N, D, k);
+    default: return Plan{nullptr, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  }
+}
+
+// Keys each (split, warpgroup) list publishes per user: enough that all
+// lists together publish at least 2 L, at most kMaxShared in all. 0 (no
+// sharing) for one warpgroup (k > 128) or where that does not fit.
+int top_p(int S, int nwg, int L) {
+  if (nwg < 2) return 0;
+  int p = 1;
+  while (p * S * nwg < 2 * L) p <<= 1;
+  return (p > L || p * S * nwg > kMaxShared) ? 0 : p;
+}
+
+Plan make_plan(int large, int U, int N, int D, int bf16, int k) {
+  Plan p = bf16 ? plan_of<__nv_bfloat16>(large, N, D, k) : plan_of<float>(large, N, D, k);
+  if (p.fn != nullptr) p.user_tiles = cdiv(U, p.ut);
+  return p;
+}
+
+bool bad_args(int large, int U, int N, int D, int bf16, int k) {
+  return D < 1 || D > kMaxDim || D % (bf16 ? 8 : 4) != 0 || U < 1 || N < 1 || k < 1 || k > N ||
+         (!large && k > kSmallList) || (large && k > 1024);
+}
+
 cudaError_t launch_merge(const float* part_v, const int* part_i, int U, int C,
                          int k, float* out_v, int* out_i, cudaStream_t stream) {
   if (C > kMergeMaxCandidates || k > C) return cudaErrorInvalidValue;
   const int n_pow2 = next_pow2(C < 2 ? 2 : C);
   const size_t smem = (size_t)n_pow2 * (sizeof(float) + sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(
-      dot_topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
   dot_topk_merge_kernel<<<U, kMergeThreads, smem, stream>>>(
       part_v, part_i, C, n_pow2, k, out_v, out_i);
   return cudaGetLastError();
-}
-
-// Register tiles exist for D up to 32, 64, 80 and 128 (n_factors=80 is the
-// reference default); vectors and tile rows are zero-padded to it.
-int pick_d4(int D) {
-  if (D <= 32) return 8;
-  if (D <= 64) return 16;
-  if (D <= 80) return 20;
-  if (D <= 128) return 32;
-  return 0;
-}
-
-// One launch geometry: the kernel function, its block and shared memory.
-struct Geometry {
-  const void* fn;
-  int threads;
-  int users_per_block;
-  int tile;
-  size_t smem;
-};
-
-template <typename T, int D4>
-Geometry small_geometry() {
-  return {reinterpret_cast<const void*>(dot_topk_small_kernel<T, D4>),
-          kSmallThreads, kSmallThreads, kSmallTile,
-          (size_t)kSmallTile * D4 * sizeof(float4) + kSmallTile * sizeof(float)};
-}
-
-template <typename T, int D4>
-Geometry large_geometry(int k, int cap) {
-  if (k <= kLargeWideMaxK)
-    return {reinterpret_cast<const void*>(dot_topk_large_kernel<T, D4, 4>),
-            kLargeThreads, LargeLayout<D4, 4>::UB, kLargeTile,
-            LargeLayout<D4, 4>::smem_bytes(cap)};
-  return {reinterpret_cast<const void*>(dot_topk_large_kernel<T, D4, 1>),
-          kLargeThreads, LargeLayout<D4, 1>::UB, kLargeTile,
-          LargeLayout<D4, 1>::smem_bytes(cap)};
-}
-
-template <typename T>
-Geometry geometry(int large, int D, int k, int cap) {
-  switch (pick_d4(D)) {
-#define TRS_GEOM(D4V) \
-  case D4V:          \
-    return large ? large_geometry<T, D4V>(k, cap) : small_geometry<T, D4V>();
-    TRS_GEOM(8)
-    TRS_GEOM(16)
-    TRS_GEOM(20)
-    TRS_GEOM(32)
-#undef TRS_GEOM
-    default:
-      return {nullptr, 0, 0, 0, 0};
-  }
-}
-
-// Pool entries per user: a power of two with room to append at least 64
-// candidates (one to two tiles' worth) after the k kept ones. Small k gets a
-// small pool, so its compactions sort few entries; 32 users' pools of 512
-// fit beside the tiles in shared memory.
-int pool_cap(int k) {
-  return next_pow2(k <= kLargeWideMaxK ? 2 * k + 64 : k + 512);
-}
-
-template <typename T, int D4>
-cudaError_t small_t(const void* users, const void* items, const float* bias,
-                    const int* mask, int mask_words, int U, int N, int D,
-                    int vec, int S, float* part_v, int* part_i,
-                    cudaStream_t stream) {
-  const Geometry g = small_geometry<T, D4>();
-  const dim3 grid(cdiv(U, g.users_per_block), S);
-  dot_topk_small_kernel<T, D4><<<grid, g.threads, g.smem, stream>>>(
-      static_cast<const T*>(users), static_cast<const T*>(items), bias, mask,
-      mask_words, U, N, D, cdiv(N, S), vec, part_v, part_i);
-  return cudaGetLastError();
-}
-
-template <typename T, int D4, int UPW>
-cudaError_t large_t(const void* users, const void* items, const float* bias,
-                    const int* mask, int mask_words, int U, int N, int D,
-                    int vec, int k, int cap, int S, float* part_v, int* part_i,
-                    cudaStream_t stream) {
-  const size_t smem = LargeLayout<D4, UPW>::smem_bytes(cap);
-  cudaError_t e = cudaFuncSetAttribute(
-      dot_topk_large_kernel<T, D4, UPW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(cdiv(U, LargeLayout<D4, UPW>::UB), S);
-  dot_topk_large_kernel<T, D4, UPW><<<grid, kLargeThreads, smem, stream>>>(
-      static_cast<const T*>(users), static_cast<const T*>(items), bias, mask,
-      mask_words, U, N, D, cdiv(N, S), k, cap, vec, part_v, part_i);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(int large, const void* users, const void* items,
-                   const float* bias, const int* mask, int mask_words, int U,
-                   int N, int D, int vec, int k, int cap, int S,
-                   float* part_v, int* part_i, cudaStream_t stream) {
-#define TRS_CASE(D4V)                                                         \
-  case D4V:                                                                   \
-    if (!large)                                                               \
-      return small_t<T, D4V>(users, items, bias, mask, mask_words, U, N, D,   \
-                             vec, S, part_v, part_i, stream);                 \
-    if (k <= kLargeWideMaxK)                                                  \
-      return large_t<T, D4V, 4>(users, items, bias, mask, mask_words, U, N,   \
-                                D, vec, k, cap, S, part_v, part_i, stream);   \
-    return large_t<T, D4V, 1>(users, items, bias, mask, mask_words, U, N, D,  \
-                              vec, k, cap, S, part_v, part_i, stream);
-  switch (pick_d4(D)) {
-    TRS_CASE(8)
-    TRS_CASE(16)
-    TRS_CASE(20)
-    TRS_CASE(32)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef TRS_CASE
 }
 
 }  // namespace
 
 extern "C" {
 
-// Widest D with a register tile.
-int trs_dot_topk_max_dim() { return 128; }
+// Widest D the kernel takes.
+int trs_dot_topk_max_dim() { return kMaxDim; }
 
-// Launch plan for (U, N, D, dtype, k): the number of catalog splits S, the
-// per-(user, split) list length that the scratch must hold (the wrapper
-// allocates U * S * list_len entries), for K2 the pool size, and the
-// kernel's dynamic shared memory per block. S is as many splits as one wave
-// of resident blocks holds: longer splits mean fewer insertions (K1) and
-// fewer pool sorts (K2) per item. S * list_len stays within the merge's
-// limit. Returns a cudaError_t.
+// Launch plan for (U, N, D, dtype, k) on the current device, made once per
+// shape by the wrapper: the number of catalog splits S (tile-aligned, one
+// wave of resident blocks), the per-(user, split) list length L (the
+// wrapper allocates U * S * L entries of scratch), the candidate buffer
+// per user, the kernel's dynamic shared memory per block and its ring
+// slots. Also opts both kernels into their shared memory. D must be a
+// multiple of 4 (f32) or 8 (bf16): whole 16-byte rows. Returns a
+// cudaError_t.
 int trs_dot_topk_plan(int large, int U, int N, int D, int bf16, int k,
-                      int* S, int* list_len, int* cap, int* smem_bytes) {
-  if (pick_d4(D) == 0 || U < 1 || N < 1 || k < 1 || k > N ||
-      (!large && k > kSmallList) || (large && k > 1024))
-    return cudaErrorInvalidValue;
-  *cap = large ? pool_cap(k) : 0;
-  *list_len = large ? k : kSmallList;
-  const Geometry g = bf16 ? geometry<__nv_bfloat16>(large, D, k, *cap)
-                          : geometry<float>(large, D, k, *cap);
+                      int* S, int* list_len, int* cap, int* smem_bytes, int* stages,
+                      int* keys_per_user) {
+  if (bad_args(large, U, N, D, bf16, k)) return cudaErrorInvalidValue;
+  const Plan p = make_plan(large, U, N, D, bf16, k);
+  if (p.fn == nullptr || p.stages < 2) return cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(g.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)g.smem);
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(dot_topk_merge_kernel),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(kMergeMaxCandidates * (sizeof(float) + sizeof(int))));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, g.fn, g.threads,
-                                                      g.smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p.fn, (p.nwg + 1) * kConsumers, p.smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *smem_bytes = (int)g.smem;
-  int s = sms * per_sm / cdiv(U, g.users_per_block);
-  s = std::min(s, cdiv(N, g.tile));
-  s = std::min(s, kMergeMaxCandidates / *list_len);
+  int s = sms * per_sm / p.user_tiles;
+  s = std::min(s, p.total_tiles);
+  s = std::min(s, kMergeMaxCandidates / p.L);
   s = std::max(s, 1);
-  *S = cdiv(N, cdiv(N, s));  // no empty split
+  const int per_split = cdiv(p.total_tiles, s);
+  *S = cdiv(p.total_tiles, per_split);  // no empty split
+  *list_len = p.L;
+  *cap = p.cap;
+  *smem_bytes = p.smem;
+  *stages = p.stages;
+  *keys_per_user = *S * p.nwg * top_p(*S, p.nwg, p.L);
   return cudaSuccess;
 }
 
-// users (U, D), items (N, D): f32, or bf16 when bf16 != 0. bias (N,) f32.
-// mask: (U, mask_words) int32 packed seen bits, or null. vec: rows may be
-// read 16 bytes at a time (see load_tile). S, cap and the scratch part_*
-// (U * S * list_len entries) as trs_dot_topk_plan gave them. out_*: (U, k).
-// large = 0 launches K1 (k <= 16), 1 launches K2; then the split merge.
-// Returns the cudaError_t of the launches (0 = cudaSuccess).
+// users (U, D), items (N, D): f32, or bf16 when bf16 != 0; items 16-byte
+// aligned. bias (N,) f32. mask: (U, mask_words) int32 packed seen bits, or
+// null. S as trs_dot_topk_plan gave it (which also opted the kernels into
+// their shared memory on this device); part_*: U * S * L entries of
+// scratch; gtop: U * keys_per_user 8-byte words of scratch (zeroed here,
+// keys_per_user as the plan gave it); out_*: (U, k).
+// large = 0 runs #1's list of 16, 1 #2's list of k; then the split merge:
+// a memset and two launches. Returns the cudaError_t of the launches (0 =
+// cudaSuccess).
 int trs_dot_topk(int large, const void* users, const void* items,
                  const float* bias, const int* mask, int mask_words, int U,
-                 int N, int D, int bf16, int vec, int k, int S, int cap,
-                 float* part_v, int* part_i, float* out_v, int* out_i,
-                 void* stream) {
-  if (pick_d4(D) == 0 || U < 1 || N < 1 || k < 1 || k > N || S < 1 ||
-      (!large && k > kSmallList) ||
-      (large && (cap < k + 32 || (cap & (cap - 1)) != 0)))
+                 int N, int D, int bf16, int k, int S, float* part_v,
+                 int* part_i, void* gtop, float* out_v, int* out_i, void* stream) {
+  if (bad_args(large, U, N, D, bf16, k) || S < 1 || (reinterpret_cast<uintptr_t>(items) & 15) != 0)
     return cudaErrorInvalidValue;
+  const Plan p = make_plan(large, U, N, D, bf16, k);
+  if (p.fn == nullptr || p.stages < 2) return cudaErrorInvalidValue;
+  Args a;
+  a.users = users;
+  a.items = items;
+  a.bias = bias;
+  a.mask = mask;
+  a.mask_words = mask_words;
+  a.U = U;
+  a.N = N;
+  a.D = D;
+  a.L = p.L;
+  a.cap = p.cap;
+  a.tiles_per_split = cdiv(p.total_tiles, S);
+  a.stages = p.stages;
+  a.slot_bytes = p.slot_bytes;
+  a.part_v = part_v;
+  a.part_i = part_i;
+  a.gtop = static_cast<unsigned long long*>(gtop);
+  a.top_p = top_p(S, p.nwg, p.L);
+  if (cdiv(p.total_tiles, a.tiles_per_split) != S) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      bf16 ? launch<__nv_bfloat16>(large, users, items, bias, mask, mask_words,
-                                   U, N, D, vec, k, cap, S, part_v, part_i, st)
-           : launch<float>(large, users, items, bias, mask, mask_words, U, N,
-                           D, vec, k, cap, S, part_v, part_i, st);
+  cudaError_t e = cudaMemsetAsync(gtop, 0, (size_t)U * S * p.nwg * a.top_p * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return e;
-  return launch_merge(part_v, part_i, U, S * (large ? k : kSmallList), k,
-                      out_v, out_i, st);
+  void* args[] = {&a};
+  e = cudaLaunchKernel(p.fn, dim3(p.user_tiles, S), dim3((p.nwg + 1) * kConsumers), args,
+                                   (size_t)p.smem, st);
+  if (e != cudaSuccess) return e;
+  return launch_merge(part_v, part_i, U, S * p.L, k, out_v, out_i, st);
 }
 
 }  // extern "C"

@@ -1,25 +1,27 @@
-"""Fused full-catalog score + top-k: two hand-written Hopper kernels.
+"""Fused full-catalog score + top-k: a hand-written Hopper kernel.
 
 Port of ``torchrecsys_tpu/ops/dot_topk.py``. For every user u it returns
 the k best items of ``user_vecs[u] . item_vecs[g] + item_bias[g]``,
 descending, ties broken by the lowest item index (``jax.lax.top_k``'s rule,
 ops/dot_topk.py:98-133), with f32 accumulation from f32 or bf16 vectors.
 
-- :func:`dot_topk_small` (k <= 16) launches ``dot_topk_small_kernel``, the
-  port of ``_dot_topk_kernel`` (ops/dot_topk.py:136-198).
-- :func:`dot_topk_large` (16 < k <= 1024) launches
-  ``dot_topk_large_kernel``, the port of ``_dot_topk_threshold_kernel``
-  (ops/dot_topk.py:362-441). Its result is fully sorted and exact under
-  ties at the k-th value, which the TPU kernel documents as loose.
+- :func:`dot_topk_small` (k <= 16) is the port of ``_dot_topk_kernel``
+  (ops/dot_topk.py:136-198): ``dot_topk_tc_kernel`` keeping 16 entries per
+  (user, catalog split).
+- :func:`dot_topk_large` (16 < k <= 1024) is the port of
+  ``_dot_topk_threshold_kernel`` (ops/dot_topk.py:362-441): the same kernel
+  keeping k entries. Its result is fully sorted and exact under ties at
+  the k-th value, which the TPU kernel documents as loose.
 - :func:`dot_topk_plain` is both kernels' plain version: a matmul and a
   stable descending sort, chunked over items so the (U, N) score matrix
   never exists at once. Above k = 1024 it is also the path itself, as XLA
   is in the JAX package (ops/dot_topk.py:631).
 
-Both kernels live in ``csrc/dot_topk.cu``, built on first use by
-``ops/_build.py``. A wrapper given CPU tensors computes the plain version;
-given CUDA tensors it launches its kernel or raises -- there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
+The kernel (scores on the tensor cores, 3xTF32 for f32; threshold-gated
+selection) and its split merge live in ``csrc/dot_topk.cu``, built on first
+use by ``ops/_build.py``. A wrapper given CPU tensors computes the plain
+version; given CUDA tensors it launches the kernels or raises -- there is
+no fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -183,9 +185,9 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_trs_bound", False):
         lib.trs_dot_topk_max_dim.argtypes = []
         lib.trs_dot_topk_max_dim.restype = _CI
-        lib.trs_dot_topk_plan.argtypes = [_CI] * 6 + [ctypes.POINTER(_CI)] * 4
+        lib.trs_dot_topk_plan.argtypes = [_CI] * 6 + [ctypes.POINTER(_CI)] * 6
         lib.trs_dot_topk_plan.restype = _CI
-        lib.trs_dot_topk.argtypes = [_CI] + [_VP] * 4 + [_CI] * 9 + [_VP] * 5
+        lib.trs_dot_topk.argtypes = [_CI] + [_VP] * 4 + [_CI] * 7 + [_VP] * 6
         lib.trs_dot_topk.restype = _CI
         lib._trs_bound = True
     return lib
@@ -194,13 +196,17 @@ def _lib() -> ctypes.CDLL:
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
+def _device_index(dev: torch.device) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
 def _stream(dev: torch.device) -> int:
     """The current CUDA stream of ``dev`` as an int for a C launch: torch's
     raw accessor where the build has one (the public one builds a Stream
     object, several microseconds a call)."""
     if _RAW_STREAM is None:
         return torch.cuda.current_stream(dev).cuda_stream
-    return _RAW_STREAM(torch.cuda.current_device() if dev.index is None else dev.index)
+    return _RAW_STREAM(_device_index(dev))
 
 
 def _check(rc: int, name: str) -> None:
@@ -208,21 +214,41 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
-def plan(large: bool, u: int, n: int, d: int, bf16: bool, k: int) -> Tuple[int, int, int, int]:
-    """The kernel's launch plan: (catalog splits, list length per (user,
-    split), K2 pool entries, dynamic shared memory bytes per block)."""
-    out = [_CI() for _ in range(4)]
-    _check(
-        _lib().trs_dot_topk_plan(int(large), u, n, d, int(bf16), k, *map(ctypes.byref, out)),
-        "dot_topk plan",
-    )
-    return tuple(v.value for v in out)
+_PLANS: dict = {}
+
+
+def plan(large: bool, u: int, n: int, d: int, bf16: bool, k: int) -> Tuple[int, int, int, int, int, int]:
+    """The kernel's launch plan on the current device: (catalog splits, list
+    length per (user, split), candidate buffer entries per user, dynamic
+    shared memory bytes per block, item ring slots, threshold keys per user
+    that the lists publish to each other). Made once per shape
+    and device: the C call also opts the kernels into their shared memory
+    and queries occupancy. ``d`` is the row width the kernel sees (a
+    multiple of 4 for f32, of 8 for bf16)."""
+    key = (bool(large), u, n, d, bool(bf16), k, _device_index(torch.device("cuda")))
+    got = _PLANS.get(key)
+    if got is None:
+        out = [_CI() for _ in range(6)]
+        _check(
+            _lib().trs_dot_topk_plan(int(large), u, n, d, int(bf16), k, *map(ctypes.byref, out)),
+            "dot_topk plan",
+        )
+        got = _PLANS[key] = tuple(v.value for v in out)
+    return got
+
+
+def _rows16(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` (rows, D) as rows of ``width`` >= D values (zero-padded) at a
+    16-byte aligned base: the kernel bulk-copies whole 16-byte item rows."""
+    if x.shape[1] != width:
+        return torch.nn.functional.pad(x, (0, width - x.shape[1]))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(name, user_vecs, item_vecs, item_bias, k, seen_mask, large):
-    """Validate CUDA inputs, plan the split grid and launch kernel K1
-    (``large=False``) or K2 plus the split merge. Returns (U, k) f32 scores
-    and int32 item rows."""
+    """Validate CUDA inputs and launch the score + selection kernel, then
+    the split merge (``large`` picks #2's list of k over #1's 16). Returns
+    (U, k) f32 scores and int32 item rows."""
     dev = user_vecs.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors must be on CPU or CUDA, got {dev}")
@@ -244,8 +270,10 @@ def _launch(name, user_vecs, item_vecs, item_bias, k, seen_mask, large):
     if d > lib.trs_dot_topk_max_dim():
         raise ValueError(f"{name}: the CUDA kernel takes D <= {lib.trs_dot_topk_max_dim()}, got {d}")
     vdt = _vector_dtype(user_vecs, item_vecs)
-    uv = user_vecs.to(vdt).contiguous()
-    iv = item_vecs.to(vdt).contiguous()
+    bf16 = vdt == torch.bfloat16
+    width = _round_up(d, 8 if bf16 else 4)
+    uv = _rows16(user_vecs.to(vdt).contiguous(), width)
+    iv = _rows16(item_vecs.to(vdt).contiguous(), width)
     ib = item_bias.to(torch.float32).contiguous()
     mask, mw = None, 0
     if seen_mask is not None:
@@ -256,21 +284,22 @@ def _launch(name, user_vecs, item_vecs, item_bias, k, seen_mask, large):
                 f"({u}, {mw}) int32 -- build it with pack_seen_mask(seen_lists, n={n})"
             )
         mask = seen_mask.contiguous()
-    bf16 = vdt == torch.bfloat16
-    # 16-byte row loads need rows of whole 16-byte chunks and an aligned base
-    vec = d % (8 if bf16 else 4) == 0 and iv.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
-        s, list_len, cap, _ = plan(large, u, n, d, bf16, k)
-        part_v = torch.empty((u, s, list_len), dtype=torch.float32, device=dev)
-        part_i = torch.empty((u, s, list_len), dtype=torch.int32, device=dev)
-        out_v = torch.empty((u, k), dtype=torch.float32, device=dev)
-        out_i = torch.empty((u, k), dtype=torch.int32, device=dev)
+        s, list_len, _, _, _, keys = plan(large, u, n, width, bf16, k)
+        # scratch: the (user, split) lists' values and rows, then the
+        # 8-byte keys they publish
+        npart = u * s * list_len
+        part = torch.empty(2 * npart + 2 * u * keys, dtype=torch.int32, device=dev)
+        out = torch.empty(2 * u * k, dtype=torch.int32, device=dev)
+        out_v = out[: u * k].view(torch.float32).view(u, k)
+        out_i = out[u * k :].view(u, k)
         rc = lib.trs_dot_topk(
             int(large), uv.data_ptr(), iv.data_ptr(), ib.data_ptr(),
             mask.data_ptr() if mask is not None else None, mw,
-            u, n, d, int(bf16), int(vec), k, s, cap,
-            part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            u, n, width, int(bf16), k, s,
+            part.data_ptr(), part.data_ptr() + 4 * npart, part.data_ptr() + 8 * npart,
+            out_v.data_ptr(), out_i.data_ptr(),
+            _stream(dev),
         )
     _check(rc, name)
     return out_v, out_i
@@ -286,9 +315,9 @@ def dot_topk_small(
     """Top-k (k <= 16) of ``user_vecs @ item_vecs.T + item_bias``: (U, k) f32
     scores and int32 item rows, descending, lowest index first among ties.
 
-    CUDA tensors launch ``dot_topk_small_kernel`` over (64-user tile x
-    catalog split) blocks, one wave of them, then the split merge. CPU
-    tensors take :func:`dot_topk_plain`."""
+    CUDA tensors launch ``dot_topk_tc_kernel`` over (64-user tile x
+    catalog split) blocks, one wave of them, keeping 16 entries per (user,
+    split), then the split merge. CPU tensors take :func:`dot_topk_plain`."""
     if user_vecs.device.type == "cpu":
         return dot_topk_plain(user_vecs, item_vecs, item_bias, k, seen_mask)
     k = min(k, item_vecs.shape[0])
@@ -312,9 +341,9 @@ def dot_topk_large(
     """Top-k (any k <= 1024; the dispatch sends 16 < k <= 1024) with the
     contract of :func:`dot_topk_small`.
 
-    CUDA tensors launch ``dot_topk_large_kernel`` over (32-user tile, or
-    8-user for k > 128, x catalog split) blocks, each user keeping a
-    shared-memory candidate pool, then the split merge. CPU tensors take
+    CUDA tensors launch ``dot_topk_tc_kernel`` over (32-user tile, or
+    8-user for k > 128, x catalog split) blocks keeping k entries per
+    (user, split), then the split merge. CPU tensors take
     :func:`dot_topk_plain`."""
     if user_vecs.device.type == "cpu":
         return dot_topk_plain(user_vecs, item_vecs, item_bias, k, seen_mask)
