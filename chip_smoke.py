@@ -20,7 +20,24 @@ result line:
    value (recomputed in f64). Exact-arithmetic inputs (small integers): ids
    and values identical. Every call is made twice: the same bits. The build
    log shows no ptxas line that serialises the top-k kernel's wgmmas.
-4. the fused pairwise train kernel against its plain version on the card,
+4. the fused pairwise step kernel (one call per train step: rows read by
+   id, the metadata composite and deltas, the updates added in place, the
+   loss stored) against the plain step (gather, row math, index_add_) on
+   the card: all 48 step variants (3 losses x sigmoid x weights x bf16 x
+   metadata) at B = 1024, 8192 and 1000 from the 100K-user / 1M-item
+   packed tables at D=80, ids with forced duplicates (a user on a 16th of
+   the rows, an item that is many rows' positive and negative), weighted
+   variants with a tenth of zero weights, metadata at (F, W) in {1, 2} x
+   {1, 3} (1000- and 50-row tables, ~30% of slots masked, every 97th item
+   fully masked). Rows no id names must stay bit-identical; a row one
+   update lands on within 1e-6 + 1e-5 |x|; a row k >= 2 updates land on
+   within that plus k * 2^-23 * (|old| + sum |update|) (the atomics add
+   them in no fixed order); the loss within 1e-6 + 1e-5 |x|; table rows
+   of hinge-kink batch rows skipped (counted). Each call counts one
+   launch. An out-of-range id traps: checked in child processes (a trap
+   leaves the CUDA context unusable).
+   The row-level kernel (the FM step's and the mesh wrappers' contract)
+   against its plain version on the card,
    all 96 variants (3 losses x sigmoid x weights x emit_g x item_upd x bf16),
    on B = 1024 and 8192 rows gathered from a 1M-item and a 100K-user
    packed table at D=80: every output within rtol=1e-5, atol=1e-6 (f32
@@ -61,12 +78,13 @@ result line:
    users, 1M items, D=80; 2.4M train rows):
    a. train with one int category column: the JAX-layout state carried
       over, ``fit(epochs=1, batch_size=1024)`` with in-training uniform
-      negatives. The kernel must launch once per step, the epoch loss be
+      negatives. The step kernel must be called once per step and no
+      other kernel (the row-level one included) launch, the epoch loss be
       finite, and the loss of a fixed sample of 65,536 train pairs fall
       below the fresh start's; then 20 steps from one state and
-      one epoch's batches with the kernel and with the plain version on the
-      card, tables and accumulators within rtol=1e-4, atol=1e-5 (at most 8
-      rows per table beyond it: a hinge flip).
+      one epoch's batches with the step kernel and with the plain step on
+      the card, tables and accumulators within rtol=1e-4, atol=1e-5 (at
+      most 8 rows per table beyond it: a hinge flip).
    b. predict from the trained tables: 256-user batches at top_k=10,
       top_k=128 and exclude_seen=True; every top-k kernel must launch. A
       batch of each is checked against the plain path.
@@ -107,7 +125,11 @@ result line:
    and, where one exists, one library call the port never uses; predict
    users/s, fit examples/s (hinge, softmax, MLP) and evaluate rows/s; per-call
    breakdowns; device time per kernel and the device's idle share over a
-   window of train steps (torch.profiler).
+   window of train steps (torch.profiler); the hinge fit's window must hold
+   the two step kernels per step and nothing else. The step's own row: ms,
+   device us, the bound from the bytes its batch needs, the device time of
+   an empty kernel on the same grid (the launch floor), the plain step,
+   host us per call against the bare C call.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -444,6 +466,233 @@ def train_kernel_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 4a: the fused pairwise step kernel against the plain step
+# ---------------------------------------------------------------------------
+
+STEP_META = ((1, 1), (1, 3), (2, 1), (2, 3))  # (F, W) of the step check's metadata
+STEP_BATCHES = (1024, 8192, 1000)
+STEP_DUP_ULP = 2.0 ** -23  # two orders of k f32 additions differ by at most k * 2^-23 * sum |terms|
+# the row math's difference between the step kernel and the plain step, as a share of a row's
+# updates (step_compare): summation orders and IEEE 1/sqrtf against torch.rsqrt. bf16 takes the
+# same share: both paths sum the metadata composite in the same order, so they round the same
+# values to bf16 (on the card every bf16 variant stays within 2e-7, as f32 does)
+STEP_REL = 1e-5
+
+
+def step_ids(torch, b: int, gen):
+    """Batch ids from the 100K-user / 1M-item tables with forced
+    duplicates: one user on a 16th of the rows, a popular positive on every
+    7th row that is also every 11th row's negative, and every 13th row's
+    negative its own positive."""
+    uid = torch.randint(0, N_USERS, (b,), generator=gen, device=DEVICE)
+    pid, nid = (torch.randint(0, N, (b,), generator=gen, device=DEVICE) for _ in range(2))
+    uid[: max(b // 16, 1)] = uid[0]
+    pid[1::7] = pid[0]
+    nid[2::11] = pid[0]
+    nid[3::13] = pid[3::13]
+    return uid, pid, nid
+
+
+def step_meta(torch, nf: int, nw: int, gen):
+    """nf augmented (rows, D+1) metadata tables (1000 and 50 rows: every
+    row shared by many items), (N, nf, nw) ids and masks (~30% masked;
+    every 97th item fully masked)."""
+    tables = []
+    for rows in (1000, 50)[:nf]:
+        t = torch.randn((rows, D + 1), generator=gen, device=DEVICE) * 0.2
+        t[:, D] = t[:, D].abs() * 2.5
+        tables.append(t)
+    ids = torch.stack([torch.randint(0, t.shape[0], (N, nw), generator=gen, device=DEVICE)
+                       for t in tables], dim=1)
+    mask = torch.rand((N, nf, nw), generator=gen, device=DEVICE) < 0.7
+    mask[::97] = False
+    return tables, ids, mask
+
+
+def step_compare(torch, name, got, want, old, ids, width, upd, excluded, rel):
+    """Kernel table ``got`` against plain table ``want`` (both from
+    ``old``), lane by lane: rows never touched identical to ``old``; on a
+    touched row the two deltas (new - old) agree within
+        2^-24 (|got| + |want|)       each path rounds old + update once
+      + rel * (sum |update| + U)     the row math's difference between the
+                                     paths, as a share of the row's updates
+                                     and of U, the step's largest |update|
+                                     in this table (a lane whose terms
+                                     cancel, e.g. a user whose positive is
+                                     its negative, keeps a rounding residue
+                                     of terms of that size on the card's
+                                     fma and exactly 0 in the plain step)
+      + k 2^-23 (|old| + sum |update|)   only when k >= 2 updates land on
+                                     the row (atomics add them in no fixed order)
+      + 2^-126                       a flushed denormal
+    so the tolerance stays far below one update (a dropped or mis-scaled
+    update fails). Rows in ``excluded`` (hinge-kink batch rows) are skipped
+    and counted. Returns (max |diff|, largest diff / tolerance, the rel a
+    row needed at most, rows with duplicates, excluded rows)."""
+    uniq, inv, counts = torch.unique(ids, return_inverse=True, return_counts=True)
+    untouched = torch.ones(old.shape[0], dtype=torch.bool, device=DEVICE)
+    untouched[uniq] = False
+    check(torch.equal(got[untouched], old[untouched]), f"{name}: the kernel wrote rows no id names")
+    f64 = torch.float64
+    sums = torch.zeros((uniq.numel(), width), dtype=f64, device=DEVICE).index_add_(0, inv, upd.double().abs())
+    g, x, o = (t[uniq, :width].double() for t in (got, want, old))
+    k = counts[:, None].double()
+    fixed = 2.0**-24 * (g.abs() + x.abs()) + torch.where(k > 1, k * STEP_DUP_ULP * (o.abs() + sums), 0.0) + 2.0**-126
+    scale = sums + float(upd.abs().max())
+    tol = fixed + rel * scale
+    skip = torch.isin(uniq, excluded)
+    diff = (g - x).abs()
+    over = torch.where(skip[:, None], float("-inf"), diff - tol)
+    bad = (over > 0).any(dim=1)
+    if bool(bad.any()):
+        at = int(over.argmax())
+        r, c = divmod(at, width)
+        check(False, f"{name}: {int(bad.sum())} rows differ from the plain step; the worst, row "
+              f"{int(uniq[r])} lane {c}: kernel {float(g[r, c]):.9g}, plain {float(x[r, c]):.9g}, "
+              f"old {float(o[r, c]):.9g}, |diff| {float(diff[r, c]):.3g} > tolerance {float(tol[r, c]):.3g}")
+    check(bool(torch.isfinite(g).all()), f"{name}: non-finite values")
+    keep = ~skip
+    if not bool(keep.any()):
+        return 0.0, 0.0, 0.0, int((counts > 1).sum()), int(skip.sum())
+    need = ((diff - fixed).clamp_min(0.0) / scale.clamp_min(1e-300))[keep]
+    return (float(diff[keep].max()), float((diff / tol)[keep].max()), float(need.max()),
+            int((counts > 1).sum()), int(skip.sum()))
+
+
+def step_case(torch, fp, tables, ids, w, kw, meta, label):
+    """One step through the kernel and one through the plain step from the
+    same tables; every table compared (step_compare, rel = STEP_REL) and
+    the loss within 1e-6 + 1e-5 |x|. Returns (max |diff|,
+    largest diff / tolerance, largest rel needed, rows with duplicates,
+    excluded rows)."""
+    uid, pid, nid = ids
+    runs = []
+    for step in ((fp.fused_pairwise_step_meta, fp.fused_pairwise_step_meta_plain) if meta is not None
+                 else (fp.fused_pairwise_step, fp.fused_pairwise_step_plain)):
+        t = [tables[0].clone(), tables[1].clone()]
+        if meta is not None:
+            mv = [m.clone() for m in meta[0]]
+            out = step(*t, mv, meta[1], meta[2], *ids, w, 0.05, **kw)
+            runs.append((t + mv, out[3]))
+        else:
+            out = step(*t, *ids, w, 0.05, **kw)
+            runs.append((t, out[2]))
+    torch.cuda.synchronize()
+    (kt, kl), (pt, pl) = runs
+    check(abs(float(kl) - float(pl)) <= 1e-6 + 1e-5 * abs(float(pl)), f"{label}: loss {float(kl)} != plain {float(pl)}")
+    # the plain step's update rows, from the same tables: each row's sum of |updates|
+    inv = fp.step_inv(uid.shape[0], w)
+    rk = dict(d=D, margin=kw["margin"], loss_kind=kw["loss_kind"], sigmoid=kw["sigmoid"], eps=1e-10, bf16=kw["bf16"])
+    u, pn = tables[0][uid], tables[1][torch.cat([pid, nid])]
+    if meta is not None:
+        upd_u, iids, upd_i, deltas, _ = fp._meta_step_core(*tables, meta[0], meta[1], meta[2], *ids, w, inv, 0.05, **rk)
+        iids_all = torch.cat([pid, nid])
+        mids, mm = meta[1][iids_all], meta[2][iids_all].float()
+        for f, table in enumerate(meta[0]):
+            pn[:, :D] += (table[mids[:, f, :]][..., :D] * mm[:, f, :, None]).sum(1)
+    else:
+        iids, upd_u, upd_i, _ = fp._pairwise_updates(*tables, *ids, w, inv, 0.05, **rk)
+        deltas = []
+    b = uid.shape[0]
+    kink = (hinge_kink_rows(torch, u, pn[:b], pn[b:], kw["sigmoid"], kw["bf16"])
+            if kw["loss_kind"] == "hinge" else torch.zeros(b, dtype=torch.bool, device=DEVICE))
+    kink_items = torch.cat([pid[kink], nid[kink]])
+    parts = [("user", kt[0], pt[0], tables[0], uid, 128, upd_u, uid[kink]),
+             ("item", kt[1], pt[1], tables[1], iids, 128, upd_i, kink_items)]
+    for f, (mid, delta) in enumerate(deltas):
+        bad = meta[1][kink_items][:, f, :].reshape(-1)
+        parts.append((f"meta{f}", kt[2 + f], pt[2 + f], meta[0][f], mid, D + 1, delta, bad))
+    res = [step_compare(torch, f"{label} {name}", got, want, old, tid, width, upd, excluded, STEP_REL)
+           for name, got, want, old, tid, width, upd, excluded in parts]
+    return tuple(max(r[i] for r in res) for i in range(3)) + tuple(sum(r[i] for r in res) for i in (3, 4))
+
+
+STEP_TRAP = """
+import sys, torch
+from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+u = torch.zeros((10, 128), device="cuda")
+i = torch.zeros((20, 128), device="cuda")
+ids = [torch.zeros(8, dtype=torch.int64, device="cuda") for _ in range(3)]
+ids[0][5] = int(sys.argv[1])
+fp.fused_pairwise_step(u, i, *ids, None, d=80, margin=1.0, loss_kind="hinge", sigmoid=False)
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
+def step_trap_check(torch):
+    """An out-of-range user id (10 and -1 of a 10-row table) must trap on
+    the card. A trap leaves the CUDA context unusable, so each runs in a
+    child process that must fail; an in-range id (9) must pass there."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for bad, want_fail in ((10, True), (-1, True), (9, False)):
+        r = subprocess.run([sys.executable, "-c", STEP_TRAP, str(bad)], cwd=root, capture_output=True,
+                           text=True, timeout=300)
+        failed = r.returncode != 0
+        check(failed == want_fail, f"step with user id {bad}: exit {r.returncode}, "
+              f"{(r.stdout + r.stderr).strip()[-300:]}")
+        why = (r.stderr.strip().splitlines() or ["?"])[-1][:120]
+        log(f"[step-kernel] user id {bad} of 10 rows: " + (f"the step failed ({why})" if failed else "ran"))
+
+
+def step_kernel_phase(torch):
+    """Every step variant (3 losses x sigmoid x weights x bf16 x metadata)
+    against the plain step on the card at B = 1024, 8192 and 1000, from
+    the 100K-user / 1M-item packed tables, ids with forced duplicates,
+    weighted variants with a tenth of zero weights; metadata at every (F,
+    W) of STEP_META for B = 1024 and one each for the other B. Returns the
+    largest |kernel - plain| over every table compared."""
+    import itertools
+
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    tables = (packed_table(torch, N_USERS, gen), packed_table(torch, N, gen))
+    metas = {fw: step_meta(torch, *fw, gen) for fw in STEP_META}
+    batches = {}
+    for b in STEP_BATCHES:
+        w = torch.rand((b,), generator=gen, device=DEVICE)
+        w[-(b // 10):] = 0.0
+        batches[b] = (step_ids(torch, b, gen), w)
+    saved = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
+    saved_rows = fp.pairwise_updates_rows.launches
+    worst, cases, worst_ratio, worst_need = 0.0, 0, 0.0, 0.0
+    for vi, (loss, sig, use_w, bf16, meta) in enumerate(itertools.product(
+        ("hinge", "bpr", "logistic"), (False, True), (False, True), (False, True), (False, True),
+    )):
+        kw = dict(d=D, margin=1.0, loss_kind=loss, sigmoid=sig, bf16=bf16)
+        parts, dup_rows = [], 0
+        for bi, b in enumerate(STEP_BATCHES):
+            ids, w = batches[b]
+            fws = (STEP_META if b == STEP_BATCHES[0] else (STEP_META[(vi + bi) % len(STEP_META)],)) if meta else (None,)
+            for fw in fws:
+                label = f"step {loss} sigmoid={sig:d} use_w={use_w:d} bf16={bf16:d} B={b}" + (
+                    f" F={fw[0]} W={fw[1]}" if fw else "")
+                before = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
+                err, ratio, need, dups, skipped = step_case(torch, fp, tables, ids, w if use_w else None, kw,
+                                                            metas[fw] if fw else None, label)
+                grew = (fp.fused_pairwise_step.launches - before[0], fp.fused_pairwise_step_meta.launches - before[1])
+                check(grew == ((0, 1) if meta else (1, 0)), f"{label}: step launches grew by {grew}")
+                worst = max(worst, err)
+                dup_rows += dups
+                cases += 1
+                worst_ratio, worst_need = max(worst_ratio, ratio), max(worst_need, need)
+                parts.append(f"B={b}" + (f" F={fw[0]} W={fw[1]}" if fw else "") + f" max|d|={err:.3g} "
+                             f"d/tol={ratio:.3f} rel={need:.2g}" + (f" ({skipped} kink rows skipped)" if skipped else ""))
+        log(f"[step-kernel] {loss:8s} sigmoid={sig:d} use_w={use_w:d} bf16={bf16:d} meta={meta:d}: "
+            + ", ".join(parts) + f"; {dup_rows} table rows with duplicate ids over these cases")
+    check(fp.pairwise_updates_rows.launches == saved_rows, "the step launched the row-level kernel")
+    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches = saved  # comparisons do not count
+    log(f"[step-kernel] {cases} step cases: kernel == plain step, largest |diff| {worst:.3g}, largest "
+        f"|diff| / tolerance {worst_ratio:.3f}, largest share of a row's updates the paths differ by "
+        f"{worst_need:.3g} (allowed: {STEP_REL:.0e})")
+    step_trap_check(torch)
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the in-batch softmax CE kernels against their plain version
 # ---------------------------------------------------------------------------
 
@@ -714,14 +963,15 @@ def wrappers():
     from torchrecsys_tpu_torch.ops import fused_tower as ft
     from torchrecsys_tpu_torch.ops import softmax_ce as sce
 
-    return (dt.dot_topk_small, dt.dot_topk_large, fp.pairwise_updates_rows,
-            sce.softmax_ce_fwd, sce.softmax_ce_bwd, ft.fused_tower_fwd, ft.fused_tower_bwd)
+    return (dt.dot_topk_small, dt.dot_topk_large, fp.pairwise_updates_rows, fp.fused_pairwise_step,
+            fp.fused_pairwise_step_meta, sce.softmax_ce_fwd, sce.softmax_ce_bwd, ft.fused_tower_fwd,
+            ft.fused_tower_bwd)
 
 
 def small_train_check(torch):
     """A small dataset trained two epochs on the card (every step through
-    the kernel) and on the CPU (plain steps), from one start with the same
-    round keys and static negatives."""
+    the step kernel) and on the CPU (plain steps), from one start with the
+    same round keys and static negatives."""
     from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
     from torchrecsys_tpu_torch.data import prepare_data
     from torchrecsys_tpu_torch.models import build_model
@@ -731,7 +981,7 @@ def small_train_check(torch):
     r = np.random.default_rng(6)
     data = {"user_id": r.integers(0, 300, 20000), "item_id": r.integers(0, 5000, 20000)}
     data["category_id"] = data["item_id"] % 17
-    saved = fp.pairwise_updates_rows.launches
+    saved = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
     for meta in (False, True):
         store = prepare_data(data, "user_id", "item_id", metadata_id_col=["category_id"] if meta else None)
         cfg = TrainConfig(batch_size=1000, learning_rate=0.05)
@@ -757,7 +1007,7 @@ def small_train_check(torch):
             err = max(err, float((tg[k] - tc[k]).abs().max()))
         log(f"[main] small train metadata={meta}: card == CPU over 2 epochs (losses {lg.round(6).tolist()}, "
             f"max |table diff| {err:.3g})")
-    fp.pairwise_updates_rows.launches = saved
+    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches = saved
 
 
 def small_softmax_check(torch):
@@ -916,14 +1166,15 @@ def compare_steps(torch, rs, steps: int = 20):
     data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
     epoch = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 11 + 5,
                            torch.Generator(device=DEVICE).manual_seed(21))
-    saved = fp.pairwise_updates_rows.launches
+    saved = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
+    plain = fp.fused_pairwise_step_meta_plain if rs.model.schema.metadata_names else fp.fused_pairwise_step_plain
     runs = []
-    for fn in (None, fp.pairwise_updates_rows_plain):
+    for step in (None, plain):
         packed = tr.pack_state(rs.state)
-        losses = tr.run_steps(packed, epoch, feat, steps=range(steps), updates_fn=fn)
+        losses = tr.run_steps(packed, epoch, feat, steps=range(steps), step_fn=step)
         runs.append((losses, packed))
     torch.cuda.synchronize()
-    fp.pairwise_updates_rows.launches = saved  # comparison launches do not count
+    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches = saved  # comparisons do not count
     (lk, pk), (lp, pp) = runs
     check(bool(torch.allclose(lk, lp, rtol=1e-5, atol=1e-6)), f"step losses {lk} != plain {lp}")
     worst, bad_rows = 0.0, {}
@@ -939,8 +1190,8 @@ def compare_steps(torch, rs, steps: int = 20):
 
 def train_path(torch, data, meta: bool):
     """The training main path: RecSys -> JAX-layout state -> fit (one
-    epoch, batch 1024). Launch counts are zeroed just before fit and read
-    just after."""
+    epoch, batch 1024): one step-kernel call per step and no other kernel.
+    Launch counts are zeroed just before fit and read just after."""
     from torchrecsys_tpu_torch import RecSys
 
     label = "metadata" if meta else "no metadata"
@@ -973,9 +1224,9 @@ def train_path(torch, data, meta: bool):
     fit_s = time.perf_counter() - t0
     counts = {w.__name__: w.launches for w in ws}
     steps = -(-st.num_train // TRAIN_B)
-    check(counts["pairwise_updates_rows"] == steps,
-          f"fit ran {steps} steps but the kernel launched {counts['pairwise_updates_rows']} times")
-    check(counts["dot_topk_small"] == counts["dot_topk_large"] == 0, f"fit launched top-k kernels: {counts}")
+    step = "fused_pairwise_step_meta" if meta else "fused_pairwise_step"
+    check(counts[step] == steps, f"fit ran {steps} steps but the step kernel launched {counts[step]} times")
+    check(sum(counts.values()) == steps, f"fit launched other kernels (the row-level kernel included): {counts}")
     check(len(losses) == 1 and np.isfinite(losses[0]), f"epoch loss {losses} is not finite")
     trained = sample_loss(torch, rs, sample)
     check(trained < fresh, f"the trained tables' sample loss {trained} is not below the fresh "
@@ -986,7 +1237,8 @@ def train_path(torch, data, meta: bool):
     err, bad = compare_steps(torch, rs)
     log(f"[train] {label}: 20 steps kernel vs plain on the card: max |table diff| {err:.3g}, "
         f"rows beyond rtol=1e-4/atol=1e-5 {bad}")
-    return rs, {"launches": counts["pairwise_updates_rows"], "steps": steps, "fit_s": fit_s,
+    return rs, {"launches": counts[step], "row_launches": counts["pairwise_updates_rows"], "steps": steps,
+                "fit_s": fit_s,
                 "examples_per_s": rate, "epoch_loss": losses[0], "fresh_loss": fresh,
                 "trained_loss": trained, "step_err": err}
 
@@ -1075,8 +1327,7 @@ def softmax_train_path(torch, data, meta: bool, evaluate: bool):
     steps = -(-st.num_train // SOFTMAX_B)
     check(counts["softmax_ce_fwd"] == counts["softmax_ce_bwd"] == steps,
           f"{label}: fit ran {steps} steps but the CE kernels launched {counts}")
-    check(counts["pairwise_updates_rows"] == counts["dot_topk_small"] == counts["dot_topk_large"] == 0,
-          f"{label}: fit launched other kernels: {counts}")
+    check(sum(counts.values()) == 2 * steps, f"{label}: fit launched other kernels: {counts}")
     check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
     trained = ce_sample_loss(torch, rs, batches, logq)
     check(trained < fresh, f"{label}: the trained tables' CE {trained} is not below the fresh start's {fresh}")
@@ -1618,37 +1869,77 @@ def device_split(prof) -> dict:
     return out
 
 
-def train_breakdown(torch, rs, label: str, window: int = 100):
-    """Per-step breakdown of fit: the epoch build (host clock, per epoch),
-    host ms per step, and device µs per step by part from torch.profiler
-    over ``window`` steps, with the device's idle share in that window."""
+def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
+    """Breakdown of fit: the fit's ``fit_s`` against its parts on the host
+    clock (the train split's upload, which a store's first fit pays, the
+    item features, the epoch build, pack, the epoch's steps, unpack) and
+    against the fit run again here, warm and then after emptying the
+    allocator's cache and the upload cache (as a fit after
+    ``torch.cuda.empty_cache()`` runs), host
+    ms per step (the median of 3 windows), the host cost of per-step id
+    views against one unbind per epoch, and device µs per step by part
+    from torch.profiler over ``window`` steps, with the device's idle share
+    in that window. The window must hold the step kernels only (2 launches
+    per step): a gather, scatter or elementwise kernel fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 
-    tr = rs.trainer
-    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
-    saved = fp.pairwise_updates_rows.launches
+    tr, st = rs.trainer, rs.store
+
+    def upload():
+        tr._data_cache_key = None  # as on a store's first fit
+        return tr._device_train_data(st)
+
+    upload_ms, data = host_ms(torch, upload, reps=2)
+    feat_ms, feat = host_ms(torch, lambda: tr.feature_tables(st), reps=2)
+    saved = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
+    refit_ms = {}
+    for how in ("warm", "cold"):
+        if how == "cold":
+            torch.cuda.empty_cache()
+            tr._data_cache_key = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False)
+        torch.cuda.synchronize()
+        refit_ms[how] = (time.perf_counter() - t0) * 1e3
+    data = tr._device_train_data(st)
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     keys = torch.arange(6, device=DEVICE) + 40
     build_ms, _ = host_ms(torch, lambda: tr.build_epoch(data, keys, gen), reps=3)
     ep = tr.build_epoch(data, keys, gen)
-    window = min(window, (ep.nb - 10) // 2)
+    window = min(window, (ep.nb - 10) // 4)
     pack_ms, packed = host_ms(torch, lambda: tr.pack_state(rs.state), reps=2)
     unpack_ms, _ = host_ms(torch, lambda: tr.unpack_state(rs.state, packed, 0), reps=2)
-    tr.run_steps(packed, ep, feat, steps=range(10))  # warm
-    torch.cuda.synchronize()
+    bt, cols = ep.batches, ("user_id", "pos_item_id", "neg_item_id")
     t0 = time.perf_counter()
-    tr.run_steps(packed, ep, feat, steps=range(10, 10 + window))
+    for i in range(ep.nb):
+        _ = [bt[k][i] for k in cols]
+    views_us = (time.perf_counter() - t0) / ep.nb * 1e6
+    t0 = time.perf_counter()
+    _ = [bt[k].contiguous().unbind(0) for k in cols]
+    unbind_us = (time.perf_counter() - t0) / ep.nb * 1e6
+    t0 = time.perf_counter()
+    tr.run_steps(packed, ep, feat)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / window * 1e3
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = []
+    for r in range(3):
+        start = 10 + r * window
+        t0 = time.perf_counter()
+        tr.run_steps(packed, ep, feat, steps=range(start, start + window))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) / window * 1e3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.run_steps(packed, ep, feat, steps=range(10 + window, 10 + 2 * window))
+        tr.run_steps(packed, ep, feat, steps=range(10 + 3 * window, 10 + 4 * window))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    fp.pairwise_updates_rows.launches = saved
+    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches = saved
     split = device_split(prof)
+    launched = sum(e.count for e in prof.key_averages() if "fused_pairwise" in e.key
+                   and getattr(e, "self_device_time_total", 1) > 0)
     parts = {"kernel": 0.0, "gathers": 0.0, "scatters": 0.0, "elementwise": 0.0}
     for name, us in split.items():
         if "fused_pairwise" in name:
@@ -1657,17 +1948,26 @@ def train_breakdown(torch, rs, label: str, window: int = 100):
             parts["gathers"] += us
         elif "indexFunc" in name or "index_add" in name or "scatter" in name.lower():
             parts["scatters"] += us
-        else:  # elementwise, reductions, cat: the metadata composite and deltas
+        else:  # elementwise, reductions, cat
             parts["elementwise"] += us
     busy = sum(split.values())
+    med = sorted(step_ms)[1]
+    parts_ms = {"upload": upload_ms, "item features": feat_ms, "epoch build": build_ms, "pack": pack_ms,
+                f"{ep.nb} steps": epoch_ms, "unpack": unpack_ms}
+    total = sum(parts_ms.values())
+    log(f"[breakdown] fit {label}: the fit's {fit_s * 1e3:.1f} ms against its parts, ms on the host clock: "
+        + " + ".join(f"{k} {v:.1f}" for k, v in parts_ms.items())
+        + f" = {total:.1f}; rest {fit_s * 1e3 - total:.1f}; the fit again here: {refit_ms['warm']:.1f} warm, "
+        f"{refit_ms['cold']:.1f} after emptying the allocator's cache and the upload cache")
     log(f"[breakdown] fit {label}: epoch build {build_ms:.3f} ms per epoch "
         f"({build_ms / ep.nb:.4f} ms per step over {ep.nb} steps), pack {pack_ms:.3f} ms + "
-        f"unpack {unpack_ms:.3f} ms per epoch; {step_ms:.4f} ms per step (host clock, {window} steps)")
-    log(f"[breakdown] fit {label}: device us per step (elementwise = the metadata composite "
-        f"and deltas, id concatenation, loss scaling): " + ", ".join(
+        f"unpack {unpack_ms:.3f} ms per epoch; {med:.4f} ms per step (host clock, median of 3 windows "
+        f"of {window} steps: {', '.join(f'{x:.4f}' for x in step_ms)}); the ids' per-step views would "
+        f"cost {views_us:.2f} us per step, one unbind per epoch costs {unbind_us:.3f}")
+    log(f"[breakdown] fit {label}: device us per step (kernel = the step kernels): " + ", ".join(
         f"{k} {v / window:.2f}" for k, v in parts.items()
-    ) + f"; device busy {busy / window:.2f} of {wall_us / window:.2f} us per step under the "
-        f"profiler = idle share {1 - busy / wall_us:.3f}")
+    ) + f"; {launched / window:.2f} step-kernel launches per step; device busy {busy / window:.2f} of "
+        f"{wall_us / window:.2f} us per step under the profiler = idle share {1 - busy / wall_us:.3f}")
     top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
 
     def short(k):
@@ -1677,8 +1977,101 @@ def train_breakdown(torch, rs, label: str, window: int = 100):
     log(f"[profile] fit {label}: top kernels, device us per step: " + "; ".join(
         f"{short(k)} {v / window:.2f}" for k, v in top
     ))
-    return {"build_ms": build_ms, "step_ms": step_ms, "idle_share": 1 - busy / wall_us,
-            "kernel_us": parts["kernel"] / window}
+    others = {short(k): v for k, v in split.items() if "fused_pairwise" not in k}
+    check(not others, f"fit {label}: the step window ran other kernels: {others}")
+    check(launched == 2 * window, f"fit {label}: {launched} step-kernel launches in {window} steps, want 2 each")
+    return {"build_ms": build_ms, "step_ms": med, "parts_ms": parts_ms, "refit_ms": refit_ms,
+            "step_ms_runs": step_ms, "idle_share": 1 - busy / wall_us, "kernel_us": parts["kernel"] / window, "busy_us": busy / window}
+
+
+def step_timing(torch, rs, meta: bool, err: float, launches: int):
+    """The step wrapper's JSON row at the main path's shape: one real
+    1024-row batch of the fit (weighted when the epoch has a remainder
+    batch), CUDA-event ms per step call, device µs per call and kernels
+    per call (torch.profiler), the plain step's ms, the bound from the
+    bytes this batch needs (each distinct row's data lanes read and
+    written once, in 32-byte sectors; the ids, the weights, the distinct
+    unmasked metadata rows and the items' meta_ids / meta_mask), the
+    device time of an empty kernel on the same grid (the
+    launch floor), and host µs per call of the wrapper against its bare C
+    call."""
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    name = "fused_pairwise_step_meta" if meta else "fused_pairwise_step"
+    wrapper = getattr(fp, name)
+    saved = wrapper.launches
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    ep = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 3 + 1, torch.Generator(device=DEVICE).manual_seed(4))
+    packed = tr.pack_state(rs.state)
+    i = ep.nb - 1  # the remainder batch when there is one
+    uid, pid, nid = (ep.batches[k][i].contiguous() for k in ("user_id", "pos_item_id", "neg_item_id"))
+    w = ep.batches["_w"][i] if "_w" in ep.batches else None
+    ws = ep.weight_sums[i] if ep.weight_sums is not None else None
+    b = uid.shape[0]
+    lo = torch.empty((1,), device=DEVICE)
+    kw = dict(d=D, margin=tr.cfg.margin, loss_kind=tr.cfg.loss, sigmoid=False, weight_sum=ws, loss_out=lo)
+    if meta:
+        names = rs.model.schema.metadata_names
+        mvec = [packed[f"meta_{nm}"] for nm in names]
+        lead = (packed["user"], packed["item"], mvec, feat["meta_ids"], feat["meta_mask"])
+    else:
+        lead = (packed["user"], packed["item"])
+
+    def call():
+        return wrapper(*lead, uid, pid, nid, w, 0.01, **kw)
+
+    plain = fp.fused_pairwise_step_meta_plain if meta else fp.fused_pairwise_step_plain
+    ms = cuda_ms(torch, call, reps=200)
+    plain_ms = cuda_ms(torch, lambda: plain(*lead, uid, pid, nid, w, 0.01, **kw))
+    dev_us, per_call = device_call(torch, call)
+    check(per_call == 2, f"{name}: {per_call} kernels per call, want 2 (step and apply)")
+    lib, stream = fp._lib(), torch.cuda.current_stream().cuda_stream
+    floor_us, _ = device_call(torch, lambda: lib.trs_fused_pairwise_empty(b, stream))
+    # the bytes this batch needs: each distinct row's data lanes (d+3; the
+    # metadata user row d+6, its g lanes) read and written once, in whole
+    # 32-byte sectors (a row starts on one), the ids, the weights, the loss
+    def sectors(floats):
+        return -(-4 * floats // 32) * 32
+
+    items = torch.unique(torch.cat([pid, nid]))
+    users = torch.unique(uid).numel()
+    user_row = sectors(D + 6 if meta else D + 3)
+    nbytes = (users * user_row + items.numel() * sectors(D + 3)) * 2 + 3 * 8 * b + 4
+    nbytes += 4 * b if w is not None else 0
+    per_row_bytes = 6 * 128 * 4 * b + 3 * 8 * b + (4 * b if w is not None else 0) + 4
+    if meta:  # each distinct unmasked metadata row, (d+1) floats each way; the items' ids and masks
+        mids, mm = feat["meta_ids"][items], feat["meta_mask"][items]
+        nf, nw = mids.shape[1:]
+        for f in range(nf):
+            nbytes += torch.unique(mids[:, f][mm[:, f]]).numel() * 2 * (D + 1) * 4
+        nbytes += items.numel() * nf * nw * 9
+        per_row_bytes += 2 * b * nf * nw * (2 * (D + 1) * 4 + 9)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    # host time per call: the wrapper against its bare C call (the same arguments)
+    scratch = torch.empty((lib.trs_fused_pairwise_step_scratch(int(meta), b, *(
+        feat["meta_ids"].shape[1:] if meta else (0, 0))),), device=DEVICE)
+    wd = w.to(torch.float32).contiguous() if w is not None else None
+    args = fp._step_args(packed["user"], packed["item"], (uid, pid, nid), wd, fp.step_inv(b, w, ws), 0.01, D,
+                         tr.cfg.margin, tr.cfg.loss, False, 1e-10, False, lead[2:] if meta else None,
+                         scratch.data_ptr(), lo.data_ptr(), stream)
+    wrap_us = host_ms(torch, call, reps=2000)[0] * 1e3
+    bare_us = host_ms(torch, lambda: check(lib.trs_fused_pairwise_step(*args) == 0, "bare call"), reps=2000)[0] * 1e3
+    wrapper.launches = saved  # timing launches are not main-path launches
+    log(f"[time] {name} (B={b}, D={D}, {tr.cfg.loss}{', weighted' if w is not None else ''}): {ms:.4f} ms by CUDA "
+        f"events (host-bound back to back); device {dev_us:.2f} us per call over {per_call} kernels "
+        f"(torch.profiler); bound {bound_ms:.5f} ms ({nbytes / 1e6:.3f} MB: {items.numel()} distinct items, "
+        f"{users} users, {user_row}/{sectors(D + 3)} bytes per user/item row each way; context: "
+        f"{per_row_bytes / PEAK_BYTES * 1e3:.5f} ms for every batch row's whole 512-byte rows); "
+        f"launch floor {floor_us:.2f} us per empty kernel on the same grid, "
+        f"{2 * floor_us:.2f} for the step's two = {2 * floor_us / dev_us:.0%} of its device time; "
+        f"plain step {plain_ms:.4f} ms; library: none")
+    log(f"[time] {name} host us per call (B={b}): wrapper {wrap_us:.2f}, its bare C call {bare_us:.2f}")
+    return {
+        "name": name, "route": "cuda", "source": TRAIN_SOURCE, "replaces": TRAIN_REPLACES,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": None,
+    }
 
 
 def device_call(torch, fn, calls: int = 20):
@@ -2025,6 +2418,7 @@ def main() -> int:
     build_kernels()
     errs = kernel_phase(torch)
     train_err = train_kernel_phase(torch)
+    step_err = step_kernel_phase(torch)
     ce_errs, ce_inputs_main = ce_kernel_phase(torch)
     tower_errs, tower_inputs_main = tower_kernel_phase(torch)
     small_catalog_check(torch)
@@ -2039,15 +2433,18 @@ def main() -> int:
     kernels = timing_phase(torch, rs, users_raw, launches, errs)
     predict_breakdown(torch, rs, users_raw)
     profile_phase(torch, rs, users_raw)
-    split_meta = train_breakdown(torch, rs, "metadata")
+    split_meta = train_breakdown(torch, rs, "metadata", fit_meta["fit_s"])
+    step_meta_row = step_timing(torch, rs, True, step_err, fit_meta["launches"])
     train_row = train_timing(torch, rs, train_err)
     del rs
     torch.cuda.empty_cache()
     rs, fit_plain = train_path(torch, data, meta=False)
-    split_plain = train_breakdown(torch, rs, "no metadata")
+    split_plain = train_breakdown(torch, rs, "no metadata", fit_plain["fit_s"])
+    step_row = step_timing(torch, rs, False, step_err, fit_plain["launches"])
     del rs
-    train_row["launches"] = fit_meta["launches"] + fit_plain["launches"]
-    kernels.append(train_row)
+    # the row-level kernel is off the fit paths now (the FM step and the mesh wrappers will take it)
+    train_row["launches"] = fit_meta["row_launches"] + fit_plain["row_launches"]
+    kernels.extend([train_row, step_row, step_meta_row])
     torch.cuda.empty_cache()
     rs, sm_meta = softmax_train_path(torch, data, meta=True, evaluate=True)
     split_sm_meta = softmax_breakdown(torch, rs, "softmax metadata")
@@ -2071,7 +2468,9 @@ def main() -> int:
     }))
     log(f"[main] predict users/s: {json.dumps(rates)}")
     log(f"[main] fit examples/s: metadata {fit_meta['examples_per_s']:.1f}, no metadata "
-        f"{fit_plain['examples_per_s']:.1f}; device idle share in fit: metadata "
+        f"{fit_plain['examples_per_s']:.1f}; host ms per step {split_meta['step_ms']:.4f} / "
+        f"{split_plain['step_ms']:.4f}; device busy us per step {split_meta['busy_us']:.2f} / "
+        f"{split_plain['busy_us']:.2f}; device idle share in fit: metadata "
         f"{split_meta['idle_share']:.3f}, no metadata {split_plain['idle_share']:.3f}")
     log(f"[main] softmax fit examples/s: metadata {sm_meta['examples_per_s']:.1f}, no metadata "
         f"{sm_plain['examples_per_s']:.1f}; host ms per step {split_sm_meta['step_ms']:.4f} / "

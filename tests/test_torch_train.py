@@ -274,6 +274,49 @@ def test_amp_training_and_unknown_options():
     assert not Trainer(wide, TrainConfig(), "cpu")._fused
 
 
+@pytest.mark.parametrize("meta", [False, True], ids=["plain", "meta"])
+def test_run_steps_makes_one_step_call_per_batch_into_one_loss_tensor(meta, monkeypatch):
+    """run_steps calls the step wrapper once per batch, each with the
+    epoch's one (nb,) loss tensor and its own slot, and returns that
+    tensor: the same losses and tables as the plain steps run one by one."""
+    store = prepare_data(_data(meta), "user_id", "item_id",
+                         **(dict(metadata_id_col=["cat"]) if meta else {}))
+    tr = Trainer(build_model(store.schema, ModelConfig(n_factors=8)), TrainConfig(batch_size=128), "cpu")
+    state = tr.init_state()
+    data, feat = tr._device_train_data(store), tr.feature_tables(store)
+    ep = tr.build_epoch(data, torch.arange(6), torch.Generator().manual_seed(0))
+    name = "fused_pairwise_step_meta" if meta else "fused_pairwise_step"
+    real, calls = getattr(tfp, name), []
+
+    def spy(*a, **k):
+        calls.append((k["loss_out"], k["loss_index"]))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tfp, name, spy)
+    packed = tr.pack_state(state)
+    losses = tr.run_steps(packed, ep, feat)
+    assert losses.shape == (ep.nb,) and len(calls) == ep.nb
+    assert all(out is losses for out, _ in calls) and [i for _, i in calls] == list(range(ep.nb))
+    # the same steps, one plain call at a time
+    want = tr.pack_state(state)
+    bt = ep.batches
+    kw = dict(d=8, margin=1.0, loss_kind="hinge", sigmoid=False)
+    for i in range(ep.nb):
+        ids = (bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i])
+        w, ws = bt["_w"][i], ep.weight_sums[i]
+        if meta:
+            names = tr.model.schema.metadata_names
+            *_, loss = tfp.fused_pairwise_step_meta_plain(
+                want["user"], want["item"], [want[f"meta_{n}"] for n in names], feat["meta_ids"],
+                feat["meta_mask"], *ids, w, 0.01, weight_sum=ws, **kw)
+        else:
+            *_, loss = tfp.fused_pairwise_step_plain(want["user"], want["item"], *ids, w, 0.01,
+                                                     weight_sum=ws, **kw)
+        assert float(losses[i]) == float(loss)
+    for k in want:
+        assert torch.equal(packed[k], want[k]), k
+
+
 # ---------------------------------------------------------------------------
 # on the card (needs a CUDA card)
 # ---------------------------------------------------------------------------
@@ -290,8 +333,9 @@ def cuda_device():
 @pytest.mark.parametrize("meta", [False, True], ids=["plain", "meta"])
 def test_epochs_on_card_match_cpu(cuda_device, meta):
     """Same start, keys and static negatives: the card's epochs (every
-    step through the kernel) agree with the CPU's plain steps. index_add_
-    on the card adds duplicates in no fixed order, hence the tolerance."""
+    step one call of the step kernel, no row-level launch) agree with the
+    CPU's plain steps. The kernel's atomics add duplicates in no fixed
+    order, hence the tolerance."""
     data = _data(meta, n=4000, n_users=300, n_items=500)
     kw = dict(metadata_id_col=["cat"]) if meta else {}
     store = prepare_data(data, "user_id", "item_id", **kw)
@@ -305,13 +349,15 @@ def test_epochs_on_card_match_cpu(cuda_device, meta):
         else:
             state["tables"] = {k: v.to(dev) for k, v in start.items()}
         data_d, feat = tr._device_train_data(store), tr.feature_tables(store)
-        before = tfp.pairwise_updates_rows.launches
+        step = tfp.fused_pairwise_step_meta if meta else tfp.fused_pairwise_step
+        before = step.launches, tfp.pairwise_updates_rows.launches
         losses = []
         for e in range(2):
             state, loss = tr.train_epoch(state, data_d, feat, keys=torch.arange(6) + 7 * e)
             losses.append(float(loss))
         if dev != "cpu":
-            assert tfp.pairwise_updates_rows.launches - before == 2 * -(-store.num_train // 256)
+            assert step.launches - before[0] == 2 * -(-store.num_train // 256)
+            assert tfp.pairwise_updates_rows.launches == before[1]
         out[str(dev)] = (losses, {k: v.cpu() for k, v in state["tables"].items()})
     (lc, tc), (lg, tg) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(lg, lc, rtol=1e-4, atol=1e-5)

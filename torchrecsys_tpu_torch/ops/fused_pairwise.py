@@ -4,8 +4,8 @@ hand-written Hopper kernel and its plain version.
 Port of ``torchrecsys_tpu/ops/fused_pairwise.py`` (single device, Linear).
 Per batch:
 
-    gather packed rows -> [kernel: score pos|neg -> loss -> row grads ->
-    rowwise-adagrad deltas] -> index_add_ the update rows
+    [kernel: read packed rows by id -> score pos|neg -> loss -> row grads
+    -> rowwise-adagrad deltas -> add the update rows in place]
 
 **Packed epoch layout** (:13-22). For one epoch each side's state lives in
 one ``(rows, 128)`` f32 table, one row per id:
@@ -21,17 +21,25 @@ scatter-add applies both the parameter delta and the accumulator
 increment. Per-row loss weights come from the batch, never from a table
 lane.
 
-- :func:`pairwise_updates_rows` launches ``fused_pairwise_kernel``
-  (``csrc/fused_pairwise.cu``), the port of ``_pairwise_kernel``
-  (:100-243) as ``_pairwise_updates_rows`` (:279-357) calls it. Given CPU
-  tensors it computes :func:`pairwise_updates_rows_plain`; given CUDA
-  tensors it launches the kernel or raises. ``pairwise_updates_rows.launches``
-  counts launches.
 - :func:`fused_pairwise_step` (:367-412) and
   :func:`fused_pairwise_step_meta` (:811-864, Linear) update the packed
-  tables IN PLACE (``index_add_``) and return them with the step's loss as
-  a device scalar. The scalars ``inv``, ``lr``, ``margin`` and ``eps`` are
-  launch arguments, so the caller passes host values and no step syncs.
+  tables IN PLACE and return them with the step's loss as a device scalar
+  (or write it into ``loss_out[loss_index]``). Given CUDA tables each is
+  ONE call of the step kernel (``csrc/fused_pairwise.cu``, the redesign of
+  ``_pairwise_kernel`` :100-243 for the card: the rows read by id, the
+  metadata composite and deltas, the updates added in place, the loss
+  stored; two launches); ``.launches`` counts those calls. Given CPU
+  tables they run their plain versions (:func:`fused_pairwise_step_plain`,
+  :func:`fused_pairwise_step_meta_plain`: gather, row math, ``index_add_``),
+  which a check on the card calls directly. The scalars ``inv``, ``lr``,
+  ``margin`` and ``eps`` are launch arguments, so the caller passes host
+  values and no step syncs.
+- :func:`pairwise_updates_rows` keeps the row-level contract of
+  ``_pairwise_updates_rows`` (:279-357): packed rows in, update rows and
+  the loss sum out, no scatter, what the FM step and the mesh wrappers
+  need. It launches ``fused_pairwise_kernel`` (the same row math) on CUDA
+  tensors and computes :func:`pairwise_updates_rows_plain` on CPU ones;
+  ``pairwise_updates_rows.launches`` counts its launches.
 - The FM branches (``fm=True``: ``_packed_update_rows``, ``meta_lin``)
   and the mesh wrappers (``_dp``, ``_tp``) are still to be ported
   (ROADMAP.md §A items 5 and 14).
@@ -39,8 +47,10 @@ lane.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+import functools
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +60,8 @@ from torchrecsys_tpu_torch.ops import _build
 LANES = 128
 SUPPORTED_LOSSES = ("hinge", "bpr", "logistic")
 _LOSS_CODE = {"hinge": 0, "bpr": 1, "logistic": 2}
-_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _CI, _CF, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_MAX_FEATURES = 16  # metadata features the step kernel takes (kMaxFeatures)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +110,7 @@ def unpack_tables(
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=64)
 def _inv_d(d: int) -> float:
     """1/d rounded to f32, as the TPU kernel's ``* (1.0 / d)`` applies it."""
     return float(np.float32(1.0 / d))
@@ -209,6 +221,15 @@ def _lib() -> ctypes.CDLL:
             [_CI] * 6 + [_VP] * 4 + [_CI] * 2 + [_CF] * 5 + [_VP] * 6
         )
         lib.trs_fused_pairwise.restype = _CI
+        lib.trs_fused_pairwise_step_scratch.argtypes = [_CI] * 4
+        lib.trs_fused_pairwise_step_scratch.restype = _LL
+        lib.trs_fused_pairwise_step.argtypes = (
+            [_CI] * 5 + [_VP, _LL, _VP, _LL] + [_VP] * 4 + [_CI] * 2 + [_CF] * 5 + [_CI] * 2
+            + [_VP, _VP, _LL] + [_VP] * 5
+        )
+        lib.trs_fused_pairwise_step.restype = _CI
+        lib.trs_fused_pairwise_empty.argtypes = [_CI, _VP]
+        lib.trs_fused_pairwise_empty.restype = _CI
         lib._trs_bound = True
     return lib
 
@@ -305,11 +326,10 @@ def pairwise_updates_rows(
 
 pairwise_updates_rows.launches = 0
 
-UpdatesFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
-# steps
+# steps: the plain composition and the step kernel
 # ---------------------------------------------------------------------------
 
 
@@ -318,9 +338,16 @@ def step_inv(b: int, weights: Optional[torch.Tensor], weight_sum: Optional[float
     weights, else ``1 / max(sum(w), 1)``. ``weight_sum`` saves the device
     sum (a sync) when the caller knows it, as the trainer does."""
     if weights is None:
-        return float(np.float32(1.0 / b))
+        return _inv_of(b, None)
     if weight_sum is None:
         weight_sum = float(weights.to(torch.float32).sum())
+    return _inv_of(b, weight_sum)
+
+
+@functools.lru_cache(maxsize=256)
+def _inv_of(b: int, weight_sum: Optional[float]) -> float:
+    if weight_sum is None:
+        return float(np.float32(1.0 / b))
     return float(np.float32(1.0) / np.maximum(np.float32(weight_sum), np.float32(1.0)))
 
 
@@ -333,7 +360,6 @@ def _pairwise_updates(
     weights: Optional[torch.Tensor],
     inv: float,
     lr: float,
-    updates_fn: Optional[UpdatesFn] = None,
     **kw,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Gather packed rows (one gather for the user rows, one for the
@@ -343,12 +369,18 @@ def _pairwise_updates(
     iids = torch.cat([pos_ids, neg_ids])
     u = user_pk.index_select(0, user_ids)
     pn = item_pk.index_select(0, iids)
-    fn = updates_fn or pairwise_updates_rows
-    upd_u, upd_items, loss_sum = fn(u, pn[:b], pn[b:], weights, inv, lr, **kw)
+    upd_u, upd_items, loss_sum = pairwise_updates_rows_plain(u, pn[:b], pn[b:], weights, inv, lr, **kw)
     return iids, upd_u, upd_items, loss_sum
 
 
-def fused_pairwise_step(
+def _put_loss(loss: torch.Tensor, loss_out: Optional[torch.Tensor], loss_index: int) -> torch.Tensor:
+    if loss_out is None:
+        return loss
+    loss_out[loss_index] = loss
+    return loss_out[loss_index]
+
+
+def fused_pairwise_step_plain(
     user_pk: torch.Tensor,
     item_pk: torch.Tensor,
     user_ids: torch.Tensor,
@@ -364,25 +396,20 @@ def fused_pairwise_step(
     eps: float = 1e-10,
     bf16: bool = False,
     weight_sum: Optional[float] = None,
-    updates_fn: Optional[UpdatesFn] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One fused training step on packed tables (:367-412): gather -> row
-    math -> two ``index_add_`` scatters (user rows; item rows, positives
-    then negatives). Updates ``user_pk`` and ``item_pk`` in place and
-    returns them with the weighted mean loss (a device scalar).
-
-    ``updates_fn`` replaces the row math (default
-    :func:`pairwise_updates_rows`); a check on the card passes
-    :func:`pairwise_updates_rows_plain` to hold the kernel's steps
-    against it."""
+    """The step kernel's plain version (:367-412), op for op: gather ->
+    row math -> two ``index_add_`` scatters (user rows; item rows,
+    positives then negatives) -> ``loss_sum * inv``."""
     inv = step_inv(user_ids.shape[0], weights, weight_sum)
     iids, upd_u, upd_items, loss_sum = _pairwise_updates(
-        user_pk, item_pk, user_ids, pos_ids, neg_ids, weights, inv, lr, updates_fn,
+        user_pk, item_pk, user_ids, pos_ids, neg_ids, weights, inv, lr,
         d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, eps=eps, bf16=bf16,
     )
     user_pk.index_add_(0, user_ids, upd_u)
     item_pk.index_add_(0, iids, upd_items)
-    return user_pk, item_pk, loss_sum * inv
+    return user_pk, item_pk, _put_loss(loss_sum * inv, loss_out, loss_index)
 
 
 def _meta_step_core(
@@ -404,18 +431,17 @@ def _meta_step_core(
     sigmoid: bool,
     bf16: bool,
     eps: float,
-    updates_fn: Optional[UpdatesFn] = None,
 ):
-    """Composite-row kernel step + the metadata updates, Linear (:660-801
-    with ``fm=False``).
+    """Composite-row step + the metadata updates, Linear (:660-801 with
+    ``fm=False``).
 
-    The item rows the kernel sees are composite: their vector lanes hold
+    The item rows the row math sees are composite: their vector lanes hold
     ``item_vec + sum_f masked_sum(meta_f)``, so the score, the loss and the
     user update are the model's. For Linear d score / d item_vec = d score
-    / d meta slot = g * u, so the kernel's item update rows (formed against
-    the item's own accumulator lanes, which composition leaves alone) are
+    / d meta slot = g * u, so the item update rows (formed against the
+    item's own accumulator lanes, which composition leaves alone) are
     exact, and each metadata slot's rowwise-adagrad delta is formed here
-    from the ``gp``/``gn`` the kernel emits in lanes d+4, d+5.
+    from the ``gp``/``gn`` the row math emits in lanes d+4, d+5.
 
     Returns ``(upd_u (B, 128), iids (2B,), item_rows (2B, 128),
     meta_deltas [F x (ids (2BW,), rows (2BW, D+1))], loss_sum)``."""
@@ -436,8 +462,7 @@ def _meta_step_core(
     if csum is not None:
         pn[:, :d] += csum
 
-    fn = updates_fn or pairwise_updates_rows
-    upd_u, item_rows, loss_sum = fn(
+    upd_u, item_rows, loss_sum = pairwise_updates_rows_plain(
         u, pn[:b], pn[b:], weights, inv, lr,
         d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, eps=eps,
         emit_g=True, item_upd=True, bf16=bf16,
@@ -459,6 +484,214 @@ def _meta_step_core(
     return upd_u, iids, item_rows, meta_deltas, loss_sum
 
 
+def fused_pairwise_step_meta_plain(
+    user_pk: torch.Tensor,
+    item_pk: torch.Tensor,
+    meta_vec: Sequence[torch.Tensor],
+    meta_ids: torch.Tensor,
+    meta_mask: torch.Tensor,
+    user_ids: torch.Tensor,
+    pos_ids: torch.Tensor,
+    neg_ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    lr: float = 1e-2,
+    *,
+    d: int,
+    margin: float,
+    loss_kind: str,
+    sigmoid: bool,
+    bf16: bool = False,
+    eps: float = 1e-10,
+    weight_sum: Optional[float] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
+):
+    """The metadata step kernel's plain version (:811-864 with
+    ``fm=False``), op for op: gathers, the composite, the row math, the
+    metadata deltas, one ``index_add_`` per table."""
+    inv = step_inv(user_ids.shape[0], weights, weight_sum)
+    upd_u, iids, item_rows, meta_deltas, loss_sum = _meta_step_core(
+        user_pk, item_pk, meta_vec, meta_ids, meta_mask, user_ids, pos_ids, neg_ids,
+        weights, inv, lr, d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid,
+        bf16=bf16, eps=eps,
+    )
+    user_pk.index_add_(0, user_ids, upd_u)
+    item_pk.index_add_(0, iids, item_rows)
+    for table, (ids, delta) in zip(meta_vec, meta_deltas):
+        table.index_add_(0, ids, delta)
+    return user_pk, item_pk, meta_vec, _put_loss(loss_sum * inv, loss_out, loss_index)
+
+
+def _check_tensor(name: str, what: str, t: torch.Tensor, dev: torch.device, dtype: torch.dtype,
+                  shape: Sequence[Optional[int]]) -> None:
+    """``t`` on ``dev``, of ``dtype``, contiguous, with ``shape`` (None: any
+    extent), else ValueError."""
+    if (t.dtype != dtype or t.dim() != len(shape) or t.device != dev or not t.is_contiguous()
+            or any(s is not None and s != x for s, x in zip(shape, t.shape))):
+        want = tuple("*" if s is None else s for s in shape)
+        raise ValueError(
+            f"{name}: {what} must be a contiguous {want} {dtype} tensor on {dev}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            + ("" if t.is_contiguous() else " (not contiguous)")
+        )
+
+
+def _check_step(name, d, loss_kind, user_pk, item_pk, ids, weights, loss_out, loss_index,
+                meta=None) -> None:
+    """The step's inputs, before either path: what the kernel takes, so the
+    CPU and the card refuse the same calls. Each tensor is tested in one
+    expression; the message is formed only for a bad one."""
+    dev = user_pk.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors must be on CPU or CUDA, got {dev}")
+    f32 = torch.float32
+    for what, t in (("user_pk", user_pk), ("item_pk", item_pk)):
+        if (t.dtype != f32 or t.dim() != 2 or t.shape[1] != LANES or not t.is_contiguous()
+                or t.device != dev):
+            _check_tensor(name, what, t, dev, f32, (None, LANES))
+        if t.data_ptr() % 16:  # the kernel moves rows as float4
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+    b = ids[0].shape[0] if ids[0].dim() == 1 else -1
+    for what, t in zip(("user_ids", "pos_ids", "neg_ids"), ids):
+        if (t.dtype != torch.int64 or t.dim() != 1 or t.shape[0] != b or not t.is_contiguous()
+                or t.device != dev):
+            _check_tensor(name, what, t, dev, torch.int64, (b,))
+    if b < 1:
+        raise ValueError(f"{name}: empty batch")
+    if weights is not None and (weights.dim() != 1 or weights.shape[0] != b or weights.device != dev):
+        raise ValueError(f"{name}: weights must be ({b},) on {dev}")
+    if not 1 <= d <= LANES - (6 if meta is not None else 4):
+        raise ValueError(
+            f"{name}: d={d} does not fit the packed layout (d <= {LANES - 4}, "
+            f"{LANES - 6} with metadata)"
+        )
+    if loss_kind not in _LOSS_CODE:
+        raise ValueError(f"unsupported loss {loss_kind!r}; expected one of {SUPPORTED_LOSSES}")
+    if loss_out is not None:
+        if (loss_out.dtype != f32 or loss_out.dim() != 1 or not loss_out.is_contiguous()
+                or loss_out.device != dev):
+            _check_tensor(name, "loss_out", loss_out, dev, f32, (None,))
+        if not 0 <= loss_index < loss_out.shape[0]:
+            raise ValueError(f"{name}: loss_index {loss_index} outside loss_out's {loss_out.shape[0]}")
+    if meta is not None:
+        meta_vec, meta_ids, meta_mask = meta
+        f = len(meta_vec)
+        _check_tensor(name, "meta_ids", meta_ids, dev, torch.int64, (None, f, None))
+        _check_tensor(name, "meta_mask", meta_mask, dev, torch.bool, tuple(meta_ids.shape))
+        for t in meta_vec:
+            if t.dtype != f32 or t.dim() != 2 or t.shape[1] != d + 1 or not t.is_contiguous() or t.device != dev:
+                _check_tensor(name, "each meta_vec table", t, dev, f32, (None, d + 1))
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(meta: bool, b: int, nf: int, nw: int) -> int:
+    return _lib().trs_fused_pairwise_step_scratch(int(meta), b, nf, nw)
+
+
+def _step_args(user_pk, item_pk, ids, w, inv, lr, d, margin, loss_kind, sigmoid, eps, bf16,
+               meta, scratch_ptr, out_ptr, stream) -> tuple:
+    """The argument tuple of the C entry ``trs_fused_pairwise_step``, in its
+    order (``w``: f32 contiguous or None). The ctypes arrays it holds live
+    as long as the tuple."""
+    nf = nw = n_meta = 0
+    mids = mmask = vec_ptrs = row_counts = None
+    if meta is not None:
+        meta_vec, meta_ids, meta_mask = meta
+        n_meta, nf, nw = meta_ids.shape
+        mids, mmask = meta_ids.data_ptr(), meta_mask.data_ptr()
+        vec_ptrs = (ctypes.c_void_p * nf)(*(t.data_ptr() for t in meta_vec))
+        row_counts = (ctypes.c_longlong * nf)(*(t.shape[0] for t in meta_vec))
+    return (
+        _LOSS_CODE[loss_kind], int(sigmoid), int(w is not None), int(bf16), int(meta is not None),
+        user_pk.data_ptr(), user_pk.shape[0], item_pk.data_ptr(), item_pk.shape[0],
+        ids[0].data_ptr(), ids[1].data_ptr(), ids[2].data_ptr(),
+        w.data_ptr() if w is not None else None,
+        ids[0].shape[0], d, _inv_d(d), inv, float(lr), float(margin), float(eps),
+        nf, nw, mids, mmask, n_meta, vec_ptrs, row_counts, scratch_ptr, out_ptr, stream,
+    )
+
+
+def _launch_step(name, user_pk, item_pk, ids, weights, inv, lr, d, margin, loss_kind, sigmoid,
+                 eps, bf16, loss_out, loss_index, meta=None) -> torch.Tensor:
+    """Launch the step kernel on the current stream (checked inputs).
+    Returns the loss: ``loss_out[loss_index]`` or a fresh device scalar."""
+    dev = user_pk.device
+    b = ids[0].shape[0]
+    w = weights
+    if w is not None and (w.dtype != torch.float32 or not w.is_contiguous()):
+        w = w.to(torch.float32).contiguous()
+    nf, nw = meta[1].shape[1:] if meta is not None else (0, 0)
+    if nf > _MAX_FEATURES:
+        raise ValueError(f"{name}: the step kernel takes at most {_MAX_FEATURES} metadata "
+                         f"features, got {nf}")
+    scratch = torch.empty((_scratch_floats(meta is not None, b, nf, nw),), dtype=torch.float32,
+                          device=dev)
+    if loss_out is None:
+        loss = torch.empty((), dtype=torch.float32, device=dev)
+        out_ptr = loss.data_ptr()
+    else:
+        loss = loss_out[loss_index]
+        out_ptr = loss_out.data_ptr() + 4 * loss_index
+    # launch on the tables' card (a device switch only when it is not current)
+    switch = dev.index is not None and dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+        rc = _lib().trs_fused_pairwise_step(*_step_args(
+            user_pk, item_pk, ids, w, inv, lr, d, margin, loss_kind, sigmoid, eps, bf16, meta,
+            scratch.data_ptr(), out_ptr, torch.cuda.current_stream(dev).cuda_stream,
+        ))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    return loss
+
+
+def fused_pairwise_step(
+    user_pk: torch.Tensor,
+    item_pk: torch.Tensor,
+    user_ids: torch.Tensor,
+    pos_ids: torch.Tensor,
+    neg_ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    lr: float = 1e-2,
+    *,
+    d: int,
+    margin: float,
+    loss_kind: str,
+    sigmoid: bool,
+    eps: float = 1e-10,
+    bf16: bool = False,
+    weight_sum: Optional[float] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused training step on packed tables (:367-412). Updates
+    ``user_pk`` and ``item_pk`` in place and returns them with the
+    weighted mean loss (a device scalar), which also goes to
+    ``loss_out[loss_index]`` when ``loss_out`` (a (n,) f32 tensor) is given.
+
+    CUDA tables launch the step kernel (``fused_pairwise_step_kernel`` +
+    ``fused_pairwise_apply_kernel``: rows read by id, update rows added in
+    place, the loss stored); ``fused_pairwise_step.launches`` counts those
+    calls. CPU tables take :func:`fused_pairwise_step_plain`; a check on
+    the card calls that plain step directly."""
+    ids = (user_ids, pos_ids, neg_ids)
+    _check_step("fused_pairwise_step", d, loss_kind, user_pk, item_pk, ids, weights, loss_out,
+                loss_index)
+    if user_pk.device.type == "cpu":
+        return fused_pairwise_step_plain(
+            user_pk, item_pk, *ids, weights, lr, d=d, margin=margin, loss_kind=loss_kind,
+            sigmoid=sigmoid, eps=eps, bf16=bf16, weight_sum=weight_sum, loss_out=loss_out,
+            loss_index=loss_index,
+        )
+    inv = step_inv(user_ids.shape[0], weights, weight_sum)
+    loss = _launch_step("fused_pairwise_step", user_pk, item_pk, ids, weights, inv, lr, d, margin,
+                        loss_kind, sigmoid, eps, bf16, loss_out, loss_index)
+    fused_pairwise_step.launches += 1
+    return user_pk, item_pk, loss
+
+
+fused_pairwise_step.launches = 0
+
+
 def fused_pairwise_step_meta(
     user_pk: torch.Tensor,
     item_pk: torch.Tensor,
@@ -478,23 +711,35 @@ def fused_pairwise_step_meta(
     bf16: bool = False,
     eps: float = 1e-10,
     weight_sum: Optional[float] = None,
-    updates_fn: Optional[UpdatesFn] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
 ):
     """Single-device fused step for metadata-bearing Linear (:811-864 with
     ``fm=False``; the FM branch is ROADMAP.md §A item 5). ``meta_vec``: one
-    augmented (Rf, D+1) table per feature. Updates every table in place;
-    returns ``(user_pk, item_pk, meta_vec, loss)``."""
+    augmented (Rf, D+1) table per feature; ``meta_ids`` / ``meta_mask``:
+    (N_items, F, W) int64 / bool. Updates every table in place; returns
+    ``(user_pk, item_pk, meta_vec, loss)``, the loss also in
+    ``loss_out[loss_index]`` when given. CUDA tables launch the step
+    kernel's metadata variant (``fused_pairwise_step_meta.launches``
+    counts them); CPU tables take :func:`fused_pairwise_step_meta_plain`."""
+    ids = (user_ids, pos_ids, neg_ids)
+    meta = (meta_vec, meta_ids, meta_mask)
+    _check_step("fused_pairwise_step_meta", d, loss_kind, user_pk, item_pk, ids, weights,
+                loss_out, loss_index, meta)
+    if user_pk.device.type == "cpu":
+        return fused_pairwise_step_meta_plain(
+            user_pk, item_pk, meta_vec, meta_ids, meta_mask, *ids, weights, lr, d=d,
+            margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, bf16=bf16, eps=eps,
+            weight_sum=weight_sum, loss_out=loss_out, loss_index=loss_index,
+        )
     inv = step_inv(user_ids.shape[0], weights, weight_sum)
-    upd_u, iids, item_rows, meta_deltas, loss_sum = _meta_step_core(
-        user_pk, item_pk, meta_vec, meta_ids, meta_mask, user_ids, pos_ids, neg_ids,
-        weights, inv, lr, d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid,
-        bf16=bf16, eps=eps, updates_fn=updates_fn,
-    )
-    user_pk.index_add_(0, user_ids, upd_u)
-    item_pk.index_add_(0, iids, item_rows)
-    for table, (ids, delta) in zip(meta_vec, meta_deltas):
-        table.index_add_(0, ids, delta)
-    return user_pk, item_pk, meta_vec, loss_sum * inv
+    loss = _launch_step("fused_pairwise_step_meta", user_pk, item_pk, ids, weights, inv, lr, d,
+                        margin, loss_kind, sigmoid, eps, bf16, loss_out, loss_index, meta)
+    fused_pairwise_step_meta.launches += 1
+    return user_pk, item_pk, meta_vec, loss
+
+
+fused_pairwise_step_meta.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ batches). Here an epoch is
 2. a Python loop over the batches. The pairwise losses run
    :func:`~torchrecsys_tpu_torch.ops.fused_pairwise.fused_pairwise_step`
    (or its metadata twin) over the packed ``(rows, 128)`` tables, as the
-   scan body ``body_pl`` (:720-790) does: one fused-kernel launch per step.
+   scan body ``body_pl`` (:720-790) does: one call of the step kernel per
+   step, each step's loss written into one epoch tensor.
    Models the kernel does not take (the MLP, a Linear wider than its
    lanes) run the autograd pairwise step (:meth:`Trainer.pairwise_step`)
    over the augmented ``(R, D+1)`` tables: the paired side, the model's
@@ -45,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -263,36 +264,45 @@ class Trainer:
         epoch: Epoch,
         feat: Optional[Features],
         steps: Optional[Sequence[int]] = None,
-        updates_fn: Optional[fp.UpdatesFn] = None,
+        step_fn: Optional[Callable] = None,
     ) -> torch.Tensor:
         """Run the fused step over ``steps`` (default: every batch of the
-        epoch), updating ``packed`` in place. Returns the step losses as a
-        device tensor; nothing here syncs with the host."""
+        epoch), updating ``packed`` in place: one step call per batch and
+        no other op per step, each step's loss written into its slot of
+        one ``(len(steps),)`` device tensor, which is returned. Nothing
+        here syncs with the host. The rows of the epoch's (nb, b) id
+        tensors that ``steps`` spans are split into per-step tensors once
+        (``unbind``, cheaper on the host than three views per step).
+        ``step_fn`` replaces the step wrapper (the model's
+        :func:`fp.fused_pairwise_step` or ``_meta``, with its arguments); a
+        check on the card passes the plain step."""
         cfg, model = self.cfg, self.model
-        d = model.cfg.n_factors
         meta_names = model.schema.metadata_names
-        kw = dict(d=d, margin=cfg.margin, loss_kind=cfg.loss, sigmoid=model.pairwise_sigmoid,
-                  bf16=False, updates_fn=updates_fn)
+        steps = range(epoch.nb) if steps is None else steps
         bt = epoch.batches
-        losses = []
-        for i in range(epoch.nb) if steps is None else steps:
-            w = bt["_w"][i] if "_w" in bt else None
-            ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
-            ids = (bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i])
-            if meta_names:
-                mvec = [packed[f"meta_{nm}"] for nm in meta_names]
-                *_, loss = fp.fused_pairwise_step_meta(
-                    packed["user"], packed["item"], mvec,
-                    feat["meta_ids"], feat["meta_mask"], *ids, w, cfg.learning_rate,
-                    weight_sum=ws, **kw,
-                )
-            else:
-                *_, loss = fp.fused_pairwise_step(
-                    packed["user"], packed["item"], *ids, w, cfg.learning_rate,
-                    weight_sum=ws, **kw,
-                )
-            losses.append(loss)
-        return torch.stack(losses)
+        losses = torch.empty((len(steps),), dtype=torch.float32, device=bt["user_id"].device)
+        if not len(steps):
+            return losses
+        lo, hi = min(steps), max(steps) + 1
+        uids, pids, nids = (
+            bt[k][lo:hi].contiguous().unbind(0) for k in ("user_id", "pos_item_id", "neg_item_id")
+        )
+        ws = bt["_w"][lo:hi].unbind(0) if "_w" in bt else None
+        kw = dict(d=model.cfg.n_factors, margin=cfg.margin, loss_kind=cfg.loss,
+                  sigmoid=model.pairwise_sigmoid, bf16=False, loss_out=losses)
+        user, item, lr = packed["user"], packed["item"], cfg.learning_rate
+        if meta_names:
+            step = step_fn or fp.fused_pairwise_step_meta
+            lead = (user, item, [packed[f"meta_{nm}"] for nm in meta_names],
+                    feat["meta_ids"], feat["meta_mask"])
+        else:
+            step = step_fn or fp.fused_pairwise_step
+            lead = (user, item)
+        for j, i in enumerate(steps):
+            r = i - lo
+            step(*lead, uids[r], pids[r], nids[r], None if ws is None else ws[r], lr,
+                 weight_sum=None if ws is None else epoch.weight_sums[i], loss_index=j, **kw)
+        return losses
 
     # ------------------------------------------------------------------
     def _softmax_rows(
