@@ -67,7 +67,8 @@ result line:
    identical) and a small dataset trained for two epochs from one start
    with the same round keys (losses and tables within rtol=1e-4,
    atol=1e-5: f32 sums in another order; index_add_ on the card adds
-   duplicate ids in no fixed order), with the pairwise loss and with
+   duplicate ids in no fixed order), with the pairwise loss (Linear and
+   FM, each with and without metadata) and with
    sampled softmax (under torch's deterministic algorithms: two epochs
    amplify that order past the tolerance in one item bias); the softmax
    tables' evaluate(loss, auc) with the same negatives on both. The AMP
@@ -120,13 +121,38 @@ result line:
       seed, tables and two epochs with f32 compute (the plain tower, no
       kernel) as a witness: the AMP run's test AUC at most 0.02 below its
       AUC, and its sample loss at most 10% above.
+   g. FM (``net_type="fm"``, fm_sigmoid=True) with and without the
+      category column, the checks of a and c: with metadata every step is
+      one launch of the row-level kernel (emit_g, no item rows, the
+      sigmoid) between torch gathers and scatters and no step-kernel
+      call; without it one call of the step kernel's sigmoid variant; the
+      variant index each wrapper passed is checked. Then evaluate(loss,
+      auc, recall@10) at batch 4096 (recall@10 through #1, nothing else;
+      loss and AUC against a direct recomputation with fixed negatives;
+      with metadata the AUC above the fresh tables'; without it this
+      data's items, each seen ~3 times, give no test signal, so its AUC
+      is printed only) and predict as in b.
+   h. AMP (``use_amp=True``): Linear and FM, each with and without
+      metadata, one epoch each through the step kernel's bf16 variants
+      (FM with metadata: the row-level kernel's, between its torch glue;
+      variant index checked); 20 steps, each held against the plain bf16
+      step from the same pre-step tables by the step phase's rule
+      (hinge-kink rows skipped); a bf16 predict, as in b, from the AMP
+      Linear metadata model's tables through #1/#2.
+   i. sampled softmax with AMP (Linear, no metadata) and FM
+      (fm_sigmoid=False, metadata), the checks of d; the AMP steps held
+      per step against the plain CE by the change of each table (distance
+      <= 2^-8 of the plain change: bf16 gradients may round to the other
+      neighbour); FM's evaluate as in d.
 7. times: per-kernel CUDA-event ms and device us per call from
    torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
    users/s, fit examples/s (hinge, softmax, MLP) and evaluate rows/s; per-call
    breakdowns; device time per kernel and the device's idle share over a
    window of train steps (torch.profiler); the hinge fit's window must hold
-   the two step kernels per step and nothing else. The step's own row: ms,
+   the two step kernels per step and nothing else (FM with metadata: the
+   row-level kernel and its loss sum, its torch glue split out). The
+   row-level kernel's row is timed at FM's metadata shape. The step's own row: ms,
    device us, the bound from the bytes its batch needs, the device time of
    an empty kernel on the same grid (the launch floor), the plain step,
    host us per call against the bare C call.
@@ -559,21 +585,25 @@ def step_compare(torch, name, got, want, old, ids, width, upd, excluded, rel):
             int((counts > 1).sum()), int(skip.sum()))
 
 
-def step_case(torch, fp, tables, ids, w, kw, meta, label):
+def step_case(torch, fp, tables, ids, w, kw, meta, label, lin=None):
     """One step through the kernel and one through the plain step from the
     same tables; every table compared (step_compare, rel = STEP_REL) and
-    the loss within 1e-6 + 1e-5 |x|. Returns (max |diff|,
-    largest diff / tolerance, largest rel needed, rows with duplicates,
-    excluded rows)."""
+    the loss within 1e-6 + 1e-5 |x|. ``lin``: FM's linear-metadata tables
+    (FM's metadata step: the row-level kernel against its plain version,
+    the same torch glue around both). Returns (max |diff|, largest diff /
+    tolerance, largest rel needed, rows with duplicates, excluded rows)."""
     uid, pid, nid = ids
+    fm = lin is not None
     runs = []
     for step in ((fp.fused_pairwise_step_meta, fp.fused_pairwise_step_meta_plain) if meta is not None
                  else (fp.fused_pairwise_step, fp.fused_pairwise_step_plain)):
         t = [tables[0].clone(), tables[1].clone()]
         if meta is not None:
             mv = [m.clone() for m in meta[0]]
-            out = step(*t, mv, meta[1], meta[2], *ids, w, 0.05, **kw)
-            runs.append((t + mv, out[3]))
+            ml = [m.clone() for m in lin] if fm else []
+            out = step(*t, mv, meta[1], meta[2], *ids, w, 0.05, **kw,
+                       **(dict(meta_lin=ml, fm=True) if fm else {}))
+            runs.append((t + mv + ml, out[3]))
         else:
             out = step(*t, *ids, w, 0.05, **kw)
             runs.append((t, out[2]))
@@ -584,7 +614,18 @@ def step_case(torch, fp, tables, ids, w, kw, meta, label):
     inv = fp.step_inv(uid.shape[0], w)
     rk = dict(d=D, margin=kw["margin"], loss_kind=kw["loss_kind"], sigmoid=kw["sigmoid"], eps=1e-10, bf16=kw["bf16"])
     u, pn = tables[0][uid], tables[1][torch.cat([pid, nid])]
-    if meta is not None:
+    lin_deltas = []
+    if fm:
+        seen = {}
+
+        def rows_plain(ur, pr, nr, *a, **k):  # the composite rows the row math sees
+            seen["rows"] = (ur, torch.cat([pr, nr]))
+            return fp.pairwise_updates_rows_plain(ur, pr, nr, *a, **k)
+
+        upd_u, iids, upd_i, deltas, lin_deltas, _ = fp._fm_meta_step_core(
+            rows_plain, *tables, meta[0], lin, meta[1], meta[2], *ids, w, inv, 0.05, **rk)
+        u, pn = seen["rows"]
+    elif meta is not None:
         upd_u, iids, upd_i, deltas, _ = fp._meta_step_core(*tables, meta[0], meta[1], meta[2], *ids, w, inv, 0.05, **rk)
         iids_all = torch.cat([pid, nid])
         mids, mm = meta[1][iids_all], meta[2][iids_all].float()
@@ -599,9 +640,13 @@ def step_case(torch, fp, tables, ids, w, kw, meta, label):
     kink_items = torch.cat([pid[kink], nid[kink]])
     parts = [("user", kt[0], pt[0], tables[0], uid, 128, upd_u, uid[kink]),
              ("item", kt[1], pt[1], tables[1], iids, 128, upd_i, kink_items)]
+    nf = len(deltas)
     for f, (mid, delta) in enumerate(deltas):
         bad = meta[1][kink_items][:, f, :].reshape(-1)
         parts.append((f"meta{f}", kt[2 + f], pt[2 + f], meta[0][f], mid, D + 1, delta, bad))
+    for f, (mid, delta) in enumerate(lin_deltas):
+        bad = meta[1][kink_items][:, f, :].reshape(-1)
+        parts.append((f"linear_meta{f}", kt[2 + nf + f], pt[2 + nf + f], lin[f], mid, 2, delta, bad))
     res = [step_compare(torch, f"{label} {name}", got, want, old, tid, width, upd, excluded, STEP_REL)
            for name, got, want, old, tid, width, upd, excluded in parts]
     return tuple(max(r[i] for r in res) for i in range(3)) + tuple(sum(r[i] for r in res) for i in (3, 4))
@@ -969,9 +1014,10 @@ def wrappers():
 
 
 def small_train_check(torch):
-    """A small dataset trained two epochs on the card (every step through
-    the step kernel) and on the CPU (plain steps), from one start with the
-    same round keys and static negatives."""
+    """A small dataset trained two epochs on the card and on the CPU (plain
+    steps), from one start with the same round keys and static negatives:
+    Linear and FM, each with and without metadata (every step through the
+    step kernel; FM with metadata through the row-level kernel)."""
     from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
     from torchrecsys_tpu_torch.data import prepare_data
     from torchrecsys_tpu_torch.models import build_model
@@ -981,13 +1027,13 @@ def small_train_check(torch):
     r = np.random.default_rng(6)
     data = {"user_id": r.integers(0, 300, 20000), "item_id": r.integers(0, 5000, 20000)}
     data["category_id"] = data["item_id"] % 17
-    saved = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
-    for meta in (False, True):
+    saved = step_launches(fp)
+    for net, meta in (("linear", False), ("linear", True), ("fm", False), ("fm", True)):
         store = prepare_data(data, "user_id", "item_id", metadata_id_col=["category_id"] if meta else None)
         cfg = TrainConfig(batch_size=1000, learning_rate=0.05)
         out = {}
         for dev in ("cpu", DEVICE):
-            tr = Trainer(build_model(store.schema, ModelConfig(n_factors=D)), cfg, dev)
+            tr = Trainer(build_model(store.schema, ModelConfig(net_type=net, n_factors=D)), cfg, dev)
             state = tr.init_state()
             if dev == "cpu":
                 start = {k: v.clone() for k, v in state["tables"].items()}
@@ -1000,14 +1046,14 @@ def small_train_check(torch):
                 losses.append(float(loss))
             out[dev] = (np.asarray(losses), {k: v.cpu() for k, v in state["tables"].items()})
         (lc, tc), (lg, tg) = out["cpu"], out[DEVICE]
-        check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"small train meta={meta}: losses {lg} != CPU {lc}")
+        check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"small train {net} meta={meta}: losses {lg} != CPU {lc}")
         err = 0.0
         for k in tc:
-            check(torch.allclose(tg[k], tc[k], rtol=1e-4, atol=1e-5), f"small train meta={meta}: table {k}")
+            check(torch.allclose(tg[k], tc[k], rtol=1e-4, atol=1e-5), f"small train {net} meta={meta}: table {k}")
             err = max(err, float((tg[k] - tc[k]).abs().max()))
-        log(f"[main] small train metadata={meta}: card == CPU over 2 epochs (losses {lg.round(6).tolist()}, "
-            f"max |table diff| {err:.3g})")
-    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches = saved
+        log(f"[main] small train {net} metadata={meta}: card == CPU over 2 epochs (losses "
+            f"{lg.round(6).tolist()}, max |table diff| {err:.3g})")
+    set_step_launches(fp, saved)
 
 
 def small_softmax_check(torch):
@@ -1156,17 +1202,27 @@ def sample_loss(torch, rs, sample) -> float:
     return float(torch.clamp_min(scores[1] - scores[0] + 1.0, 0.0).mean())
 
 
+def step_launches(fp):
+    return fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches, fp.pairwise_updates_rows.launches
+
+
+def set_step_launches(fp, saved):
+    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches, fp.pairwise_updates_rows.launches = saved
+
+
 def compare_steps(torch, rs, steps: int = 20):
     """From the installed state and one epoch's batches, ``steps`` steps
-    with the kernel and with the plain version on the card. Returns (max
-    |table diff|, rows beyond tolerance per table)."""
+    with the kernel and with the plain version on the card (FM with
+    metadata: the row-level kernel against its plain version, the same
+    torch glue around both). Returns (max |table diff|, rows beyond
+    tolerance per table)."""
     from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 
     tr = rs.trainer
     data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
     epoch = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 11 + 5,
                            torch.Generator(device=DEVICE).manual_seed(21))
-    saved = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
+    saved = step_launches(fp)
     plain = fp.fused_pairwise_step_meta_plain if rs.model.schema.metadata_names else fp.fused_pairwise_step_plain
     runs = []
     for step in (None, plain):
@@ -1174,7 +1230,7 @@ def compare_steps(torch, rs, steps: int = 20):
         losses = tr.run_steps(packed, epoch, feat, steps=range(steps), step_fn=step)
         runs.append((losses, packed))
     torch.cuda.synchronize()
-    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches = saved  # comparisons do not count
+    set_step_launches(fp, saved)  # comparisons do not count
     (lk, pk), (lp, pp) = runs
     check(bool(torch.allclose(lk, lp, rtol=1e-5, atol=1e-6)), f"step losses {lk} != plain {lp}")
     worst, bad_rows = 0.0, {}
@@ -1188,17 +1244,91 @@ def compare_steps(torch, rs, steps: int = 20):
     return worst, bad_rows
 
 
-def train_path(torch, data, meta: bool):
-    """The training main path: RecSys -> JAX-layout state -> fit (one
-    epoch, batch 1024): one step-kernel call per step and no other kernel.
-    Launch counts are zeroed just before fit and read just after."""
-    from torchrecsys_tpu_torch import RecSys
+def compare_steps_amp(torch, rs, steps: int = 20):
+    """``steps`` AMP steps from one epoch's batches, each held against the
+    plain bf16 step from the same pre-step tables by the step phase's rule
+    (step_case: every table by step_compare at STEP_REL, hinge-kink rows
+    excluded, the loss within 1e-6 + 1e-5 |x|); the kernel's step then
+    carries the tables to the next. Returns (max |diff|, largest diff /
+    tolerance, largest rel needed, rows with duplicates, excluded rows)."""
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 
-    label = "metadata" if meta else "no metadata"
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    epoch = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 11 + 5,
+                           torch.Generator(device=DEVICE).manual_seed(21))
+    saved = step_launches(fp)
+    packed = tr.pack_state(rs.state)
+    names = rs.model.schema.metadata_names
+    meta = ([packed[f"meta_{nm}"] for nm in names], feat["meta_ids"], feat["meta_mask"]) if names else None
+    lin = [packed[f"linear_meta_{nm}"] for nm in names] if names and rs.model.pairwise_fm_fields else None
+    kw = dict(d=D, margin=tr.cfg.margin, loss_kind=tr.cfg.loss, sigmoid=rs.model.pairwise_sigmoid, bf16=True)
+    bt, res = epoch.batches, []
+    for i in range(steps):
+        ids = tuple(bt[k][i].contiguous() for k in ("user_id", "pos_item_id", "neg_item_id"))
+        w = bt["_w"][i] if "_w" in bt else None
+        res.append(step_case(torch, fp, (packed["user"], packed["item"]), ids, w, kw, meta, f"AMP step {i}",
+                             lin))
+        tr.run_steps(packed, epoch, feat, steps=[i])
+    torch.cuda.synchronize()
+    set_step_launches(fp, saved)  # comparisons do not count
+    return tuple(max(r[i] for r in res) for i in range(3)) + tuple(sum(r[i] for r in res) for i in (3, 4))
+
+
+def hinge_evaluate(torch, rs, fresh_eval, label, learns: bool):
+    """evaluate(loss, auc, recall@10) of a pairwise model: the loss and AUC
+    on the model's scores (no kernel), recall@10 through the top-k kernel
+    (#1) and nothing else; with fixed negatives, the loss and AUC against a
+    direct recomputation. ``learns``: the AUC above the fresh tables'. A
+    model without metadata does not generalize on this data (each item
+    occurs ~3 times), so its test AUC is only printed beside the fresh
+    tables' (its train sample loss must fall, train_path)."""
+    ws = wrappers()
+    for w in ws:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = rs.evaluate(batch_size=SOFTMAX_B, eval_metrics=("loss", "auc", "recall@10"), verbose=False)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in ws}
+    check(counts["dot_topk_small"] > 0 and sum(counts.values()) == counts["dot_topk_small"],
+          f"{label}: evaluate launched {counts}; want the top-k kernel (recall@10) only")
+    check(np.isfinite(ev["loss"]) and (ev["auc"] > fresh_eval["auc"] or not learns),
+          f"{label}: evaluate {ev} vs the fresh tables' {fresh_eval}")
+    direct = check_evaluate_direct(torch, rs, SOFTMAX_B, label)
+    log(f"[main] evaluate {label}: {ev} in {eval_s:.3f} s ({rs.store.num_test} test rows, batch {SOFTMAX_B}; "
+        f"fresh tables {fresh_eval}); launches {counts}; with fixed negatives {direct}")
+    return ev, counts
+
+
+def path_label(net: str, amp: bool, rest: str) -> str:
+    """A main path's label in the log: the f32 Linear paths keep their bare
+    labels."""
+    if net == "linear" and not amp:
+        return rest
+    return f"{'FM' if net == 'fm' else net.capitalize()}{' AMP' if amp else ''} {rest}"
+
+
+def train_path(torch, data, meta: bool, net: str = "linear", amp: bool = False, evaluate: bool = False):
+    """The training main path: RecSys(net_type=net, use_amp=amp) ->
+    JAX-layout state -> fit (one epoch, batch 1024). Linear, and FM
+    without metadata: one step-kernel call per step (FM's sigmoid variant;
+    AMP's bf16 variants) and no other kernel; FM with metadata: one
+    row-level launch per step and no step-kernel call. The variant index
+    the wrapper passed is checked. Launch counts are zeroed just before
+    fit and read just after. With ``evaluate``, evaluate(loss, auc,
+    recall@10) before and after the fit."""
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.config import TrainConfig
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+    from torchrecsys_tpu_torch.train import Trainer
+
+    label = path_label(net, amp, "metadata" if meta else "no metadata")
     t0 = time.perf_counter()
     cols = data if meta else {k: data[k] for k in ("user_id", "item_id")}
-    rs = RecSys(cols, metadata_id_col=["category_id"] if meta else None, n_factors=D,
-                device=DEVICE, dynamic_neg_sampling=meta)
+    rs = RecSys(cols, metadata_id_col=["category_id"] if meta else None, n_factors=D, net_type=net,
+                use_amp=amp, device=DEVICE, dynamic_neg_sampling=meta)
     t1 = time.perf_counter()
     tables = seeded_tables(rs.model, seed=1)
     emb_opt = {k: {"acc": np.zeros(v.shape[0], np.float32)} for k, v in tables.items()}
@@ -1212,11 +1342,17 @@ def train_path(torch, data, meta: bool):
     negs = st.train_neg_items[rows] if st.train_neg_items is not None else r.integers(0, N, rows.size)
     sample = (st.train_users[rows], st.train_items[rows], negs)
     fresh = sample_loss(torch, rs, sample)
+    fresh_eval = None
+    if evaluate:
+        fresh_eval = Trainer(rs.model, TrainConfig(seed=rs.seed, dynamic_neg_sampling=meta), DEVICE).evaluate(
+            rs.state, st, batch_size=SOFTMAX_B, verbose=False)
     log(f"[train] {label}: RecSys ingest {t1 - t0:.2f} s, state carry-over {t2 - t1:.2f} s; "
-        f"{st.num_train} train rows; fresh-start sample loss {fresh:.5f}")
+        f"{st.num_train} train rows; fresh-start sample loss {fresh:.5f}"
+        + (f", evaluate {fresh_eval}" if evaluate else ""))
     ws = wrappers()
     for w in ws:
         w.launches = 0
+    fp.fused_pairwise_step.variant = fp.fused_pairwise_step_meta.variant = fp.pairwise_updates_rows.variant = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False)
@@ -1224,23 +1360,44 @@ def train_path(torch, data, meta: bool):
     fit_s = time.perf_counter() - t0
     counts = {w.__name__: w.launches for w in ws}
     steps = -(-st.num_train // TRAIN_B)
-    step = "fused_pairwise_step_meta" if meta else "fused_pairwise_step"
-    check(counts[step] == steps, f"fit ran {steps} steps but the step kernel launched {counts[step]} times")
-    check(sum(counts.values()) == steps, f"fit launched other kernels (the row-level kernel included): {counts}")
-    check(len(losses) == 1 and np.isfinite(losses[0]), f"epoch loss {losses} is not finite")
+    fm_meta = net == "fm" and meta
+    step = "pairwise_updates_rows" if fm_meta else "fused_pairwise_step_meta" if meta else "fused_pairwise_step"
+    check(counts[step] == steps, f"{label}: fit ran {steps} steps but {step} launched {counts[step]} times")
+    check(sum(counts.values()) == steps, f"{label}: fit launched other kernels: {counts}")
+    # every batch is weighted (the epoch has a remainder batch); the FM sigmoid; AMP's bf16
+    if fm_meta:  # the row-level kernel with emit_g and no item rows
+        variant = fp.pairwise_updates_rows.variant
+        want = fp.row_variant("hinge", True, True, True, False, amp)
+    else:
+        variant = getattr(fp, step).variant
+        want = fp.step_variant("hinge", net == "fm", True, amp, meta)
+    check(variant == want, f"{label}: {step} ran variant {variant}, want {want} (bf16={amp:d})")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
     trained = sample_loss(torch, rs, sample)
-    check(trained < fresh, f"the trained tables' sample loss {trained} is not below the fresh "
+    check(trained < fresh, f"{label}: the trained tables' sample loss {trained} is not below the fresh "
           f"start's {fresh}")
     rate = st.num_train / fit_s
     log(f"[train] {label}: fit {steps} steps of {TRAIN_B} in {fit_s:.3f} s = {rate:.1f} examples/s; "
-        f"epoch loss {losses[0]:.5f}, sample loss {fresh:.5f} -> {trained:.5f}; launches {counts}")
-    err, bad = compare_steps(torch, rs)
-    log(f"[train] {label}: 20 steps kernel vs plain on the card: max |table diff| {err:.3g}, "
-        f"rows beyond rtol=1e-4/atol=1e-5 {bad}")
-    return rs, {"launches": counts[step], "row_launches": counts["pairwise_updates_rows"], "steps": steps,
-                "fit_s": fit_s,
-                "examples_per_s": rate, "epoch_loss": losses[0], "fresh_loss": fresh,
-                "trained_loss": trained, "step_err": err}
+        f"epoch loss {losses[0]:.5f}, sample loss {fresh:.5f} -> {trained:.5f}; launches {counts}; "
+        f"{step} variant {variant}")
+    out = {"launches": counts[step], "row_launches": counts["pairwise_updates_rows"], "steps": steps,
+           "fit_s": fit_s, "examples_per_s": rate, "epoch_loss": losses[0], "fresh_loss": fresh,
+           "trained_loss": trained, "variant": variant, "label": label}
+    if amp:
+        err, ratio, need, dups, kinks = compare_steps_amp(torch, rs)
+        log(f"[train] {label}: 20 steps, each kernel vs the plain bf16 step from the same tables on the "
+            f"card: max |diff| {err:.3g}, largest diff / tolerance {ratio:.3f}, largest share of a row's "
+            f"updates {need:.3g} (allowed {STEP_REL:.0e}); {dups} rows with duplicate ids, {kinks} "
+            f"hinge-kink rows skipped")
+    else:
+        err, bad = compare_steps(torch, rs)
+        log(f"[train] {label}: 20 steps kernel vs plain on the card: max |table diff| {err:.3g}, "
+            f"rows beyond rtol=1e-4/atol=1e-5 {bad}")
+    out["step_err"] = err
+    if evaluate:
+        ev, counts = hinge_evaluate(torch, rs, fresh_eval, label, learns=meta)
+        out.update(auc=ev["auc"], fresh_auc=fresh_eval["auc"], eval_launches=counts["dot_topk_small"])
+    return rs, out
 
 
 def ce_sample_loss(torch, rs, batches, logq) -> float:
@@ -1291,20 +1448,59 @@ def compare_softmax_steps(torch, rs, steps: int = 10):
     return worst, bad_rows
 
 
-def softmax_train_path(torch, data, meta: bool, evaluate: bool):
-    """The sampled-softmax main path: RecSys -> seeded JAX-layout tables ->
-    fit(epochs=1, batch_size=4096, loss="sampled_softmax") and, with
-    ``evaluate``, RecSys.evaluate(loss, auc, recall@10). Launch counts are
-    zeroed just before each call and read just after."""
+def compare_softmax_steps_amp(torch, rs, steps: int = 10):
+    """``steps`` AMP softmax steps from one epoch's batches, each with the
+    CE kernels and with their plain versions from the same pre-step
+    tables; the kernels' step then carries the tables to the next. The
+    gradients come back in bf16, and the paths' f32 CE results differ by
+    f32 rounding, so now and then an element rounds to the other bf16
+    neighbour (one ulp, at most 2^-7 of it): each table's change is held by
+    ||kernels - plain|| <= 2^-8 ||plain|| (a dropped row of a 4096-row
+    batch or a 1% mis-scale is ~4x that), the loss within 1e-5. Returns the
+    largest relative distance per table."""
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+    from torchrecsys_tpu_torch.train.optim import augment_tables
+
+    tr = rs.trainer
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    epoch = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 13 + 2,
+                           torch.Generator(device=DEVICE).manual_seed(22))
+    saved = (sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
+    aug = augment_tables(rs.state["tables"], rs.state["emb_opt"])
+    dists = {name: 0.0 for name in aug}
+    for i in range(steps):
+        runs = []
+        for fns in (None, (sce.softmax_ce_fwd_plain, sce.softmax_ce_bwd_plain)):
+            a = {k: v.clone() for k, v in aug.items()}
+            runs.append((tr.run_softmax_steps(rs.state, a, epoch, feat, steps=[i], ce_fns=fns), a))
+        (lk, ak), (lp, ap) = runs
+        check(bool(torch.allclose(lk, lp, rtol=1e-5, atol=1e-5)), f"AMP softmax step {i}: loss {lk} != plain {lp}")
+        for name, old in aug.items():
+            dk, dp = ak[name] - old, ap[name] - old
+            dist = float((dk - dp).norm() / dp.norm().clamp_min(1e-30)) if bool(dp.any()) else float(dk.norm())
+            check(dist <= 2.0**-8, f"AMP softmax step {i}: {name} kernels vs plain distance {dist:.3g} > 2^-8")
+            dists[name] = max(dists[name], dist)
+        aug = ak
+    torch.cuda.synchronize()
+    sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved  # comparisons do not count
+    return dists
+
+
+def softmax_train_path(torch, data, meta: bool, evaluate: bool, net: str = "linear", amp: bool = False):
+    """The sampled-softmax main path: RecSys(net_type=net, use_amp=amp,
+    fm_sigmoid=False) -> seeded JAX-layout tables -> fit(epochs=1,
+    batch_size=4096, loss="sampled_softmax") and, with ``evaluate``,
+    RecSys.evaluate(loss, auc, recall@10). Launch counts are zeroed just
+    before each call and read just after."""
     from torchrecsys_tpu_torch import RecSys
     from torchrecsys_tpu_torch.config import TrainConfig
     from torchrecsys_tpu_torch.ops import softmax_ce as sce
     from torchrecsys_tpu_torch.train import Trainer
 
-    label = "softmax " + ("metadata" if meta else "no metadata")
+    label = path_label(net, amp, "softmax " + ("metadata" if meta else "no metadata"))
     cols = data if meta else {k: data[k] for k in ("user_id", "item_id")}
-    rs = RecSys(cols, metadata_id_col=["category_id"] if meta else None, n_factors=D,
-                device=DEVICE, dynamic_neg_sampling=True)
+    rs = RecSys(cols, metadata_id_col=["category_id"] if meta else None, n_factors=D, net_type=net,
+                use_amp=amp, fm_sigmoid=False, device=DEVICE, dynamic_neg_sampling=True)
     tables = seeded_tables(rs.model, seed=2)
     rs.load_jax_tables(tables, {k: {"acc": np.zeros(v.shape[0], np.float32)} for k, v in tables.items()})
     st = rs.store
@@ -1335,11 +1531,17 @@ def softmax_train_path(torch, data, meta: bool, evaluate: bool):
     log(f"[train] {label}: fit {steps} steps of {SOFTMAX_B} in {fit_s:.3f} s = {rate:.1f} examples/s; "
         f"epoch loss {losses[0]:.5f}, CE of 16 fixed train batches {fresh:.5f} -> {trained:.5f}; "
         f"launches {counts}")
-    err, bad = compare_softmax_steps(torch, rs)
-    log(f"[train] {label}: 10 steps kernels vs plain on the card: max |table diff| {err:.3g}, "
-        f"rows beyond rtol=1e-4/atol=1e-5 {bad}")
+    if amp:
+        dists = compare_softmax_steps_amp(torch, rs)
+        log(f"[train] {label}: 10 steps, each with the CE kernels vs the plain CE from the same tables on "
+            f"the card: largest relative distance of the change per table (allowed 2^-8 = {2.0**-8:.4g}) "
+            + ", ".join(f"{k} {v:.3g}" for k, v in dists.items()))
+    else:
+        err, bad = compare_softmax_steps(torch, rs)
+        log(f"[train] {label}: 10 steps kernels vs plain on the card: max |table diff| {err:.3g}, "
+            f"rows beyond rtol=1e-4/atol=1e-5 {bad}")
     out = {"steps": steps, "fwd_launches": counts["softmax_ce_fwd"], "bwd_launches": counts["softmax_ce_bwd"],
-           "fit_s": fit_s, "examples_per_s": rate, "epoch_loss": losses[0], "eval_launches": 0}
+           "fit_s": fit_s, "examples_per_s": rate, "epoch_loss": losses[0], "eval_launches": 0, "label": label}
     if evaluate:
         for w in ws:
             w.launches = 0
@@ -1574,7 +1776,7 @@ def mlp_train_path(torch, data):
     # (each item occurs ~3 times), so the test AUC does not rise (the f32
     # witness, mlp_f32_witness, shows the same); evaluate is held to a
     # direct recomputation instead.
-    direct = check_mlp_evaluate(torch, rs)
+    direct = check_evaluate_direct(torch, rs, MLP_B)
     log(f"[main] evaluate {label}: {ev} in {eval_s:.3f} s = {st.num_test / eval_s:.1f} rows/s "
         f"({st.num_test} test rows, batch {MLP_B}; fresh state {fresh_eval}); launches {counts}; "
         f"with fixed negatives {direct}")
@@ -1591,17 +1793,17 @@ def mlp_train_path(torch, data):
                 "auc": ev["auc"], "fresh_auc": fresh_eval["auc"], "predict_s": pred_s, "samples": samples}
 
 
-def check_mlp_evaluate(torch, rs):
+def check_evaluate_direct(torch, rs, batch: int, what: str = "MLP"):
     """Trainer.evaluate with fixed negatives against the same loss and AUC
     computed directly: every test row's positive and negative scored by the
-    eval tower in 65,536-row chunks. The products' row blocks differ from
-    evaluate's paired 16,384-row batches, so a bf16 score may move one ulp:
-    loss within rtol=1e-3, AUC within 1e-3 (600 of 600,000 rows)."""
+    model (the MLP's eval tower) in 65,536-row chunks. The products' row
+    blocks differ from evaluate's paired batches, so a bf16 score may move
+    one ulp: loss within rtol=1e-3, AUC within 1e-3 (600 of 600,000 rows)."""
     from torchrecsys_tpu_torch.data.features import attach_features
 
     st = rs.store
     negs = np.random.default_rng(16).integers(0, N, st.num_test)
-    got = rs.trainer.evaluate(rs.state, st, batch_size=MLP_B, verbose=False, negatives=negs)
+    got = rs.trainer.evaluate(rs.state, st, batch_size=batch, verbose=False, negatives=negs)
     scores = {"pos": [], "neg": []}
     with torch.no_grad():
         for s in range(0, st.num_test, 65536):
@@ -1614,7 +1816,7 @@ def check_mlp_evaluate(torch, rs):
     loss = float(torch.clamp_min(ns - ps + rs.trainer.cfg.margin, 0.0).mean())
     auc = float((ps > ns).float().mean())
     check(abs(got["loss"] - loss) <= 1e-3 * abs(loss) and abs(got["auc"] - auc) <= 1e-3,
-          f"MLP evaluate {got} != direct loss {loss}, auc {auc}")
+          f"{what} evaluate {got} != direct loss {loss}, auc {auc}")
     return {"evaluate": got, "direct": {"loss": loss, "auc": auc}}
 
 
@@ -1643,9 +1845,10 @@ def check_mlp_predict(torch, rs, users, ids):
     check(bool((top[:, 0] + tol >= other.max(dim=1).values).all()), "MLP predict: a random item beats the top")
 
 
-def main_path(torch, rs):
-    """Predict from ``rs``'s trained tables; launch counts are zeroed just
-    before and read just after."""
+def main_path(torch, rs, label: str = ""):
+    """Predict from ``rs``'s trained tables (40 batches of U users per
+    traffic mix); launch counts are zeroed just before and read just
+    after."""
     from torchrecsys_tpu_torch.ops import dot_topk as dt
 
     all_users = rs.store.user_encoder.to_list()
@@ -1655,22 +1858,26 @@ def main_path(torch, rs):
     for w in wrappers():
         w.launches = 0
     wrappers_topk = (dt.dot_topk_small, dt.dot_topk_large)
-    for label, top_k, excl in cases:
+    for case, top_k, excl in cases:
         before = {w.__name__: w.launches for w in wrappers_topk}
         rs.predict(batches[0], top_k=top_k, exclude_seen=excl)  # warm-up
         t0 = time.perf_counter()
         outs = [rs.predict(b, top_k=top_k, exclude_seen=excl) for b in batches[1:]]
         dt_s = time.perf_counter() - t0
-        rates[label] = U * len(outs) / dt_s
+        rates[case] = U * len(outs) / dt_s
         grew = {n: w.launches - before[n] for n, w in ((w.__name__, w) for w in wrappers_topk)}
         want = "dot_topk_small" if top_k <= 16 else "dot_topk_large"
-        check(grew[want] == len(batches), f"{label}: {want} launched {grew[want]} times for {len(batches)} batches")
-        log(f"[main] predict {label}: {len(outs)} batches of {U} users, {rates[label]:.1f} users/s, launches {grew}")
+        check(grew[want] == len(batches), f"{label} {case}: {want} launched {grew[want]} times for "
+              f"{len(batches)} batches")
+        log(f"[main] predict{label} {case}: {len(outs)} batches of {U} users, {rates[case]:.1f} users/s, "
+            f"launches {grew}")
         check_predict(rs, batches[1], outs[0], top_k, excl, torch)
     launches = {w.__name__: w.launches for w in wrappers_topk}
     for name, count in launches.items():
         check(count > 0, f"kernel {name} never launched on the main path")
-    log(f"[main] launches over the predict path: {launches}")
+    others = {w.__name__: w.launches for w in wrappers() if w not in wrappers_topk and w.launches}
+    check(not others, f"predict{label} launched other kernels: {others}")
+    log(f"[main] launches over the predict{label} path: {launches}")
     return batches[1], launches, rates
 
 
@@ -1814,34 +2021,41 @@ def one_batch(torch, rs, b: int):
 
 
 def train_timing(torch, rs, err: float):
-    """The fused pairwise kernel's JSON row: CUDA-event ms at the main
-    path's shape (one real 1024-row batch of the metadata model: weighted,
-    emit_g, item rows), its bound, the plain version's ms; also B=8192."""
+    """The row-level kernel's JSON row at the main path's shape: FM with
+    metadata, one real 1024-row batch of the fit (weighted, the sigmoid,
+    emit_g, no item rows; composite rows formed as Linear's, which is
+    enough for timing), CUDA-event ms, its bound (the lanes the row math
+    reads, in 32-byte sectors, and the rows written), the plain version's
+    ms; also B=8192."""
     from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 
     saved = fp.pairwise_updates_rows.launches
     row = None
     for b in (TRAIN_B, 8192):
         u, p, n, w, inv = one_batch(torch, rs, b)
-        kw = dict(d=D, margin=1.0, loss_kind="hinge", sigmoid=False, eps=1e-10, emit_g=True)
+        kw = dict(d=D, margin=1.0, loss_kind="hinge", sigmoid=True, eps=1e-10, emit_g=True, item_upd=False)
         ms = cuda_ms(torch, lambda: fp.pairwise_updates_rows(u, p, n, w, inv, 0.01, **kw), reps=200)
         plain_ms = cuda_ms(torch, lambda: fp.pairwise_updates_rows_plain(u, p, n, w, inv, 0.01, **kw))
-        nbytes = 6 * b * 128 * 4 + b * 4  # 3 row blocks in, 3 out, the weights
+        dev_us, per_call = device_call(torch, lambda: fp.pairwise_updates_rows(u, p, n, w, inv, 0.01, **kw))
+        # the bytes the function needs: lanes 0..D+2 of each of the 3 input rows in 32-byte
+        # sectors (the kernel loads whole rows), the 128-lane user rows out, the weights
+        sector = -(-4 * (D + 3) // 32) * 32
+        nbytes = b * (3 * sector + 4 * 128) + 4 * b
         flops = 10 * b * 128  # cost_estimate's count (fused_pairwise.py:347)
         bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS) * 1e3
-        log(f"[time] pairwise_updates_rows (B={b}, D={D}, hinge, weighted, emit_g): {ms:.4f} ms; "
+        log(f"[time] pairwise_updates_rows (B={b}, D={D}, hinge, sigmoid, weighted, emit_g, no item rows): "
+            f"{ms:.4f} ms; device {dev_us:.2f} us per call over {per_call} kernels (torch.profiler); "
             f"bound {bound_ms:.5f} ms (bytes); plain {plain_ms:.4f} ms; library: none")
         if b == TRAIN_B:
             # host time per call: the whole wrapper against its bare C call
             # (same arguments, outputs into one preallocated buffer)
-            lib, rows = fp._lib(), 3 * b * 128
+            lib, rows = fp._lib(), b * 128
             blocks = lib.trs_fused_pairwise_blocks(b)
             buf = torch.empty((rows + blocks + 1,), device=DEVICE)
             ptr = buf.data_ptr()
-            args = (0, 0, 1, 1, 1, 0, u.data_ptr(), p.data_ptr(), n.data_ptr(), w.data_ptr(), b, D,
-                    fp._inv_d(D), inv, 0.01, 1.0, 1e-10, ptr, ptr + 4 * b * 128,
-                    ptr + 8 * b * 128, ptr + 4 * rows, ptr + 4 * (rows + blocks),
-                    torch.cuda.current_stream().cuda_stream)
+            args = (0, 1, 1, 1, 0, 0, u.data_ptr(), p.data_ptr(), n.data_ptr(), w.data_ptr(), b, D,
+                    fp._inv_d(D), inv, 0.01, 1.0, 1e-10, ptr, None, None, ptr + 4 * rows,
+                    ptr + 4 * (rows + blocks), torch.cuda.current_stream().cuda_stream)
             wrap_us = host_ms(torch, lambda: fp.pairwise_updates_rows(u, p, n, w, inv, 0.01, **kw),
                               reps=2000)[0] * 1e3
             bare_us = host_ms(torch, lambda: check(lib.trs_fused_pairwise(*args) == 0, "bare call"),
@@ -1855,6 +2069,27 @@ def train_timing(torch, rs, err: float):
             }
     fp.pairwise_updates_rows.launches = saved
     return row
+
+
+def profiled_window(torch, warm, run):
+    """torch.profiler's CUDA records of ``run()`` (synchronised) and its
+    wall µs. ``warm()`` runs first, in the profiler's warm-up phase:
+    tracing is on there but its records are dropped, so the first kernels
+    of ``run()`` are recorded (in a session that starts with the window,
+    the profiler can miss its first few kernels)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    return prof, wall_us
 
 
 def device_split(prof) -> dict:
@@ -1878,11 +2113,13 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
     ``torch.cuda.empty_cache()`` runs), host
     ms per step (the median of 3 windows), the host cost of per-step id
     views against one unbind per epoch, and device µs per step by part
-    from torch.profiler over ``window`` steps, with the device's idle share
+    from torch.profiler over ``window`` steps (``profiled_window``; a
+    window short of records is taken again), with the device's idle share
     in that window. The window must hold the step kernels only (2 launches
-    per step): a gather, scatter or elementwise kernel fails the run."""
-    from torch.profiler import ProfilerActivity, profile
-
+    per step): a gather, scatter or elementwise kernel fails the run. FM
+    with metadata runs the row-level kernel (and its loss sum: 2 launches
+    per step) between torch gathers, elementwise glue and scatters, which
+    are split out instead."""
     from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 
     tr, st = rs.trainer, rs.store
@@ -1893,7 +2130,8 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
 
     upload_ms, data = host_ms(torch, upload, reps=2)
     feat_ms, feat = host_ms(torch, lambda: tr.feature_tables(st), reps=2)
-    saved = (fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches)
+    saved = step_launches(fp)
+    glue = rs.model.pairwise_fm_fields and bool(rs.model.schema.metadata_names)
     refit_ms = {}
     for how in ("warm", "cold"):
         if how == "cold":
@@ -1931,15 +2169,36 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
         tr.run_steps(packed, ep, feat, steps=range(start, start + window))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) / window * 1e3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.run_steps(packed, ep, feat, steps=range(10 + 3 * window, 10 + 4 * window))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    fp.fused_pairwise_step.launches, fp.fused_pairwise_step_meta.launches = saved
+    # each step call is two launches (the C entry fails on a failed launch), and every step of
+    # the window launches the same kernels. The wrappers count every call; a window with fewer
+    # than 2 step-kernel records per step, or a count of records that is not a multiple of its
+    # steps, is logged with what it lacks and taken again, so the device times below come from
+    # a whole window
+    for attempt in range(1, 6):
+        calls = step_launches(fp)
+        prof, wall_us = profiled_window(
+            torch, lambda: tr.run_steps(packed, ep, feat, steps=range(5, 10)),
+            lambda: tr.run_steps(packed, ep, feat, steps=range(10 + 3 * window, 10 + 4 * window)))
+        calls = sum(b - a for a, b in zip(calls, step_launches(fp))) - 5
+        check(calls == window, f"fit {label}: {calls} step calls in a window of {window} steps")
+        by_name = {}
+        for e in prof.key_averages():
+            if "fused_pairwise" in e.key and getattr(e, "self_device_time_total", 1) > 0:
+                m = re.search(r"fused_pairwise_\w+", e.key)
+                by_name[m.group(0) if m else e.key] = by_name.get(m.group(0) if m else e.key, 0) + e.count
+        launched = sum(by_name.values())
+        records = sum(e.count for e in prof.key_averages() if getattr(e, "self_device_time_total", 1) > 0)
+        if launched == 2 * window and records % window == 0:
+            break
+        log(f"[breakdown] fit {label}: window {attempt}: the profiler recorded {launched} of its "
+            f"{2 * window} step-kernel launches ({by_name}) and {records} kernel records in all; taken again")
+    set_step_launches(fp, saved)
+    check(launched == 2 * window, f"fit {label}: {launched} step-kernel launches recorded in {window} "
+          f"steps in each of {attempt} windows, want 2 each: {by_name}")
+    if records % window:
+        log(f"[breakdown] fit {label}: {records} kernel records in {window} steps in the last of "
+            f"{attempt} windows: not the same count per step")
     split = device_split(prof)
-    launched = sum(e.count for e in prof.key_averages() if "fused_pairwise" in e.key
-                   and getattr(e, "self_device_time_total", 1) > 0)
     parts = {"kernel": 0.0, "gathers": 0.0, "scatters": 0.0, "elementwise": 0.0}
     for name, us in split.items():
         if "fused_pairwise" in name:
@@ -1964,9 +2223,11 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
         f"unpack {unpack_ms:.3f} ms per epoch; {med:.4f} ms per step (host clock, median of 3 windows "
         f"of {window} steps: {', '.join(f'{x:.4f}' for x in step_ms)}); the ids' per-step views would "
         f"cost {views_us:.2f} us per step, one unbind per epoch costs {unbind_us:.3f}")
-    log(f"[breakdown] fit {label}: device us per step (kernel = the step kernels): " + ", ".join(
+    log(f"[breakdown] fit {label}: device us per step (kernel = the "
+        f"{'row-level kernel and its loss sum' if glue else 'step kernels'}): " + ", ".join(
         f"{k} {v / window:.2f}" for k, v in parts.items()
-    ) + f"; {launched / window:.2f} step-kernel launches per step; device busy {busy / window:.2f} of "
+    ) + f"; {launched / window:.2f} step-kernel launches and {records / window:.2f} kernel records per step "
+        f"(window {attempt}); device busy {busy / window:.2f} of "
         f"{wall_us / window:.2f} us per step under the profiler = idle share {1 - busy / wall_us:.3f}")
     top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
 
@@ -1978,8 +2239,7 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
         f"{short(k)} {v / window:.2f}" for k, v in top
     ))
     others = {short(k): v for k, v in split.items() if "fused_pairwise" not in k}
-    check(not others, f"fit {label}: the step window ran other kernels: {others}")
-    check(launched == 2 * window, f"fit {label}: {launched} step-kernel launches in {window} steps, want 2 each")
+    check(glue or not others, f"fit {label}: the step window ran other kernels: {others}")
     return {"build_ms": build_ms, "step_ms": med, "parts_ms": parts_ms, "refit_ms": refit_ms,
             "step_ms_runs": step_ms, "idle_share": 1 - busy / wall_us, "kernel_us": parts["kernel"] / window, "busy_us": busy / window}
 
@@ -2163,8 +2423,6 @@ def softmax_breakdown(torch, rs, label: str, window: int = 60):
     augmentation (host clock, per epoch), host ms per step, and device us
     per step by part from torch.profiler over ``window`` steps, with the
     device's idle share in that window."""
-    from torch.profiler import ProfilerActivity, profile
-
     from torchrecsys_tpu_torch.ops import softmax_ce as sce
     from torchrecsys_tpu_torch.train.optim import augment_tables
 
@@ -2183,11 +2441,9 @@ def softmax_breakdown(torch, rs, label: str, window: int = 60):
     tr.run_softmax_steps(rs.state, aug, ep, feat, steps=range(5, 5 + window))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / window * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.run_softmax_steps(rs.state, aug, ep, feat, steps=range(5 + window, 5 + 2 * window))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, wall_us = profiled_window(
+        torch, lambda: tr.run_softmax_steps(rs.state, aug, ep, feat, steps=range(0, 2)),
+        lambda: tr.run_softmax_steps(rs.state, aug, ep, feat, steps=range(5 + window, 5 + 2 * window)))
     sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved
     split = device_split(prof)
     parts = {"gathers": 0.0, "ce_fwd": 0.0, "ce_bwd": 0.0, "autograd_elementwise": 0.0, "scatters": 0.0}
@@ -2311,11 +2567,9 @@ def mlp_breakdown(torch, rs, window: int = 40):
     tr.run_pairwise_steps(st, aug, ep, feat, steps=range(5, 5 + window))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / window * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.run_pairwise_steps(st, aug, ep, feat, steps=range(5 + window, 5 + 2 * window))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, wall_us = profiled_window(
+        torch, lambda: tr.run_pairwise_steps(st, aug, ep, feat, steps=range(0, 2)),
+        lambda: tr.run_pairwise_steps(st, aug, ep, feat, steps=range(5 + window, 5 + 2 * window)))
     ft.fused_tower_fwd.launches, ft.fused_tower_bwd.launches = saved
     split = device_split(prof)
     parts = {"gathers": 0.0, "tower_fwd": 0.0, "tower_bwd": 0.0, "tower_sums": 0.0,
@@ -2435,17 +2689,45 @@ def main() -> int:
     profile_phase(torch, rs, users_raw)
     split_meta = train_breakdown(torch, rs, "metadata", fit_meta["fit_s"])
     step_meta_row = step_timing(torch, rs, True, step_err, fit_meta["launches"])
-    train_row = train_timing(torch, rs, train_err)
     del rs
     torch.cuda.empty_cache()
     rs, fit_plain = train_path(torch, data, meta=False)
     split_plain = train_breakdown(torch, rs, "no metadata", fit_plain["fit_s"])
     step_row = step_timing(torch, rs, False, step_err, fit_plain["launches"])
     del rs
-    # the row-level kernel is off the fit paths now (the FM step and the mesh wrappers will take it)
-    train_row["launches"] = fit_meta["row_launches"] + fit_plain["row_launches"]
-    kernels.extend([train_row, step_row, step_meta_row])
     torch.cuda.empty_cache()
+    # FM (fm_sigmoid=True): with metadata the row-level kernel, without it the step kernel's sigmoid variant
+    fm, fm_rates, topk_extra = {}, {}, {"dot_topk_small": 0, "dot_topk_large": 0}
+    for meta in (True, False):
+        rs, fm[meta] = train_path(torch, data, meta=meta, net="fm", evaluate=True)
+        _, fm_launches, fm_rates[meta] = main_path(torch, rs, " " + fm[meta]["label"])
+        topk_extra = {k: v + fm_launches[k] for k, v in topk_extra.items()}
+        topk_extra["dot_topk_small"] += fm[meta]["eval_launches"]
+        fm[meta]["split"] = train_breakdown(torch, rs, fm[meta]["label"], fm[meta]["fit_s"])
+        if meta:
+            train_row = train_timing(torch, rs, train_err)
+        del rs
+        torch.cuda.empty_cache()
+    # AMP: the step kernel's bf16 variants; a bf16 predict from the metadata model's tables
+    amp, amp_rates = {}, {}
+    for net, meta in (("linear", True), ("linear", False), ("fm", False), ("fm", True)):
+        rs, out = train_path(torch, data, meta=meta, net=net, amp=True)
+        out["split"] = train_breakdown(torch, rs, out["label"], out["fit_s"])
+        if meta and net == "linear":
+            q, *_ = rs._linearized()
+            check(q.dtype == torch.bfloat16, f"{out['label']}: the catalog is {q.dtype}, want bfloat16")
+            _, amp_launches, amp_rates = main_path(torch, rs, " " + out["label"])
+            topk_extra = {k: v + amp_launches[k] for k, v in topk_extra.items()}
+        amp[(net, meta)] = out
+        del rs
+        torch.cuda.empty_cache()
+    for row in kernels:
+        row["launches"] += topk_extra[row["name"]]
+    train_row["launches"] = (fit_meta["row_launches"] + fit_plain["row_launches"] + fm[True]["launches"]
+                             + amp[("fm", True)]["launches"])
+    step_row["launches"] += fm[False]["launches"] + amp[("linear", False)]["launches"] + amp[("fm", False)]["launches"]
+    step_meta_row["launches"] += amp[("linear", True)]["launches"]
+    kernels.extend([train_row, step_row, step_meta_row])
     rs, sm_meta = softmax_train_path(torch, data, meta=True, evaluate=True)
     split_sm_meta = softmax_breakdown(torch, rs, "softmax metadata")
     del rs
@@ -2453,9 +2735,18 @@ def main() -> int:
     rs, sm_plain = softmax_train_path(torch, data, meta=False, evaluate=False)
     split_sm_plain = softmax_breakdown(torch, rs, "softmax no metadata")
     del rs
+    torch.cuda.empty_cache()
+    rs, sm_amp = softmax_train_path(torch, data, meta=False, evaluate=False, amp=True)
+    split_sm_amp = softmax_breakdown(torch, rs, "Linear AMP softmax no metadata")
+    del rs
+    torch.cuda.empty_cache()
+    rs, sm_fm = softmax_train_path(torch, data, meta=True, evaluate=True, net="fm")
+    split_sm_fm = softmax_breakdown(torch, rs, "FM softmax metadata")
+    del rs
+    sms = (sm_meta, sm_plain, sm_amp, sm_fm)
     kernels.extend(ce_timing(torch, ce_inputs_main, ce_errs, {
-        "softmax_ce_fwd": sm_meta["fwd_launches"] + sm_plain["fwd_launches"] + sm_meta["eval_launches"],
-        "softmax_ce_bwd": sm_meta["bwd_launches"] + sm_plain["bwd_launches"],
+        "softmax_ce_fwd": sum(x["fwd_launches"] + x["eval_launches"] for x in sms),
+        "softmax_ce_bwd": sum(x["bwd_launches"] for x in sms),
     }))
     torch.cuda.empty_cache()
     rs, mlp = mlp_train_path(torch, data)
@@ -2472,10 +2763,23 @@ def main() -> int:
         f"{split_plain['step_ms']:.4f}; device busy us per step {split_meta['busy_us']:.2f} / "
         f"{split_plain['busy_us']:.2f}; device idle share in fit: metadata "
         f"{split_meta['idle_share']:.3f}, no metadata {split_plain['idle_share']:.3f}")
+    for out in (fm[True], fm[False], *amp.values()):
+        sp = out["split"]
+        log(f"[main] {out['label']} fit examples/s {out['examples_per_s']:.1f}; host ms per step "
+            f"{sp['step_ms']:.4f}; device busy us per step {sp['busy_us']:.2f} (kernel {sp['kernel_us']:.2f}); "
+            f"idle share {sp['idle_share']:.3f}"
+            + (f"; evaluate AUC {out['fresh_auc']:.5f} -> {out['auc']:.5f}" if "auc" in out else ""))
+    log(f"[main] FM predict users/s: metadata {json.dumps(fm_rates[True])}, no metadata "
+        f"{json.dumps(fm_rates[False])}; Linear AMP (bf16 catalog) {json.dumps(amp_rates)}")
     log(f"[main] softmax fit examples/s: metadata {sm_meta['examples_per_s']:.1f}, no metadata "
         f"{sm_plain['examples_per_s']:.1f}; host ms per step {split_sm_meta['step_ms']:.4f} / "
         f"{split_sm_plain['step_ms']:.4f}; device idle share {split_sm_meta['idle_share']:.3f} / "
         f"{split_sm_plain['idle_share']:.3f}; evaluate loss+auc rows/s {sm_meta['eval_rows_per_s']:.1f}")
+    for out, sp in ((sm_amp, split_sm_amp), (sm_fm, split_sm_fm)):
+        log(f"[main] {out['label']} fit examples/s {out['examples_per_s']:.1f}; host ms per step "
+            f"{sp['step_ms']:.4f}; device us per step ce_fwd {sp['ce_fwd_us']:.2f}, ce_bwd {sp['ce_bwd_us']:.2f}; "
+            f"idle share {sp['idle_share']:.3f}"
+            + (f"; evaluate AUC {out['fresh_auc']:.5f} -> {out['auc']:.5f}" if "auc" in out else ""))
     log(f"[main] MLP AMP fit examples/s {mlp['examples_per_s']:.1f} (first epoch, {mlp['steps']} steps of {MLP_B}); "
         f"host ms per step {split_mlp['step_ms']:.4f}; device idle share {split_mlp['idle_share']:.3f}; "
         f"evaluate loss+auc rows/s {mlp['eval_rows_per_s']:.1f} (AUC {mlp['fresh_auc']:.5f} -> "

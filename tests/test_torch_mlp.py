@@ -375,9 +375,12 @@ def test_mlp_has_no_factor_vectors_and_predicts_through_the_chunked_scorer():
 
 
 def test_amp_linear_on_the_fused_kernel_still_raises():
+    """AMP Linear now trains through the fused step's bf16 variant (on the
+    CPU its plain version); the MLP still refuses sampled softmax."""
     rs = RecSys(_data(False), n_factors=8, device="cpu", use_amp=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rs.fit()
+    losses = rs.fit(verbose=False)
+    assert rs.trainer._fused and rs.model.compute_dtype == torch.bfloat16
+    assert len(losses) == 1 and np.isfinite(losses[0])
     mlp = RecSys(_data(False), net_type="mlp", n_factors=8, hidden_layers=HIDDEN, device="cpu",
                  use_amp=True)
     with pytest.raises(ValueError, match="factorizable"):

@@ -259,8 +259,10 @@ def test_sampled_softmax_refuses_explicit_negatives(kw):
 
 def test_amp_training_and_unknown_options():
     rs = RecSys(_data(False), n_factors=8, device="cpu", use_amp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rs.fit()
+    losses = rs.fit(verbose=False)  # the fused step's bf16 variant (plain on the CPU)
+    assert rs.trainer._fused and np.isfinite(losses).all()
+    losses = rs.fit(loss="sampled_softmax", verbose=False)  # bf16 h, v into the CE
+    assert rs.trainer._softmax and np.isfinite(losses).all()
     rs = RecSys(_data(False), n_factors=8, device="cpu")
     with pytest.raises(ValueError, match="unknown loss"):
         rs.fit(loss="nope")

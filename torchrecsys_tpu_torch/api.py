@@ -80,10 +80,11 @@ class RecSys:
         device: Union[str, torch.device] = "cuda",
     ) -> None:
         """The JAX constructor's keywords, in its order and with its
-        defaults, then ``device``. ``history_len``, ``ease_lam`` and
-        ``fm_sigmoid`` are kept: only unported nets read them, and those
-        nets raise at ``build_model``. ``debug=True`` and a ``mesh`` raise
-        ``NotImplementedError`` naming their ROADMAP.md item."""
+        defaults, then ``device``. ``fm_sigmoid`` goes to FM's config;
+        ``history_len`` and ``ease_lam`` are kept: only unported nets read
+        them, and those nets raise at ``build_model``. ``debug=True`` and a
+        ``mesh`` raise ``NotImplementedError`` naming their ROADMAP.md
+        item."""
         del use_cuda  # the device is `device`
         if debug:
             raise _not_ported("debug=True (write_data to `path`)", _CHECKPOINT_ITEM)
@@ -108,6 +109,7 @@ class RecSys:
             hidden_layers=tuple(hidden_layers),
             use_batch_norm=use_batch_norm,
             compute_dtype="bfloat16" if use_amp else "float32",
+            fm_sigmoid=fm_sigmoid,
         )
         self.model = build_model(self.store.schema, self.model_cfg).to(self.device)
         self.feat = feature_tables(self.store, self.device)
@@ -204,8 +206,11 @@ class RecSys:
         """Train; returns per-epoch mean losses (api.py:145-202).
 
         ``hinge``/``bpr``/``logistic`` run the fused pairwise step
-        (ops/fused_pairwise.py): on the card, one launch of the hand-written
-        kernel per batch. Models that kernel does not take run the autograd
+        (ops/fused_pairwise.py): on the card, one call of the hand-written
+        step kernel per batch (Linear, and FM without metadata with its
+        sigmoid); FM with metadata runs the row-level kernel once per batch
+        around its per-field item-side updates. With ``use_amp`` the
+        kernels' bf16 variants run. Models that kernel does not take run the autograd
         pairwise step; for the MLP with ``use_amp`` (bf16 compute) and batch
         norm, each step launches the fused tower layer's forward and
         backward kernels once per hidden layer (ops/fused_tower.py), and
@@ -460,7 +465,8 @@ class RecSys:
     ) -> "tuple[np.ndarray, np.ndarray]":
         """``(vecs (U, D) f32, const (U,) f32)`` for every user (``None``,
         encoded-row order) or for raw ids; ``const`` is the user's
-        row-constant score term (Linear's user bias)."""
+        row-constant score term (Linear's user bias, FM's linear user
+        term)."""
         _, _, user_fn, _ = self._linearized()
         if user_id is None:
             rows = torch.arange(self.store.schema.num_users, device=self.device)

@@ -38,10 +38,13 @@ class ModelConfig:
     """Model hyperparameters the ported slices read (config.py:59-89).
 
     ``compute_dtype="bfloat16"`` (``use_amp``) keeps the factor vectors in
-    bf16 for the catalog scorer, with f32 biases and accumulation, and runs
-    the MLP tower in bf16 (its training forward through the fused layer
+    bf16 for the catalog scorer, with f32 biases and accumulation, runs the
+    fused pairwise step's bf16 variant (bf16-rounded score path, f32
+    accumulators) and hands bf16 vectors to the in-batch CE, and runs the
+    MLP tower in bf16 (its training forward through the fused layer
     kernels, ops/fused_tower.py). ``hidden_layers`` and ``use_batch_norm``
-    shape the MLP (mlp.py:57,75)."""
+    shape the MLP (mlp.py:57,75). ``fm_sigmoid`` squashes FM's score
+    through the reference's sigmoid (fm.py:99; config.py:77)."""
 
     net_type: str = "linear"
     n_factors: int = 80
@@ -49,6 +52,7 @@ class ModelConfig:
     use_batch_norm: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    fm_sigmoid: bool = True
 
 
 _SAMPLING_ITEM = "§A item 7 (in-step and K-negative sampling)"

@@ -1,6 +1,6 @@
 """Model factory (port of ``torchrecsys_tpu/models/__init__.py``).
 
-The ported slices cover ``linear`` and ``mlp``. The JAX package's other
+The ported slices cover ``linear``, ``fm`` and ``mlp``. The JAX package's other
 nets are still to be ported (ROADMAP.md, queue A) and raise
 ``NotImplementedError``.
 """
@@ -9,14 +9,14 @@ from __future__ import annotations
 
 from torchrecsys_tpu_torch.config import DataSchema, ModelConfig
 from torchrecsys_tpu_torch.models.base import RecModel, TableSpec
+from torchrecsys_tpu_torch.models.fm import FMModel
 from torchrecsys_tpu_torch.models.linear import LinearModel
 from torchrecsys_tpu_torch.models.mlp import MLPModel
 
-MODEL_REGISTRY = {"linear": LinearModel, "mlp": MLPModel}
+MODEL_REGISTRY = {"linear": LinearModel, "fm": FMModel, "mlp": MLPModel}
 
 # net_type -> the ROADMAP.md item that ports it
 _NOT_YET_PORTED = {
-    "fm": "§A item 5 (FM)",
     "neucf": "§A item 8 (NeuCF)",
     "lstm": "§A item 10 (sequence models)",
     "sasrec": "§A item 10 (sequence models)",
@@ -39,4 +39,6 @@ def build_model(schema: DataSchema, cfg: ModelConfig) -> RecModel:
     return cls(schema, cfg)
 
 
-__all__ = ["MODEL_REGISTRY", "build_model", "RecModel", "TableSpec", "LinearModel", "MLPModel"]
+__all__ = [
+    "MODEL_REGISTRY", "build_model", "RecModel", "TableSpec", "LinearModel", "FMModel", "MLPModel",
+]

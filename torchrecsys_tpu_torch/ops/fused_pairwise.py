@@ -36,13 +36,24 @@ lane.
   values and no step syncs.
 - :func:`pairwise_updates_rows` keeps the row-level contract of
   ``_pairwise_updates_rows`` (:279-357): packed rows in, update rows and
-  the loss sum out, no scatter, what the FM step and the mesh wrappers
-  need. It launches ``fused_pairwise_kernel`` (the same row math) on CUDA
-  tensors and computes :func:`pairwise_updates_rows_plain` on CPU ones;
-  ``pairwise_updates_rows.launches`` counts its launches.
-- The FM branches (``fm=True``: ``_packed_update_rows``, ``meta_lin``)
-  and the mesh wrappers (``_dp``, ``_tp``) are still to be ported
-  (ROADMAP.md §A items 5 and 14).
+  the loss sum out, no scatter, what the FM metadata step and the mesh
+  wrappers need. It launches ``fused_pairwise_kernel`` (the same row math)
+  on CUDA tensors and computes :func:`pairwise_updates_rows_plain` on CPU
+  ones; ``pairwise_updates_rows.launches`` counts its launches.
+- ``fused_pairwise_step_meta(..., meta_lin=..., fm=True)`` is FM's
+  metadata step (``_meta_step_core`` with ``fm=True``, :660-801), as the
+  JAX package splits it: the composite rows (the per-item constant and
+  the linear-metadata sums in the bias lane) are gathered and formed in
+  torch, ONE launch of the row-level kernel (``emit_g``, ``item_upd=False``)
+  runs the row math, and the item, metadata and linear-metadata update
+  rows are formed in torch from the emitted g lanes (d score / d field =
+  g (u + q - v_field) differs per field, so the step kernel's Linear
+  deltas g u never serve FM), then scattered with ``index_add_``. The
+  step wrappers record the step kernel's variant index of their last
+  launch in ``.variant`` (``pairwise_updates_rows.variant`` the row-level
+  kernel's), so a check can tell the bf16 variants were the ones run.
+- The mesh wrappers (``_dp``, ``_tp``) are still to be ported (ROADMAP.md
+  §A item 14).
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -321,11 +332,19 @@ def pairwise_updates_rows(
     if rc != 0:
         raise RuntimeError(f"pairwise_updates_rows: CUDA launch failed with cudaError {rc}")
     pairwise_updates_rows.launches += 1
+    pairwise_updates_rows.variant = row_variant(loss_kind, sigmoid, w is not None, emit_g, item_upd, bf16)
     return uo, items, loss_sum
 
 
 pairwise_updates_rows.launches = 0
+pairwise_updates_rows.variant = None
 
+
+def row_variant(loss_kind: str, sigmoid: bool, use_w: bool, emit_g: bool, item_upd: bool, bf16: bool) -> int:
+    """The row-level kernel's variant index, as ``trs_fused_pairwise``
+    forms it: loss * 32 + sigmoid * 16 + use_w * 8 + emit_g * 4 +
+    item_upd * 2 + bf16."""
+    return _LOSS_CODE[loss_kind] * 32 + 16 * sigmoid + 8 * use_w + 4 * emit_g + 2 * item_upd + bf16
 
 
 # ---------------------------------------------------------------------------
@@ -505,10 +524,21 @@ def fused_pairwise_step_meta_plain(
     weight_sum: Optional[float] = None,
     loss_out: Optional[torch.Tensor] = None,
     loss_index: int = 0,
+    meta_lin: Optional[Sequence[torch.Tensor]] = None,
+    fm: bool = False,
 ):
-    """The metadata step kernel's plain version (:811-864 with
-    ``fm=False``), op for op: gathers, the composite, the row math, the
-    metadata deltas, one ``index_add_`` per table."""
+    """The metadata step's plain version (:811-864), op for op: gathers,
+    the composite, the row math, the metadata deltas, one ``index_add_``
+    per table. ``fm=True`` takes FM's step (:func:`_fm_meta_step_core`
+    around :func:`pairwise_updates_rows_plain`) and updates the augmented
+    (Rf, 2) linear-metadata tables ``meta_lin`` in place too."""
+    if fm:
+        return _fm_meta_step(
+            pairwise_updates_rows_plain, user_pk, item_pk, meta_vec, meta_lin, meta_ids, meta_mask,
+            user_ids, pos_ids, neg_ids, weights, lr, d=d, margin=margin, loss_kind=loss_kind,
+            sigmoid=sigmoid, bf16=bf16, eps=eps, weight_sum=weight_sum, loss_out=loss_out,
+            loss_index=loss_index,
+        )
     inv = step_inv(user_ids.shape[0], weights, weight_sum)
     upd_u, iids, item_rows, meta_deltas, loss_sum = _meta_step_core(
         user_pk, item_pk, meta_vec, meta_ids, meta_mask, user_ids, pos_ids, neg_ids,
@@ -518,6 +548,129 @@ def fused_pairwise_step_meta_plain(
     user_pk.index_add_(0, user_ids, upd_u)
     item_pk.index_add_(0, iids, item_rows)
     for table, (ids, delta) in zip(meta_vec, meta_deltas):
+        table.index_add_(0, ids, delta)
+    return user_pk, item_pk, meta_vec, _put_loss(loss_sum * inv, loss_out, loss_index)
+
+
+def _packed_update_rows(gvec, gb, acc, bacc, lr_t: float, d: int, eps_t: float) -> torch.Tensor:
+    """The row math's ``upd`` for one occurrence per row (:644-658): (B, d)
+    vector grads, (B,) bias grads and the pre-step accumulators -> (B, 128)
+    packed update rows (deltas and accumulator increments)."""
+    msq = torch.sum(gvec * gvec, dim=1) * _inv_d(d)
+    out = torch.zeros((gvec.shape[0], LANES), dtype=torch.float32, device=gvec.device)
+    out[:, :d] = -lr_t * gvec * torch.rsqrt(acc + msq + eps_t)[:, None]
+    out[:, d] = msq
+    out[:, d + 1] = -lr_t * gb * torch.rsqrt(bacc + gb * gb + eps_t)
+    out[:, d + 2] = gb * gb
+    return out
+
+
+def _fm_meta_step_core(
+    rows_fn: Callable,
+    user_pk: torch.Tensor,
+    item_pk: torch.Tensor,
+    meta_vec: Sequence[torch.Tensor],
+    meta_lin: Sequence[torch.Tensor],
+    meta_ids: torch.Tensor,
+    meta_mask: torch.Tensor,
+    user_ids: torch.Tensor,
+    pos_ids: torch.Tensor,
+    neg_ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    inv: float,
+    lr: float,
+    *,
+    d: int,
+    margin: float,
+    loss_kind: str,
+    sigmoid: bool,
+    bf16: bool,
+    eps: float,
+):
+    """FM's composite-row step (:660-801 with ``fm=True``); ``rows_fn`` is
+    :func:`pairwise_updates_rows` or its plain version.
+
+    The rows the row math sees are composite: vector lanes ``q = i +
+    sum_f c_f`` (``c_f`` the masked sum of field f's rows), bias lane ``b_i
+    + 0.5(|q|^2 - |i|^2 - sum_f |c_f|^2) + sum_f masked_sum(linear_meta_f)``,
+    so ``u.q + b_u + b_i`` is the FM score and the loss and the user update
+    are the model's. It runs with ``emit_g=True, item_upd=False``; from the
+    emitted ``gp``/``gn`` (lanes d+4, d+5) the item rows take ``g (u + q -
+    i)`` against the item's own accumulators, each metadata slot ``g (u + q
+    - c_f)`` and each linear-metadata slot ``g`` (AMP: on bf16-rounded
+    vectors, :750-752). Both sides run as one (2B,) block, positives then
+    negatives, the order of JAX's concatenations.
+
+    Returns ``(upd_u (B, 128), iids (2B,), item_rows (2B, 128),
+    meta_deltas [F x (ids (2BW,), rows (2BW, D+1))], lin_deltas [F x (ids,
+    rows (2BW, 2))], loss_sum)``."""
+    b = user_ids.shape[0]
+    f32 = torch.float32
+    iids = torch.cat([pos_ids, neg_ids])
+    u = user_pk.index_select(0, user_ids)
+    pn = item_pk.index_select(0, iids)  # (2B, 128): the items' own rows
+    mids = meta_ids.index_select(0, iids)  # (2B, F, W)
+    mm = meta_mask.index_select(0, iids).to(f32)
+    vrows, lrows, c = [], [], []
+    for f in range(len(meta_vec)):
+        r = meta_vec[f][mids[:, f, :]]  # (2B, W, D+1)
+        vrows.append(r)
+        c.append(torch.sum(r[..., :d] * mm[:, f, :, None], dim=1))  # masked_sum
+        lrows.append(meta_lin[f][mids[:, f, :]])  # (2B, W, 2)
+    ivec = pn[:, :d]
+    q = ivec + sum(c)
+    sq = torch.sum(ivec * ivec, dim=1) + sum(torch.sum(cf * cf, dim=1) for cf in c)
+    const = 0.5 * (torch.sum(q * q, dim=1) - sq)
+    lsum = sum(torch.sum(lr_[..., 0] * mm[:, f, :], dim=1) for f, lr_ in enumerate(lrows))
+    comp = pn.clone()
+    comp[:, :d] = q
+    comp[:, d + 1] += const + lsum
+
+    upd_u, _, loss_sum = rows_fn(
+        u, comp[:b], comp[b:], weights, inv, lr,
+        d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, eps=eps,
+        emit_g=True, item_upd=False, bf16=bf16,
+    )
+    g2 = torch.cat([upd_u[:, d + 4], upd_u[:, d + 5]])[:, None]  # (2B, 1) gp then gn
+
+    def rnd(x):  # AMP: grads form on bf16-rounded vectors, like the XLA step
+        return x.to(torch.bfloat16).to(f32) if bf16 else x
+
+    uvec = rnd(u[:, :d])
+    u2, qr = torch.cat([uvec, uvec]), rnd(q)
+    lr_t, eps_t, inv_d = float(np.float32(lr)), float(np.float32(eps)), _inv_d(d)
+    item_rows = _packed_update_rows(g2 * (u2 + qr - rnd(ivec)), g2[:, 0], pn[:, d], pn[:, d + 2],
+                                    lr_t, d, eps_t)
+    meta_deltas, lin_deltas = [], []
+    for f in range(len(meta_vec)):
+        mf = mm[:, f, :]
+        g = ((g2 * (u2 + qr - rnd(c[f])))[:, None, :] * mf[..., None]).reshape(-1, d)  # (2BW, d)
+        acc = vrows[f][..., d].reshape(-1)
+        msq = torch.sum(g * g, dim=1) * inv_d
+        delta = torch.cat([-lr_t * g * torch.rsqrt(acc + msq + eps_t)[:, None], msq[:, None]], dim=1)
+        ids = mids[:, f, :].reshape(-1)
+        meta_deltas.append((ids, delta))
+        gb = (g2 * mf).reshape(-1)
+        bacc = lrows[f][..., 1].reshape(-1)
+        lin_deltas.append((ids, torch.stack([-lr_t * gb * torch.rsqrt(bacc + gb * gb + eps_t), gb * gb], dim=1)))
+    return upd_u, iids, item_rows, meta_deltas, lin_deltas, loss_sum
+
+
+def _fm_meta_step(rows_fn, user_pk, item_pk, meta_vec, meta_lin, meta_ids, meta_mask, user_ids, pos_ids,
+                  neg_ids, weights, lr, *, d, margin, loss_kind, sigmoid, bf16, eps, weight_sum, loss_out,
+                  loss_index):
+    """:func:`_fm_meta_step_core`, then one ``index_add_`` per table (in
+    place) and the loss ``loss_sum * inv`` (:843-864)."""
+    inv = step_inv(user_ids.shape[0], weights, weight_sum)
+    upd_u, iids, item_rows, meta_deltas, lin_deltas, loss_sum = _fm_meta_step_core(
+        rows_fn, user_pk, item_pk, meta_vec, meta_lin, meta_ids, meta_mask, user_ids, pos_ids, neg_ids,
+        weights, inv, lr, d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, bf16=bf16, eps=eps,
+    )
+    user_pk.index_add_(0, user_ids, upd_u)
+    item_pk.index_add_(0, iids, item_rows)
+    for table, (ids, delta) in zip(meta_vec, meta_deltas):
+        table.index_add_(0, ids, delta)
+    for table, (ids, delta) in zip(meta_lin, lin_deltas):
         table.index_add_(0, ids, delta)
     return user_pk, item_pk, meta_vec, _put_loss(loss_sum * inv, loss_out, loss_index)
 
@@ -537,7 +690,7 @@ def _check_tensor(name: str, what: str, t: torch.Tensor, dev: torch.device, dtyp
 
 
 def _check_step(name, d, loss_kind, user_pk, item_pk, ids, weights, loss_out, loss_index,
-                meta=None) -> None:
+                meta=None, meta_lin=None) -> None:
     """The step's inputs, before either path: what the kernel takes, so the
     CPU and the card refuse the same calls. Each tensor is tested in one
     expression; the message is formed only for a bad one."""
@@ -581,6 +734,17 @@ def _check_step(name, d, loss_kind, user_pk, item_pk, ids, weights, loss_out, lo
         for t in meta_vec:
             if t.dtype != f32 or t.dim() != 2 or t.shape[1] != d + 1 or not t.is_contiguous() or t.device != dev:
                 _check_tensor(name, "each meta_vec table", t, dev, f32, (None, d + 1))
+        if meta_lin is not None:
+            if len(meta_lin) != f:
+                raise ValueError(f"{name}: {len(meta_lin)} meta_lin tables for {f} features")
+            for t in meta_lin:
+                _check_tensor(name, "each meta_lin table", t, dev, f32, (None, 2))
+
+
+def step_variant(loss_kind: str, sigmoid: bool, use_w: bool, bf16: bool, meta: bool) -> int:
+    """The step kernel's variant index, as ``trs_fused_pairwise_step``
+    forms it: loss * 16 + sigmoid * 8 + use_w * 4 + bf16 * 2 + meta."""
+    return _LOSS_CODE[loss_kind] * 16 + 8 * sigmoid + 4 * use_w + 2 * bf16 + meta
 
 
 @functools.lru_cache(maxsize=64)
@@ -686,10 +850,12 @@ def fused_pairwise_step(
     loss = _launch_step("fused_pairwise_step", user_pk, item_pk, ids, weights, inv, lr, d, margin,
                         loss_kind, sigmoid, eps, bf16, loss_out, loss_index)
     fused_pairwise_step.launches += 1
+    fused_pairwise_step.variant = step_variant(loss_kind, sigmoid, weights is not None, bf16, False)
     return user_pk, item_pk, loss
 
 
 fused_pairwise_step.launches = 0
+fused_pairwise_step.variant = None
 
 
 def fused_pairwise_step_meta(
@@ -713,33 +879,50 @@ def fused_pairwise_step_meta(
     weight_sum: Optional[float] = None,
     loss_out: Optional[torch.Tensor] = None,
     loss_index: int = 0,
+    meta_lin: Optional[Sequence[torch.Tensor]] = None,
+    fm: bool = False,
 ):
-    """Single-device fused step for metadata-bearing Linear (:811-864 with
-    ``fm=False``; the FM branch is ROADMAP.md §A item 5). ``meta_vec``: one
-    augmented (Rf, D+1) table per feature; ``meta_ids`` / ``meta_mask``:
-    (N_items, F, W) int64 / bool. Updates every table in place; returns
-    ``(user_pk, item_pk, meta_vec, loss)``, the loss also in
-    ``loss_out[loss_index]`` when given. CUDA tables launch the step
-    kernel's metadata variant (``fused_pairwise_step_meta.launches``
-    counts them); CPU tables take :func:`fused_pairwise_step_meta_plain`."""
+    """Single-device fused step for metadata-bearing Linear and FM
+    (:811-864). ``meta_vec``: one augmented (Rf, D+1) table per feature;
+    ``meta_ids`` / ``meta_mask``: (N_items, F, W) int64 / bool; FM
+    (``fm=True``) also takes ``meta_lin``, one augmented (Rf, 2)
+    linear-metadata table per feature. Updates every table in place;
+    returns ``(user_pk, item_pk, meta_vec, loss)``, the loss also in
+    ``loss_out[loss_index]`` when given. CPU tables take
+    :func:`fused_pairwise_step_meta_plain`. On CUDA tables Linear launches
+    the step kernel's metadata variant (``fused_pairwise_step_meta.launches``
+    counts those calls); FM runs the row-level kernel once
+    (``pairwise_updates_rows.launches``) between its torch gathers and
+    scatters, and never the step kernel, whose metadata deltas are Linear's
+    ``g u``."""
     ids = (user_ids, pos_ids, neg_ids)
     meta = (meta_vec, meta_ids, meta_mask)
+    if fm != (meta_lin is not None):
+        raise ValueError("fused_pairwise_step_meta: meta_lin goes with fm=True, and only with it")
     _check_step("fused_pairwise_step_meta", d, loss_kind, user_pk, item_pk, ids, weights,
-                loss_out, loss_index, meta)
+                loss_out, loss_index, meta, meta_lin)
     if user_pk.device.type == "cpu":
         return fused_pairwise_step_meta_plain(
             user_pk, item_pk, meta_vec, meta_ids, meta_mask, *ids, weights, lr, d=d,
             margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, bf16=bf16, eps=eps,
+            weight_sum=weight_sum, loss_out=loss_out, loss_index=loss_index, meta_lin=meta_lin, fm=fm,
+        )
+    if fm:
+        return _fm_meta_step(
+            pairwise_updates_rows, user_pk, item_pk, meta_vec, meta_lin, meta_ids, meta_mask, *ids,
+            weights, lr, d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, bf16=bf16, eps=eps,
             weight_sum=weight_sum, loss_out=loss_out, loss_index=loss_index,
         )
     inv = step_inv(user_ids.shape[0], weights, weight_sum)
     loss = _launch_step("fused_pairwise_step_meta", user_pk, item_pk, ids, weights, inv, lr, d,
                         margin, loss_kind, sigmoid, eps, bf16, loss_out, loss_index, meta)
     fused_pairwise_step_meta.launches += 1
+    fused_pairwise_step_meta.variant = step_variant(loss_kind, sigmoid, weights is not None, bf16, True)
     return user_pk, item_pk, meta_vec, loss
 
 
 fused_pairwise_step_meta.launches = 0
+fused_pairwise_step_meta.variant = None
 
 
 # ---------------------------------------------------------------------------

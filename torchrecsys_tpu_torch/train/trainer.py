@@ -18,9 +18,12 @@ batches). Here an epoch is
 2. a Python loop over the batches. The pairwise losses run
    :func:`~torchrecsys_tpu_torch.ops.fused_pairwise.fused_pairwise_step`
    (or its metadata twin) over the packed ``(rows, 128)`` tables, as the
-   scan body ``body_pl`` (:720-790) does: one call of the step kernel per
-   step, each step's loss written into one epoch tensor.
-   Models the kernel does not take (the MLP, a Linear wider than its
+   scan body ``body_pl`` (:720-790) does: for Linear and FM without
+   metadata one call of the step kernel per step (FM with its sigmoid);
+   for FM with metadata one launch of the row-level kernel between torch
+   gathers and scatters; under ``use_amp`` the bf16 variants. Each step's
+   loss is written into one epoch tensor.
+   Models the kernel does not take (the MLP, a Linear or FM wider than its
    lanes) run the autograd pairwise step (:meth:`Trainer.pairwise_step`)
    over the augmented ``(R, D+1)`` tables: the paired side, the model's
    score (the MLP's bf16 training tower through the fused layer kernels,
@@ -118,13 +121,6 @@ class Trainer:
         else:
             self._fused = fp.pairwise_kernel_applicable(model, cfg)
             self.per_row_fn = get_per_row_loss(cfg.loss)
-        if model.compute_dtype == torch.bfloat16 and (self._softmax or self._fused):
-            raise NotImplementedError(
-                "training with use_amp=True (bf16 compute) through the fused "
-                "pairwise kernel or sampled softmax is not ported to "
-                "torchrecsys_tpu_torch yet: ROADMAP.md §A item 6 (metadata and "
-                "AMP in training)"
-            )
         self._data_cache_key = None
         self._data_cache: Dict[str, torch.Tensor] = {}
 
@@ -240,7 +236,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def pack_state(self, state: TrainState) -> Dict[str, torch.Tensor]:
         """The epoch layout: user and item sides packed into (rows, 128);
-        metadata tables augmented (Rf, D+1) (:693-711)."""
+        metadata tables augmented, (Rf, D+1) and FM's linear-metadata
+        tables (Rf, 2) (:693-711)."""
         pack = self.model.pairwise_pack
         aug = augment_tables(state["tables"], state["emb_opt"])
         packed = fp.pack_tables(aug, pack)
@@ -275,7 +272,9 @@ class Trainer:
         (``unbind``, cheaper on the host than three views per step).
         ``step_fn`` replaces the step wrapper (the model's
         :func:`fp.fused_pairwise_step` or ``_meta``, with its arguments); a
-        check on the card passes the plain step."""
+        check on the card passes the plain step. bf16 compute (``use_amp``)
+        runs the steps' bf16 variants (:715); FM with metadata passes its
+        linear-metadata tables and ``fm=True`` (:737-750)."""
         cfg, model = self.cfg, self.model
         meta_names = model.schema.metadata_names
         steps = range(epoch.nb) if steps is None else steps
@@ -289,12 +288,15 @@ class Trainer:
         )
         ws = bt["_w"][lo:hi].unbind(0) if "_w" in bt else None
         kw = dict(d=model.cfg.n_factors, margin=cfg.margin, loss_kind=cfg.loss,
-                  sigmoid=model.pairwise_sigmoid, bf16=False, loss_out=losses)
+                  sigmoid=model.pairwise_sigmoid, bf16=model.compute_dtype == torch.bfloat16,
+                  loss_out=losses)
         user, item, lr = packed["user"], packed["item"], cfg.learning_rate
         if meta_names:
             step = step_fn or fp.fused_pairwise_step_meta
             lead = (user, item, [packed[f"meta_{nm}"] for nm in meta_names],
                     feat["meta_ids"], feat["meta_mask"])
+            if model.pairwise_fm_fields:
+                kw.update(meta_lin=[packed[f"linear_meta_{nm}"] for nm in meta_names], fm=True)
         else:
             step = step_fn or fp.fused_pairwise_step
             lead = (user, item)
@@ -432,7 +434,7 @@ class Trainer:
     ) -> torch.Tensor:
         """One pairwise step through autograd (``_step_impl`` with
         ``fused=True``, :405-574) for models the fused pairwise kernel does
-        not take (the MLP; Linear wider than the kernel's lanes): score the
+        not take (the MLP; Linear or FM wider than the kernel's lanes): score the
         paired side, the weighted mean ``sum(per_row * w) / max(sum(w), 1)``
         (the weight sum known on the host), ``torch.autograd.grad`` with
         respect to the gathered rows and the dense parameters, one

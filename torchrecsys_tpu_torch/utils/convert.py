@@ -5,7 +5,9 @@ array per table name, rows padded to ``ROW_ALIGN``. :func:`tables_from_jax`
 takes those tables as numpy arrays (``np.asarray`` of each), checks them
 against the port model's ``table_specs`` and returns the port's tensors,
 so a port ``RecSys`` can serve, or go on training, weights trained by the
-JAX package (``RecSys.load_jax_tables``). :func:`dense_from_jax` and
+JAX package (``RecSys.load_jax_tables``). The names and widths come from
+the model: FM's width-1 ``linear_*`` tables (and their accumulators) carry
+over like Linear's biases. :func:`dense_from_jax` and
 :func:`model_state_from_jax` carry the dense parameters (the MLP tower,
 ``state["dense"]``) and the model state (batch-norm running statistics,
 ``state["model_state"]``), checked against the port model's own layout;
