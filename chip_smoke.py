@@ -144,6 +144,30 @@ result line:
       per step against the plain CE by the change of each table (distance
       <= 2^-8 of the plain change: bf16 gradients may round to the other
       neighbour); FM's evaluate as in d.
+   j. popularity sampling at K=1 with a cosine lr schedule over the
+      epoch (Linear, the category column, hinge, batch 1024): the alias
+      table's host build time; 2^24 alias draws on the card held against
+      count^0.75 (chi-square below df + 6 sqrt(2 df)), no zero-count item
+      drawn, no negative equal to its positive; one step-kernel call per
+      step and nothing else, each at the schedule's lr for its step (and
+      the cosine within 1e-8); 20 steps kernel vs plain at their scheduled
+      lrs as in a; the sample loss falls.
+   k. bench.py:358-365's row: Linear, loss="warp", num_negatives=8,
+      popularity negatives, batch 8192, lr 0.05: the autograd step over
+      9 x 8192 scored rows, no kernel; a finite loss, the hinge sample loss
+      falls; evaluate(loss, auc) over 8 draws per row (the AUC on the
+      first) against a direct recomputation with fixed draws.
+   l. bench.py:350-351's row: NeuCF with AMP, hinge, batch 8192: one
+      epoch, evaluate(loss, auc) against a direct recomputation, a 16-user
+      predict(top_k=10) through the chunked scorer; no launch, all finite.
+   m. card against CPU on phase 5's small dataset, two epochs from one
+      start, the same negatives on both: embedding_optimizer="sgd",
+      fused_embedding_update=False, adaptive_hinge with K=4, NeuCF in f32,
+      sampled softmax under a step schedule (each CE kernel once per step)
+      and popularity at K=1 under an exponential schedule (the step kernel
+      once per step; the alias map on the card equal to the CPU's on the
+      same uniforms); losses, tables, accumulators and NeuCF's dense layers
+      within rtol=1e-4, atol=1e-5.
 7. times: per-kernel CUDA-event ms and device us per call from
    torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
@@ -1221,7 +1245,7 @@ def compare_steps(torch, rs, steps: int = 20):
     tr = rs.trainer
     data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
     epoch = tr.build_epoch(data, torch.arange(6, device=DEVICE) * 11 + 5,
-                           torch.Generator(device=DEVICE).manual_seed(21))
+                           torch.Generator(device=DEVICE).manual_seed(21), feat)
     saved = step_launches(fp)
     plain = fp.fused_pairwise_step_meta_plain if rs.model.schema.metadata_names else fp.fused_pairwise_step_plain
     runs = []
@@ -1728,23 +1752,12 @@ def mlp_train_path(torch, data):
     torch.cuda.synchronize()
     log(f"[train] {label}: RecSys ingest and seeded state {time.perf_counter() - t0:.2f} s; "
         f"{st.num_train} train rows; fresh-start sample loss {fresh:.5f}, evaluate {fresh_eval}")
-    ws = wrappers()
-
-    def counted(fn):
-        for w in ws:
-            w.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t, {w.__name__: w.launches for w in ws}
-
     steps = -(-st.num_train // MLP_B)
     want = len(MLP_HIDDEN) * steps
     epoch_losses, samples, total = [], [], {"fused_tower_fwd": 0, "fused_tower_bwd": 0}
     for epoch in range(2):
-        losses, secs, counts = counted(lambda: rs.fit(epochs=1, batch_size=MLP_B, learning_rate=0.05,
-                                                      loss="hinge", verbose=False))
+        losses, secs, counts = counted(torch, lambda: rs.fit(epochs=1, batch_size=MLP_B, learning_rate=0.05,
+                                                             loss="hinge", verbose=False))
         check(counts["fused_tower_fwd"] == counts["fused_tower_bwd"] == want,
               f"{label}: fit ran {steps} steps but the tower kernels launched {counts}, want {want} each")
         check(sum(counts.values()) == 2 * want, f"{label}: fit launched other kernels: {counts}")
@@ -1768,8 +1781,8 @@ def mlp_train_path(torch, data):
         f"{dists[worst][0]:.3g} ({worst}; its bf16-to-f32 floor {dists[worst][1]:.3g}); "
         f"all {len(dists)} leaves within max(1.5 x floor, 0.02)")
 
-    ev, eval_s, counts = counted(lambda: rs.evaluate(batch_size=MLP_B, eval_metrics=("loss", "auc"),
-                                                     verbose=False))
+    ev, eval_s, counts = counted(torch, lambda: rs.evaluate(batch_size=MLP_B, eval_metrics=("loss", "auc"),
+                                                            verbose=False))
     check(sum(counts.values()) == 0, f"{label}: evaluate launched kernels: {counts}")
     check(np.isfinite(ev["loss"]) and 0.0 <= ev["auc"] <= 1.0, f"{label}: evaluate {ev}")
     # This MLP memorizes the train pairs of this data without generalizing
@@ -1782,7 +1795,7 @@ def mlp_train_path(torch, data):
         f"with fixed negatives {direct}")
 
     users = st.user_encoder.to_list()[:16]
-    ids, pred_s, counts = counted(lambda: rs.predict(users, top_k=10))
+    ids, pred_s, counts = counted(torch, lambda: rs.predict(users, top_k=10))
     check(sum(counts.values()) == 0, f"{label}: predict launched kernels: {counts}")
     check_mlp_predict(torch, rs, users, ids)
     log(f"[main] predict {label}: 16 users x {N} items top_k=10 through the chunked scorer in "
@@ -1820,13 +1833,13 @@ def check_evaluate_direct(torch, rs, batch: int, what: str = "MLP"):
     return {"evaluate": got, "direct": {"loss": loss, "auc": auc}}
 
 
-def check_mlp_predict(torch, rs, users, ids):
+def check_mlp_predict(torch, rs, users, ids, what: str = "MLP"):
     """predict's items, rescored (eval tower): finite, non-increasing along
     each row up to bf16 rounding, and the first at least the best of 4096
     random items."""
     from torchrecsys_tpu_torch.data.features import attach_features
 
-    check(ids.shape == (len(users), 10), f"MLP predict shape {ids.shape}")
+    check(ids.shape == (len(users), 10), f"{what} predict shape {ids.shape}")
     enc = rs.store.item_encoder
     rows = torch.as_tensor([rs.store.user_encoder.encode_one(u) for u in users], device=DEVICE)
     items = torch.as_tensor([[enc.encode_one(x) for x in row] for row in ids], device=DEVICE)
@@ -1840,9 +1853,9 @@ def check_mlp_predict(torch, rs, users, ids):
 
     top, other = score(items), score(rand)
     tol = 1e-2 * top.abs().max()
-    check(bool(torch.isfinite(top).all()), "MLP predict: non-finite scores")
-    check(bool((top[:, 1:] <= top[:, :-1] + tol).all()), "MLP predict: scores not in descending order")
-    check(bool((top[:, 0] + tol >= other.max(dim=1).values).all()), "MLP predict: a random item beats the top")
+    check(bool(torch.isfinite(top).all()), f"{what} predict: non-finite scores")
+    check(bool((top[:, 1:] <= top[:, :-1] + tol).all()), f"{what} predict: scores not in descending order")
+    check(bool((top[:, 0] + tol >= other.max(dim=1).values).all()), f"{what} predict: a random item beats the top")
 
 
 def main_path(torch, rs, label: str = ""):
@@ -1924,6 +1937,350 @@ def predict_breakdown(torch, rs, users_raw):
         )
     cat_ms, _ = host_ms(torch, lambda: rs.model.linearized_catalog(rs._params(), rs.feat))
     log(f"[breakdown] linearized catalog rebuild (kept between calls): {cat_ms:.3f} ms")
+
+
+# ---------------------------------------------------------------------------
+# phases 6j-6m: popularity and K negatives, lr schedules, NeuCF, the unfused
+# embedding update
+# ---------------------------------------------------------------------------
+
+POP_SCHEDULE = {"kind": "cosine", "decay_steps": 2344}
+POP_DRAWS = 1 << 24
+
+
+def counted(torch, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (result, seconds, counts)."""
+    ws = wrappers()
+    for w in ws:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t, {w.__name__: w.launches for w in ws}
+
+
+def seeded_recsys(torch, data, meta: bool, seed: int, **kw):
+    """RecSys over ``data`` (the category column with ``meta``) with
+    dynamic negatives and seeded JAX-layout tables, and a fixed sample of
+    65,536 train pairs with uniform negatives."""
+    from torchrecsys_tpu_torch import RecSys
+
+    cols = data if meta else {k: data[k] for k in ("user_id", "item_id")}
+    rs = RecSys(cols, metadata_id_col=["category_id"] if meta else None, n_factors=D, device=DEVICE,
+                dynamic_neg_sampling=True, **kw)
+    tables = seeded_tables(rs.model, seed=seed)
+    rs.load_jax_tables(tables, {k: {"acc": np.zeros(v.shape[0], np.float32)} for k, v in tables.items()})
+    st = rs.store
+    r = np.random.default_rng(seed + 100)
+    rows = r.choice(st.num_train, min(65536, st.num_train), replace=False)
+    return rs, (st.train_users[rows], st.train_items[rows], r.integers(0, N, rows.size))
+
+
+def popularity_draw_check(torch, store, feat):
+    """2^24 alias draws on the card from the train split's tables: without
+    collision avoidance the counts hold against count^0.75 by a chi-square
+    bound (df + 6 sqrt(2 df), df = items with mass - 1: six standard
+    deviations of the normal approximation) and zero-count items are never
+    drawn; with it, no negative equals its positive. Returns (chi2, bound,
+    total variation distance)."""
+    from torchrecsys_tpu_torch.data.sampling import sample_negatives_alias
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    train = torch.as_tensor(store.train_items, device=DEVICE).long()
+    pos = train[torch.randint(0, train.numel(), (POP_DRAWS,), generator=gen, device=DEVICE)]
+    tabs = (feat["neg_prob"], feat["neg_alias"], feat["neg_fb"])
+    free = sample_negatives_alias(gen, pos, *tabs, avoid_collisions=False)
+    got = torch.bincount(free, minlength=N).double().cpu().numpy()
+    counts = np.bincount(store.train_items, minlength=N)
+    live = counts > 0
+    w = counts.astype(np.float64) ** 0.75
+    expect = w / w.sum() * POP_DRAWS
+    check(got[~live].sum() == 0, f"popularity draws: {int(got[~live].sum())} draws of zero-count items")
+    chi2 = float((((got - expect) ** 2)[live] / expect[live]).sum())
+    df = int(live.sum()) - 1
+    bound = df + 6.0 * np.sqrt(2.0 * df)
+    tv = 0.5 * float(np.abs(got / POP_DRAWS - w / w.sum()).sum())
+    check(chi2 < bound, f"popularity draws: chi-square {chi2:.1f} against count^0.75 above {bound:.1f} (df {df})")
+    avoid = sample_negatives_alias(gen, pos, *tabs, avoid_collisions=True)
+    check(not bool((avoid == pos).any()), "popularity draws: a negative equals its positive")
+    check(not bool(torch.as_tensor(~live, device=DEVICE)[avoid].any()), "popularity draws: a zero-count item")
+    return chi2, bound, tv, df
+
+
+def popularity_path(torch, data):
+    """6j: Linear with the category column, hinge, popularity negatives at
+    K=1 and a cosine lr schedule over the epoch's 2,344 steps, batch 1024,
+    one epoch: one step-kernel call per step and no other launch, each
+    step's lr the schedule's at that step, 20 steps kernel vs plain at
+    their scheduled lrs, the sample loss falls. The alias build's host
+    seconds and 2^24 draws on the card (popularity_draw_check)."""
+    from torchrecsys_tpu_torch.config import TrainConfig
+    from torchrecsys_tpu_torch.data.sampling import alias_table
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+    from torchrecsys_tpu_torch.train.optim import make_lr_schedule
+
+    label = "popularity K=1 cosine"
+    rs, sample = seeded_recsys(torch, data, True, seed=3)
+    st = rs.store
+    fresh = sample_loss(torch, rs, sample)
+    t0 = time.perf_counter()
+    alias_table(st.train_items, N, 0.75)
+    alias_s = time.perf_counter() - t0
+    fit_kw = dict(epochs=1, batch_size=TRAIN_B, learning_rate=1e-2, lr_schedule=POP_SCHEDULE,
+                  neg_sampling="popularity")
+    tr = rs._ensure_trainer(TrainConfig(
+        batch_size=TRAIN_B, epochs=1, learning_rate=1e-2, lr_schedule=POP_SCHEDULE,
+        dynamic_neg_sampling=True, neg_sampling="popularity", seed=rs.seed,
+    ))
+    check(tr._fused and tr._in_step_negs, f"{label}: the trainer does not take the step kernel")
+    t0 = time.perf_counter()
+    feat = tr._popularity_tables(st)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    chi2, bound, tv, df = popularity_draw_check(torch, st, feat)
+    log(f"[train] {label}: alias table of {N} items built on the host in {alias_s:.3f} s (the trainer's "
+        f"build and upload {tables_s:.3f} s); {POP_DRAWS} draws on the card: chi-square {chi2:.1f} < "
+        f"{bound:.1f} (df {df}), total variation {tv:.5f}, no zero-count item, no negative equal to its "
+        f"positive")
+    real = fp.fused_pairwise_step_meta
+    lrs = []
+
+    def recording(*a, **k):
+        lrs.append(a[9])  # (user, item, meta tables, meta ids, mask, users, pos, neg, w, lr)
+        return real(*a, **k)
+
+    # run_steps looks the step up at each call, and the wrapper counts its
+    # launches under its module name: on the shim while it is installed
+    recording.__name__, recording.launches = real.__name__, 0
+    fp.fused_pairwise_step_meta = recording
+    try:
+        losses, fit_s, counts = counted(torch, lambda: rs.fit(verbose=False, **fit_kw))
+    finally:
+        fp.fused_pairwise_step_meta = real
+    check(rs.trainer is tr, f"{label}: fit built another trainer")
+    steps = -(-st.num_train // TRAIN_B)
+    check(counts["fused_pairwise_step_meta"] == steps and sum(counts.values()) == steps,
+          f"{label}: fit ran {steps} steps but launched {counts}")
+    sched = make_lr_schedule(1e-2, POP_SCHEDULE)
+    want = [sched(s) for s in range(steps)]
+    check(lrs == want, f"{label}: the steps' lr differ from the schedule at "
+          f"{[i for i, (a, b) in enumerate(zip(lrs, want)) if a != b][:5]}")
+    t = POP_SCHEDULE["decay_steps"]
+    direct = np.float32(0.5e-2) * (1 + np.cos(np.pi * np.minimum(np.arange(steps), t) / t))
+    check(np.allclose(lrs, direct, rtol=0, atol=1e-8), f"{label}: the schedule is not the cosine")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
+    trained = sample_loss(torch, rs, sample)
+    check(trained < fresh, f"{label}: the sample loss {trained} is not below the fresh start's {fresh}")
+    rate = st.num_train / fit_s
+    log(f"[train] {label}: fit {steps} steps of {TRAIN_B} in {fit_s:.3f} s = {rate:.1f} examples/s; epoch "
+        f"loss {losses[0]:.5f}; sample loss {fresh:.5f} -> {trained:.5f}; launches {counts}; lr "
+        f"{lrs[0]:.6g} -> {lrs[steps // 2]:.6g} -> {lrs[-1]:.6g}, each the schedule's")
+    err, bad = compare_steps(torch, rs)
+    log(f"[train] {label}: 20 steps kernel vs plain on the card at the schedule's lr: max |table diff| "
+        f"{err:.3g}, rows beyond rtol=1e-4/atol=1e-5 {bad}")
+    return rs, {"launches": counts["fused_pairwise_step_meta"], "examples_per_s": rate, "alias_s": alias_s,
+                "fit_s": fit_s, "chi2": chi2, "tv": tv, "label": label, "fit_kw": fit_kw}
+
+
+def check_k_evaluate_direct(torch, rs, batch: int, k: int, what: str):
+    """Trainer.evaluate with fixed (k, n) negatives against the per-row
+    loss over all k draws and the AUC against the first, from the model's
+    scores of every test row computed directly: loss within rtol=1e-4, AUC
+    within 1e-4."""
+    from torchrecsys_tpu_torch.data.features import attach_features
+
+    st = rs.store
+    negs = np.random.default_rng(17).integers(0, N, (k, st.num_test))
+    got = rs.trainer.evaluate(rs.state, st, batch_size=batch, verbose=False, negatives=negs)
+
+    def score(u, items):
+        side = attach_features({"user_id": u, "item_id": items}, rs.feat)
+        return rs.model.score(rs._params(), rs.state["model_state"], side, train=False)[0]
+
+    loss_sum, wins = 0.0, 0.0
+    with torch.no_grad():
+        for s in range(0, st.num_test, 65536):
+            u = torch.as_tensor(st.test_users[s : s + 65536], device=DEVICE).long()
+            ps = score(u, torch.as_tensor(st.test_items[s : s + 65536], device=DEVICE).long())
+            ns = torch.stack([score(u, torch.as_tensor(n[s : s + 65536], device=DEVICE).long()) for n in negs])
+            loss_sum += float(rs.trainer.per_row_fn(ps, ns, rs.trainer.cfg.margin).double().sum())
+            wins += float((ps > ns[0]).double().sum())
+    loss, auc = loss_sum / st.num_test, wins / st.num_test
+    check(abs(got["loss"] - loss) <= 1e-4 * abs(loss) and abs(got["auc"] - auc) <= 1e-4,
+          f"{what} evaluate {got} != direct loss {loss}, auc {auc}")
+    return {"evaluate": got, "direct": {"loss": loss, "auc": auc}}
+
+
+def warp_path(torch, data):
+    """6k, bench.py:358-365's row: Linear, ``loss="warp"``,
+    ``num_negatives=8``, popularity negatives, batch 8192, lr 0.05,
+    dynamic negatives: the autograd step over 9 x 8192 rows, no kernel;
+    a finite epoch loss and a falling sample loss; evaluate(loss, auc)
+    over 8 draws per test row (the AUC on the first), no kernel, held to a
+    direct recomputation with fixed draws."""
+    label = "WARP K=8 popularity"
+    rs, sample = seeded_recsys(torch, data, False, seed=4)
+    st = rs.store
+    fresh = sample_loss(torch, rs, sample)
+    kw = dict(epochs=1, batch_size=MLP_B, learning_rate=0.05, loss="warp", num_negatives=8,
+              neg_sampling="popularity")
+    losses, fit_s, counts = counted(torch, lambda: rs.fit(verbose=False, **kw))
+    steps = -(-st.num_train // MLP_B)
+    check(not rs.trainer._fused and sum(counts.values()) == 0, f"{label}: fit launched {counts}")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
+    trained = sample_loss(torch, rs, sample)
+    check(trained < fresh, f"{label}: the hinge sample loss {trained} is not below the fresh start's {fresh}")
+    rate = st.num_train / fit_s
+    log(f"[train] {label}: fit {steps} steps of {MLP_B} x 9 scored rows in {fit_s:.3f} s = {rate:.1f} "
+        f"examples/s (alias build included); epoch loss {losses[0]:.5f}; hinge sample loss {fresh:.5f} -> "
+        f"{trained:.5f}; launches {counts}")
+    ev, eval_s, counts = counted(torch, lambda: rs.evaluate(batch_size=MLP_B, eval_metrics=("loss", "auc"),
+                                                            verbose=False))
+    check(sum(counts.values()) == 0 and np.isfinite(ev["loss"]) and 0 <= ev["auc"] <= 1,
+          f"{label}: evaluate {ev}, launches {counts}")
+    direct = check_k_evaluate_direct(torch, rs, MLP_B, 8, label)
+    log(f"[main] evaluate {label}: {ev} in {eval_s:.3f} s = {st.num_test / eval_s:.1f} rows/s (8 draws per "
+        f"row); launches {counts}; with fixed draws {direct}")
+    return rs, {"examples_per_s": rate, "fit_s": fit_s, "eval_rows_per_s": st.num_test / eval_s,
+                "auc": ev["auc"], "label": label}
+
+
+def neucf_path(torch, data):
+    """6l, bench.py:350-351's row: NeuCF with AMP, hinge, batch 8192, lr
+    0.05, dynamic negatives, one epoch through the autograd step (no
+    kernel: NeuCF does not factorize); evaluate(loss, auc) held to a
+    direct recomputation; a 16-user predict(top_k=10) through the chunked
+    scorer, rescored. No launch anywhere; every value finite."""
+    label = "NeuCF AMP"
+    rs, sample = seeded_recsys(torch, data, False, seed=5, net_type="neucf", use_amp=True)
+    st = rs.store
+    fresh = sample_loss(torch, rs, sample)
+    losses, fit_s, counts = counted(torch, lambda: rs.fit(epochs=1, batch_size=MLP_B, learning_rate=0.05,
+                                                          verbose=False))
+    steps = -(-st.num_train // MLP_B)
+    check(sum(counts.values()) == 0, f"{label}: fit launched {counts}")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
+    trained = sample_loss(torch, rs, sample)
+    check(np.isfinite(trained), f"{label}: sample loss {trained}")
+    rate = st.num_train / fit_s
+    log(f"[train] {label}: fit {steps} steps of {MLP_B} in {fit_s:.3f} s = {rate:.1f} examples/s; epoch loss "
+        f"{losses[0]:.5f}; sample loss {fresh:.5f} -> {trained:.5f}; launches {counts}")
+    ev, eval_s, counts = counted(torch, lambda: rs.evaluate(batch_size=MLP_B, eval_metrics=("loss", "auc"),
+                                                            verbose=False))
+    check(sum(counts.values()) == 0 and np.isfinite(ev["loss"]) and 0 <= ev["auc"] <= 1,
+          f"{label}: evaluate {ev}, launches {counts}")
+    direct = check_evaluate_direct(torch, rs, MLP_B, label)
+    users = st.user_encoder.to_list()[:16]
+    ids, pred_s, pcounts = counted(torch, lambda: rs.predict(users, top_k=10))
+    check(sum(pcounts.values()) == 0, f"{label}: predict launched {pcounts}")
+    check_mlp_predict(torch, rs, users, ids, label)
+    log(f"[main] {label}: evaluate {ev} in {eval_s:.3f} s = {st.num_test / eval_s:.1f} rows/s, with fixed "
+        f"negatives {direct}; predict 16 users x {N} items top_k=10 in {pred_s:.3f} s; launches {counts}, "
+        f"{pcounts}")
+    return rs, {"examples_per_s": rate, "fit_s": fit_s, "eval_rows_per_s": st.num_test / eval_s,
+                "predict_s": pred_s, "auc": ev["auc"], "label": label}
+
+
+SMALL_OPTIONS = (
+    # (label, net, TrainConfig keywords)
+    ("sgd", "linear", dict(embedding_optimizer="sgd")),
+    ("unfused adagrad", "linear", dict(fused_embedding_update=False)),
+    ("adaptive_hinge K=4", "linear", dict(loss="adaptive_hinge", num_negatives=4)),
+    ("NeuCF f32", "neucf", dict(dense_optimizer="adagrad")),
+    ("softmax step schedule", "linear",
+     dict(loss="sampled_softmax", lr_schedule={"kind": "step", "boundaries_and_scales": {10: 0.5, 25: 0.2}})),
+    ("popularity exponential", "linear",
+     dict(neg_sampling="popularity", lr_schedule={"kind": "exponential", "transition_steps": 10,
+                                                  "decay_rate": 0.8})),
+)
+
+
+def small_options_check(torch):
+    """6m: phase 5's small dataset (category column) trained two epochs on
+    the card and on the CPU from one start with the same round keys, for
+    each of SMALL_OPTIONS; negatives drawn in training are drawn on the CPU
+    and handed to both (the popularity case first checks the alias map on
+    the card against the CPU's on the same uniforms, id for id). Losses,
+    tables and accumulators (NeuCF: its dense layers; adagrad for them:
+    adam's first step turns rounding of a cancelling gradient into a step
+    of lr) within phase 5's rtol=1e-4, atol=1e-5, under torch's
+    deterministic algorithms. The softmax case launches each CE kernel once
+    per step, the popularity case the step kernel once per step, the
+    others nothing."""
+    from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
+    from torchrecsys_tpu_torch.data import prepare_data
+    from torchrecsys_tpu_torch.data.sampling import alias_map, alias_uniforms, pack_alias
+    from torchrecsys_tpu_torch.models import build_model
+    from torchrecsys_tpu_torch.train import Trainer
+    from torchrecsys_tpu_torch.train.optim import tree_map
+
+    r = np.random.default_rng(6)
+    data = {"user_id": r.integers(0, 300, 20000), "item_id": r.integers(0, 5000, 20000)}
+    data["category_id"] = data["item_id"] % 17
+    store = prepare_data(data, "user_id", "item_id", metadata_id_col=["category_id"])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        for label, net, kw in SMALL_OPTIONS:
+            cfg = TrainConfig(batch_size=1000, learning_rate=0.05, **kw)
+            trs = {dev: Trainer(build_model(store.schema, ModelConfig(net_type=net, n_factors=D)), cfg, dev)
+                   for dev in ("cpu", DEVICE)}
+            start = trs["cpu"].init_state()
+            res = {}
+            for dev, tr in trs.items():
+                state = dict(start, rng=None, dense_opt=None,
+                             tables={k: v.to(dev) for k, v in start["tables"].items()},
+                             emb_opt={k: {n: a.to(dev) for n, a in o.items()} for k, o in start["emb_opt"].items()},
+                             dense=tree_map(lambda t: t.to(dev), start["dense"]))
+                data_d, feat = tr._device_train_data(store), tr.feature_tables(store)
+                if dev == "cpu":
+                    cpu_data, cpu_feat = data_d, feat
+                if "neg_prob" in feat and dev != "cpu":
+                    u = alias_uniforms(torch.Generator().manual_seed(9), (3, 4096), store.schema.num_items)
+                    pos = torch.as_tensor(store.train_items[:4096]).long()
+                    maps = [alias_map(pos.to(d), pack_alias(f["neg_prob"], f["neg_alias"]), f["neg_fb"],
+                                      tuple(x.to(d) for x in u)).cpu() for d, f in (("cpu", cpu_feat), (DEVICE, feat))]
+                    check(torch.equal(*maps), f"small {label}: the alias map on the card != the CPU's")
+                losses, counts = [], None
+                ws = wrappers()
+                for w in ws:
+                    w.launches = 0
+                for e in range(2):
+                    keys = torch.arange(6) + 7 * e
+                    negs = None
+                    if tr._in_step_negs and not tr._softmax:
+                        ep = trs["cpu"].build_epoch(cpu_data, keys, torch.Generator().manual_seed(40 + e), cpu_feat)
+                        negs = ep.batches["neg_item_id"]
+                    state, loss = tr.train_epoch(state, data_d, feat, keys=keys.to(dev),
+                                                 negatives=None if negs is None else negs.to(dev))
+                    losses.append(float(loss))
+                counts = {w.__name__: w.launches for w in ws}
+                res[dev] = (np.asarray(losses), state, counts)
+            (lc, sc, _), (lg, sg, counts) = res["cpu"], res[DEVICE]
+            steps = 2 * -(-store.num_train // 1000)
+            want = ({"softmax_ce_fwd": steps, "softmax_ce_bwd": steps} if "softmax" in label
+                    else {"fused_pairwise_step_meta": steps} if "popularity" in label else {})
+            check({k: v for k, v in counts.items() if v} == want,
+                  f"small {label}: launches {counts}, want {want}")
+            check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"small {label}: losses {lg} != CPU {lc}")
+            err = 0.0
+            leaves = [(f"table {k}", sg["tables"][k], sc["tables"][k]) for k in sc["tables"]]
+            leaves += [(f"acc {k}", sg["emb_opt"][k]["acc"], sc["emb_opt"][k]["acc"])
+                       for k in sc["emb_opt"] if "acc" in sc["emb_opt"][k]]
+            leaves += [(f"dense {i}", a, b) for i, (a, b) in
+                       enumerate(zip(flat_dense(sg["dense"]).values(), flat_dense(sc["dense"]).values()))]
+            for name, g, c in leaves:
+                g = g.cpu()
+                check(torch.allclose(g, c, rtol=1e-4, atol=1e-5), f"small {label}: {name}")
+                err = max(err, float((g - c).abs().max()))
+            log(f"[main] small {label}: card == CPU over 2 epochs (losses {lg.round(6).tolist()}, max |diff| "
+                f"{err:.3g} over {len(leaves)} tensors); card launches {want or 'none'}")
+            out[label] = counts
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2104,7 +2461,7 @@ def device_split(prof) -> dict:
     return out
 
 
-def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
+def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100, fit_kw=None):
     """Breakdown of fit: the fit's ``fit_s`` against its parts on the host
     clock (the train split's upload, which a store's first fit pays, the
     item features, the epoch build, pack, the epoch's steps, unpack) and
@@ -2115,7 +2472,9 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
     views against one unbind per epoch, and device µs per step by part
     from torch.profiler over ``window`` steps (``profiled_window``; a
     window short of records is taken again), with the device's idle share
-    in that window. The window must hold the step kernels only (2 launches
+    in that window (``fit_kw``: the fit's keywords past its batch size, e.g.
+    6j's popularity sampling and schedule). The window must hold the step
+    kernels only (2 launches
     per step): a gather, scatter or elementwise kernel fails the run. FM
     with metadata runs the row-level kernel (and its loss sum: 2 launches
     per step) between torch gathers, elementwise glue and scatters, which
@@ -2139,14 +2498,15 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100):
             tr._data_cache_key = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False)
+        rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False, **(fit_kw or {}))
         torch.cuda.synchronize()
         refit_ms[how] = (time.perf_counter() - t0) * 1e3
+    check(rs.trainer is tr, f"{label}: the refit built another trainer")
     data = tr._device_train_data(st)
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     keys = torch.arange(6, device=DEVICE) + 40
-    build_ms, _ = host_ms(torch, lambda: tr.build_epoch(data, keys, gen), reps=3)
-    ep = tr.build_epoch(data, keys, gen)
+    build_ms, _ = host_ms(torch, lambda: tr.build_epoch(data, keys, gen, feat), reps=3)
+    ep = tr.build_epoch(data, keys, gen, feat)
     window = min(window, (ep.nb - 10) // 4)
     pack_ms, packed = host_ms(torch, lambda: tr.pack_state(rs.state), reps=2)
     unpack_ms, _ = host_ms(torch, lambda: tr.unpack_state(rs.state, packed, 0), reps=2)
@@ -2541,10 +2901,11 @@ def tower_timing(torch, inputs, errs, launches):
     return rows
 
 
-def mlp_breakdown(torch, rs, window: int = 40):
-    """Per-step breakdown of the MLP fit: the epoch build (host clock),
-    host ms per step, and device us per step by part from torch.profiler
-    over ``window`` steps, with the device's idle share in that window."""
+def mlp_breakdown(torch, rs, window: int = 40, label: str = "MLP AMP"):
+    """Per-step breakdown of an autograd pairwise fit (the MLP's; 6k's and
+    6l's): the epoch build (host clock), host ms per step, and device us
+    per step by part from torch.profiler over ``window`` steps, with the
+    device's idle share in that window."""
     from torch.profiler import ProfilerActivity, profile
 
     from torchrecsys_tpu_torch.ops import fused_tower as ft
@@ -2555,8 +2916,8 @@ def mlp_breakdown(torch, rs, window: int = 40):
     saved = (ft.fused_tower_fwd.launches, ft.fused_tower_bwd.launches)
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     keys = torch.arange(6, device=DEVICE) + 60
-    build_ms, _ = host_ms(torch, lambda: tr.build_epoch(data, keys, gen), reps=3)
-    ep = tr.build_epoch(data, keys, gen)
+    build_ms, _ = host_ms(torch, lambda: tr.build_epoch(data, keys, gen, feat), reps=3)
+    ep = tr.build_epoch(data, keys, gen, feat)
     n_host = 5  # steps under the CPU profiler
     window = min(window, (ep.nb - 5 - n_host) // 2)
     st = dict(rs.state)
@@ -2590,9 +2951,9 @@ def mlp_breakdown(torch, rs, window: int = 40):
         else:  # the head's matmuls, BN math, loss, autograd, casts, concatenations
             parts["head_loss_bn_math"] += us
     busy = sum(split.values())
-    log(f"[breakdown] fit MLP AMP: epoch build {build_ms:.3f} ms per epoch; {step_ms:.4f} ms per step "
+    log(f"[breakdown] fit {label}: epoch build {build_ms:.3f} ms per epoch; {step_ms:.4f} ms per step "
         f"(host clock, {window} steps of {ep.b})")
-    log(f"[breakdown] fit MLP AMP: device us per step: " + ", ".join(
+    log(f"[breakdown] fit {label}: device us per step: " + ", ".join(
         f"{k} {v / window:.2f}" for k, v in parts.items()
     ) + f"; device busy {busy / window:.2f} of {wall_us / window:.2f} us per step under the "
         f"profiler = idle share {1 - busy / wall_us:.3f}")
@@ -2602,7 +2963,7 @@ def mlp_breakdown(torch, rs, window: int = 40):
         k = k.replace("(anonymous namespace)::", "").removeprefix("void ")
         return re.sub(r"[<(].*", "", k).removeprefix("at::native::")[:40]
 
-    log(f"[profile] fit MLP AMP: top kernels, device us per step: " + "; ".join(
+    log(f"[profile] fit {label}: top kernels, device us per step: " + "; ".join(
         f"{short(k)} {v / window:.2f}" for k, v in top
     ))
     # host side: torch ops by self CPU time over a few steps (the CPU
@@ -2612,12 +2973,13 @@ def mlp_breakdown(torch, rs, window: int = 40):
         torch.cuda.synchronize()
     ops = [(e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()]
     total_us = sum(t for _, t, _ in ops)
-    log(f"[profile] fit MLP AMP host: {sum(c for _, _, c in ops) / n_host:.0f} profiled op calls and "
+    log(f"[profile] fit {label} host: {sum(c for _, _, c in ops) / n_host:.0f} profiled op calls and "
         f"{total_us / n_host / 1e3:.3f} ms of self CPU time per step (under the CPU profiler); top ops, "
         f"ms per step (calls): " + "; ".join(
             f"{k[:40]} {t / n_host / 1e3:.3f} ({c // n_host})" for k, t, c in sorted(ops, key=lambda o: -o[1])[:12]))
     ft.fused_tower_fwd.launches, ft.fused_tower_bwd.launches = saved
-    return {"step_ms": step_ms, "idle_share": 1 - busy / wall_us, "build_ms": build_ms}
+    return {"step_ms": step_ms, "idle_share": 1 - busy / wall_us, "build_ms": build_ms,
+            "busy_us": busy / window}
 
 
 def profile_phase(torch, rs, users_raw):
@@ -2757,6 +3119,21 @@ def main() -> int:
     kernels.extend(tower_timing(torch, tower_inputs_main, tower_errs, {
         "fused_tower_fwd": mlp["fwd_launches"], "fused_tower_bwd": mlp["bwd_launches"],
     }))
+    rs, pop = popularity_path(torch, data)
+    step_meta_row["launches"] += pop["launches"]
+    fit_kw = {k: v for k, v in pop["fit_kw"].items() if k not in ("epochs", "batch_size")}
+    pop["split"] = train_breakdown(torch, rs, pop["label"], pop["fit_s"], fit_kw=fit_kw)
+    del rs
+    torch.cuda.empty_cache()
+    rs, warp = warp_path(torch, data)
+    warp["split"] = mlp_breakdown(torch, rs, label=warp["label"])
+    del rs
+    torch.cuda.empty_cache()
+    rs, neucf = neucf_path(torch, data)
+    neucf["split"] = mlp_breakdown(torch, rs, label=neucf["label"])
+    del rs
+    torch.cuda.empty_cache()
+    small_options_check(torch)
     log(f"[main] predict users/s: {json.dumps(rates)}")
     log(f"[main] fit examples/s: metadata {fit_meta['examples_per_s']:.1f}, no metadata "
         f"{fit_plain['examples_per_s']:.1f}; host ms per step {split_meta['step_ms']:.4f} / "
@@ -2783,8 +3160,15 @@ def main() -> int:
     log(f"[main] MLP AMP fit examples/s {mlp['examples_per_s']:.1f} (first epoch, {mlp['steps']} steps of {MLP_B}); "
         f"host ms per step {split_mlp['step_ms']:.4f}; device idle share {split_mlp['idle_share']:.3f}; "
         f"evaluate loss+auc rows/s {mlp['eval_rows_per_s']:.1f} (AUC {mlp['fresh_auc']:.5f} -> "
-        f"{mlp['auc']:.5f}; f32 witness {witness['auc']:.5f}); predict 16 users {mlp['predict_s']:.3f} s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"{mlp['auc']:.5f}; f32 witness {witness['auc']:.5f}); predict 16 users {mlp['predict_s']:.3f} s")
+    for out in (pop, warp, neucf):
+        sp = out["split"]
+        log(f"[main] {out['label']} fit examples/s {out['examples_per_s']:.1f}; host ms per step "
+            f"{sp['step_ms']:.4f}; device busy us per step {sp['busy_us']:.2f}; idle share {sp['idle_share']:.3f}"
+            + (f"; evaluate rows/s {out['eval_rows_per_s']:.1f}" if "eval_rows_per_s" in out else ""))
+    log(f"[main] the popularity alias table at {N} items: {pop['alias_s']:.3f} s on the host (outside the "
+        f"6j fit, inside 6k's); NeuCF AMP predict 16 users {neucf['predict_s']:.3f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

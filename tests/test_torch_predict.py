@@ -198,9 +198,10 @@ def test_carry_over_checks_tables(pair):
 
 def test_errors():
     data = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item §A item 8"):
-        RecSys(data, net_type="neucf", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item §A item 10"):
+        RecSys(data, net_type="lstm", device="cpu")
     assert RecSys(data, net_type="fm", device="cpu", n_factors=4).model.name == "fm"
+    assert RecSys(data, net_type="neucf", device="cpu", n_factors=4).model.name == "neucf"
     trs = RecSys(data, device="cpu", n_factors=4)
     with pytest.raises(RuntimeError, match="load_jax_tables"):
         trs.predict(0)

@@ -6,8 +6,8 @@ constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
 ``_decode_items`` :551-563).
 
 Weights come from :meth:`RecSys.fit` (train/trainer.py: the fused
-pairwise step, the autograd pairwise step, e.g. the MLP's, or the
-sampled-softmax step), from the JAX package through
+pairwise step, the autograd pairwise step, e.g. the MLP's and NeuCF's, or
+the sampled-softmax step), from the JAX package through
 :meth:`RecSys.load_jax_tables` (utils/convert.py) or from
 :meth:`RecSys.init_tables`. ``self.state`` keeps the JAX shape,
 ``{"tables", "dense", "model_state", "emb_opt", "dense_opt", "step"}``
@@ -205,22 +205,28 @@ class RecSys:
     ) -> List[float]:
         """Train; returns per-epoch mean losses (api.py:145-202).
 
-        ``hinge``/``bpr``/``logistic`` run the fused pairwise step
-        (ops/fused_pairwise.py): on the card, one call of the hand-written
-        step kernel per batch (Linear, and FM without metadata with its
-        sigmoid); FM with metadata runs the row-level kernel once per batch
-        around its per-field item-side updates. With ``use_amp`` the
-        kernels' bf16 variants run. Models that kernel does not take run the autograd
-        pairwise step; for the MLP with ``use_amp`` (bf16 compute) and batch
-        norm, each step launches the fused tower layer's forward and
-        backward kernels once per hidden layer (ops/fused_tower.py), and
-        ``optimizer`` trains the tower. ``loss="sampled_softmax"`` trains with in-batch
-        negatives, logQ-corrected: on the card every step launches the CE
-        forward and backward kernels (ops/softmax_ce.py) once. Training
-        starts from the installed tables and accumulators, or from fresh
-        seeded ones; afterwards ``predict`` serves the trained tables.
-        Options the port cannot run yet raise ``NotImplementedError``
-        naming their ROADMAP.md item (config.py)."""
+        ``hinge``/``bpr``/``logistic`` with one negative and rowwise adagrad
+        run the fused pairwise step (ops/fused_pairwise.py): on the card,
+        one call of the hand-written step kernel per batch (Linear, and FM
+        without metadata with its sigmoid), popularity draws and scheduled
+        lrs included; FM with metadata runs the row-level kernel once per
+        batch around its per-field item-side updates. With ``use_amp`` the
+        kernels' bf16 variants run. Models and options that kernel does not
+        take (the MLP, NeuCF, ``num_negatives > 1``, ``adaptive_hinge``,
+        ``warp``, ``embedding_optimizer="sgd"``) run the autograd pairwise
+        step; for the MLP with ``use_amp`` (bf16 compute) and batch norm,
+        each step launches the fused tower layer's forward and backward
+        kernels once per hidden layer (ops/fused_tower.py), and
+        ``optimizer`` trains the dense weights. ``loss="sampled_softmax"``
+        trains with in-batch negatives, logQ-corrected: on the card every
+        step launches the CE forward and backward kernels (ops/softmax_ce.py)
+        once. ``neg_sampling="popularity"`` draws negatives ∝ train
+        count^0.75; ``lr_schedule`` (a dict spec or a callable,
+        train/optim.py::make_lr_schedule) sets every step's lr, sparse and
+        dense. Training starts from the installed tables and accumulators,
+        or from fresh seeded ones; afterwards ``predict`` serves the trained
+        tables. ``profile_epochs > 0`` raises ``NotImplementedError`` naming
+        its ROADMAP.md item (config.py)."""
         train_cfg = TrainConfig(
             batch_size=batch_size,
             epochs=epochs,

@@ -4,8 +4,8 @@ Only the fields the ported slices read are kept. ``TrainConfig`` carries
 the fields ``RecSys.fit`` sets plus the epoch knobs of the fused pairwise
 and sampled-softmax steps; the kernel is chosen by the device, so the JAX
 package's ``pallas_*`` switches have no counterpart. Values the port cannot
-run yet raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them.
+run yet (``profile_epochs``) raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ class ModelConfig:
     MLP tower in bf16 (its training forward through the fused layer
     kernels, ops/fused_tower.py). ``hidden_layers`` and ``use_batch_norm``
     shape the MLP (mlp.py:57,75). ``fm_sigmoid`` squashes FM's score
-    through the reference's sigmoid (fm.py:99; config.py:77)."""
+    through the reference's sigmoid (fm.py:99; config.py:77).
+    ``neucf_hidden_layers`` are NeuCF's MLP-tower widths (config.py:80)."""
 
     net_type: str = "linear"
     n_factors: int = 80
@@ -53,15 +54,10 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     fm_sigmoid: bool = True
+    neucf_hidden_layers: Tuple[int, ...] = (64, 32)
 
 
-_SAMPLING_ITEM = "§A item 7 (in-step and K-negative sampling)"
-# loss -> the ROADMAP.md item that ports it
-_LOSSES_NOT_YET_PORTED = {
-    "adaptive_hinge": _SAMPLING_ITEM,
-    "warp": _SAMPLING_ITEM,
-}
-PORTED_LOSSES = ("hinge", "bpr", "logistic", "sampled_softmax")
+PORTED_LOSSES = ("hinge", "bpr", "logistic", "adaptive_hinge", "warp", "sampled_softmax")
 DENSE_OPTIMIZERS = ("adam", "adamw", "adagrad", "sgd")
 
 
@@ -76,14 +72,21 @@ class TrainConfig:
     """Training-loop hyperparameters (config.py:117-208).
 
     Embedding tables train with rowwise adagrad on the augmented layout
-    (``fused_embedding_update``): the pairwise losses through the fused
-    pairwise step (ops/fused_pairwise.py) where the model fits it and
-    otherwise through the autograd pairwise step (MLP: the fused tower
-    kernels under bf16 compute), ``loss="sampled_softmax"`` through the
-    autograd step around the in-batch CE kernels (ops/softmax_ce.py), with
-    the logQ correction (``logq_correction``: subtract log train frequency
-    of each candidate column). Dense parameters take ``dense_optimizer``
-    (train/optim.py, optax's defaults).
+    (``fused_embedding_update``), or with ``embedding_optimizer="sgd"`` /
+    ``fused_embedding_update=False`` on the plain tables with a separate
+    accumulator (train/optim.py::apply_embedding_updates): the pairwise
+    losses through the fused pairwise step (ops/fused_pairwise.py) where
+    the model and config fit it and otherwise through the autograd pairwise
+    step (MLP: the fused tower kernels under bf16 compute),
+    ``loss="sampled_softmax"`` through the autograd step around the
+    in-batch CE kernels (ops/softmax_ce.py), with the logQ correction
+    (``logq_correction``: subtract log train frequency of each candidate
+    column). ``num_negatives`` draws K negatives per positive in training
+    (K > 1 takes the autograd step), ``neg_sampling="popularity"`` draws
+    them with p(i) ∝ train-count(i)^``popularity_alpha`` (data/sampling.py).
+    ``lr_schedule`` (a dict spec or a callable, train/optim.py::
+    make_lr_schedule) sets the lr of every step, sparse and dense. Dense
+    parameters take ``dense_optimizer`` (train/optim.py, optax's defaults).
     ``drop_remainder=False`` trains the remainder rows in a zero-weighted,
     wrap-around-padded last batch; ``sort_batch_by_user`` orders each
     batch's rows by user id (stable)."""
@@ -101,6 +104,7 @@ class TrainConfig:
     logq_correction: bool = True
     num_negatives: int = 1
     neg_sampling: str = "uniform"
+    popularity_alpha: float = 0.75
     seed: int = 0
     drop_remainder: bool = False
     profile_epochs: int = 0
@@ -108,8 +112,6 @@ class TrainConfig:
     sort_batch_by_user: bool = True
 
     def __post_init__(self) -> None:
-        if self.loss in _LOSSES_NOT_YET_PORTED:
-            raise _not_ported(f"loss={self.loss!r}", _LOSSES_NOT_YET_PORTED[self.loss])
         if self.loss not in PORTED_LOSSES:
             raise ValueError(f"unknown loss {self.loss!r}; expected one of {PORTED_LOSSES}")
         if self.loss == "sampled_softmax":  # train/trainer.py:192-203
@@ -125,26 +127,14 @@ class TrainConfig:
                     "in-batch negative distribution IS the train popularity "
                     "distribution, logQ-corrected); leave it 'uniform'"
                 )
-        if self.num_negatives < 1:
+        if self.num_negatives < 1:  # train/trainer.py:170-176
             raise ValueError(f"num_negatives must be >= 1, got {self.num_negatives}")
-        if self.num_negatives > 1:
-            raise _not_ported("num_negatives > 1", _SAMPLING_ITEM)
         if self.neg_sampling not in ("uniform", "popularity"):
             raise ValueError(
                 f"neg_sampling must be 'uniform' or 'popularity', got {self.neg_sampling!r}"
             )
-        if self.neg_sampling == "popularity":
-            raise _not_ported("neg_sampling='popularity'", _SAMPLING_ITEM)
-        if self.lr_schedule is not None:
-            raise _not_ported("lr_schedule", "§A item 8 (dense optimizers and lr schedules)")
         if self.embedding_optimizer not in ("rowwise_adagrad", "sgd"):
             raise ValueError(f"unknown embedding optimizer {self.embedding_optimizer!r}")
-        if self.embedding_optimizer == "sgd" or not self.fused_embedding_update:
-            raise _not_ported(
-                "the unfused embedding update (embedding_optimizer='sgd', "
-                "fused_embedding_update=False)",
-                "§A item 8 (apply_embedding_updates)",
-            )
         if self.dense_optimizer not in DENSE_OPTIMIZERS:
             raise ValueError(f"unknown dense optimizer {self.dense_optimizer!r}")
         if self.profile_epochs > 0:

@@ -1,7 +1,7 @@
 """Model factory (port of ``torchrecsys_tpu/models/__init__.py``).
 
-The ported slices cover ``linear``, ``fm`` and ``mlp``. The JAX package's other
-nets are still to be ported (ROADMAP.md, queue A) and raise
+The ported slices cover ``linear``, ``fm``, ``mlp`` and ``neucf``. The JAX
+package's other nets are still to be ported (ROADMAP.md, queue A) and raise
 ``NotImplementedError``.
 """
 
@@ -12,12 +12,12 @@ from torchrecsys_tpu_torch.models.base import RecModel, TableSpec
 from torchrecsys_tpu_torch.models.fm import FMModel
 from torchrecsys_tpu_torch.models.linear import LinearModel
 from torchrecsys_tpu_torch.models.mlp import MLPModel
+from torchrecsys_tpu_torch.models.neucf import NeuCFModel
 
-MODEL_REGISTRY = {"linear": LinearModel, "fm": FMModel, "mlp": MLPModel}
+MODEL_REGISTRY = {"linear": LinearModel, "fm": FMModel, "mlp": MLPModel, "neucf": NeuCFModel}
 
 # net_type -> the ROADMAP.md item that ports it
 _NOT_YET_PORTED = {
-    "neucf": "§A item 8 (NeuCF)",
     "lstm": "§A item 10 (sequence models)",
     "sasrec": "§A item 10 (sequence models)",
     "ease": "§A item 11 (EASE)",
@@ -41,4 +41,5 @@ def build_model(schema: DataSchema, cfg: ModelConfig) -> RecModel:
 
 __all__ = [
     "MODEL_REGISTRY", "build_model", "RecModel", "TableSpec", "LinearModel", "FMModel", "MLPModel",
+    "NeuCFModel",
 ]

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,7 +38,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class TableSpec:
     rows: int
     dim: int
-    init: str = "scaled"  # "scaled" = N(0, std=1/dim) | "zero"
+    init: str = "scaled"  # "scaled" = N(0, std=init_scale or 1/dim) | "zero"
+    # the std of a table that packs several embeddings side by side
+    # (NeuCF's (R, 2d) tables: each half drawn like a d-wide one)
+    init_scale: Optional[float] = None
 
 
 # Table rows are padded to a multiple of this (base.py:55-63); ids address
@@ -55,13 +58,16 @@ def init_table(
     generator: torch.Generator, spec: TableSpec, dtype: torch.dtype
 ) -> torch.Tensor:
     """A padded table on the generator's device: zeros, or the reference's
-    ScaledEmbedding draw N(0, std=1/dim) (base.py:66-72). The draws are not
-    the JAX package's; parity tests carry its tables over instead."""
+    ScaledEmbedding draw N(0, std=init_scale or 1/dim) (base.py:66-72). The
+    draws are not the JAX package's; parity tests carry its tables over
+    instead."""
     rows = padded_rows(spec.rows)
     dev = generator.device
     if spec.init == "zero":
         return torch.zeros((rows, spec.dim), dtype=dtype, device=dev)
     draw = torch.randn((rows, spec.dim), generator=generator, device=dev)
+    if spec.init_scale is not None:
+        return (draw * spec.init_scale).to(dtype)
     return (draw / spec.dim).to(dtype)
 
 

@@ -1,16 +1,24 @@
-"""Pairwise ranking losses (port of ``torchrecsys_tpu/train/losses.py``,
-:46-63 and :100-152, for the three one-negative losses).
+"""Pairwise ranking losses (port of ``torchrecsys_tpu/train/losses.py``).
 
 ``hinge`` is the reference's ``mean(clamp(neg - pos + margin, 0))``;
 ``bpr`` is ``-log sigmoid(pos - neg)``; ``logistic`` is BCE with the
-positive as 1 and the negative as 0. Negatives are (B,) or (K, B); the
-per-row losses average over K. ``torch.maximum`` routes half the
-subgradient to each side at a tie, as ``jnp.maximum`` does, so autograd
-through the hinge agrees with the fused kernel's closed form at
-``diff == 0``.
+positive as 1 and the negative as 0. Negatives are (B,) or (K, B); these
+three average over K. ``adaptive_hinge`` takes the hinge against the
+highest-scoring of the K draws; ``warp`` weights the hinge against the
+first violating draw by ``log1p`` of the catalog-rank estimate
+``floor((N-1) * violators / K)`` (:66-100).
+
+Gradients follow ``jax.grad`` of the reference: ``torch.maximum`` routes
+half the subgradient to each side at a tie, as ``jnp.maximum`` does, so
+autograd through the hinge agrees with the fused kernel's closed form at
+``diff == 0`` (``relu`` and ``clamp`` do not); ``torch.amax`` splits the
+gradient evenly among tied maxima, as ``jnp.max`` does (``torch.max(dim=)``
+gives it all to one index), which matters whenever an item is drawn twice.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,8 +31,7 @@ def _neg2d(neg: torch.Tensor) -> torch.Tensor:
 
 def hinge_per_row(pos: torch.Tensor, neg: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
     """clamp(neg - pos + margin, 0), mean over K draws."""
-    diff = _neg2d(neg) - pos + margin
-    return torch.mean(torch.maximum(diff, torch.zeros_like(diff)), dim=0)
+    return torch.mean(_hinge(_neg2d(neg) - pos + margin), dim=0)
 
 
 def bpr_per_row(pos: torch.Tensor, neg: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
@@ -39,6 +46,34 @@ def logistic_per_row(pos: torch.Tensor, neg: torch.Tensor, margin: float = 0.0) 
     return -0.5 * (F.logsigmoid(pos) + torch.mean(F.logsigmoid(-_neg2d(neg)), dim=0))
 
 
+def _hinge(x: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+def adaptive_hinge_per_row(pos: torch.Tensor, neg: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
+    """Hinge against the max-scoring sampled negative (:66-70)."""
+    return _hinge(torch.amax(_neg2d(neg), dim=0) - pos + margin)
+
+
+def make_warp_per_row(num_items: int) -> Callable[..., torch.Tensor]:
+    """WARP per-row loss bound to a catalog size (:73-100)."""
+
+    def warp_per_row(pos: torch.Tensor, neg: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
+        n2 = _neg2d(neg)
+        k = n2.shape[0]
+        viol = n2 + margin > pos  # (K, B)
+        n_viol = torch.sum(viol, dim=0)
+        # f32, in the reference's order: ((N-1) * n_viol) / K, floored
+        rank = torch.floor((num_items - 1) * n_viol.to(torch.float32) / k)
+        weight = torch.log1p(rank)
+        first = torch.argmax(viol.to(torch.int8), dim=0)  # the first violator; 0 when none
+        chosen = torch.gather(n2, 0, first[None, :])[0]
+        hinge = _hinge(chosen - pos + margin)
+        return torch.where(n_viol > 0, weight * hinge, torch.zeros_like(hinge))
+
+    return warp_per_row
+
+
 def _mean_of(per_row_fn):
     def loss(pos: torch.Tensor, neg: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
         return torch.mean(per_row_fn(pos, neg, margin))
@@ -50,22 +85,37 @@ hinge_loss = _mean_of(hinge_per_row)
 bpr_loss = _mean_of(bpr_per_row)
 logistic_loss = _mean_of(logistic_per_row)
 
-LOSS_REGISTRY = {"hinge": hinge_loss, "bpr": bpr_loss, "logistic": logistic_loss}
+adaptive_hinge_loss = _mean_of(adaptive_hinge_per_row)
+
+# "warp" resolves through get_per_row_loss / get_loss (it needs num_items)
+LOSS_REGISTRY = {
+    "hinge": hinge_loss,
+    "bpr": bpr_loss,
+    "logistic": logistic_loss,
+    "adaptive_hinge": adaptive_hinge_loss,
+}
 PER_ROW_LOSS_REGISTRY = {
     "hinge": hinge_per_row,
     "bpr": bpr_per_row,
     "logistic": logistic_per_row,
+    "adaptive_hinge": adaptive_hinge_per_row,
 }
 
 
-def get_per_row_loss(name: str):
+def get_per_row_loss(name: str, num_items: Optional[int] = None):
+    """A per-row loss by name; ``warp`` binds the catalog size (:131-144)."""
+    if name == "warp":
+        if num_items is None:
+            raise ValueError("loss='warp' needs num_items for its rank estimate")
+        return make_warp_per_row(num_items)
     try:
         return PER_ROW_LOSS_REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"unknown loss {name!r}; expected one of {sorted(PER_ROW_LOSS_REGISTRY)}"
+            f"unknown loss {name!r}; expected one of {sorted(PER_ROW_LOSS_REGISTRY) + ['warp']}"
         ) from None
 
 
-def get_loss(name: str):
-    return _mean_of(get_per_row_loss(name))
+def get_loss(name: str, num_items: Optional[int] = None):
+    """A mean-reduced loss by name (:147-148)."""
+    return _mean_of(get_per_row_loss(name, num_items))

@@ -1,5 +1,5 @@
-"""Rowwise-adagrad state, the augmented table layout and the dense
-optimizers (port of ``torchrecsys_tpu/train/optim.py:36-47``, :123-196).
+"""Embedding optimizers, the augmented table layout, the dense optimizers
+and the lr schedules (port of ``torchrecsys_tpu/train/optim.py``).
 
 Rowwise adagrad keeps one f32 accumulator per table row. For the length
 of an epoch the accumulator rides as the last column of an augmented
@@ -7,24 +7,76 @@ of an epoch the accumulator rides as the last column of an augmented
 parameter and its accumulator (the fused pairwise step packs these
 further into 128-wide rows, ops/fused_pairwise.py; the autograd step
 updates the augmented tables with :func:`apply_embedding_updates_fused`).
+``embedding_optimizer="sgd"`` and ``fused_embedding_update=False`` take
+the plain tables with a separate accumulator instead
+(:func:`apply_embedding_updates`, :49-121): there a row that occurs twice
+in one batch scales every occurrence by the accumulator after all of
+them.
+
+:func:`make_lr_schedule` (:199-245) evaluates optax's four schedules on
+the host, each op in ``np.float32`` in optax's own order (``cos`` and
+``pow`` through the C library's f32 functions, as the JAX package's CPU
+backend computes them), so a value equals optax's evaluated op by op.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Tuple
+import ctypes
+import ctypes.util
+import functools
+import math
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 
 def init_embedding_opt(kind: str, tables: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Zero accumulators, one (R,) f32 per table, on each table's device."""
-    if kind != "rowwise_adagrad":
-        raise ValueError(f"unknown embedding optimizer {kind!r}")
-    return {
-        name: {"acc": torch.zeros((t.shape[0],), dtype=torch.float32, device=t.device)}
-        for name, t in tables.items()
-    }
+    """Rowwise adagrad: zero accumulators, one (R,) f32 per table, on each
+    table's device; sgd: no state (:36-46)."""
+    if kind == "rowwise_adagrad":
+        return {
+            name: {"acc": torch.zeros((t.shape[0],), dtype=torch.float32, device=t.device)}
+            for name, t in tables.items()
+        }
+    if kind == "sgd":
+        return {name: {} for name in tables}
+    raise ValueError(f"unknown embedding optimizer {kind!r}")
+
+
+# [(ids (any shape), g (ids + [d]))] per gather site
+RowGrads = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def apply_embedding_updates(
+    kind: str,
+    lr: float,
+    tables: Mapping[str, torch.Tensor],
+    opt_state: Mapping[str, Any],
+    grads: Mapping[str, RowGrads],
+    eps: float = 1e-10,
+) -> None:
+    """Sparse row updates of the plain (R, D) tables and their optimizer
+    state, IN PLACE (:49-121). Rowwise adagrad: ``acc[ids] += mean(g^2)``
+    (every duplicate added first), then each occurrence adds
+    ``-lr * g * rsqrt(acc[ids] + eps)``; sgd adds ``-lr * g``."""
+    for name, sites in grads.items():
+        if not sites:
+            continue
+        table = tables[name]
+        d = table.shape[-1]
+        ids = torch.cat([i.reshape(-1) for i, _ in sites])
+        g = torch.cat([gr.reshape(-1, d).float() for _, gr in sites])
+        if kind == "rowwise_adagrad":
+            acc = opt_state[name]["acc"]
+            acc.index_add_(0, ids, torch.mean(g * g, dim=-1))
+            scale = torch.rsqrt(acc[ids] + eps)
+            delta = (-lr * g) * scale[:, None]
+        elif kind == "sgd":
+            delta = -lr * g
+        else:
+            raise ValueError(f"unknown embedding optimizer {kind!r}")
+        table.index_add_(0, ids, delta.to(table.dtype))
 
 
 def supports_fused_layout(kind: str, tables: Mapping[str, torch.Tensor]) -> bool:
@@ -126,20 +178,26 @@ def tree_unflatten(tree, leaves: List[torch.Tensor]):
     return build(tree)
 
 
-def init_dense_opt(kind: str, dense) -> Dict[str, Any]:
+def init_dense_opt(kind: str, dense, schedule: bool = False) -> Dict[str, Any]:
     """optax's ``init`` for ``kind``: adam/adamw ``{"count", "mu", "nu"}``
-    (zeros), adagrad ``{"sum_of_squares"}`` (0.1), sgd ``{}``."""
+    (zeros), adagrad ``{"sum_of_squares"}`` (0.1), sgd ``{}``; under an lr
+    schedule also ``"schedule_count"`` (optax's ``ScaleByScheduleState``:
+    the number of updates made, the count the schedule is read at)."""
     if kind in ("adam", "adamw"):
-        return {
+        out = {
             "count": 0,
             "mu": tree_map(torch.zeros_like, dense),
             "nu": tree_map(torch.zeros_like, dense),
         }
-    if kind == "adagrad":
-        return {"sum_of_squares": tree_map(lambda p: torch.full_like(p, _ADAGRAD_INIT), dense)}
-    if kind == "sgd":
-        return {}
-    raise ValueError(f"unknown dense optimizer {kind!r}")
+    elif kind == "adagrad":
+        out = {"sum_of_squares": tree_map(lambda p: torch.full_like(p, _ADAGRAD_INIT), dense)}
+    elif kind == "sgd":
+        out = {}
+    else:
+        raise ValueError(f"unknown dense optimizer {kind!r}")
+    if schedule:
+        out["schedule_count"] = 0
+    return out
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -147,9 +205,19 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
-def apply_dense_update(kind: str, lr: float, dense, grads, opt_state) -> Tuple[Any, Dict[str, Any]]:
+def apply_dense_update(
+    kind: str, lr: float, dense, grads, opt_state, schedule: Optional[Callable[[int], float]] = None
+) -> Tuple[Any, Dict[str, Any]]:
     """One optax step: ``(new dense, new state)``. ``grads`` has the shape
-    of ``dense`` (a parameter without a gradient takes zeros)."""
+    of ``dense`` (a parameter without a gradient takes zeros). With a
+    ``schedule`` the lr is ``schedule(opt_state["schedule_count"])`` and the
+    count goes up by one, as optax's ``scale_by_schedule`` does; adam's
+    bias correction reads its own ``count``."""
+    if schedule is not None:
+        sc = opt_state.get("schedule_count", 0)
+        lr = schedule(sc)
+        new, state = apply_dense_update(kind, lr, dense, grads, opt_state)
+        return new, dict(state, schedule_count=sc + 1)
     if kind in ("adam", "adamw"):
         count = opt_state["count"] + 1
         mu = tree_map(lambda g, m: (1 - _B1) * g + _B1 * m, grads, opt_state["mu"])
@@ -174,3 +242,120 @@ def apply_dense_update(kind: str, lr: float, dense, grads, opt_state) -> Tuple[A
     if kind == "sgd":
         return tree_map(lambda p, g: p + g * -lr, dense, grads), {}
     raise ValueError(f"unknown dense optimizer {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# lr schedules (make_lr_schedule, optim.py:199-245)
+# ---------------------------------------------------------------------------
+
+_F = np.float32
+
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    """The C library's f32 ``cosf`` and ``powf``: the ones the JAX
+    package's CPU backend computes ``jnp.cos`` / ``jnp.power`` of f32 with
+    (bit for bit; numpy's f32 versions round differently)."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    lib.cosf.restype, lib.cosf.argtypes = ctypes.c_float, [ctypes.c_float]
+    lib.powf.restype, lib.powf.argtypes = ctypes.c_float, [ctypes.c_float, ctypes.c_float]
+    return lib
+
+
+def _cosine(base_lr: float, decay_steps: int, alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule: ``count = min(step, T)``, ``0.5 * (1 +
+    cos(pi * count / T))``, ``(1 - alpha) * c + alpha``, times ``base_lr``,
+    each op in f32."""
+    if not decay_steps > 0:
+        raise ValueError(
+            f"The cosine_decay_schedule requires positive decay_steps, got decay_steps={decay_steps}."
+        )
+    t = _F(float(decay_steps))
+
+    def fn(step: int) -> float:
+        count = min(_F(step), t)
+        x = (_F(math.pi) * count) / t
+        c = _F(0.5) * (_F(1.0) + _F(_libm().cosf(float(x))))
+        decayed = _F(1.0 - alpha) * c + _F(alpha)
+        return float(_F(base_lr) * decayed)
+
+    return fn
+
+
+def _piecewise(base_lr: float, boundaries: Dict[int, float]) -> Callable[[int], float]:
+    """optax.piecewise_constant_schedule: each boundary the step has
+    reached multiplies the f32 value by its f32 scale."""
+    if not all(v >= 0.0 for v in boundaries.values()):
+        raise ValueError("`piecewise_constant_schedule` expects non-negative scale factors")
+    items = sorted(boundaries.items())
+
+    def fn(step: int) -> float:
+        v = _F(base_lr)
+        for threshold, scale in items:
+            if step >= threshold:
+                v = _F(scale) * v
+        return float(v)
+
+    return fn
+
+
+def _exponential(base_lr: float, steps: int, rate: float, staircase: bool) -> Callable[[int], float]:
+    """optax.exponential_decay: ``base_lr * rate ** (step / T)`` in f32 (the
+    exponent floored with ``staircase``), ``base_lr`` at step <= 0."""
+    if steps <= 0 or rate == 0:
+        return lambda step: float(_F(base_lr))
+
+    def fn(step: int) -> float:
+        if step <= 0:
+            return float(_F(base_lr))
+        p = _F(step) / _F(steps)
+        if staircase:
+            p = np.floor(p)
+        return float(_F(base_lr) * _F(_libm().powf(float(_F(rate)), float(p))))
+
+    return fn
+
+
+def _linear(base_lr: float, end_value: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule (a polynomial schedule of power 1):
+    ``(base_lr - end) * (1 - clip(step, 0, T) / T) + end``, the first
+    difference in float64 as Python forms it, the rest in f32."""
+    if steps <= 0:
+        return lambda step: float(_F(base_lr))
+
+    def fn(step: int) -> float:
+        frac = _F(1.0) - _F(min(max(step, 0), steps)) / _F(steps)
+        return float(_F(base_lr - end_value) * frac + _F(end_value))
+
+    return fn
+
+
+def make_lr_schedule(base_lr: float, spec) -> Optional[Callable[[int], float]]:
+    """``TrainConfig.lr_schedule`` -> ``step -> lr`` (a host float, f32
+    valued), or None for the constant ``base_lr``. ``spec`` is a callable
+    (used as is, its value rounded to f32) or a dict:
+
+    - ``{"kind": "cosine", "decay_steps": N[, "alpha": a]}``
+    - ``{"kind": "step", "boundaries_and_scales": {step: scale, ...}}``
+    - ``{"kind": "exponential", "transition_steps": N, "decay_rate": r[,
+      "staircase": bool]}``
+    - ``{"kind": "linear", "transition_steps": N[, "end_value": v]}``
+
+    The step is the global step counter (``state["step"]`` plus the step's
+    index in its epoch), so the schedule runs on across epochs and ``fit``
+    calls."""
+    if spec is None:
+        return None
+    if callable(spec):
+        return lambda step: float(_F(float(spec(step))))
+    kind = spec.get("kind")
+    if kind == "cosine":
+        return _cosine(base_lr, int(spec["decay_steps"]), float(spec.get("alpha", 0.0)))
+    if kind == "step":
+        return _piecewise(base_lr, {int(k): float(v) for k, v in spec["boundaries_and_scales"].items()})
+    if kind == "exponential":
+        return _exponential(base_lr, int(spec["transition_steps"]), float(spec["decay_rate"]),
+                            bool(spec.get("staircase", False)))
+    if kind == "linear":
+        return _linear(base_lr, float(spec.get("end_value", 0.0)), int(spec["transition_steps"]))
+    raise ValueError(f"unknown lr_schedule spec {spec!r}")

@@ -1,6 +1,6 @@
 """The training loop and evaluation (port of
 ``torchrecsys_tpu/train/trainer.py``: ``Trainer.__init__`` :142-256,
-``_sample_negs`` :259-283, ``_softmax_rows`` :285-318, ``_paired_side``
+``_lr_at`` :232-238, ``_sample_negs`` :259-283, ``_softmax_rows`` :285-318, ``_paired_side``
 :321-356, ``_apply_batch_order`` :368-403, ``_step_impl`` :405-574, ``_epoch_fn``
 :606-819, ``fit`` :822-869, ``_device_train_data`` :870-891,
 ``feature_tables`` :904-928, ``_logq_from`` :930-941, ``_eval_fn`` and
@@ -13,8 +13,10 @@ batches). Here an epoch is
    Feistel permutation of the train split, the zero weights of the
    wrap-around-padded remainder batch (:623-636), one row gather of the
    packed id columns (:637-675), the stable in-batch sort by user and, for
-   the pairwise losses, the uniform negatives when they are drawn in
-   training (``dynamic_neg_sampling``);
+   the pairwise losses, the negatives when they are drawn in training
+   (``dynamic_neg_sampling``, K > 1 or popularity sampling: ``(nb, b)``,
+   or ``(nb, K, b)`` for K draws per row, uniform or from the popularity
+   alias table, on the device);
 2. a Python loop over the batches. The pairwise losses run
    :func:`~torchrecsys_tpu_torch.ops.fused_pairwise.fused_pairwise_step`
    (or its metadata twin) over the packed ``(rows, 128)`` tables, as the
@@ -23,13 +25,17 @@ batches). Here an epoch is
    for FM with metadata one launch of the row-level kernel between torch
    gathers and scatters; under ``use_amp`` the bf16 variants. Each step's
    loss is written into one epoch tensor.
-   Models the kernel does not take (the MLP, a Linear or FM wider than its
-   lanes) run the autograd pairwise step (:meth:`Trainer.pairwise_step`)
-   over the augmented ``(R, D+1)`` tables: the paired side, the model's
-   score (the MLP's bf16 training tower through the fused layer kernels,
-   ops/fused_tower.py: one forward and one backward launch per hidden
-   layer), ``torch.autograd.grad`` with respect to the gathered rows and
-   the dense parameters, rowwise adagrad and the dense optimizer.
+   Models and configs the kernel does not take (the MLP, NeuCF, a Linear
+   or FM wider than its lanes, K > 1 negatives, ``adaptive_hinge`` and
+   ``warp``, the unfused embedding update) run the autograd pairwise step
+   (:meth:`Trainer.pairwise_step`) over the augmented ``(R, D+1)`` tables,
+   or the plain tables and their separate accumulators
+   (``embedding_optimizer="sgd"`` / ``fused_embedding_update=False``): the
+   paired side of (1+K)B rows, the model's score (the MLP's bf16 training
+   tower through the fused layer kernels, ops/fused_tower.py: one forward
+   and one backward launch per hidden layer), ``torch.autograd.grad`` with
+   respect to the gathered rows and the dense parameters, the embedding
+   update and the dense optimizer.
    ``loss="sampled_softmax"`` runs the autograd step
    (:meth:`Trainer.softmax_step`, ``_step_impl`` with ``fused=True``) over
    the augmented ``(R, D+1)`` tables: gather, ``pair_vectors``, the
@@ -37,11 +43,12 @@ batches). Here an epoch is
    launch per step), ``torch.autograd.grad`` with respect to the gathered
    rows and one rowwise-adagrad ``index_add_`` per table. No step syncs
    with the host: the step losses stay on the device and are read once per
-   epoch.
+   epoch. Each step's lr is a host float: ``learning_rate``, or the
+   schedule (train/optim.py::make_lr_schedule) at the global step
+   ``state["step"] + i``; the dense optimizer reads it at its own count.
 
-Checkpoints, meshes, lr schedules, K negatives and the unfused embedding
-update are still to be ported (ROADMAP.md §A); a config that needs them
-raises ``NotImplementedError``.
+Checkpoints and meshes are still to be ported (ROADMAP.md §A items 4 and
+14).
 """
 
 from __future__ import annotations
@@ -57,20 +64,23 @@ import torch
 from torchrecsys_tpu_torch.config import TrainConfig
 from torchrecsys_tpu_torch.data.features import Features, attach_features, feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore
-from torchrecsys_tpu_torch.data.sampling import sample_negatives
+from torchrecsys_tpu_torch.data.sampling import alias_table, sample_negatives, sample_negatives_alias
 from torchrecsys_tpu_torch.models.base import Batch, RecModel
 from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 from torchrecsys_tpu_torch.ops import softmax_ce as sce
 from torchrecsys_tpu_torch.train.losses import get_per_row_loss
 from torchrecsys_tpu_torch.train.optim import (
     apply_dense_update,
-    tree_map,
+    apply_embedding_updates,
     apply_embedding_updates_fused,
     augment_tables,
     init_dense_opt,
     init_embedding_opt,
+    make_lr_schedule,
     split_augmented,
+    supports_fused_layout,
     tree_leaves,
+    tree_map,
     tree_unflatten,
 )
 from torchrecsys_tpu_torch.utils.permute import random_permutation, round_keys
@@ -83,9 +93,9 @@ TrainState = Dict[str, Any]
 @dataclasses.dataclass
 class Epoch:
     """One epoch's batches: (nb, b) tensors ``user_id``, ``pos_item_id``,
-    ``neg_item_id`` (pairwise losses only) and, when the last batch is
-    padded, ``_w`` (1 for real rows, 0 for filler), with each batch's
-    weight sum known on the host."""
+    ``neg_item_id`` (pairwise losses only; (nb, K, b) for K > 1 draws) and,
+    when the last batch is padded, ``_w`` (1 for real rows, 0 for filler),
+    with each batch's weight sum known on the host."""
 
     batches: Dict[str, torch.Tensor]
     nb: int
@@ -95,9 +105,9 @@ class Epoch:
 
 class Trainer:
     """Trains and evaluates a model on the device of its tables: the
-    pairwise losses through the fused pairwise step where the model fits
-    it, else through the autograd pairwise step; sampled softmax through
-    the autograd step around the CE kernels."""
+    pairwise losses through the fused pairwise step where the model and
+    config fit it, else through the autograd pairwise step; sampled softmax
+    through the autograd step around the CE kernels."""
 
     def __init__(self, model: RecModel, cfg: TrainConfig, device: Any = "cuda") -> None:
         self.model = model
@@ -105,6 +115,10 @@ class Trainer:
         self.device = torch.device(device)
         self._softmax = cfg.loss == "sampled_softmax"
         self._fused = False  # the fused pairwise kernel step (else autograd)
+        # K > 1, popularity sampling and in-batch softmax drop the stored
+        # static negatives (single uniform draws) and draw in training (:219-224)
+        self._in_step_negs = cfg.num_negatives > 1 or cfg.neg_sampling != "uniform" or self._softmax
+        self.lr_fn = make_lr_schedule(cfg.learning_rate, cfg.lr_schedule)
         if self._softmax:  # :178-191 (num_negatives and neg_sampling: config.py)
             if not model.supports_sampled_softmax:
                 raise ValueError(
@@ -120,9 +134,15 @@ class Trainer:
             self.per_row_fn = None
         else:
             self._fused = fp.pairwise_kernel_applicable(model, cfg)
-            self.per_row_fn = get_per_row_loss(cfg.loss)
+            self.per_row_fn = get_per_row_loss(cfg.loss, model.schema.num_items)
         self._data_cache_key = None
         self._data_cache: Dict[str, torch.Tensor] = {}
+        self._alias_key = None
+        self._alias: Features = {}
+
+    def _lr_at(self, step: int) -> float:
+        """The sparse lr of global step ``step`` (:232-238)."""
+        return self.cfg.learning_rate if self.lr_fn is None else self.lr_fn(step)
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -137,7 +157,7 @@ class Trainer:
             "dense": params["dense"],
             "model_state": model_state,
             "emb_opt": init_embedding_opt(self.cfg.embedding_optimizer, params["tables"]),
-            "dense_opt": init_dense_opt(self.cfg.dense_optimizer, params["dense"]),
+            "dense_opt": init_dense_opt(self.cfg.dense_optimizer, params["dense"], self.lr_fn is not None),
             "step": 0,
             "rng": gen,
         }
@@ -149,27 +169,49 @@ class Trainer:
 
     def _device_train_data(self, store: InteractionStore) -> Dict[str, torch.Tensor]:
         """The train split's columns as int64 on the device, uploaded once
-        per store (keyed on the store's process-unique token). In-batch
-        softmax has no explicit negatives: a stored static column is not
-        uploaded (:222-224, :883-888)."""
+        per store (keyed on the store's process-unique token). A stored
+        static negative column is not uploaded when negatives are drawn in
+        training (K > 1, popularity, in-batch softmax; :883-888)."""
         key = (store.token, store.num_train)
         if self._data_cache_key != key:
             self._data_cache = {
                 k: torch.as_tensor(np.asarray(v, np.int64), device=self.device)
                 for k, v in store.train_arrays().items()
-                if not (self._softmax and k == "neg_item_id")
+                if not (self._in_step_negs and k == "neg_item_id")
             }
             self._data_cache_key = key
         return self._data_cache
 
     def feature_tables(self, store: InteractionStore) -> Features:
-        """Device-resident item-metadata tables (empty without metadata)
-        and, under sampled softmax with ``logq_correction``, ``logq``: the
-        train split's log item frequency."""
+        """Device-resident item-metadata tables (empty without metadata);
+        under popularity sampling the alias tables ``neg_prob``,
+        ``neg_alias`` and ``neg_fb`` (:915-925); under sampled softmax with
+        ``logq_correction``, ``logq``: the train split's log item
+        frequency."""
         feat = feature_tables(store, self.device)
+        if self.cfg.neg_sampling == "popularity":
+            feat.update(self._popularity_tables(store))
         if self._softmax and self.cfg.logq_correction:
             feat["logq"] = self._logq_from(store.train_items)
         return feat
+
+    def _popularity_tables(self, store: InteractionStore) -> Features:
+        """The alias tables of the train split's ``count^popularity_alpha``
+        on the device, built on the host once per store
+        (data/sampling.py::alias_table, the JAX package's tables bit for
+        bit)."""
+        key = (store.token, store.num_train)
+        if self._alias_key != key:
+            prob, alias, fb = alias_table(
+                store.train_items, self.model.schema.num_items, self.cfg.popularity_alpha
+            )
+            self._alias = {
+                "neg_prob": torch.as_tensor(prob, device=self.device),
+                "neg_alias": torch.as_tensor(alias, device=self.device),
+                "neg_fb": torch.as_tensor(fb, device=self.device),
+            }
+            self._alias_key = key
+        return self._alias
 
     def _logq_from(self, items: np.ndarray) -> torch.Tensor:
         """(num_items,) f32 log empirical frequency of ``items``, computed
@@ -196,11 +238,34 @@ class Trainer:
             k: torch.gather(v, 1, order) for k, v in batches.items() if k != "_order"
         }
 
+    def _sample_negs(
+        self, gen: torch.Generator, pos: torch.Tensor, feat: Optional[Features], num: Optional[int] = None
+    ) -> torch.Tensor:
+        """Negatives for the positives ``pos`` (any shape S) drawn from
+        ``gen`` (:259-283): shape S for one draw, ``S[:-1] + (K,) + S[-1:]``
+        for K draws per row (a (b,) batch gets (K, b), draw-major). Uniform,
+        or from the popularity alias tables in ``feat``."""
+        num = self.cfg.num_negatives if num is None else num
+        tgt = pos if num == 1 else pos.unsqueeze(-2).expand(*pos.shape[:-1], num, pos.shape[-1])
+        if self.cfg.neg_sampling == "popularity":
+            return sample_negatives_alias(
+                gen, tgt, feat["neg_prob"], feat["neg_alias"], feat["neg_fb"], self.cfg.avoid_collisions
+            )
+        return sample_negatives(gen, tgt, self.model.schema.num_items, self.cfg.avoid_collisions)
+
     def build_epoch(
-        self, data: Dict[str, torch.Tensor], keys: torch.Tensor, gen: torch.Generator
+        self,
+        data: Dict[str, torch.Tensor],
+        keys: torch.Tensor,
+        gen: torch.Generator,
+        feat: Optional[Features] = None,
+        negatives: Optional[torch.Tensor] = None,
     ) -> Epoch:
         """The epoch's batches from the Feistel round ``keys``; negatives
-        not stored in ``data`` are drawn from ``gen``."""
+        not stored in ``data`` are drawn from ``gen`` (the alias tables in
+        ``feat`` under popularity sampling), or taken from ``negatives``
+        ((nb, b), or (nb, K, b) for K draws, in the batches' sorted row
+        order; a test passes the JAX package's draws)."""
         n = int(data["user_id"].shape[0])
         if n == 0:
             raise ValueError("fit: the train split is empty")
@@ -227,10 +292,10 @@ class Trainer:
             batches["_order"] = torch.argsort(batches["user_id"], dim=1, stable=True)
             batches = self._apply_batch_order(batches)
         if not self._softmax and "neg_item_id" not in batches:
-            batches["neg_item_id"] = sample_negatives(
-                gen, batches["pos_item_id"], self.model.schema.num_items,
-                self.cfg.avoid_collisions,
-            )
+            if negatives is not None:
+                batches["neg_item_id"] = torch.as_tensor(negatives, device=self.device).long()
+            else:
+                batches["neg_item_id"] = self._sample_negs(gen, batches["pos_item_id"], feat)
         return Epoch(batches, nb, b, weight_sums)
 
     # ------------------------------------------------------------------
@@ -262,6 +327,7 @@ class Trainer:
         feat: Optional[Features],
         steps: Optional[Sequence[int]] = None,
         step_fn: Optional[Callable] = None,
+        step0: int = 0,
     ) -> torch.Tensor:
         """Run the fused step over ``steps`` (default: every batch of the
         epoch), updating ``packed`` in place: one step call per batch and
@@ -274,7 +340,8 @@ class Trainer:
         :func:`fp.fused_pairwise_step` or ``_meta``, with its arguments); a
         check on the card passes the plain step. bf16 compute (``use_amp``)
         runs the steps' bf16 variants (:715); FM with metadata passes its
-        linear-metadata tables and ``fm=True`` (:737-750)."""
+        linear-metadata tables and ``fm=True`` (:737-750). Batch ``i`` runs at
+        the lr of global step ``step0 + i`` (:735)."""
         cfg, model = self.cfg, self.model
         meta_names = model.schema.metadata_names
         steps = range(epoch.nb) if steps is None else steps
@@ -290,7 +357,7 @@ class Trainer:
         kw = dict(d=model.cfg.n_factors, margin=cfg.margin, loss_kind=cfg.loss,
                   sigmoid=model.pairwise_sigmoid, bf16=model.compute_dtype == torch.bfloat16,
                   loss_out=losses)
-        user, item, lr = packed["user"], packed["item"], cfg.learning_rate
+        user, item = packed["user"], packed["item"]
         if meta_names:
             step = step_fn or fp.fused_pairwise_step_meta
             lead = (user, item, [packed[f"meta_{nm}"] for nm in meta_names],
@@ -302,7 +369,7 @@ class Trainer:
             lead = (user, item)
         for j, i in enumerate(steps):
             r = i - lo
-            step(*lead, uids[r], pids[r], nids[r], None if ws is None else ws[r], lr,
+            step(*lead, uids[r], pids[r], nids[r], None if ws is None else ws[r], self._lr_at(step0 + i),
                  weight_sum=None if ws is None else epoch.weight_sums[i], loss_index=j, **kw)
         return losses
 
@@ -348,6 +415,38 @@ class Trainer:
                 )
         return gmap
 
+    def _rows(self, tables: Dict[str, torch.Tensor], gmap, augmented: bool):
+        """The gathered rows of each site (``raw``; augmented rows carry the
+        accumulator as the last column) and leaf copies of their parameter
+        columns to differentiate."""
+        raw = {k: tables[t][ids] for k, (t, ids) in gmap.items()}
+        rows = {k: (r[..., :-1] if augmented else r).detach().requires_grad_() for k, r in raw.items()}
+        return raw, rows
+
+    def _update_tables(
+        self,
+        tables: Dict[str, torch.Tensor],
+        emb_opt: Optional[Dict[str, Any]],
+        gmap,
+        raw: Dict[str, torch.Tensor],
+        grads: Dict[str, Optional[torch.Tensor]],
+        lr: float,
+    ) -> None:
+        """The embedding update of one step, in place: rowwise adagrad on
+        the augmented tables (``emb_opt`` None: one ``index_add_`` per
+        table, :541-549) or ``embedding_optimizer`` on the plain tables and
+        ``emb_opt`` (:550-561). A site without a gradient is skipped."""
+        per_table: Dict[str, list] = {}
+        for k, g in grads.items():
+            if g is not None:
+                tname, ids = gmap[k]
+                site = (ids, g) if emb_opt is not None else (ids, g, raw[k][..., -1])
+                per_table.setdefault(tname, []).append(site)
+        if emb_opt is None:
+            apply_embedding_updates_fused(lr, tables, per_table)
+        else:
+            apply_embedding_updates(self.cfg.embedding_optimizer, lr, tables, emb_opt, per_table)
+
     def softmax_step(
         self,
         state: TrainState,
@@ -358,21 +457,23 @@ class Trainer:
         weight_sum: Optional[float],
         feat: Features,
         ce_fns: Optional[sce.CeFns] = None,
+        lr: Optional[float] = None,
+        emb_opt: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
-        """One sampled-softmax step on the augmented tables ``aug``, updated
-        in place (``_step_impl`` with ``fused=True``, :405-574): gather the
-        rows with their accumulators, ``pair_vectors``, the per-row CE
-        against the batch's own positives, the weighted mean
-        ``sum(per_row * w) / max(sum(w), 1)`` (the weight sum known on the
-        host), the gradients of the gathered rows, one rowwise-adagrad
-        ``index_add_`` per table. Returns the loss as a device scalar. A
-        site whose rows get no gradient (Linear's user bias: row-constant
-        under the softmax) is not scattered: its update would be exactly 0.
+        """One sampled-softmax step (``_step_impl``, :405-574) on the tables
+        ``aug``, updated in place: the augmented tables (``emb_opt`` None),
+        or the plain tables with their optimizer state ``emb_opt``. Gather
+        the rows, ``pair_vectors``, the per-row CE against the batch's own
+        positives, the weighted mean ``sum(per_row * w) / max(sum(w), 1)``
+        (the weight sum known on the host), the gradients of the gathered
+        rows, one embedding update per table at ``lr`` (default
+        ``learning_rate``). Returns the loss as a device scalar. A site
+        whose rows get no gradient (Linear's user bias: row-constant under
+        the softmax) is not scattered: its update would be exactly 0.
         ``ce_fns`` replaces the CE kernels (see ops/softmax_ce.py)."""
         side = attach_features({"user_id": user, "item_id": pos}, feat)
         gmap = self._gather_sites(side)
-        raw = {k: aug[t][ids] for k, (t, ids) in gmap.items()}
-        rows = {k: r[..., :-1].detach().requires_grad_() for k, r in raw.items()}
+        raw, rows = self._rows(aug, gmap, emb_opt is None)
         h, v, vb, _ = self.model.pair_vectors(
             state["dense"], state["model_state"], rows, side, train=True
         )
@@ -383,12 +484,8 @@ class Trainer:
             loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
         keys = list(rows)
         grads = torch.autograd.grad(loss, [rows[k] for k in keys], allow_unused=True)
-        per_table: Dict[str, list] = {}
-        for k, g in zip(keys, grads):
-            if g is not None:
-                tname, ids = gmap[k]
-                per_table.setdefault(tname, []).append((ids, g, raw[k][..., -1]))
-        apply_embedding_updates_fused(self.cfg.learning_rate, aug, per_table)
+        lr = self.cfg.learning_rate if lr is None else lr
+        self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr)
         return loss.detach()
 
     def run_softmax_steps(
@@ -399,26 +496,32 @@ class Trainer:
         feat: Features,
         steps: Optional[Sequence[int]] = None,
         ce_fns: Optional[sce.CeFns] = None,
+        emb_opt: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
         """:meth:`softmax_step` over ``steps`` (default: every batch of the
-        epoch), updating ``aug`` in place; the step losses as a device
-        tensor."""
+        epoch), updating ``aug`` (and ``emb_opt``) in place, batch ``i`` at
+        the lr of global step ``state["step"] + i``; the step losses as a
+        device tensor."""
         bt = epoch.batches
         losses = []
         for i in range(epoch.nb) if steps is None else steps:
             w = bt["_w"][i] if "_w" in bt else None
             ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
             losses.append(self.softmax_step(
-                state, aug, bt["user_id"][i], bt["pos_item_id"][i], w, ws, feat, ce_fns
+                state, aug, bt["user_id"][i], bt["pos_item_id"][i], w, ws, feat, ce_fns,
+                lr=self._lr_at(state["step"] + i), emb_opt=emb_opt,
             ))
         return torch.stack(losses)
 
     def _paired_side(
         self, user: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, feat: Optional[Features]
     ) -> Batch:
-        """The positive and negative halves as ONE side of 2B rows (:321-356):
-        batch-norm statistics then cover both halves alike."""
-        side = {"user_id": user.repeat(2), "item_id": torch.cat([pos, neg])}
+        """The positive and negative halves as ONE side (:321-356): batch-norm
+        statistics then cover both alike. ``neg`` is (B,) or (K, B); the side
+        holds (1+K)B rows, the positives first, then the K negative blocks in
+        draw order."""
+        reps = 1 + (neg.shape[0] if neg.dim() == 2 else 1)
+        side = {"user_id": user.repeat(reps), "item_id": torch.cat([pos, neg.reshape(-1)])}
         return attach_features(side, feat)
 
     def pairwise_step(
@@ -431,49 +534,52 @@ class Trainer:
         w: Optional[torch.Tensor],
         weight_sum: Optional[float],
         feat: Features,
+        lr: Optional[float] = None,
+        emb_opt: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
-        """One pairwise step through autograd (``_step_impl`` with
-        ``fused=True``, :405-574) for models the fused pairwise kernel does
-        not take (the MLP; Linear or FM wider than the kernel's lanes): score the
-        paired side, the weighted mean ``sum(per_row * w) / max(sum(w), 1)``
-        (the weight sum known on the host), ``torch.autograd.grad`` with
-        respect to the gathered rows and the dense parameters, one
-        rowwise-adagrad ``index_add_`` per table into the augmented tables
-        ``aug`` (in place), the dense optimizer's step. User sites declared
-        in ``user_gather_sites`` gather B rows once and repeat them inside
-        the loss, so rowwise adagrad sees one occurrence with the summed
-        gradient. ``state``'s ``dense``, ``dense_opt`` and ``model_state``
-        (batch-norm running statistics) are replaced. Returns the loss as a
-        device scalar."""
+        """One pairwise step through autograd (``_step_impl``, :405-574) for
+        the models and configs the fused pairwise kernel does not take (the
+        MLP, NeuCF; Linear or FM wider than the kernel's lanes; K > 1
+        negatives, ``adaptive_hinge``, ``warp``; the unfused update): score
+        the paired side of (1+K)B rows (``neg`` (B,) or (K, B)), the
+        weighted mean ``sum(per_row * w) / max(sum(w), 1)`` (the weight sum
+        known on the host), ``torch.autograd.grad`` with respect to the
+        gathered rows and the dense parameters, the embedding update of
+        :meth:`softmax_step` at ``lr`` on ``aug`` (in place), the dense
+        optimizer's step (at the schedule's count under an lr schedule).
+        User sites declared in ``user_gather_sites`` gather B rows once and
+        repeat them 1+K times inside the loss, so the embedding optimizer
+        sees one occurrence with the summed gradient. ``state``'s
+        ``dense``, ``dense_opt`` and ``model_state`` (batch-norm running
+        statistics) are replaced. Returns the loss as a device scalar."""
         model, cfg = self.model, self.cfg
         b = pos.shape[0]
         side = self._paired_side(user, pos, neg, feat)
+        reps = side["item_id"].shape[0] // b
         gmap = self._gather_sites(side)
         halved = model.user_gather_sites & set(gmap)
         gmap = {k: (t, user if k in halved else ids) for k, (t, ids) in gmap.items()}
-        raw = {k: aug[t][ids] for k, (t, ids) in gmap.items()}
-        rows = {k: r[..., :-1].detach().requires_grad_() for k, r in raw.items()}
+        raw, rows = self._rows(aug, gmap, emb_opt is None)
         leaves = [p.detach().requires_grad_() for p in tree_leaves(state["dense"])]
         dense = tree_unflatten(state["dense"], leaves)
-        full = {k: torch.cat([v, v]) if k in halved else v for k, v in rows.items()}
+        full = {k: torch.cat([v] * reps) if k in halved else v for k, v in rows.items()}
         scores, new_ms = model.score_rows(dense, state["model_state"], full, side, train=True)
-        per_row = self.per_row_fn(scores[:b], scores[b:], cfg.margin)
+        ns = scores[b:]
+        if reps > 2:  # K negative blocks -> (K, B) for the loss
+            ns = ns.reshape(reps - 1, b)
+        per_row = self.per_row_fn(scores[:b], ns, cfg.margin)
         if w is None:
             loss = per_row.mean()
         else:
             loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
         keys = list(rows)
         grads = torch.autograd.grad(loss, [rows[k] for k in keys] + leaves, allow_unused=True)
-        per_table: Dict[str, list] = {}
-        for k, g in zip(keys, grads):
-            if g is not None:
-                tname, ids = gmap[k]
-                per_table.setdefault(tname, []).append((ids, g, raw[k][..., -1]))
-        apply_embedding_updates_fused(cfg.learning_rate, aug, per_table)
+        lr = cfg.learning_rate if lr is None else lr
+        self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr)
         g_dense = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads[len(keys):])]
         state["dense"], state["dense_opt"] = apply_dense_update(
             cfg.dense_optimizer, cfg.learning_rate, state["dense"],
-            tree_unflatten(state["dense"], g_dense), self._dense_opt(state),
+            tree_unflatten(state["dense"], g_dense), self._dense_opt(state), schedule=self.lr_fn,
         )
         state["model_state"] = tree_map(torch.Tensor.detach, new_ms)
         return loss.detach()
@@ -482,7 +588,9 @@ class Trainer:
         """The state's dense optimizer state; a state installed without one
         starts from optax's init."""
         if state.get("dense_opt") is None:
-            state["dense_opt"] = init_dense_opt(self.cfg.dense_optimizer, state["dense"])
+            state["dense_opt"] = init_dense_opt(
+                self.cfg.dense_optimizer, state["dense"], self.lr_fn is not None
+            )
         return state["dense_opt"]
 
     def run_pairwise_steps(
@@ -492,17 +600,21 @@ class Trainer:
         epoch: Epoch,
         feat: Features,
         steps: Optional[Sequence[int]] = None,
+        emb_opt: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
         """:meth:`pairwise_step` over ``steps`` (default: every batch of the
-        epoch), updating ``aug`` and ``state`` in place; the step losses as
-        a device tensor."""
+        epoch), updating ``aug`` (and ``emb_opt``) and ``state`` in place,
+        batch ``i`` at the lr of global step ``state["step"] + i``; the step
+        losses as a device tensor."""
         bt = epoch.batches
         losses = []
+        step0 = state["step"]
         for i in range(epoch.nb) if steps is None else steps:
             w = bt["_w"][i] if "_w" in bt else None
             ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
             losses.append(self.pairwise_step(
-                state, aug, bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i], w, ws, feat
+                state, aug, bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i], w, ws, feat,
+                lr=self._lr_at(step0 + i), emb_opt=emb_opt,
             ))
         return torch.stack(losses)
 
@@ -512,27 +624,39 @@ class Trainer:
         data: Dict[str, torch.Tensor],
         feat: Optional[Features],
         keys: Optional[torch.Tensor] = None,
+        negatives: Optional[torch.Tensor] = None,
     ) -> Tuple[TrainState, torch.Tensor]:
         """One epoch; returns the new state and the mean step loss as a
         device scalar. ``keys`` (six Feistel round keys) default to a draw
-        from the state's generator; tests pass the JAX package's."""
+        from the state's generator, and the in-training negatives to draws
+        from it too; tests pass the JAX package's keys and ``negatives``
+        (see :meth:`build_epoch`). The autograd steps run on the augmented
+        tables under rowwise adagrad with ``fused_embedding_update`` and f32
+        tables (:801-819), else on copies of the plain tables and their
+        optimizer state."""
         gen = self._rng(state)
         if keys is None:
             keys = round_keys(gen)
-        epoch = self.build_epoch(data, keys.to(self.device), gen)
-        if not self._fused:  # the augmented layout for the epoch (:801-819)
-            aug = augment_tables(state["tables"], state["emb_opt"])
-            new = dict(state)
-            if self._softmax:
-                losses = self.run_softmax_steps(new, aug, epoch, feat or {})
-            else:
-                losses = self.run_pairwise_steps(new, aug, epoch, feat or {})
-            tables, emb_opt = split_augmented(aug)
-            new.update(tables=tables, emb_opt=emb_opt, step=state["step"] + epoch.nb)
-            return new, losses.mean()
-        packed = self.pack_state(state)
-        losses = self.run_steps(packed, epoch, feat)
-        return self.unpack_state(state, packed, epoch.nb), losses.mean()
+        epoch = self.build_epoch(data, keys.to(self.device), gen, feat, negatives)
+        if self._fused:
+            packed = self.pack_state(state)
+            losses = self.run_steps(packed, epoch, feat, step0=state["step"])
+            return self.unpack_state(state, packed, epoch.nb), losses.mean()
+        augmented = self.cfg.fused_embedding_update and supports_fused_layout(
+            self.cfg.embedding_optimizer, state["tables"]
+        )
+        new = dict(state)
+        if augmented:
+            tables, emb_opt = augment_tables(state["tables"], state["emb_opt"]), None
+        else:
+            tables = {k: v.clone() for k, v in state["tables"].items()}
+            emb_opt = {k: {n: a.clone() for n, a in o.items()} for k, o in state["emb_opt"].items()}
+        run = self.run_softmax_steps if self._softmax else self.run_pairwise_steps
+        losses = run(new, tables, epoch, feat or {}, emb_opt=emb_opt)
+        if augmented:
+            tables, emb_opt = split_augmented(tables)
+        new.update(tables=tables, emb_opt=emb_opt, step=state["step"] + epoch.nb)
+        return new, losses.mean()
 
     def fit(
         self,
@@ -574,7 +698,9 @@ class Trainer:
         batches (:944-1037), accumulated on the device. Sampled softmax:
         the train objective (CE kernel forward) and, for the AUC, one
         negative per row scored on the factorized vectors. Pairwise: the
-        model's scores of the positive and negative halves."""
+        model's scores of the positive and the negative blocks (``neg_item_id``
+        (nb, b) or (nb, K, b)): the loss over all K draws, the AUC against
+        the first."""
         model, cfg = self.model, self.cfg
         params = {"tables": state["tables"], "dense": state["dense"]}
         mstate = state["model_state"]
@@ -596,8 +722,13 @@ class Trainer:
             else:
                 side = self._paired_side(user, pos, neg, feat)
                 scores, _ = model.score(params, mstate, side, train=False)
-                ps, ns = scores[:b], scores[b:]
-                loss_rows = self.per_row_fn(ps, ns, cfg.margin)
+                ps, ns_all = scores[:b], scores[b:]
+                if neg.dim() == 2:  # K draws: the AUC keeps the first
+                    ns_all = ns_all.reshape(neg.shape[0], b)
+                    ns = ns_all[0]
+                else:
+                    ns = ns_all
+                loss_rows = self.per_row_fn(ps, ns_all, cfg.margin)
             w = valid[i]
             tot_n = tot_n + torch.sum(w)
             tot_loss = tot_loss + torch.sum(loss_rows * w)
@@ -618,13 +749,16 @@ class Trainer:
         wrap-around-padded final batch whose filler rows are masked.
 
         Negatives: the store's static test negatives for a pairwise loss
-        when it has them, else one uniform draw per row from a generator
-        seeded afresh from ``cfg.seed`` on every call, so repeated calls
-        agree (the JAX package folds ``0x5EED + i`` into its key; its
-        threefry draws cannot be reproduced here). ``negatives`` (one item
-        row per test row) replaces them, e.g. with the JAX package's draws.
-        Under sampled softmax the logQ correction takes the TEST split's
-        item frequency: its candidate columns are test positives."""
+        when it has them and the config draws none in training, else draws
+        from a generator seeded afresh with ``cfg.seed + 0x5EED`` on every
+        call, so repeated calls agree (the JAX package folds ``0x5EED + i``
+        into its key; its threefry draws cannot be reproduced here): the
+        train config's K negatives per row (one under sampled softmax),
+        uniform or from the popularity alias tables. ``negatives`` ((n,) or
+        (K, n) item rows for the n test rows) replaces them, e.g. with the
+        JAX package's draws. Under sampled softmax the logQ correction takes
+        the TEST split's item frequency: its candidate columns are test
+        positives."""
         if store.num_test == 0:
             if verbose:
                 log.info("evaluate: empty test split")
@@ -635,27 +769,31 @@ class Trainer:
         pad = nb * b - n
 
         def batched(arr: np.ndarray) -> torch.Tensor:
+            """(..., n) -> (nb, ..., b), the filler rows wrapped around."""
             arr = np.asarray(arr, np.int64)
             if pad:
-                arr = np.concatenate([arr, arr[:pad]])
-            return torch.as_tensor(arr, device=self.device).reshape(nb, b)
+                arr = np.concatenate([arr, arr[..., :pad]], axis=-1)
+            t = torch.as_tensor(arr, device=self.device).reshape(arr.shape[:-1] + (nb, b))
+            return t.movedim(-2, 0)
 
+        k = 1 if self._softmax else self.cfg.num_negatives
         arrays = store.test_arrays()
-        batches = {k: batched(arrays[k]) for k in ("user_id", "pos_item_id")}
+        batches = {key: batched(arrays[key]) for key in ("user_id", "pos_item_id")}
+        feat = feature_tables(store, self.device)
+        if self.cfg.neg_sampling == "popularity":
+            feat.update(self._popularity_tables(store))
         if negatives is not None:
-            if np.shape(negatives) != (n,):
-                raise ValueError(f"negatives must hold one item row per test row, ({n},)")
+            want = (n,) if k == 1 else (k, n)
+            if np.shape(negatives) != want:
+                rows = "one item row" if k == 1 else f"{k} item rows"
+                raise ValueError(f"negatives must hold {rows} per test row, {want}")
             batches["neg_item_id"] = batched(negatives)
-        elif "neg_item_id" in arrays and not self._softmax:
+        elif "neg_item_id" in arrays and not self._in_step_negs:
             batches["neg_item_id"] = batched(arrays["neg_item_id"])
         else:
             gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 0x5EED)
-            batches["neg_item_id"] = sample_negatives(
-                gen, batches["pos_item_id"], self.model.schema.num_items,
-                self.cfg.avoid_collisions,
-            )
+            batches["neg_item_id"] = self._sample_negs(gen, batches["pos_item_id"], feat, num=k)
         valid = (torch.arange(nb * b, device=self.device) < n).to(torch.float32).reshape(nb, b)
-        feat = feature_tables(store, self.device)
         if self._softmax and self.cfg.logq_correction:
             feat["logq"] = self._logq_from(store.test_items)
         out = self._eval_sums(state, batches, valid, feat)

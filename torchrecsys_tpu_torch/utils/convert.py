@@ -66,12 +66,15 @@ def emb_opt_from_jax(
     tables: Mapping[str, torch.Tensor],
     device,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """JAX ``state["emb_opt"]`` (``{name: {"acc": (R,) f32}}`` as numpy)
-    -> the port's accumulators on ``device``; ``None`` gives zeros.
-    Raises ValueError on a missing name or a shape other than the table's
-    rows."""
+    """JAX ``state["emb_opt"]`` (``{name: {"acc": (R,) f32}}`` as numpy,
+    or ``{name: {}}`` under ``embedding_optimizer="sgd"``) -> the port's on
+    ``device``; ``None`` gives zero accumulators. Raises ValueError on a
+    missing name or a shape other than the table's rows."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, t in tables.items():
+        if emb_opt is not None and name in emb_opt and not emb_opt[name]:
+            out[name] = {}  # sgd keeps no state
+            continue
         if emb_opt is None:
             acc = torch.zeros((t.shape[0],), dtype=torch.float32, device=device)
         else:
@@ -108,8 +111,9 @@ def _tree_from_jax(tree: Any, template: Any, what: str, device) -> Any:
 
 
 def dense_from_jax(dense: Any, model: RecModel, device) -> Any:
-    """JAX ``state["dense"]`` (numpy tree) -> the port's dense tree on
-    ``device``, in the layout of ``model.init_dense``."""
+    """JAX ``state["dense"]`` (numpy tree: the MLP's tower, NeuCF's layers
+    and output layer) -> the port's dense tree on ``device``, in the layout
+    of ``model.init_dense``."""
     return _tree_from_jax(dense, model.init_dense(torch.Generator()), "dense", device)
 
 
@@ -120,16 +124,24 @@ def model_state_from_jax(model_state: Any, model: RecModel, device) -> Any:
 
 
 def dense_opt_from_jax(opt_state: Any, kind: str, dense: Any, device) -> Dict[str, Any]:
-    """The optax state of ``make_dense_optimizer(kind)`` (numpy tree: a
-    tuple of optax states) -> the port's dense optimizer state on
-    ``device`` (train/optim.py::init_dense_opt's layout), checked against
-    ``dense`` (the port's dense tree)."""
+    """The optax state of ``make_dense_optimizer(kind, lr, schedule)``
+    (numpy tree: a tuple of optax states) -> the port's dense optimizer
+    state on ``device`` (train/optim.py::init_dense_opt's layout), checked
+    against ``dense`` (the port's dense tree). A ``ScaleByScheduleState``
+    (the state of an lr schedule) carries its count over as
+    ``"schedule_count"``; adam's own ``count`` comes from its
+    ``ScaleByAdamState``."""
     from torchrecsys_tpu_torch.train.optim import init_dense_opt
 
-    template = init_dense_opt(kind, dense)
     parts = list(opt_state) if isinstance(opt_state, (list, tuple)) else [opt_state]
+    sched = [p for p in parts if type(p).__name__ == "ScaleByScheduleState"]
+    parts = [p for p in parts if type(p).__name__ != "ScaleByScheduleState"]
+    template = init_dense_opt(kind, dense, schedule=bool(sched))
     out: Dict[str, Any] = {}
     for key in template:
+        if key == "schedule_count":
+            out[key] = int(np.asarray(sched[0].count))
+            continue
         found = [getattr(p, key) for p in parts if key in getattr(p, "_fields", ())]
         if not found:
             raise ValueError(f"dense_opt: the {kind!r} state has no {key!r}")
