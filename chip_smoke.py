@@ -168,6 +168,38 @@ result line:
       once per step; the alias map on the card equal to the CPU's on the
       same uniforms); losses, tables, accumulators and NeuCF's dense layers
       within rtol=1e-4, atol=1e-5.
+   n. checkpoints and incremental training (ROADMAP.md §A items 4 and
+      12), on a's model right after its timings, on f's after its
+      breakdown: a. ``save`` of a's Linear metadata model (seconds,
+      bytes); ``restore`` into a fresh RecSys over the same data and its
+      top_k 10 (#1) and 128 (#2) of 256 users identical to the warm
+      model's (values and ids). b. one more epoch in place, one from
+      ``RecSys.load`` of that checkpoint (its trainer, the same store) and
+      one in memory again from a copy of the state (the noise floor): #3
+      once per step in both, epoch losses and every table and
+      accumulator within rtol=1e-4, atol=1e-5, but for at most
+      max(64, 2 x the noise floor's) rows of a table (the step kernel's
+      atomics add in no fixed order; a hinge-kink row flips). c. f's
+      AMP MLP saved (dense, batch-norm statistics, adam with its count,
+      step, generator); one more epoch from ``RecSys.load`` against one in
+      memory, under deterministic algorithms: #6 and #7 once per hidden
+      layer per step in both, the loss and every table, accumulator,
+      weight, variance and adam leaf within that tolerance (the biases
+      batch norm or neg - pos removes, and their running means, printed
+      only). d. ``partial_fit`` of 300,000 new interactions (20,000 new
+      users, 100,000 new items, 50 new categories, mixed with known ids)
+      on a's model: the vocabularies grow by exactly those, trained rows
+      and accumulators stay bit-identical and new accumulators start at
+      zero (checked inside ``update_data``), #3 once per step of the
+      grown split, the loss of 65,536 new train pairs falls, 256 new raw
+      users served through #1 (checked against the plain path) decode in
+      the grown vocabulary; the grown model saved. Then one child process
+      (``sys.executable``) loads a's, d's and c's checkpoints cold
+      (``RecSys.load``, no dataset) and serves the same users: ids,
+      values and raw ids identical to the parent's, ``exclude_seen``
+      raises. e. save and load seconds, checkpoint MiB, ``update_data``
+      host seconds, ``grow_state`` ms and ``partial_fit`` examples/s on one
+      ``[ckpt]`` line beside the card's name and power limit.
 7. times: per-kernel CUDA-event ms and device us per call from
    torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
@@ -188,7 +220,9 @@ The line before the last is {"kernels": [...]}; the last is
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -693,7 +727,6 @@ def step_trap_check(torch):
     """An out-of-range user id (10 and -1 of a 10-row table) must trap on
     the card. A trap leaves the CUDA context unusable, so each runs in a
     child process that must fail; an in-range id (9) must pass there."""
-    import os
 
     root = os.path.dirname(os.path.abspath(__file__))
     for bad, want_fail in ((10, True), (-1, True), (9, False)):
@@ -2284,6 +2317,427 @@ def small_options_check(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6n: checkpoints and incremental training
+# ---------------------------------------------------------------------------
+
+CKPT_ROOT = "smoke_ckpt"  # under the checkout (.gitignore); removed at the end of the run
+N_NEW, NEW_USERS, NEW_ITEMS, NEW_CATS = 300_000, 20_000, 100_000, 50
+RESUME_RTOL, RESUME_ATOL = 1e-4, 1e-5  # 6m's
+RESUME_ROWS = 64  # rows per table a hinge flip may move past them (see resume_compare)
+COLD_SERVE = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.cold_serve_main(sys.argv[1], sys.argv[2]))
+"""
+
+
+def ckpt_dir(name: str) -> str:
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), CKPT_ROOT, name)
+
+
+def ckpt_bytes(directory: str) -> int:
+
+    return sum(os.path.getsize(os.path.join(directory, f)) for f in os.listdir(directory))
+
+
+def serve_outputs(torch, rs, users, ks):
+    """For each k: the top-k values and item rows of ``users`` through the
+    facade's scorer (catalog_topk with the kept catalog: #1 for k <= 16,
+    #2 above; the chunked scorer for the MLP) and ``predict``'s raw ids."""
+    from torchrecsys_tpu_torch.eval.predict import catalog_topk
+
+    rows = torch.as_tensor([rs.store.user_encoder.encode_one(u) for u in users], device=rs.device)
+    out = {}
+    for k in ks:
+        cat = rs._linearized() if rs.model.supports_linearized_catalog else None
+        vals, ids = catalog_topk(rs.model, rs._params(), rs.state["model_state"], rows, rs.store.schema.num_items,
+                                 rs.feat, top_k=k, catalog=cat)
+        out[k] = (vals.float().cpu().numpy(), ids.cpu().numpy(), rs.predict(users, top_k=k))
+    return out
+
+
+def cold_serve_main(jobs_path: str, out_path: str) -> int:
+    """The child process of 6n: ``RecSys.load`` each checkpoint of the jobs
+    file cold (no dataset) and serve its users; write the outputs, the
+    load seconds and the launch counts. ``exclude_seen`` must raise."""
+    import pickle
+
+    import torch
+
+    from torchrecsys_tpu_torch import RecSys
+
+    with open(jobs_path, "rb") as f:
+        jobs = pickle.load(f)
+    results = {}
+    for job in jobs:
+        cold, load_s, counts = counted(torch, lambda: RecSys.load(job["dir"], device=DEVICE))
+        check(sum(counts.values()) == 0, f"cold load {job['name']} launched {counts}")
+        out, serve_s, counts = counted(torch, lambda: serve_outputs(torch, cold, job["users"], job["ks"]))
+        try:
+            cold.predict(job["users"][:2], top_k=10, exclude_seen=True)
+            raised = False
+        except ValueError:
+            raised = True
+        results[job["name"]] = {"out": out, "load_s": load_s, "serve_s": serve_s, "counts": counts,
+                                "exclude_seen_raised": raised, "config": cold.config}
+        del cold
+        torch.cuda.empty_cache()
+    with open(out_path, "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+def run_cold_children(torch, jobs):
+    """One child process (``sys.executable``, as step_trap_check runs its
+    children) loads every checkpoint of ``jobs`` cold and serves; each
+    output must equal the parent's warm one bit for bit. Returns the
+    child's per-job results (load seconds, launch counts)."""
+    import pickle
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    jobs_path, out_path = ckpt_dir("jobs.pkl"), ckpt_dir("results.pkl")
+    with open(jobs_path, "wb") as f:
+        pickle.dump([{k: j[k] for k in ("name", "dir", "users", "ks")} for j in jobs], f)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", COLD_SERVE, jobs_path, out_path], cwd=root, capture_output=True,
+                       text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"the cold-load child failed (exit {r.returncode}): {(r.stdout + r.stderr)[-2000:]}")
+    with open(out_path, "rb") as f:
+        results = pickle.load(f)
+    for job in jobs:
+        res = results[job["name"]]
+        check(res["exclude_seen_raised"], f"{job['name']}: exclude_seen on the cold model did not raise")
+        check(res["config"] == job["config"], f"{job['name']}: cold config {res['config']} != {job['config']}")
+        for k, (vals, ids, raw) in job["warm"].items():
+            cv, ci, cr = res["out"][k]
+            check(np.array_equal(cv, vals) and np.array_equal(ci, ids) and np.array_equal(cr, raw),
+                  f"{job['name']} top_k={k}: the cold load serves other ids or values than the warm model")
+        log(f"[ckpt] {job['name']}: cold RecSys.load in a child process {res['load_s']:.3f} s, serving "
+            f"{len(job['users'])} users at top_k {list(job['ks'])} {res['serve_s']:.3f} s: ids, values and "
+            f"raw ids identical to the warm model's; exclude_seen raised; launches {nonzero(res['counts'])}")
+    log(f"[ckpt] the child process ran {child_s:.2f} s (start, imports, CUDA context, every load)")
+    return results
+
+
+def clone_state(torch, state):
+    """A deep copy of a train state (tensors cloned, the generator's state
+    copied)."""
+    def dup(x):
+        if isinstance(x, torch.Generator):
+            g = torch.Generator(device=x.device)
+            g.set_state(x.get_state())
+            return g
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, dict):
+            return {k: dup(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [dup(v) for v in x]
+        return x
+
+    return dup(state)
+
+
+def flat_state(state) -> dict:
+    """name -> tensor of the tables, accumulators, dense weights, model
+    state and dense optimizer state."""
+    out = {f"tables.{k}": v for k, v in state["tables"].items()}
+    out.update({f"acc.{k}": o["acc"] for k, o in state["emb_opt"].items() if "acc" in o})
+    for part in ("dense", "model_state", "dense_opt"):
+        for k, v in flat_dense(state.get(part) or {}).items():
+            out[f"{part}.{k}"] = v
+    return out
+
+
+def state_diff(torch, got, want) -> dict:
+    """name -> (rows beyond rtol=1e-4, atol=1e-5, max |diff|) of every leaf
+    of ``got`` against ``want`` (flat_state); an int leaf (a count) must
+    be equal."""
+    fg, fw = flat_state(got), flat_state(want)
+    check(fg.keys() == fw.keys(), f"the state leaves differ: {sorted(fg.keys() ^ fw.keys())}")
+    out = {}
+    for name, w in fw.items():
+        g = fg[name]
+        if not isinstance(w, torch.Tensor):
+            check(g == w, f"{name}: {g} != {w}")
+            continue
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{name}: {g.shape} {g.dtype} != {w.shape} {w.dtype}")
+        if not g.numel():
+            continue
+        gf, wf = g.float(), w.float()
+        bad = (gf - wf).abs() > RESUME_ATOL + RESUME_RTOL * wf.abs()
+        rows = int(bad.reshape(bad.shape[0], -1).any(dim=1).sum()) if bad.dim() else int(bad)
+        out[name] = (rows, float((gf - wf).abs().max()))
+    return out
+
+
+def resume_compare(torch, label, got, want, floor=None, skip=()):
+    """A resumed run's state against the in-memory run's: every leaf within
+    rtol=1e-4, atol=1e-5 (6m's), except at most max(RESUME_ROWS, 2 x the
+    noise floor's) rows of a table or accumulator: the step kernel's
+    atomics add in no fixed order, and a batch row within rounding of the
+    hinge kink takes the other subgradient (``floor``: state_diff of two
+    in-memory runs from one state). Leaves whose last name is in ``skip``
+    are printed only. Returns (rows beyond per leaf, largest |diff|)."""
+    bad, worst, printed = {}, 0.0, {}
+    for name, (n, diff) in state_diff(torch, got, want).items():
+        if name.split(".")[-1] in skip:
+            printed[name] = f"{diff:.3g}"
+            continue
+        worst = max(worst, diff)
+        table = name.startswith(("tables.", "acc."))
+        allowed = max(RESUME_ROWS, 2 * (floor or {}).get(name, (0, 0))[0]) if table else 0
+        check(n <= allowed, f"{label}: {name}: {n} rows beyond rtol={RESUME_RTOL}/atol={RESUME_ATOL} "
+              f"(allowed {allowed}; max |diff| {diff:.3g})")
+        if n:
+            bad[name] = n
+    if printed:
+        log(f"[ckpt] {label}: max |diff| of the leaves printed only: {printed}")
+    return bad, worst
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def checkpoint_paths(torch, rs, data):
+    """6n a, b and d on the Linear metadata model of 6a (its trained state):
+    save, restore into a fresh RecSys, the cold load's outputs (checked in
+    the child run by run_cold_children), resume, grow. Returns the jobs
+    for the child and the numbers."""
+
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    label = "Linear metadata"
+    users = rs.store.user_encoder.to_list()[:U]
+    warm, _, counts = counted(torch, lambda: serve_outputs(torch, rs, users, (10, 128)))
+    check(counts["dot_topk_small"] == 2 and counts["dot_topk_large"] == 2 and sum(counts.values()) == 4,
+          f"{label}: warm serving launched {counts}")
+    launches = dict(counts)
+    # a. save; restore into a fresh RecSys over the same data
+    d_a = ckpt_dir("linear")
+    shutil.rmtree(ckpt_dir(""), ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs.save(d_a)
+    save_s = time.perf_counter() - t0
+    os.sync()  # the writeback here, not under a later phase's clock or profiler
+    size = ckpt_bytes(d_a)
+    log(f"[ckpt] {label}: save {save_s:.3f} s, {size} bytes ({size / 2**20:.1f} MiB) in "
+        f"{sorted(os.listdir(d_a))}")
+    t0 = time.perf_counter()
+    fresh = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE, dynamic_neg_sampling=True)
+    ingest_s = time.perf_counter() - t0
+    _, restore_s, _ = counted(torch, lambda: fresh.restore(d_a))
+    got, _, counts = counted(torch, lambda: serve_outputs(torch, fresh, users, (10, 128)))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    for k, (vals, ids, raw) in warm.items():
+        check(all(np.array_equal(a, b) for a, b in zip(got[k], (vals, ids, raw))),
+              f"{label}: the restored RecSys serves other ids or values at top_k={k}")
+    log(f"[ckpt] {label}: restore into a fresh RecSys (ingest {ingest_s:.2f} s) {restore_s:.3f} s; top_k 10 "
+        f"and 128 of {U} users identical to the warm model's")
+    del fresh
+    # b. resume: one more epoch in place, from the cold-loaded state, and
+    # again in memory from a copy (the noise floor)
+    loaded, load_s, _ = counted(torch, lambda: RecSys.load(d_a, device=DEVICE))
+    steps = -(-rs.store.num_train // TRAIN_B)
+    start = clone_state(torch, rs.state)
+    inplace, inplace_s, counts = counted(torch, lambda: rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False))
+    check(counts["fused_pairwise_step_meta"] == steps and sum(counts.values()) == steps,
+          f"{label}: the in-place epoch ran {steps} steps and launched {counts}")
+    launches["fused_pairwise_step_meta"] = counts["fused_pairwise_step_meta"]
+    check(loaded.trainer.cfg == rs.trainer.cfg, f"{label}: the loaded train config {loaded.trainer.cfg} != "
+          f"{rs.trainer.cfg}")
+    (resumed, rlosses), resumed_s, counts = counted(
+        torch, lambda: loaded.trainer.fit(loaded.state, rs.store, epochs=1, verbose=False))
+    check(counts["fused_pairwise_step_meta"] == steps and sum(counts.values()) == steps,
+          f"{label}: the resumed epoch ran {steps} steps and launched {counts}")
+    launches["fused_pairwise_step_meta"] += counts["fused_pairwise_step_meta"]
+    saved = step_launches(fp)
+    again, again_losses = rs.trainer.fit(start, rs.store, epochs=1, verbose=False)
+    set_step_launches(fp, saved)  # the noise floor's run is a comparison
+    floor = state_diff(torch, again, rs.state)
+    check(abs(rlosses[0] - inplace[0]) <= RESUME_ATOL + RESUME_RTOL * abs(inplace[0]),
+          f"{label}: resumed epoch loss {rlosses[0]} != in place {inplace[0]}")
+    bad, worst = resume_compare(torch, f"{label} resume", resumed, rs.state, floor=floor)
+    log(f"[ckpt] {label}: resume from the cold-loaded state ({load_s:.3f} s to load): epoch loss "
+        f"{rlosses[0]:.7f} vs {inplace[0]:.7f} in place ({again_losses[0]:.7f} in memory again); "
+        f"{steps} step calls each; max |diff| {worst:.3g}; rows beyond rtol={RESUME_RTOL}/atol={RESUME_ATOL} "
+        f"{bad or 0} (in memory twice: {({k: v[0] for k, v in floor.items() if v[0]}) or 0})")
+    del loaded, resumed, start, again
+    torch.cuda.empty_cache()
+    return {"warm": warm, "users": users, "save_s": save_s, "bytes": size, "restore_s": restore_s,
+            "load_s": load_s, "launches": launches, "dir": d_a, "config": dict(rs.config),
+            "epoch_s": (inplace_s, resumed_s)}
+
+
+def new_interactions(seed: int = 1):
+    """N_NEW interactions from synthetic_interactions' generator under
+    another seed: NEW_USERS new users and NEW_ITEMS new items (each at
+    least once) mixed with existing ids; a new item's category is one of
+    NEW_CATS new ones (1000 + item % NEW_CATS), an existing item keeps its
+    own (item % 1000)."""
+    r = np.random.default_rng(seed)
+    new_u = N_USERS + np.arange(NEW_USERS)
+    new_i = N + np.arange(NEW_ITEMS)
+    n_rest = N_NEW - NEW_ITEMS
+    users = np.concatenate([r.integers(0, N_USERS + NEW_USERS, NEW_ITEMS), r.integers(0, N_USERS + NEW_USERS, n_rest)])
+    users[:NEW_USERS] = new_u
+    on_block = r.random(n_rest) < 0.7
+    rand_items = r.integers(0, N + NEW_ITEMS, n_rest)
+    block_items = ((rand_items // 8) * 8 + users[NEW_ITEMS:] % 8) % (N + NEW_ITEMS)
+    items = np.concatenate([r.permutation(new_i), np.where(on_block, block_items, rand_items)])
+    cats = np.where(items >= N, 1000 + items % NEW_CATS, items % 1000)
+    return {"user_id": users.astype(np.int64), "item_id": items.astype(np.int64), "category_id": cats}
+
+
+def grow_path(torch, rs):
+    """6n d: ``partial_fit`` with N_NEW new interactions on the Linear
+    metadata model. Inside ``update_data``: the vocabularies grow by
+    exactly the new users, items and categories, every trained row and
+    accumulator is kept bit for bit, the new accumulators are zero; then
+    the fit launches #3 once per step of the grown split, the loss of a
+    fixed sample of the new train pairs falls, and 256 new raw users are
+    served through #1 (raw ids in the grown vocabulary). Returns the child
+    job of the grown model's checkpoint and the numbers."""
+    from torchrecsys_tpu_torch import api
+
+    label = "grown Linear metadata"
+    new = new_interactions()
+    old = {k: (v.clone(), rs.state["emb_opt"][k]["acc"].clone()) for k, v in rs.state["tables"].items()}
+    old_schema, old_train = rs.store.schema, rs.store.num_train
+    times, seen = {}, {}
+    grow, update = api.grow_state, rs.update_data
+
+    def timed_grow(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grow(*args)
+        torch.cuda.synchronize()
+        times["grow_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_update(dataset):
+        t0 = time.perf_counter()
+        update(dataset)
+        torch.cuda.synchronize()
+        times["update_s"] = time.perf_counter() - t0
+        st = rs.store
+        r = np.random.default_rng(16)
+        rows = old_train + r.choice(st.num_train - old_train, min(65536, st.num_train - old_train), replace=False)
+        seen["sample"] = (st.train_users[rows], st.train_items[rows], r.integers(0, st.schema.num_items, rows.size))
+        seen["fresh"] = sample_loss(torch, rs, seen["sample"])
+        t = rs.state["tables"]
+        for name, (tab, acc) in old.items():
+            n = tab.shape[0]
+            check(torch.equal(t[name][:n], tab), f"{label}: trained rows of {name} changed")
+            a = rs.state["emb_opt"][name]["acc"]
+            check(torch.equal(a[:n], acc) and not bool(a[n:].any()),
+                  f"{label}: the accumulator of {name} lost its rows or starts its new ones off zero")
+            seen.setdefault("grew", {})[name] = (n, t[name].shape[0])
+        torch.cuda.synchronize()
+
+    api.grow_state, rs.update_data = timed_grow, timed_update
+    try:
+        losses, total_s, counts = counted(torch, lambda: rs.partial_fit(new, epochs=1, batch_size=TRAIN_B,
+                                                                        verbose=False))
+    finally:
+        api.grow_state = grow
+        del rs.update_data
+    s = rs.store.schema
+    check(s.num_users == old_schema.num_users + NEW_USERS and s.num_items == old_schema.num_items + NEW_ITEMS
+          and s.metadata_vocab_sizes[0] == old_schema.metadata_vocab_sizes[0] + NEW_CATS,
+          f"{label}: schema {s} after {NEW_USERS} new users, {NEW_ITEMS} items, {NEW_CATS} categories")
+    steps = -(-rs.store.num_train // TRAIN_B)
+    check(counts["fused_pairwise_step_meta"] == steps and sum(counts.values()) == steps,
+          f"{label}: partial_fit ran {steps} steps and launched {counts}")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses}")
+    trained = sample_loss(torch, rs, seen["sample"])
+    check(trained < seen["fresh"], f"{label}: the new pairs' sample loss {trained} is not below {seen['fresh']}")
+    fit_s = total_s - times["update_s"]
+    rate = rs.store.num_train / fit_s
+    log(f"[ckpt] {label}: partial_fit of {N_NEW} interactions ({NEW_USERS} new users, {NEW_ITEMS} new items, "
+        f"{NEW_CATS} new categories): update_data {times['update_s']:.3f} s on the host (grow_state "
+        f"{times['grow_ms']:.3f} ms; tables {seen['grew']}), trained rows and accumulators bit-identical, new "
+        f"accumulators zero; fit {steps} steps of {TRAIN_B} in {fit_s:.3f} s = {rate:.1f} examples/s, "
+        f"epoch loss {losses[0]:.5f}; new pairs' sample loss {seen['fresh']:.5f} -> {trained:.5f}; "
+        f"launches {nonzero(counts)}")
+    new_users = [int(u) for u in N_USERS + np.arange(U)]
+    warm, _, counts = counted(torch, lambda: serve_outputs(torch, rs, new_users, (10,)))
+    check(counts["dot_topk_small"] == 2 and sum(counts.values()) == 2, f"{label}: serving launched {counts}")
+    ids = warm[10][2]
+    check(all(x in rs.store.item_encoder for x in ids.reshape(-1).tolist()),
+          f"{label}: predicted raw ids outside the grown vocabulary")
+    check_predict(rs, new_users, ids, 10, False, torch)
+    d_g = ckpt_dir("grown")
+    rs.save(d_g)
+    os.sync()
+    log(f"[ckpt] {label}: {U} new raw users served through #1, checked against the plain path; saved "
+        f"{ckpt_bytes(d_g) / 2**20:.1f} MiB")
+    return {"name": label, "dir": d_g, "users": new_users, "ks": (10,), "warm": warm, "config": dict(rs.config),
+            "update_s": times["update_s"], "grow_ms": times["grow_ms"], "fit_examples_per_s": rate,
+            "launches": {"dot_topk_small": counts["dot_topk_small"],
+                         "fused_pairwise_step_meta": steps}}
+
+
+def mlp_checkpoint_path(torch, rs):
+    """6n c: the north-star AMP MLP of 6f saved (tables, accumulators,
+    dense, batch-norm statistics, adam with its count, step, generator),
+    a 16-user predict kept for the child's cold load, and one more epoch
+    from the cold-loaded state against one in memory: each through #6
+    and #7 once per hidden layer per step, under torch's deterministic
+    algorithms (index_add_ otherwise adds duplicate rows in no fixed
+    order, which bf16 rounding amplifies over an epoch)."""
+    from torchrecsys_tpu_torch import RecSys
+
+    label = "MLP AMP"
+    users = rs.store.user_encoder.to_list()[:16]
+    warm, _, counts = counted(torch, lambda: serve_outputs(torch, rs, users, (10,)))
+    check(sum(counts.values()) == 0, f"{label}: predict launched {counts}")
+    d_m = ckpt_dir("mlp")
+    _, save_s, _ = counted(torch, lambda: rs.save(d_m))
+    os.sync()
+    size = ckpt_bytes(d_m)
+    check(rs.state["dense_opt"]["count"] == rs.state["step"] > 0 and rs.state["model_state"],
+          f"{label}: the saved state has no adam count or batch-norm statistics")
+    loaded, load_s, _ = counted(torch, lambda: RecSys.load(d_m, device=DEVICE))
+    steps = -(-rs.store.num_train // MLP_B)
+    want = len(MLP_HIDDEN) * steps
+    fit_kw = dict(epochs=1, batch_size=MLP_B, learning_rate=0.05, loss="hinge", verbose=False)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        inplace, _, c_in = counted(torch, lambda: rs.fit(**fit_kw))
+        check(loaded.trainer.cfg == rs.trainer.cfg, f"{label}: loaded train config {loaded.trainer.cfg}")
+        (resumed, rlosses), _, c_re = counted(
+            torch, lambda: loaded.trainer.fit(loaded.state, rs.store, epochs=1, verbose=False))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for what, c in (("in place", c_in), ("resumed", c_re)):
+        check(c["fused_tower_fwd"] == c["fused_tower_bwd"] == want and sum(c.values()) == 2 * want,
+              f"{label} {what}: {steps} steps launched {c}; want {want} of each tower kernel")
+    check(abs(rlosses[0] - inplace[0]) <= RESUME_ATOL + RESUME_RTOL * abs(inplace[0]),
+          f"{label}: resumed epoch loss {rlosses[0]} != in place {inplace[0]}")
+    # a bias batch norm or neg - pos removes has a gradient of 0 up to
+    # rounding, which adam turns into steps of up to lr (a running mean
+    # follows its bias): printed only
+    bad, worst = resume_compare(torch, f"{label} resume", resumed, rs.state, skip=("b", "mean"))
+    log(f"[ckpt] {label}: save {save_s:.3f} s, {size} bytes ({size / 2**20:.1f} MiB); load {load_s:.3f} s; "
+        f"one more epoch from the loaded state against one in memory (deterministic algorithms): loss "
+        f"{rlosses[0]:.7f} vs {inplace[0]:.7f}; tower launches {nonzero(c_re)} / {nonzero(c_in)}; max |diff| "
+        f"{worst:.3g}, "
+        f"rows beyond {bad or 0}")
+    del loaded, resumed
+    torch.cuda.empty_cache()
+    return {"name": label, "dir": d_m, "users": users, "ks": (10,), "warm": warm, "config": dict(rs.config),
+            "save_s": save_s, "bytes": size, "load_s": load_s,
+            "launches": {"fused_tower_fwd": c_in["fused_tower_fwd"] + c_re["fused_tower_fwd"],
+                         "fused_tower_bwd": c_in["fused_tower_bwd"] + c_re["fused_tower_bwd"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -2428,25 +2882,69 @@ def train_timing(torch, rs, err: float):
     return row
 
 
+PROFILE_SETTLE_S = 0.05
+WINDOW_TAKES = 12  # a fit window's takes, with pauses of 0.25, 0.5, ..., 8, 8, ... s between
+LEAD_IN = 16  # spin kernels launched just before a profiled window, their records set aside
+
+
+class WindowRecords:
+    """A profiled window's records without its lead-in's (``spin_kernel``):
+    ``key_averages()`` and the profiler's ``profiler``."""
+
+    def __init__(self, prof):
+        self.profiler = prof.profiler
+        self._averages = [e for e in prof.key_averages() if "spin_kernel" not in e.key]
+
+    def key_averages(self):
+        return self._averages
+
+
 def profiled_window(torch, warm, run):
-    """torch.profiler's CUDA records of ``run()`` (synchronised) and its
-    wall µs. ``warm()`` runs first, in the profiler's warm-up phase:
-    tracing is on there but its records are dropped, so the first kernels
-    of ``run()`` are recorded (in a session that starts with the window,
-    the profiler can miss its first few kernels)."""
+    """torch.profiler's CUDA records of ``run()`` (synchronised, as
+    :class:`WindowRecords`) and its wall µs. ``warm()`` runs first, in the
+    profiler's warm-up phase, whose records are dropped. Even so, the
+    first 1-5 kernels launched in the active phase can be missing from
+    its records (seen on the H100 late in a whole run, in 6j's windows,
+    take after take), and kernels that end in the last milliseconds of
+    the phase can be too. So ``LEAD_IN`` short spin kernels are launched
+    just before ``run()``, in the same stream with no pause between, and
+    set aside; and the device is idle for ``PROFILE_SETTLE_S`` before the
+    lead-in and after ``run()``, outside ``wall_us``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         warm()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
         prof.step()
+        time.sleep(PROFILE_SETTLE_S)
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1000)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_SETTLE_S)
         prof.step()
-    return prof, wall_us
+    return WindowRecords(prof), wall_us
+
+
+def record_gaps(prof, name: str) -> str:
+    """Where ``name``'s records of a profiled window lie: the count kineto
+    returned, the first start and last end in µs from the trace's start,
+    and each gap between starts above 1.5x the median (a missing launch)."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    evs = sorted((e.start_ns(), e.end_ns()) for e in res.events() if name in e.name())
+    if len(evs) < 2:
+        return f"{name}: {len(evs)} records"
+    starts = np.array([a for a, _ in evs], dtype=np.float64)
+    gaps = np.diff(starts) / 1e3
+    med = float(np.median(gaps))
+    big = [(int(i), round(float(g), 1)) for i, g in enumerate(gaps) if g > 1.5 * med]
+    return (f"{name}: {len(evs)} records from {(evs[0][0] - t0) / 1e3:.1f} to {(evs[-1][1] - t0) / 1e3:.1f} us, "
+            f"median gap {med:.1f} us, gaps above 1.5x after records {big[:8]}")
 
 
 def device_split(prof) -> dict:
@@ -2532,9 +3030,12 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100, fit_
     # each step call is two launches (the C entry fails on a failed launch), and every step of
     # the window launches the same kernels. The wrappers count every call; a window with fewer
     # than 2 step-kernel records per step, or a count of records that is not a multiple of its
-    # steps, is logged with what it lacks and taken again, so the device times below come from
-    # a whole window
-    for attempt in range(1, 6):
+    # steps, is logged with what it lacks and taken again after a pause that doubles from
+    # 0.25 s up to 8 s (the profiler's losses come in spells of seconds), so the device times
+    # below come from a whole window
+    for attempt in range(1, WINDOW_TAKES + 1):
+        if attempt > 1:
+            time.sleep(min(0.25 * 2 ** (attempt - 2), 8.0))
         calls = step_launches(fp)
         prof, wall_us = profiled_window(
             torch, lambda: tr.run_steps(packed, ep, feat, steps=range(5, 10)),
@@ -2551,7 +3052,8 @@ def train_breakdown(torch, rs, label: str, fit_s: float, window: int = 100, fit_
         if launched == 2 * window and records % window == 0:
             break
         log(f"[breakdown] fit {label}: window {attempt}: the profiler recorded {launched} of its "
-            f"{2 * window} step-kernel launches ({by_name}) and {records} kernel records in all; taken again")
+            f"{2 * window} step-kernel launches ({by_name}) and {records} kernel records in all; taken again; "
+            + "; ".join(record_gaps(prof, k) for k in ("fused_pairwise_step_kernel", "fused_pairwise_apply_kernel")))
     set_step_launches(fp, saved)
     check(launched == 2 * window, f"fit {label}: {launched} step-kernel launches recorded in {window} "
           f"steps in each of {attempt} windows, want 2 each: {by_name}")
@@ -3029,7 +3531,8 @@ def main() -> int:
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {name}; {torch.cuda.device_count()} device(s)")
-    log(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(smi_line)
     t_start = time.perf_counter()
     build_kernels()
     errs = kernel_phase(torch)
@@ -3051,6 +3554,10 @@ def main() -> int:
     profile_phase(torch, rs, users_raw)
     split_meta = train_breakdown(torch, rs, "metadata", fit_meta["fit_s"])
     step_meta_row = step_timing(torch, rs, True, step_err, fit_meta["launches"])
+    t0 = time.perf_counter()
+    ckpt = checkpoint_paths(torch, rs, data)  # 6n a, b
+    grown = grow_path(torch, rs)  # 6n d
+    secs_6n = time.perf_counter() - t0
     del rs
     torch.cuda.empty_cache()
     rs, fit_plain = train_path(torch, data, meta=False)
@@ -3113,6 +3620,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rs, mlp = mlp_train_path(torch, data)
     split_mlp = mlp_breakdown(torch, rs)
+    t0 = time.perf_counter()
+    mlp_ckpt = mlp_checkpoint_path(torch, rs)  # 6n c
+    secs_6n += time.perf_counter() - t0
     del rs
     torch.cuda.empty_cache()
     witness = mlp_f32_witness(torch, data, mlp)
@@ -3134,6 +3644,28 @@ def main() -> int:
     del rs
     torch.cuda.empty_cache()
     small_options_check(torch)
+    # 6n: the cold loads of a, c and d in one child process; 6n's launches
+    linear_job = {"name": "Linear metadata", "dir": ckpt["dir"], "users": ckpt["users"], "ks": (10, 128),
+                  "warm": ckpt["warm"], "config": ckpt["config"]}
+    t0 = time.perf_counter()
+    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt])
+    shutil.rmtree(ckpt_dir(""), ignore_errors=True)
+    secs_6n += time.perf_counter() - t0
+    extra: dict = {}
+    for counts in (ckpt["launches"], grown["launches"], mlp_ckpt["launches"],
+                   *(res["counts"] for res in cold.values())):
+        for kernel, n in counts.items():
+            extra[kernel] = extra.get(kernel, 0) + n
+    for row in kernels:
+        row["launches"] += extra.get(row["name"], 0)
+    log(f"[ckpt] {smi_line}: Linear metadata checkpoint {ckpt['bytes'] / 2**20:.1f} MiB, save "
+        f"{ckpt['save_s']:.3f} s, load {ckpt['load_s']:.3f} s in process / "
+        f"{cold['Linear metadata']['load_s']:.3f} s cold in the child, restore {ckpt['restore_s']:.3f} s; "
+        f"MLP AMP checkpoint {mlp_ckpt['bytes'] / 2**20:.1f} MiB, save {mlp_ckpt['save_s']:.3f} s, load "
+        f"{mlp_ckpt['load_s']:.3f} s / {cold['MLP AMP']['load_s']:.3f} s cold; update_data "
+        f"{grown['update_s']:.3f} s on the host, grow_state {grown['grow_ms']:.3f} ms, partial_fit "
+        f"{grown['fit_examples_per_s']:.1f} examples/s; 6n took {secs_6n:.1f} s of the run; 6n launches "
+        f"{nonzero(extra)}")
     log(f"[main] predict users/s: {json.dumps(rates)}")
     log(f"[main] fit examples/s: metadata {fit_meta['examples_per_s']:.1f}, no metadata "
         f"{fit_plain['examples_per_s']:.1f}; host ms per step {split_meta['step_ms']:.4f} / "
@@ -3172,7 +3704,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
     }), flush=True)
     return 0
 

@@ -1,7 +1,8 @@
 """The port's ``RecSys`` surface against the JAX facade's: every JAX
-constructor keyword is accepted with the JAX default, and what the port
-cannot run yet raises ``NotImplementedError`` naming its ROADMAP.md item
-(the rule of ``torchrecsys_tpu_torch/config.py``)."""
+constructor keyword is accepted with the JAX default, the checkpoint and
+incremental methods take the JAX parameters (``load`` then ``device``),
+and what the port cannot run yet raises ``NotImplementedError`` naming
+its ROADMAP.md item (the rule of ``torchrecsys_tpu_torch/config.py``)."""
 
 import inspect
 
@@ -17,11 +18,6 @@ NEW_KEYWORDS = ("debug", "path", "mesh", "history_len", "ease_lam", "fm_sigmoid"
 def _data(n=600, n_users=40, n_items=90, seed=0):
     r = np.random.default_rng(seed)
     return {"user_id": r.integers(0, n_users, n), "item_id": r.integers(0, n_items, n)}
-
-
-@pytest.fixture(scope="module")
-def rs():
-    return RecSys(_data(), n_factors=4, device="cpu")
 
 
 def test_constructor_keywords_follow_jax_order():
@@ -51,25 +47,24 @@ def test_stored_keywords_change_nothing_for_ported_nets():
         assert np.array_equal(t.numpy(), b.model.tables[name].numpy())
 
 
-@pytest.mark.parametrize("kw, item", [({"debug": True}, "item 4"), ({"mesh": object()}, "item 14")])
+@pytest.mark.parametrize("kw, item", [({"mesh": object()}, "item 14")])
 def test_unported_constructor_values_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §A {item} "):
         RecSys(_data(), n_factors=4, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("method, args, item", [
-    ("save", ("ckpt/",), "item 4"),
-    ("restore", ("ckpt/",), "item 4"),
-    ("update_data", (_data(seed=1),), "item 12"),
-    ("partial_fit", (_data(seed=1),), "item 12"),
-])
-def test_unported_methods_name_their_item(rs, method, args, item):
-    assert hasattr(JRecSys, method)
-    with pytest.raises(NotImplementedError, match=rf"RecSys\.{method} .*ROADMAP\.md §A {item} "):
-        getattr(rs, method)(*args)
+def test_load_takes_jax_parameters_then_device():
+    jax_names = list(inspect.signature(JRecSys.load).parameters)
+    port = inspect.signature(RecSys.load).parameters
+    assert list(port) == jax_names + ["device"]
+    assert port["mesh"].default is None and port["device"].default == "cuda"
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 14 "):
+        RecSys.load("ckpt/", mesh=object(), device="cpu")
 
 
-def test_cold_load_names_its_item():
-    assert list(inspect.signature(RecSys.load).parameters) == list(inspect.signature(JRecSys.load).parameters)
-    with pytest.raises(NotImplementedError, match=r"RecSys\.load .*ROADMAP\.md §A item 4 "):
-        RecSys.load("ckpt/")
+@pytest.mark.parametrize("method", ["save", "restore", "update_data", "partial_fit"])
+def test_checkpoint_and_incremental_methods_follow_jax(method):
+    jax_params = inspect.signature(getattr(JRecSys, method)).parameters
+    port_params = inspect.signature(getattr(RecSys, method)).parameters
+    assert list(port_params) == list(jax_params)
+    assert [p.default for p in port_params.values()] == [p.default for p in jax_params.values()]

@@ -2,16 +2,20 @@
 constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
 :128-202, ``predict`` :295-388, ``_patch_short_unseen_rows`` :391-410,
 ``evaluate`` :205-269, ``_filter_seen`` :412-437, ``similar_items``
-:439-478, ``item_vectors`` / ``user_vectors`` :481-549 and
-``_decode_items`` :551-563).
+:439-478, ``item_vectors`` / ``user_vectors`` :481-549,
+``_decode_items`` :551-563, ``update_data`` / ``partial_fit`` :566-653
+and ``save`` / ``restore`` / ``load`` :655-790).
 
 Weights come from :meth:`RecSys.fit` (train/trainer.py: the fused
 pairwise step, the autograd pairwise step, e.g. the MLP's and NeuCF's, or
-the sampled-softmax step), from the JAX package through
+the sampled-softmax step), from a checkpoint (:meth:`RecSys.restore`,
+:meth:`RecSys.load`; utils/checkpoint.py), from the JAX package through
 :meth:`RecSys.load_jax_tables` (utils/convert.py) or from
 :meth:`RecSys.init_tables`. ``self.state`` keeps the JAX shape,
 ``{"tables", "dense", "model_state", "emb_opt", "dense_opt", "step"}``
 (plus the trainer's generator, ``rng``, once fit has run).
+:meth:`RecSys.update_data` grows the store and the state with new users
+and items (incremental training).
 """
 
 from __future__ import annotations
@@ -22,12 +26,23 @@ import numpy as np
 import torch
 
 from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig, _not_ported
+from torchrecsys_tpu_torch.data.encoder import IdEncoder
 from torchrecsys_tpu_torch.data.features import feature_tables
-from torchrecsys_tpu_torch.data.interactions import InteractionStore, prepare_data
+from torchrecsys_tpu_torch.data.interactions import InteractionStore, extend_store, prepare_data
+from torchrecsys_tpu_torch.data.metadata import MetadataTable
 from torchrecsys_tpu_torch.eval.predict import catalog_topk, ranking_eval
 from torchrecsys_tpu_torch.models import build_model
+from torchrecsys_tpu_torch.models.base import padded_rows
 from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, pack_seen_mask_torch
-from torchrecsys_tpu_torch.train.trainer import Trainer
+from torchrecsys_tpu_torch.train.optim import init_dense_opt, init_embedding_opt
+from torchrecsys_tpu_torch.train.trainer import Trainer, grow_state
+from torchrecsys_tpu_torch.utils.checkpoint import (
+    load_aux,
+    load_schema,
+    pack_store_aux,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from torchrecsys_tpu_torch.utils.convert import (
     dense_from_jax,
     emb_opt_from_jax,
@@ -36,8 +51,6 @@ from torchrecsys_tpu_torch.utils.convert import (
 )
 
 
-_CHECKPOINT_ITEM = "§A item 4 (checkpoints)"
-_INCREMENTAL_ITEM = "§A item 12 (incremental training)"
 _PARALLEL_ITEM = "§A item 14 (parallel)"
 
 
@@ -82,27 +95,21 @@ class RecSys:
         """The JAX constructor's keywords, in its order and with its
         defaults, then ``device``. ``fm_sigmoid`` goes to FM's config;
         ``history_len`` and ``ease_lam`` are kept: only unported nets read
-        them, and those nets raise at ``build_model``. ``debug=True`` and a
-        ``mesh`` raise ``NotImplementedError`` naming their ROADMAP.md
-        item."""
+        them, and those nets raise at ``build_model``. ``debug=True`` writes
+        the store's ``config.json`` and ``meta.csv`` to ``path``
+        (:meth:`InteractionStore.write_data`). A ``mesh`` raises
+        ``NotImplementedError`` naming its ROADMAP.md item."""
         del use_cuda  # the device is `device`
-        if debug:
-            raise _not_ported("debug=True (write_data to `path`)", _CHECKPOINT_ITEM)
         if mesh is not None:
             raise _not_ported("mesh", _PARALLEL_ITEM)
         self.device = _resolve_device(device)
         self.seed = seed
         self.debug, self.path, self.mesh = debug, path, mesh
         self.history_len, self.ease_lam, self.fm_sigmoid = history_len, ease_lam, fm_sigmoid
-        self.store: InteractionStore = prepare_data(
-            dataset,
-            user_id_col=user_id_col,
-            item_id_col=item_id_col,
-            metadata_id_col=metadata_id_col,
-            split_ratio=split_ratio,
-            dynamic_neg_sampling=dynamic_neg_sampling,
-            seed=seed + 42,
-        )
+        # the dataset-facing arguments update_data and a checkpoint reuse
+        self._user_col, self._item_col, self._split_ratio = user_id_col, item_id_col, split_ratio
+        self._n_updates = 0  # update_data calls; each takes its own split seed
+        self.dynamic_neg_sampling = dynamic_neg_sampling
         self.model_cfg = ModelConfig(
             net_type=net_type,
             n_factors=n_factors,
@@ -111,13 +118,28 @@ class RecSys:
             compute_dtype="bfloat16" if use_amp else "float32",
             fm_sigmoid=fm_sigmoid,
         )
-        self.model = build_model(self.store.schema, self.model_cfg).to(self.device)
-        self.feat = feature_tables(self.store, self.device)
-        self.dynamic_neg_sampling = dynamic_neg_sampling
+        self._bind_store(prepare_data(
+            dataset,
+            user_id_col=user_id_col,
+            item_id_col=item_id_col,
+            metadata_id_col=metadata_id_col,
+            split_ratio=split_ratio,
+            dynamic_neg_sampling=dynamic_neg_sampling,
+            seed=seed + 42,
+        ))
         self.trainer: Optional[Trainer] = None
         self.state: Optional[Dict[str, Any]] = None
-        # kept between calls; the store is fixed and the tables change only
-        # through _install
+        if debug:
+            self.store.write_data(path)
+
+    def _bind_store(self, store: InteractionStore) -> None:
+        """Serve and train ``store``: a model built for its schema, its
+        feature tables, and none of the caches of an earlier store."""
+        self.store = store
+        self.model = build_model(store.schema, self.model_cfg).to(self.device)
+        self.feat = feature_tables(store, self.device)
+        # kept between calls; rebuilt for a new store, the catalog also
+        # when the tables change (_install)
         self._seen_index = None  # (train item rows sorted by user, offsets)
         self._item_vocab = None  # raw item ids, int64 or object
         self._catalog = None  # model.linearized_catalog of the tables
@@ -308,7 +330,15 @@ class RecSys:
     # ------------------------------------------------------------------
     def _seen(self, rows: np.ndarray) -> List[np.ndarray]:
         """Each user's unique train-split item rows, sorted, from a by-user
-        index built once (the JAX facade scans the whole split per user)."""
+        index built once (the JAX facade scans the whole split per user).
+        A store without train rows (a cold ``load``) raises ValueError, as
+        the JAX facade does (api.py:344-349): it cannot tell what a user
+        has seen."""
+        if self.store.num_train == 0:
+            raise ValueError(
+                "predict(exclude_seen=True) needs the train interactions; "
+                "this RecSys has none (cold RecSys.load?)"
+            )
         if self._seen_index is None:
             tu, ti = self.store.train_users, self.store.train_items
             order = np.argsort(tu, kind="stable")
@@ -354,11 +384,6 @@ class RecSys:
         seen: Optional[List[np.ndarray]] = None
         seen_mask = None
         if exclude_seen:
-            if self.store.num_train == 0:
-                raise ValueError(
-                    "predict(exclude_seen=True) needs the train interactions; "
-                    "this RecSys has none"
-                )
             seen = self._seen(rows)
             pos = np.repeat(np.arange(len(rows)), [len(s) for s in seen])
             seen_mask = pack_seen_mask_torch(
@@ -511,7 +536,9 @@ class RecSys:
         return out[0] if scalar else out
 
     # ------------------------------------------------------------------
-    # the JAX facade's incremental training and checkpoints (api.py:566-790)
+    # incremental training (api.py:566-653). EASE's branches of update_data,
+    # save and restore (api.py:617-630, :674-685, :692-702) come with EASE,
+    # ROADMAP.md §A item 11: build_model refuses net_type="ease" until then.
     def update_data(
         self,
         dataset: Any,
@@ -519,17 +546,157 @@ class RecSys:
         item_id_col: Optional[str] = None,
         split_ratio: Optional[float] = None,
     ) -> None:
-        raise _not_ported("RecSys.update_data", _INCREMENTAL_ITEM)
+        """Grow the dataset with new interactions (data/interactions.py::
+        extend_store): unseen users and items take new rows at the end,
+        the new rows take their own seeded split, and the trained state
+        grows (train/trainer.py::grow_state: trained rows and accumulators
+        kept bit for bit, new rows freshly drawn from ``seed + 1``). The
+        columns and split ratio default to the constructor's. A cold-loaded
+        store's frozen encoders thaw for the extension and freeze again
+        after. The model, its feature tables, the serving caches and the
+        trainer are rebuilt for the grown store. Continue with ``fit``, or
+        use :meth:`partial_fit`."""
+        encoders = [self.store.user_encoder, self.store.item_encoder, *self.store.metadata.encoders]
+        thawed = [e for e in encoders if e.frozen]
+        for e in thawed:
+            e.thaw()
+        try:
+            store = extend_store(
+                self.store,
+                dataset,
+                user_id_col or self._user_col,
+                item_id_col or self._item_col,
+                split_ratio=self._split_ratio if split_ratio is None else split_ratio,
+                dynamic_neg_sampling=self.dynamic_neg_sampling,
+                seed=self.seed + 43 + self._n_updates,
+            )
+            self._n_updates += 1
+        finally:
+            for e in thawed:
+                e.freeze()
+        self._bind_store(store)
+        if self.state is not None:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+            self._install(grow_state(self.state, self.model, gen))
+        if self.trainer is not None:  # it holds the old model
+            self.trainer = Trainer(self.model, self.trainer.cfg, self.device)
 
     def partial_fit(self, dataset: Any, **fit_kwargs) -> List[float]:
-        raise _not_ported("RecSys.partial_fit", _INCREMENTAL_ITEM)
+        """``update_data(dataset)`` then ``fit(**fit_kwargs)``."""
+        self.update_data(dataset)
+        return self.fit(**fit_kwargs)
 
+    # ------------------------------------------------------------------
+    # checkpoints (api.py:655-790; the format: utils/checkpoint.py)
     def save(self, directory: str) -> None:
-        raise _not_ported("RecSys.save", _CHECKPOINT_ITEM)
+        """Write what a cold process needs to ``directory``: the train
+        state (``state.pt``), the schema, the raw-id vocabularies, the
+        metadata table, the model and train configs and the dataset-facing
+        constructor arguments (``aux.pkl``). Read it back with
+        :meth:`restore` (same dataset) or :meth:`RecSys.load` (no
+        dataset)."""
+        self._require_fitted("save()")
+        aux = pack_store_aux(self.store, self.model_cfg, self.trainer.cfg if self.trainer else None)
+        aux["dataset_cols"] = {
+            "user": self._user_col,
+            "item": self._item_col,
+            "split_ratio": self._split_ratio,
+            "n_updates": self._n_updates,
+        }
+        save_checkpoint(directory, self.state, self.store.schema, aux=aux)
+
+    def _train_cfg(self, aux: Optional[Dict[str, Any]]) -> TrainConfig:
+        """The checkpoint's train config, else this RecSys's trainer's, else
+        the default."""
+        if aux and aux.get("train_cfg"):
+            return TrainConfig(**aux["train_cfg"])
+        if self.trainer is not None:
+            return self.trainer.cfg
+        return TrainConfig(dynamic_neg_sampling=self.dynamic_neg_sampling, seed=self.seed)
+
+    def _target_state(self, cfg: TrainConfig) -> Dict[str, Any]:
+        """The layout a checkpoint of this model trained under ``cfg`` must
+        have: every table (padded rows, param dtype) and accumulator as a
+        tensor on the ``meta`` device, the dense parameters, model state
+        and dense optimizer state as the model and ``cfg`` make them."""
+        meta = torch.device("meta")
+        tables = {
+            name: torch.empty((padded_rows(spec.rows), spec.dim), dtype=self.model.param_dtype, device=meta)
+            for name, spec in self.model.table_specs().items()
+        }
+        dense = self.model.init_dense(torch.Generator())
+        return {
+            "tables": tables,
+            "dense": dense,
+            "model_state": self.model.init_state("cpu"),
+            "emb_opt": init_embedding_opt(cfg.embedding_optimizer, tables),
+            "dense_opt": init_dense_opt(cfg.dense_optimizer, dense, cfg.lr_schedule is not None),
+            "step": 0,
+        }
 
     def restore(self, directory: str) -> None:
-        raise _not_ported("RecSys.restore", _CHECKPOINT_ITEM)
+        """Install the train state of ``directory`` (saved for this dataset
+        and model). Every table, accumulator, dense parameter and
+        optimizer leaf is checked against this model's layout: another
+        dataset's or model's checkpoint raises ValueError naming the first
+        leaf that differs."""
+        cfg = self._train_cfg(load_aux(directory))
+        self._install(restore_checkpoint(directory, self._target_state(cfg), self.device, seed=cfg.seed))
 
     @classmethod
-    def load(cls, directory: str, mesh: Any = None) -> "RecSys":
-        raise _not_ported("RecSys.load", _CHECKPOINT_ITEM)
+    def load(cls, directory: str, mesh: Any = None, device: Union[str, torch.device] = "cuda") -> "RecSys":
+        """Rebuild a ``RecSys`` from a checkpoint directory alone (no
+        dataset), on ``device``. Raw-id ``predict`` works at once: the
+        vocabularies and the metadata table are in the checkpoint, the
+        encoders frozen. The splits are not: ``predict(exclude_seen=True)``
+        raises, and training goes on after :meth:`update_data` (which
+        thaws the encoders for the new ids). The trainer is rebuilt from
+        the saved train config, the generator restored (see
+        utils/checkpoint.py::restore_checkpoint). A ``mesh`` raises
+        ``NotImplementedError`` naming its ROADMAP.md item."""
+        if mesh is not None:
+            raise _not_ported("mesh", _PARALLEL_ITEM)
+        aux = load_aux(directory)
+        if aux is None:
+            raise FileNotFoundError(
+                f"{directory} has no aux.pkl; use RecSys(...).restore(directory) "
+                "with the original dataset"
+            )
+        schema = load_schema(directory)
+        meta = aux["metadata"]
+        metadata = MetadataTable(
+            meta["ids"], meta["mask"], tuple(meta["names"]),
+            tuple(IdEncoder.from_list(v).freeze() for v in meta["vocabs"]),
+        )
+        empty = np.zeros((0,), np.int32)
+        hist = aux.get("history")
+        store = InteractionStore(
+            schema=schema,
+            user_encoder=IdEncoder.from_list(aux["user_vocab"]).freeze(),
+            item_encoder=IdEncoder.from_list(aux["item_vocab"]).freeze(),
+            metadata=metadata,
+            train_users=empty,
+            train_items=empty,
+            test_users=empty,
+            test_items=empty,
+            history_override=(hist["ids"], hist["mask"]) if hist else None,
+        )
+        model_cfg = ModelConfig(**aux["model_cfg"])
+        train_cfg = TrainConfig(**aux["train_cfg"]) if aux["train_cfg"] else TrainConfig()
+        cols = aux.get("dataset_cols") or {}
+        self = cls.__new__(cls)
+        self.device = _resolve_device(device)
+        self.seed = train_cfg.seed
+        self.debug, self.path, self.mesh = False, directory, None
+        self.history_len, self.ease_lam, self.fm_sigmoid = 20, 100.0, model_cfg.fm_sigmoid
+        self._user_col = cols.get("user", "user_id")
+        self._item_col = cols.get("item", "item_id")
+        self._split_ratio = cols.get("split_ratio", 0.8)
+        self._n_updates = cols.get("n_updates", 0)
+        self.dynamic_neg_sampling = train_cfg.dynamic_neg_sampling
+        self.model_cfg = model_cfg
+        self._bind_store(store)
+        self.trainer = Trainer(self.model, train_cfg, self.device)
+        self._install(restore_checkpoint(directory, self._target_state(train_cfg), self.device,
+                                         seed=train_cfg.seed))
+        return self

@@ -11,6 +11,7 @@ ROADMAP.md item that ports them.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, Tuple
 
 
@@ -31,6 +32,19 @@ class DataSchema:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DataSchema":
+        """Inverse of :meth:`to_dict` (lists back to tuples; :44-50)."""
+        d = dict(d)
+        for k in ("metadata_names", "metadata_vocab_sizes"):
+            if k in d:
+                d[k] = tuple(d[k])
+        return cls(**d)
+
+    def to_json(self) -> str:
+        """The JAX package's ``schema.json`` text, byte for byte (:52-53)."""
+        return json.dumps(self.to_dict())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,11 +15,13 @@ import numpy as np
 
 
 class IdEncoder:
-    """Bidirectional mapping raw id -> contiguous int32 row index."""
+    """Bidirectional mapping raw id -> contiguous int32 row index. A frozen
+    encoder (a cold-loaded store's, :33-46) refuses unseen ids."""
 
     def __init__(self) -> None:
         self._to_index: Dict[Any, int] = {}
         self._to_raw: List[Any] = []
+        self._frozen = False
 
     def __len__(self) -> int:
         return len(self._to_raw)
@@ -28,15 +30,34 @@ class IdEncoder:
     def vocab_size(self) -> int:
         return len(self._to_raw)
 
+    def freeze(self) -> "IdEncoder":
+        self._frozen = True
+        return self
+
+    @property
+    def frozen(self) -> bool:
+        return self._frozen
+
+    def thaw(self) -> "IdEncoder":
+        """Re-allow vocab growth (``RecSys.update_data`` thaws a cold-loaded
+        store's encoders around the extension and refreezes them)."""
+        self._frozen = False
+        return self
+
     def fit(self, values: Iterable[Any]) -> "IdEncoder":
+        """Add unseen ids in first-occurrence order; a frozen encoder raises
+        ``KeyError`` on the first unseen one (:48-55)."""
         for v in values:
             if v not in self._to_index:
+                if self._frozen:
+                    raise KeyError(f"unknown id {v!r} (encoder is frozen)")
                 self._to_index[v] = len(self._to_raw)
                 self._to_raw.append(v)
         return self
 
     def encode(self, values: Sequence[Any]) -> np.ndarray:
-        """Encode raw ids to int32 row indices, adding unseen ids."""
+        """Encode raw ids to int32 row indices, adding unseen ids (raising
+        ``KeyError`` on one when frozen)."""
         self.fit(values)
         to_index = self._to_index
         return np.fromiter((to_index[v] for v in values), np.int32, len(values))
@@ -57,9 +78,23 @@ class IdEncoder:
         to_raw = self._to_raw
         return [to_raw[int(i)] for i in indices]
 
+    def decode_one(self, index: int) -> Any:
+        return self._to_raw[int(index)]
+
+    def __contains__(self, value: Any) -> bool:
+        return value in self._to_index
+
     def to_list(self) -> List[Any]:
-        """The vocabulary in row order."""
+        """The vocabulary in row order: enough to rebuild the encoder."""
         return list(self._to_raw)
+
+    @classmethod
+    def from_list(cls, raw: List[Any]) -> "IdEncoder":
+        """An (unfrozen) encoder over ``raw`` in row order (:99-105)."""
+        enc = cls()
+        enc._to_raw = list(raw)
+        enc._to_index = {v: i for i, v in enumerate(raw)}
+        return enc
 
 
 def encode_column(values: Sequence[Any]) -> Tuple[np.ndarray, IdEncoder]:

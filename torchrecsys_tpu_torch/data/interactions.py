@@ -1,17 +1,22 @@
 """Encoded interaction store (port of
-``torchrecsys_tpu/data/interactions.py``, :26-80 and :175-256).
+``torchrecsys_tpu/data/interactions.py``: the store :26-80 and :110-172,
+``prepare_data`` :175-256, ``extend_store`` :259-398).
 
 The store is host-side numpy: encoded int32 user/item rows per split, the
 static negatives, the item metadata table and the schema. Serving reads
 the encoders, the schema, the metadata and the train split (for
 ``exclude_seen``); training reads :meth:`InteractionStore.train_arrays`.
+:func:`extend_store` grows a store with new interactions (incremental
+training, ``RecSys.update_data``).
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import itertools
-from typing import Any, Dict, Optional, Sequence
+import os
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,6 +40,10 @@ class InteractionStore:
     test_items: np.ndarray
     train_neg_items: Optional[np.ndarray] = None
     test_neg_items: Optional[np.ndarray] = None
+    # (ids (U, L), mask (U, L)): user histories restored from a checkpoint.
+    # Histories derive from the train split, which a cold RecSys.load does
+    # not have; extend_store merges new train rows into them.
+    history_override: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     _token_counter = itertools.count()
 
@@ -66,6 +75,64 @@ class InteractionStore:
         if self.test_neg_items is not None:
             d["neg_item_id"] = self.test_neg_items
         return d
+
+    def write_data(self, path: str) -> None:
+        """Dataset stats and the item metadata map (:110-133): ``config.json``
+        (the schema's JSON) and ``meta.csv`` (one row per item: its row,
+        raw id and each feature's encoded ids)."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            f.write(self.schema.to_json())
+        m = self.metadata
+        with open(os.path.join(path, "meta.csv"), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["item_row", "raw_item_id", *m.names])
+            for row in range(self.schema.num_items):
+                lists = [
+                    [int(v) for v, ok in zip(m.ids[row, f], m.mask[row, f]) if ok]
+                    for f in range(m.num_features)
+                ]
+                w.writerow([row, self.item_encoder.decode_one(row), *lists])
+
+    def user_history(self, length: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(num_users, length) ids of each user's last ``length`` train items
+        in interaction order, left-aligned, and their mask (:135-172); the
+        checkpointed ``history_override`` when its window is ``length``."""
+        if self.history_override is not None:
+            o_ids, o_mask = self.history_override
+            if o_ids.shape[1] == length:
+                return o_ids, o_mask
+            if self.num_train == 0:
+                raise ValueError(
+                    f"checkpointed user history has window {o_ids.shape[1]} "
+                    f"but {length} was requested, and this store has no "
+                    "interactions to rebuild from"
+                )
+        n_users = self.schema.num_users
+        ids = np.zeros((n_users, length), np.int32)
+        mask = np.zeros((n_users, length), bool)
+        if self.num_train == 0:
+            return ids, mask
+        _window(self.train_users, self.train_items, n_users, length, ids, mask)
+        return ids, mask
+
+
+def _window(users: np.ndarray, items: np.ndarray, n_users: int, length: int,
+            ids: np.ndarray, mask: np.ndarray) -> None:
+    """Write each user's last ``length`` (user, item) pairs, in the given
+    order, left-aligned into ``ids``/``mask`` (zeroed (n_users, length)): a
+    stable sort by user, then each pair's distance from its user's end
+    (interactions.py:160-172 and :355-375)."""
+    order = np.argsort(users, kind="stable")
+    su, si = users[order], items[order]
+    counts = np.bincount(su, minlength=n_users)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(len(su)) - starts[su]
+    from_end = counts[su] - rank  # 1 = the user's most recent pair
+    keep = from_end <= length
+    col = np.minimum(counts[su], length) - from_end
+    ids[su[keep], col[keep]] = si[keep]
+    mask[su[keep], col[keep]] = True
 
 
 def _columns(dataset: Any) -> Dict[str, np.ndarray]:
@@ -143,4 +210,101 @@ def prepare_data(
         test_items=items[te],
         train_neg_items=train_neg,
         test_neg_items=test_neg,
+    )
+
+
+def extend_store(
+    store: InteractionStore,
+    dataset: Any,
+    user_id_col: str,
+    item_id_col: str,
+    split_ratio: float = 0.8,
+    dynamic_neg_sampling: bool = False,
+    seed: int = 43,
+) -> InteractionStore:
+    """A new store: ``store`` grown by the interactions of ``dataset``
+    (interactions.py:259-398), bit for bit as the JAX package grows it.
+
+    Raw ids encode through the store's own encoders in first-occurrence
+    order (``IdEncoder.encode``, even for int columns: ``prepare_data``'s
+    sorted ``np.unique`` path is for a fresh vocab only), so unseen users
+    and items get new rows at the end and every trained row keeps its
+    index; a frozen encoder raises ``KeyError`` on an unseen id. The new
+    rows take their own seeded split and are appended to each split. New
+    items parse their metadata from their first occurrence, unseen
+    categories grow the feature vocabularies (``MetadataTable.extend``);
+    ``dataset`` must carry every metadata column. With static negatives,
+    the new rows draw theirs over the grown catalog. A checkpointed
+    history window merges with the new train rows (each user's new items
+    push in from the right). The returned store has a new ``token``, so
+    the trainer's caches of the old one rebuild."""
+    columns = _columns(dataset)
+    users_raw = columns[user_id_col]
+    items_raw = columns[item_id_col]
+    if len(users_raw) != len(items_raw):
+        raise ValueError("user and item columns differ in length")
+    meta_names = store.metadata.names
+    missing = [c for c in meta_names if c not in columns]
+    if missing:
+        raise ValueError(
+            f"extend_store: new dataset is missing metadata column(s) "
+            f"{missing} required by the store's schema"
+        )
+
+    users = store.user_encoder.encode(list(users_raw))
+    items = store.item_encoder.encode(list(items_raw))
+    num_users = store.user_encoder.vocab_size
+    num_items = store.item_encoder.vocab_size
+    if meta_names:
+        metadata = store.metadata.extend(items, num_items, {c: columns[c] for c in meta_names})
+    else:
+        metadata = MetadataTable.empty(num_items)
+
+    n = len(users)
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    n_train = int(round(n * split_ratio))
+    tr, te = perm[:n_train], perm[n_train:]
+
+    def cat(a, b):
+        return np.concatenate([a, b]) if len(b) else a.copy()
+
+    hist = None
+    if store.history_override is not None:
+        o_ids, o_mask = store.history_override
+        length = o_ids.shape[1]
+        # the old windows as (user, item) pairs in stored order (row-major),
+        # then the new train pairs, re-windowed
+        old_u, old_slot = np.nonzero(o_mask)
+        h_ids = np.zeros((num_users, length), np.int32)
+        h_mask = np.zeros((num_users, length), bool)
+        _window(np.concatenate([old_u.astype(np.int64), users[tr]]),
+                np.concatenate([o_ids[old_u, old_slot], items[tr]]),
+                num_users, length, h_ids, h_mask)
+        hist = (h_ids, h_mask)
+
+    train_neg = test_neg = None
+    if store.train_neg_items is not None and not dynamic_neg_sampling:
+        train_neg = cat(store.train_neg_items, sample_negatives_np(rng, items[tr], num_items))
+        test_neg = cat(store.test_neg_items, sample_negatives_np(rng, items[te], num_items))
+
+    schema = DataSchema(
+        num_users=num_users,
+        num_items=num_items,
+        metadata_names=metadata.names,
+        metadata_vocab_sizes=metadata.vocab_sizes,
+        metadata_width=metadata.width,
+    )
+    return InteractionStore(
+        schema=schema,
+        user_encoder=store.user_encoder,
+        item_encoder=store.item_encoder,
+        metadata=metadata,
+        train_users=cat(store.train_users, users[tr]),
+        train_items=cat(store.train_items, items[tr]),
+        test_users=cat(store.test_users, users[te]),
+        test_items=cat(store.test_items, items[te]),
+        train_neg_items=train_neg,
+        test_neg_items=test_neg,
+        history_override=hist,
     )

@@ -1,5 +1,5 @@
 """Item metadata as fixed-width multi-hot buckets (port of
-``torchrecsys_tpu/data/metadata.py``, :29-189).
+``torchrecsys_tpu/data/metadata.py``, :29-243).
 
 Cells may be scalars, Python lists/tuples/arrays, or string-serialized
 lists; every feature is encoded to its own contiguous vocab and padded to
@@ -151,6 +151,10 @@ class MetadataTable:
         self.encoders = encoders
 
     @property
+    def num_items(self) -> int:
+        return self.ids.shape[0]
+
+    @property
     def num_features(self) -> int:
         return self.ids.shape[1]
 
@@ -190,6 +194,42 @@ class MetadataTable:
                     ids[it, f, :k] = lst[:k]
                     mask[it, f, :k] = True
         return cls(ids, mask, names, tuple(e for _, e in per_col))
+
+    def extend(
+        self,
+        item_rows: np.ndarray,  # (N,) encoded item rows of the new interactions
+        num_items_new: int,
+        columns: Dict[str, Sequence[Any]],  # name -> N interaction-aligned cells
+    ) -> "MetadataTable":
+        """The table grown to ``num_items_new`` rows (metadata.py:195-233).
+        Known items keep their rows untouched; a new item parses its cells
+        from its first occurrence through the per-cell Python path and the
+        existing per-feature encoders, which grow for unseen categories
+        (trained metadata rows keep their indices). Lists longer than the
+        width are clipped to it."""
+        if set(columns) != set(self.names):
+            raise ValueError(
+                f"metadata columns {sorted(columns)} do not match the "
+                f"store's features {sorted(self.names)}"
+            )
+        old_n, w = self.num_items, self.width
+        ids = np.zeros((num_items_new, self.num_features, w), dtype=np.int32)
+        mask = np.zeros((num_items_new, self.num_features, w), dtype=bool)
+        ids[:old_n] = self.ids
+        mask[:old_n] = self.mask
+        uniq_items, first_idx = np.unique(item_rows, return_index=True)
+        new_sel = uniq_items >= old_n
+        uniq_new, first_new = uniq_items[new_sel], first_idx[new_sel]
+        for f, name in enumerate(self.names):
+            col = columns[name]
+            cells = (col if isinstance(col, np.ndarray) else np.asarray(col))[first_new]
+            lists, _ = parse_metadata_column(list(cells), encoder=self.encoders[f])
+            for it, lst in zip(uniq_new, lists):
+                k = min(len(lst), w)
+                if k:
+                    ids[it, f, :k] = lst[:k]
+                    mask[it, f, :k] = True
+        return MetadataTable(ids, mask, self.names, self.encoders)
 
     @classmethod
     def empty(cls, num_items: int) -> "MetadataTable":

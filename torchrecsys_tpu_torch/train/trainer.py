@@ -47,8 +47,9 @@ batches). Here an epoch is
    schedule (train/optim.py::make_lr_schedule) at the global step
    ``state["step"] + i``; the dense optimizer reads it at its own count.
 
-Checkpoints and meshes are still to be ported (ROADMAP.md §A items 4 and
-14).
+:func:`grow_state` (:59-105) carries a state over to a model with larger
+vocabularies (``RecSys.update_data``). Meshes are still to be ported
+(ROADMAP.md §A item 14).
 """
 
 from __future__ import annotations
@@ -88,6 +89,48 @@ from torchrecsys_tpu_torch.utils.permute import random_permutation, round_keys
 log = logging.getLogger("torchrecsys_tpu_torch.train")
 
 TrainState = Dict[str, Any]
+
+
+def grow_state(state: TrainState, new_model: RecModel, generator: torch.Generator) -> TrainState:
+    """``state`` grown to ``new_model``'s vocabularies (:59-105): every
+    table keeps its trained leading rows and its rowwise-adagrad
+    accumulator bit for bit; the added rows take ``new_model``'s fresh
+    init, drawn from ``generator`` (one draw of every table, in the
+    model's order), and their accumulators start at zero. A table whose
+    padded size did not change is kept as it is. ``dense``,
+    ``model_state``, ``dense_opt``, ``step`` and ``rng`` carry over: vocab
+    growth changes no dense shape."""
+    fresh_params, _ = new_model.init(generator)
+    tables = {}
+    for name, fresh in fresh_params["tables"].items():
+        old = state["tables"].get(name)
+        if old is None:
+            tables[name] = fresh
+        elif old.shape == fresh.shape:
+            tables[name] = old
+        else:
+            fresh[: old.shape[0]] = old
+            tables[name] = fresh
+    emb_opt = {}
+    for name, t in tables.items():
+        old_opt = state["emb_opt"].get(name)
+        if old_opt is None or "acc" not in old_opt:
+            emb_opt[name] = dict(old_opt or {})  # sgd keeps no state
+            continue
+        acc = old_opt["acc"]
+        if acc.shape[0] != t.shape[0]:
+            grown = torch.zeros((t.shape[0],), dtype=acc.dtype, device=acc.device)
+            grown[: acc.shape[0]] = acc
+            acc = grown
+        emb_opt[name] = {"acc": acc}
+    return dict(state, tables=tables, emb_opt=emb_opt)
+
+
+def derived_generator(device: Any, seed: int, step: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, step)``: what a state
+    restored on another device type than it was saved on draws from (a
+    CUDA generator's state cannot be set into a CPU one)."""
+    return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + int(step))
 
 
 @dataclasses.dataclass

@@ -14,7 +14,9 @@ over like Linear's biases. :func:`dense_from_jax` and
 :func:`dense_opt_from_jax` the optax state of the dense optimizer
 (``state["dense_opt"]``). :func:`train_state_from_jax` carries all of
 these, the rowwise-adagrad accumulators (``state["emb_opt"]``) and the
-step counter.
+step counter. :func:`checkpoint_from_jax` writes a port checkpoint from a
+JAX checkpoint's state, ``aux.pkl`` and ``schema.json``, so a model the
+JAX package trained reaches ``RecSys.load`` without its dataset.
 """
 
 from __future__ import annotations
@@ -25,6 +27,14 @@ import numpy as np
 import torch
 
 from torchrecsys_tpu_torch.models.base import RecModel, padded_rows
+
+# config fields of the JAX package the port has no counterpart for: its
+# Pallas backend switches (the port's kernels follow the device) and the
+# sequence nets' shapes (ROADMAP.md §A item 10)
+JAX_ONLY_FIELDS = {
+    "model_cfg": ("pallas_tower", "history_len", "sasrec_blocks", "sasrec_heads"),
+    "train_cfg": ("pallas_step", "pallas_softmax"),
+}
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -178,3 +188,28 @@ def train_state_from_jax(
         "step": int(np.asarray(state_np.get("step", 0))),
         "rng": None,
     }
+
+
+def checkpoint_from_jax(
+    out_dir: str, state: Mapping[str, Any], aux: Mapping[str, Any], schema: Mapping[str, Any]
+) -> None:
+    """Write a port checkpoint to ``out_dir`` (utils/checkpoint.py) from a
+    JAX checkpoint: ``state`` its train state read into numpy, ``aux`` its
+    ``aux.pkl`` dict and ``schema`` its ``schema.json`` dict. The configs
+    lose :data:`JAX_ONLY_FIELDS`; the state goes through
+    :func:`train_state_from_jax` against the port model of the configs
+    (the JAX generator key is not carried: a fit from the result draws
+    from a generator seeded with the train config's seed)."""
+    from torchrecsys_tpu_torch.config import DataSchema, ModelConfig
+    from torchrecsys_tpu_torch.models import build_model
+    from torchrecsys_tpu_torch.utils.checkpoint import save_checkpoint
+
+    aux = dict(aux)
+    for key, drop in JAX_ONLY_FIELDS.items():
+        if aux.get(key) is not None:
+            aux[key] = {k: v for k, v in aux[key].items() if k not in drop}
+    data_schema = DataSchema.from_dict(schema)
+    model = build_model(data_schema, ModelConfig(**aux["model_cfg"]))
+    kind = (aux.get("train_cfg") or {}).get("dense_optimizer", "adam")
+    port_state = train_state_from_jax(state, model, "cpu", dense_optimizer=kind)
+    save_checkpoint(out_dir, port_state, data_schema, aux=aux)
