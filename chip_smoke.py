@@ -194,12 +194,27 @@ result line:
       grown split, the loss of 65,536 new train pairs falls, 256 new raw
       users served through #1 (checked against the plain path) decode in
       the grown vocabulary; the grown model saved. Then one child process
-      (``sys.executable``) loads a's, d's and c's checkpoints cold
+      (``sys.executable``) loads a's, d's and c's checkpoints (and o's)
+      cold
       (``RecSys.load``, no dataset) and serves the same users: ids,
       values and raw ids identical to the parent's, ``exclude_seen``
       raises. e. save and load seconds, checkpoint MiB, ``update_data``
       host seconds, ``grow_state`` ms and ``partial_fit`` examples/s on one
       ``[ckpt]`` line beside the card's name and power limit.
+   o. the sequence models (ROADMAP.md §A item 10; bench.py:266-296 and
+      :415-418's rows): the LSTM and SASRec (2 blocks x 2 heads), d=80,
+      history_len=20, AMP, hinge, adam, lr 0.05, batch 8192, one epoch
+      each through the autograd step (293 steps, no kernel); evaluate
+      (loss, auc, recall@10: #1 once per 512 test users) with the loss and
+      AUC held to a direct recomputation by the paired-side rule; predict
+      at top_k=10 (#1), 128 (#2) and exclude_seen from 256-user batches,
+      each checked against the plain top-k, the kernels also seen by the
+      profiler; the fit's per-step breakdown and idle share. SASRec then
+      trains one sampled-softmax epoch at batch 4096: #4 and #5 once per
+      step. Card against CPU: a small LSTM and SASRec (d=16, history 20)
+      one bpr epoch from one start within rtol=2e-4, atol=1e-5; the small
+      LSTM saved and cold-loaded in 6n's child process, serving identical
+      ids and values through #1/#2.
 7. times: per-kernel CUDA-event ms and device us per call from
    torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
@@ -2317,6 +2332,193 @@ def small_options_check(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6o: the sequence models (LSTM and SASRec)
+# ---------------------------------------------------------------------------
+
+SEQ_LABELS = {"lstm": "LSTM AMP", "sasrec": "SASRec AMP"}
+SEQ_SMALL_RTOL, SEQ_SMALL_ATOL = 2e-4, 1e-5  # tests/test_torch_lstm.py's f32 fit tolerance
+
+
+def check_seq_evaluate_direct(torch, rs, batch: int, what: str):
+    """Trainer.evaluate with fixed negatives against the loss and AUC
+    computed directly by the paired-side rule: each test row's history
+    encoded once with its positive hidden, the positive and the negative
+    scored against it, in 65,536-row chunks. The encoder's row blocks differ
+    from evaluate's batches, so a bf16 score may move one ulp: loss within
+    rtol=1e-3, AUC within 1e-3."""
+    st, m, feat = rs.store, rs.model, rs.feat
+    negs = np.random.default_rng(17).integers(0, N, st.num_test)
+    got = rs.trainer.evaluate(rs.state, st, batch_size=batch, verbose=False, negatives=negs)
+    params = rs._params()
+    item, ib = params["tables"]["item"], params["tables"]["item_bias"][:, 0]
+    cd = m.compute_dtype
+    ps, ns = [], []
+    with torch.no_grad():
+        for s in range(0, st.num_test, 65536):
+            u = torch.as_tensor(st.test_users[s : s + 65536], device=DEVICE).long()
+            p = torch.as_tensor(st.test_items[s : s + 65536], device=DEVICE).long()
+            n = torch.as_tensor(negs[s : s + 65536], device=DEVICE).long()
+            hid, hm = feat["hist_ids"][u], feat["hist_mask"][u]
+            h = m._encode(params["dense"], item[hid], hm & (hid != p[:, None]))
+            ps.append((torch.sum(h * item[p].to(cd), -1) + ib[p].to(cd)).float())
+            ns.append((torch.sum(h * item[n].to(cd), -1) + ib[n].to(cd)).float())
+    ps, ns = torch.cat(ps), torch.cat(ns)
+    loss = float(torch.clamp_min(ns - ps + rs.trainer.cfg.margin, 0.0).mean())
+    auc = float((ps > ns).float().mean())
+    check(abs(got["loss"] - loss) <= 1e-3 * abs(loss) and abs(got["auc"] - auc) <= 1e-3,
+          f"{what} evaluate {got} != direct loss {loss}, auc {auc}")
+    return {"evaluate": got, "direct": {"loss": loss, "auc": auc}}
+
+
+def topk_in_profile(torch, rs, users):
+    """torch.profiler's CUDA records of three predicts at top_k=10 and
+    three at 128 (:func:`profiled_window`, whose lead-in keeps a window's
+    first kernels): the main top-k kernel (#1, then #2) must be among
+    them, once per call."""
+    for k in (10, 128):
+        for take in range(1, 4):  # a window that lost records is taken again, as train_breakdown does
+            prof, _ = profiled_window(torch, lambda: rs.predict(users, top_k=k),
+                                      lambda: [rs.predict(users, top_k=k) for _ in range(3)])
+            n = sum(e.count for e in prof.key_averages() if "dot_topk_tc" in e.key)
+            if n == 3:
+                break
+            log(f"[profile] predict top_k={k}: window {take}: {n} top-k kernel records of 3 calls; taken again")
+            time.sleep(0.25 * 2**take)
+        check(n == 3, f"predict top_k={k}: {n} top-k kernel records in the profile of 3 calls")
+
+
+def sequence_path(torch, data, net: str):
+    """6o, bench.py:266-296 and :415-418's rows at full width: ``net``
+    (d=80, history_len=20; SASRec 2 blocks x 2 heads) with AMP, hinge, adam,
+    lr 0.05, batch 8192, dynamic negatives: one epoch through the autograd
+    step (no kernel: the encoder is plain torch), the loss and a fixed
+    sample's hinge loss finite (printed before and after: one epoch on this
+    data need not lower it); evaluate(loss, auc, recall@10) with the loss
+    and AUC held to a direct recomputation and the
+    ranking metric through #1; predict at top_k=10 (#1), 128 (#2) and with
+    exclude_seen, each item checked against the plain top-k (main_path),
+    #1/#2 also seen by the profiler; the fit's per-step breakdown. SASRec
+    then trains one sampled-softmax epoch at batch 4096: #4 and #5 once per
+    step."""
+    label = SEQ_LABELS[net]
+    t0 = time.perf_counter()
+    rs, sample = seeded_recsys(torch, data, False, seed=7, net_type=net, use_amp=True, history_len=20)
+    ingest_s = time.perf_counter() - t0
+    st = rs.store
+    check(tuple(rs.feat["hist_ids"].shape) == (N_USERS, 20), f"{label}: history {tuple(rs.feat['hist_ids'].shape)}")
+    fresh = sample_loss(torch, rs, sample)
+    kw = dict(epochs=1, batch_size=MLP_B, learning_rate=0.05, optimizer="adam", verbose=False)
+    losses, fit_s, counts = counted(torch, lambda: rs.fit(**kw))
+    steps = -(-st.num_train // MLP_B)
+    check(not rs.trainer._fused and sum(counts.values()) == 0, f"{label}: fit launched {counts}")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
+    trained = sample_loss(torch, rs, sample)
+    check(np.isfinite(trained), f"{label}: sample loss {trained}")
+    rate = st.num_train / fit_s
+    log(f"[train] {label}: RecSys over the data {ingest_s:.3f} s; fit {steps} steps of {MLP_B} in {fit_s:.3f} s = "
+        f"{rate:.1f} examples/s; epoch loss {losses[0]:.5f}; sample loss {fresh:.5f} -> {trained:.5f}; launches "
+        f"{nonzero(counts)}")
+    ev, eval_s, ecounts = counted(torch, lambda: rs.evaluate(
+        batch_size=MLP_B, eval_metrics=("loss", "auc", "recall@10"), verbose=False))
+    check(np.isfinite(ev["loss"]) and 0 <= ev["auc"] <= 1 and 0 <= ev["recall@10"] <= 1,
+          f"{label}: evaluate {ev}")
+    n_rank_users = len(np.unique(st.test_users))
+    check(nonzero(ecounts) == {"dot_topk_small": -(-n_rank_users // 512)},
+          f"{label}: evaluate launched {ecounts}, want #1 once per 512 test users")
+    direct = check_seq_evaluate_direct(torch, rs, MLP_B, label)
+    log(f"[main] evaluate {label}: {ev} in {eval_s:.3f} s = {st.num_test / eval_s:.1f} rows/s (recall@10 over "
+        f"{n_rank_users} users through #1 included); with fixed negatives {direct}; launches {nonzero(ecounts)}")
+    users, launches, rates = main_path(torch, rs, " " + label)
+    topk_in_profile(torch, rs, users)
+    out = {"examples_per_s": rate, "fit_s": fit_s, "eval_rows_per_s": st.num_test / eval_s, "rates": rates,
+           "label": label, "launches": {k: launches[k] + ecounts[k] for k in launches}}
+    out["split"] = mlp_breakdown(torch, rs, window=20, label=label)
+    if net == "sasrec":
+        sm_label = "SASRec AMP softmax"
+        losses, sm_s, counts = counted(torch, lambda: rs.fit(
+            epochs=1, batch_size=SOFTMAX_B, learning_rate=0.05, loss="sampled_softmax", verbose=False))
+        sm_steps = -(-st.num_train // SOFTMAX_B)
+        check(nonzero(counts) == {"softmax_ce_fwd": sm_steps, "softmax_ce_bwd": sm_steps},
+              f"{sm_label}: fit launched {counts}, want each CE kernel once per step ({sm_steps})")
+        check(len(losses) == 1 and np.isfinite(losses[0]), f"{sm_label}: epoch loss {losses}")
+        log(f"[train] {sm_label}: fit {sm_steps} steps of {SOFTMAX_B} in {sm_s:.3f} s = "
+            f"{st.num_train / sm_s:.1f} examples/s; epoch loss {losses[0]:.5f}; launches {nonzero(counts)}")
+        out["softmax"] = {"examples_per_s": st.num_train / sm_s, "launches": counts, "steps": sm_steps}
+    return rs, out
+
+
+def small_sequence_check(torch):
+    """6o: a small LSTM and a small SASRec (d=16, history 20, 2 x 2 SASRec,
+    f32, dense adagrad: adam turns a cancelling gradient's rounding into a
+    step of lr) trained one epoch (16 steps) of bpr on the card and on the
+    CPU from one start with the same round keys and the store's static negatives,
+    under deterministic algorithms: losses, tables, accumulators and the
+    dense tree within tests/test_torch_lstm.py's f32 fit tolerance (rtol=2e-4,
+    atol=1e-5); no kernel launches. bpr, not hinge: the small SASRec
+    memorizes fast, and under hinge a pair at the kink takes a whole
+    update on one device and none on the other (hinge: 5 item rows off by
+    up to 1.2e-4 after two epochs, the rest within 1e-6; bpr: all within
+    8.4e-7; on an NVIDIA H100 80GB HBM3 at 700 W). Then the small LSTM's RecSys is fitted
+    on the card and saved; returns its cold-load job for the child process
+    (top_k 10 and 128 through #1/#2, identical ids and values)."""
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
+    from torchrecsys_tpu_torch.data import prepare_data
+    from torchrecsys_tpu_torch.models import build_model
+    from torchrecsys_tpu_torch.train import Trainer
+    from torchrecsys_tpu_torch.train.optim import tree_map
+
+    r = np.random.default_rng(8)
+    data = {"user_id": r.integers(0, 300, 20000), "item_id": r.integers(0, 5000, 20000)}
+    store = prepare_data(data, "user_id", "item_id")
+    cfg = TrainConfig(batch_size=1000, learning_rate=0.05, dense_optimizer="adagrad", loss="bpr")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for net in ("lstm", "sasrec"):
+            mcfg = ModelConfig(net_type=net, n_factors=16, history_len=20)
+            trs = {dev: Trainer(build_model(store.schema, mcfg), cfg, dev) for dev in ("cpu", DEVICE)}
+            start = trs["cpu"].init_state()
+            res = {}
+            for dev, tr in trs.items():
+                state = dict(start, rng=None, dense_opt=None,
+                             tables={k: v.to(dev) for k, v in start["tables"].items()},
+                             emb_opt={k: {n: a.to(dev) for n, a in o.items()} for k, o in start["emb_opt"].items()},
+                             dense=tree_map(lambda t: t.to(dev), start["dense"]))
+                data_d, feat = tr._device_train_data(store), tr.feature_tables(store)
+                losses = []
+                ws = wrappers()
+                for w in ws:
+                    w.launches = 0
+                state, loss = tr.train_epoch(state, data_d, feat, keys=torch.arange(6).to(dev))
+                losses.append(float(loss))
+                res[dev] = (np.asarray(losses), state, {w.__name__: w.launches for w in ws})
+            (lc, sc, _), (lg, sg, counts) = res["cpu"], res[DEVICE]
+            check(not nonzero(counts), f"small {net}: launches {counts}")
+            check(np.allclose(lg, lc, rtol=SEQ_SMALL_RTOL, atol=SEQ_SMALL_ATOL),
+                  f"small {net}: losses {lg} != CPU {lc}")
+            leaves = [(f"table {k}", sg["tables"][k], sc["tables"][k]) for k in sc["tables"]]
+            leaves += [(f"acc {k}", sg["emb_opt"][k]["acc"], sc["emb_opt"][k]["acc"]) for k in sc["emb_opt"]]
+            leaves += [(f"dense {k}", a, flat_dense(sc["dense"])[k]) for k, a in flat_dense(sg["dense"]).items()]
+            err = 0.0
+            for name, g, c in leaves:
+                g = g.cpu()
+                check(torch.allclose(g, c, rtol=SEQ_SMALL_RTOL, atol=SEQ_SMALL_ATOL), f"small {net}: {name}")
+                err = max(err, float((g - c).abs().max()))
+            log(f"[main] small {net}: card == CPU over 1 epoch (loss {lg.round(6).tolist()}, max |diff| "
+                f"{err:.3g} over {len(leaves)} tensors); no launches")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rs = RecSys(data, net_type="lstm", n_factors=16, history_len=20, device=DEVICE, seed=8)
+    rs.fit(epochs=1, batch_size=1000, verbose=False)
+    d = ckpt_dir("small_lstm")
+    rs.save(d)
+    users = rs.store.user_encoder.to_list()[:64]
+    ks = (10, 128)
+    return {"name": "small LSTM", "dir": d, "users": users, "ks": ks, "warm": serve_outputs(torch, rs, users, ks),
+            "config": rs.config}
+
+
+# ---------------------------------------------------------------------------
 # phase 6n: checkpoints and incremental training
 # ---------------------------------------------------------------------------
 
@@ -3644,20 +3846,35 @@ def main() -> int:
     del rs
     torch.cuda.empty_cache()
     small_options_check(torch)
-    # 6n: the cold loads of a, c and d in one child process; 6n's launches
+    # 6o: the sequence models at full width, then card against CPU at a small size
+    t0 = time.perf_counter()
+    seq = {}
+    for net in ("lstm", "sasrec"):
+        rs, seq[net] = sequence_path(torch, data, net)
+        del rs
+        torch.cuda.empty_cache()
+    seq_job = small_sequence_check(torch)
+    secs_6o = time.perf_counter() - t0
+    seq_extra = dict(seq["sasrec"]["softmax"]["launches"])
+    for out in seq.values():
+        for kernel, n in out["launches"].items():
+            seq_extra[kernel] = seq_extra.get(kernel, 0) + n
+    # 6n: the cold loads of a, c and d (and 6o's small LSTM) in one child process; 6n's launches
     linear_job = {"name": "Linear metadata", "dir": ckpt["dir"], "users": ckpt["users"], "ks": (10, 128),
                   "warm": ckpt["warm"], "config": ckpt["config"]}
     t0 = time.perf_counter()
-    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt])
+    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt, seq_job])
     shutil.rmtree(ckpt_dir(""), ignore_errors=True)
     secs_6n += time.perf_counter() - t0
     extra: dict = {}
     for counts in (ckpt["launches"], grown["launches"], mlp_ckpt["launches"],
-                   *(res["counts"] for res in cold.values())):
+                   *(res["counts"] for name, res in cold.items() if name != "small LSTM")):
         for kernel, n in counts.items():
             extra[kernel] = extra.get(kernel, 0) + n
+    for kernel, n in cold["small LSTM"]["counts"].items():
+        seq_extra[kernel] = seq_extra.get(kernel, 0) + n
     for row in kernels:
-        row["launches"] += extra.get(row["name"], 0)
+        row["launches"] += extra.get(row["name"], 0) + seq_extra.get(row["name"], 0)
     log(f"[ckpt] {smi_line}: Linear metadata checkpoint {ckpt['bytes'] / 2**20:.1f} MiB, save "
         f"{ckpt['save_s']:.3f} s, load {ckpt['load_s']:.3f} s in process / "
         f"{cold['Linear metadata']['load_s']:.3f} s cold in the child, restore {ckpt['restore_s']:.3f} s; "
@@ -3698,6 +3915,15 @@ def main() -> int:
         log(f"[main] {out['label']} fit examples/s {out['examples_per_s']:.1f}; host ms per step "
             f"{sp['step_ms']:.4f}; device busy us per step {sp['busy_us']:.2f}; idle share {sp['idle_share']:.3f}"
             + (f"; evaluate rows/s {out['eval_rows_per_s']:.1f}" if "eval_rows_per_s" in out else ""))
+    for out in seq.values():
+        sp = out["split"]
+        log(f"[main] 6o {smi_line}: {out['label']} fit examples/s {out['examples_per_s']:.1f} (one epoch of "
+            f"{MLP_B}); host ms per step {sp['step_ms']:.4f}; device busy us per step {sp['busy_us']:.2f}; idle "
+            f"share {sp['idle_share']:.3f}; evaluate rows/s {out['eval_rows_per_s']:.1f}; predict users/s "
+            f"{json.dumps(out['rates'])}")
+    log(f"[main] 6o {smi_line}: SASRec AMP softmax fit examples/s {seq['sasrec']['softmax']['examples_per_s']:.1f} "
+        f"(one epoch of {SOFTMAX_B}); 6o took {secs_6o:.1f} s of the run (its cold load rides 6n's child); "
+        f"6o launches {nonzero(seq_extra)}")
     log(f"[main] the popularity alias table at {N} items: {pop['alias_s']:.3f} s on the host (outside the "
         f"6j fit, inside 6k's); NeuCF AMP predict 16 users {neucf['predict_s']:.3f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -198,8 +198,13 @@ def test_carry_over_checks_tables(pair):
 
 def test_errors():
     data = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item §A item 10"):
-        RecSys(data, net_type="lstm", device="cpu")
+    for net in ("lstm", "sasrec"):  # the sequence nets build (ROADMAP.md §A item 10)
+        seq = RecSys(data, net_type=net, device="cpu", n_factors=4, history_len=3)
+        assert seq.model.name == net and seq.feat["hist_ids"].shape == (seq.store.schema.num_users, 3)
+    with pytest.raises(ValueError, match="divisible by sasrec_heads"):
+        RecSys(data, net_type="sasrec", device="cpu", n_factors=5)
+    with pytest.raises(NotImplementedError, match="§A item 11"):
+        RecSys(data, net_type="ease", device="cpu")
     assert RecSys(data, net_type="fm", device="cpu", n_factors=4).model.name == "fm"
     assert RecSys(data, net_type="neucf", device="cpu", n_factors=4).model.name == "neucf"
     trs = RecSys(data, device="cpu", n_factors=4)

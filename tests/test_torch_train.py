@@ -262,8 +262,12 @@ def test_amp_training_and_unknown_options():
         rs.fit(loss="nope")
     with pytest.raises(ValueError, match="dense optimizer"):
         rs.fit(optimizer="nope")
+    for net in ("lstm", "sasrec"):
+        assert build_model(rs.store.schema, ModelConfig(net_type=net, n_factors=8)).needs_history
+    with pytest.raises(ValueError, match="divisible by sasrec_heads"):
+        build_model(rs.store.schema, ModelConfig(net_type="sasrec", n_factors=9))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(rs.store.schema, ModelConfig(net_type="lstm"))
+        build_model(rs.store.schema, ModelConfig(net_type="ease"))
     wide = build_model(rs.store.schema, ModelConfig(n_factors=125))
     assert not tfp.pairwise_kernel_applicable(wide, TrainConfig())
     # a model the fused kernel refuses trains through the autograd step

@@ -93,9 +93,10 @@ class RecSys:
         device: Union[str, torch.device] = "cuda",
     ) -> None:
         """The JAX constructor's keywords, in its order and with its
-        defaults, then ``device``. ``fm_sigmoid`` goes to FM's config;
-        ``history_len`` and ``ease_lam`` are kept: only unported nets read
-        them, and those nets raise at ``build_model``. ``debug=True`` writes
+        defaults, then ``device``. ``fm_sigmoid`` goes to FM's config,
+        ``history_len`` (each user's window of train items) to the sequence
+        nets' (lstm, sasrec); ``ease_lam`` is kept: only EASE reads it, and
+        it raises at ``build_model``. ``debug=True`` writes
         the store's ``config.json`` and ``meta.csv`` to ``path``
         (:meth:`InteractionStore.write_data`). A ``mesh`` raises
         ``NotImplementedError`` naming its ROADMAP.md item."""
@@ -117,6 +118,7 @@ class RecSys:
             use_batch_norm=use_batch_norm,
             compute_dtype="bfloat16" if use_amp else "float32",
             fm_sigmoid=fm_sigmoid,
+            history_len=history_len,
         )
         self._bind_store(prepare_data(
             dataset,
@@ -134,10 +136,12 @@ class RecSys:
 
     def _bind_store(self, store: InteractionStore) -> None:
         """Serve and train ``store``: a model built for its schema, its
-        feature tables, and none of the caches of an earlier store."""
+        feature tables (the sequence nets' history windows among them), and
+        none of the caches of an earlier store: the kept catalog encodes the
+        users' histories, so a new store (``update_data``) drops it."""
         self.store = store
         self.model = build_model(store.schema, self.model_cfg).to(self.device)
-        self.feat = feature_tables(store, self.device)
+        self.feat = feature_tables(store, self.model, self.device)
         # kept between calls; rebuilt for a new store, the catalog also
         # when the tables change (_install)
         self._seen_index = None  # (train item rows sorted by user, offsets)
@@ -688,7 +692,7 @@ class RecSys:
         self.device = _resolve_device(device)
         self.seed = train_cfg.seed
         self.debug, self.path, self.mesh = False, directory, None
-        self.history_len, self.ease_lam, self.fm_sigmoid = 20, 100.0, model_cfg.fm_sigmoid
+        self.history_len, self.ease_lam, self.fm_sigmoid = model_cfg.history_len, 100.0, model_cfg.fm_sigmoid
         self._user_col = cols.get("user", "user_id")
         self._item_col = cols.get("item", "item_id")
         self._split_ratio = cols.get("split_ratio", 0.8)

@@ -59,7 +59,10 @@ class ModelConfig:
     kernels, ops/fused_tower.py). ``hidden_layers`` and ``use_batch_norm``
     shape the MLP (mlp.py:57,75). ``fm_sigmoid`` squashes FM's score
     through the reference's sigmoid (fm.py:99; config.py:77).
-    ``neucf_hidden_layers`` are NeuCF's MLP-tower widths (config.py:80)."""
+    ``neucf_hidden_layers`` are NeuCF's MLP-tower widths (config.py:80).
+    ``history_len`` is the sequence models' window of each user's last
+    train items, ``sasrec_blocks`` and ``sasrec_heads`` SASRec's encoder
+    shape (``n_factors`` divisible by the heads) (config.py:81-87)."""
 
     net_type: str = "linear"
     n_factors: int = 80
@@ -69,6 +72,9 @@ class ModelConfig:
     compute_dtype: str = "float32"
     fm_sigmoid: bool = True
     neucf_hidden_layers: Tuple[int, ...] = (64, 32)
+    history_len: int = 20
+    sasrec_blocks: int = 2
+    sasrec_heads: int = 2
 
 
 PORTED_LOSSES = ("hinge", "bpr", "logistic", "adaptive_hinge", "warp", "sampled_softmax")

@@ -1,8 +1,8 @@
 """Model factory (port of ``torchrecsys_tpu/models/__init__.py``).
 
-The ported slices cover ``linear``, ``fm``, ``mlp`` and ``neucf``. The JAX
-package's other nets are still to be ported (ROADMAP.md, queue A) and raise
-``NotImplementedError``.
+The ported slices cover ``linear``, ``fm``, ``mlp``, ``neucf``, ``lstm``
+and ``sasrec``. ``ease`` is still to be ported (ROADMAP.md, queue A) and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -11,17 +11,18 @@ from torchrecsys_tpu_torch.config import DataSchema, ModelConfig
 from torchrecsys_tpu_torch.models.base import RecModel, TableSpec
 from torchrecsys_tpu_torch.models.fm import FMModel
 from torchrecsys_tpu_torch.models.linear import LinearModel
+from torchrecsys_tpu_torch.models.lstm import LSTMModel
 from torchrecsys_tpu_torch.models.mlp import MLPModel
 from torchrecsys_tpu_torch.models.neucf import NeuCFModel
+from torchrecsys_tpu_torch.models.sasrec import SASRecModel
 
-MODEL_REGISTRY = {"linear": LinearModel, "fm": FMModel, "mlp": MLPModel, "neucf": NeuCFModel}
+MODEL_REGISTRY = {
+    "linear": LinearModel, "fm": FMModel, "mlp": MLPModel, "neucf": NeuCFModel,
+    "lstm": LSTMModel, "sasrec": SASRecModel,
+}
 
 # net_type -> the ROADMAP.md item that ports it
-_NOT_YET_PORTED = {
-    "lstm": "§A item 10 (sequence models)",
-    "sasrec": "§A item 10 (sequence models)",
-    "ease": "§A item 11 (EASE)",
-}
+_NOT_YET_PORTED = {"ease": "§A item 11 (EASE)"}
 
 
 def build_model(schema: DataSchema, cfg: ModelConfig) -> RecModel:
@@ -41,5 +42,5 @@ def build_model(schema: DataSchema, cfg: ModelConfig) -> RecModel:
 
 __all__ = [
     "MODEL_REGISTRY", "build_model", "RecModel", "TableSpec", "LinearModel", "FMModel", "MLPModel",
-    "NeuCFModel",
+    "NeuCFModel", "LSTMModel", "SASRecModel",
 ]

@@ -14,6 +14,9 @@ Batch layout (one "side"):
   item_id:   (B,)      int64
   meta_ids:  (B, F, W) int64  (absent when there is no metadata)
   meta_mask: (B, F, W) bool
+  hist_ids:  (B, L)    int64  (sequence models: the user's history window)
+  hist_mask: (B, L)    bool
+  _pair_b:   int              (paired sides only: B, the number of pairs)
 """
 
 from __future__ import annotations
@@ -123,6 +126,9 @@ class RecModel(nn.Module, abc.ABC):
     # True on models whose score factorizes as <h_user, v_item> + b_item
     # plus a row constant (pair_vectors): loss="sampled_softmax" needs it.
     supports_sampled_softmax: bool = False
+    # True on models that read each user's history window (hist_ids /
+    # hist_mask, data/features.py): the sequence models.
+    needs_history: bool = False
 
     def __init__(self, schema: DataSchema, cfg: ModelConfig) -> None:
         super().__init__()

@@ -226,12 +226,14 @@ class Trainer:
         return self._data_cache
 
     def feature_tables(self, store: InteractionStore) -> Features:
-        """Device-resident item-metadata tables (empty without metadata);
-        under popularity sampling the alias tables ``neg_prob``,
-        ``neg_alias`` and ``neg_fb`` (:915-925); under sampled softmax with
+        """Device-resident item-metadata tables (empty without metadata) and,
+        for the sequence nets, the users' history windows
+        (data/features.py::feature_tables); under popularity sampling
+        the alias tables ``neg_prob``, ``neg_alias`` and ``neg_fb``
+        (:904-925); under sampled softmax with
         ``logq_correction``, ``logq``: the train split's log item
         frequency."""
-        feat = feature_tables(store, self.device)
+        feat = feature_tables(store, self.model, self.device)
         if self.cfg.neg_sampling == "popularity":
             feat.update(self._popularity_tables(store))
         if self._softmax and self.cfg.logq_correction:
@@ -510,26 +512,46 @@ class Trainer:
         positives, the weighted mean ``sum(per_row * w) / max(sum(w), 1)``
         (the weight sum known on the host), the gradients of the gathered
         rows, one embedding update per table at ``lr`` (default
-        ``learning_rate``). Returns the loss as a device scalar. A site
-        whose rows get no gradient (Linear's user bias: row-constant under
+        ``learning_rate``) and, for a model with dense parameters (the
+        sequence encoders), the dense optimizer's step (``state``'s
+        ``dense`` and ``dense_opt`` replaced). Returns the loss as a device
+        scalar. A site whose rows get no gradient (Linear's user bias: row-constant under
         the softmax) is not scattered: its update would be exactly 0.
         ``ce_fns`` replaces the CE kernels (see ops/softmax_ce.py)."""
         side = attach_features({"user_id": user, "item_id": pos}, feat)
         gmap = self._gather_sites(side)
         raw, rows = self._rows(aug, gmap, emb_opt is None)
-        h, v, vb, _ = self.model.pair_vectors(
-            state["dense"], state["model_state"], rows, side, train=True
-        )
+        leaves, dense = self._dense_leaves(state)
+        h, v, vb, _ = self.model.pair_vectors(dense, state["model_state"], rows, side, train=True)
         per_row = self._softmax_rows(h, v, vb, pos, feat.get("logq"), ce_fns)
         if w is None:
             loss = per_row.mean()
         else:
             loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
         keys = list(rows)
-        grads = torch.autograd.grad(loss, [rows[k] for k in keys], allow_unused=True)
+        grads = torch.autograd.grad(loss, [rows[k] for k in keys] + leaves, allow_unused=True)
         lr = self.cfg.learning_rate if lr is None else lr
         self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr)
+        if leaves:  # the sequence encoders; Linear and FM have no dense
+            self._dense_step(state, leaves, grads[len(keys):])
         return loss.detach()
+
+    @staticmethod
+    def _dense_leaves(state: TrainState) -> Tuple[List[torch.Tensor], Any]:
+        """Leaf copies of the dense parameters to differentiate, and the
+        dense tree of them."""
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(state["dense"])]
+        return leaves, tree_unflatten(state["dense"], leaves)
+
+    def _dense_step(self, state: TrainState, leaves, grads) -> None:
+        """The dense optimizer's step on ``state`` (replaced): a leaf
+        without a gradient steps with zeros; at the schedule's count under
+        an lr schedule."""
+        g_dense = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        state["dense"], state["dense_opt"] = apply_dense_update(
+            self.cfg.dense_optimizer, self.cfg.learning_rate, state["dense"],
+            tree_unflatten(state["dense"], g_dense), self._dense_opt(state), schedule=self.lr_fn,
+        )
 
     def run_softmax_steps(
         self,
@@ -542,9 +564,9 @@ class Trainer:
         emb_opt: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
         """:meth:`softmax_step` over ``steps`` (default: every batch of the
-        epoch), updating ``aug`` (and ``emb_opt``) in place, batch ``i`` at
-        the lr of global step ``state["step"] + i``; the step losses as a
-        device tensor."""
+        epoch), updating ``aug`` (and ``emb_opt``) and ``state`` in place,
+        batch ``i`` at the lr of global step ``state["step"] + i``; the step
+        losses as a device tensor."""
         bt = epoch.batches
         losses = []
         for i in range(epoch.nb) if steps is None else steps:
@@ -562,10 +584,14 @@ class Trainer:
         """The positive and negative halves as ONE side (:321-356): batch-norm
         statistics then cover both alike. ``neg`` is (B,) or (K, B); the side
         holds (1+K)B rows, the positives first, then the K negative blocks in
-        draw order."""
+        draw order. ``side["_pair_b"] = B`` (an int among the tensors) tells
+        the sequence nets that every block holds the same B users: they
+        encode each pair's history once (models/sequence.py)."""
         reps = 1 + (neg.shape[0] if neg.dim() == 2 else 1)
         side = {"user_id": user.repeat(reps), "item_id": torch.cat([pos, neg.reshape(-1)])}
-        return attach_features(side, feat)
+        side = attach_features(side, feat)
+        side["_pair_b"] = user.shape[0]
+        return side
 
     def pairwise_step(
         self,
@@ -603,8 +629,7 @@ class Trainer:
         halved = model.user_gather_sites & set(gmap)
         gmap = {k: (t, user if k in halved else ids) for k, (t, ids) in gmap.items()}
         raw, rows = self._rows(aug, gmap, emb_opt is None)
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(state["dense"])]
-        dense = tree_unflatten(state["dense"], leaves)
+        leaves, dense = self._dense_leaves(state)
         full = {k: torch.cat([v] * reps) if k in halved else v for k, v in rows.items()}
         scores, new_ms = model.score_rows(dense, state["model_state"], full, side, train=True)
         ns = scores[b:]
@@ -619,11 +644,7 @@ class Trainer:
         grads = torch.autograd.grad(loss, [rows[k] for k in keys] + leaves, allow_unused=True)
         lr = cfg.learning_rate if lr is None else lr
         self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr)
-        g_dense = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads[len(keys):])]
-        state["dense"], state["dense_opt"] = apply_dense_update(
-            cfg.dense_optimizer, cfg.learning_rate, state["dense"],
-            tree_unflatten(state["dense"], g_dense), self._dense_opt(state), schedule=self.lr_fn,
-        )
+        self._dense_step(state, leaves, grads[len(keys):])
         state["model_state"] = tree_map(torch.Tensor.detach, new_ms)
         return loss.detach()
 
@@ -822,7 +843,7 @@ class Trainer:
         k = 1 if self._softmax else self.cfg.num_negatives
         arrays = store.test_arrays()
         batches = {key: batched(arrays[key]) for key in ("user_id", "pos_item_id")}
-        feat = feature_tables(store, self.device)
+        feat = feature_tables(store, self.model, self.device)
         if self.cfg.neg_sampling == "popularity":
             feat.update(self._popularity_tables(store))
         if negatives is not None:

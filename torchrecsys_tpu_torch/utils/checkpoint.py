@@ -12,8 +12,9 @@ A checkpoint directory holds
 - ``schema.json``: the dataset schema, byte-equal to the JAX package's;
 - ``aux.pkl``: what a cold process needs besides the numbers, under the
   keys of the JAX package's ``pack_store_aux`` (:59-86): the raw-id
-  vocabularies, the item metadata table, the model and train configs (and,
-  from the facade, ``dataset_cols``).
+  vocabularies, the item metadata table, the model and train configs, the
+  sequence nets' user history windows (and, from the facade,
+  ``dataset_cols``).
 
 :func:`restore_checkpoint` holds every leaf against a target state and
 raises ``ValueError`` naming the first that differs in shape or dtype:
@@ -94,12 +95,14 @@ def load_schema(directory: str) -> DataSchema:
 
 
 def pack_store_aux(store, model_cfg: ModelConfig, train_cfg: Optional[TrainConfig]) -> Dict[str, Any]:
-    """The raw-id vocabularies, the item metadata table and the configs
-    (:59-86). The JAX package adds each user's history window for the nets
-    that read one (lstm, sasrec: ROADMAP.md §A item 10); no ported net
-    does."""
+    """The raw-id vocabularies, the item metadata table, the configs and,
+    for the nets that read one (lstm, sasrec), each user's history window
+    ``history: {ids, mask}`` (:59-86): it derives from the train split,
+    which a cold process does not have."""
+    from torchrecsys_tpu_torch.models import MODEL_REGISTRY
+
     m = store.metadata
-    return {
+    aux = {
         "user_vocab": store.user_encoder.to_list(),
         "item_vocab": store.item_encoder.to_list(),
         "metadata": {
@@ -111,6 +114,10 @@ def pack_store_aux(store, model_cfg: ModelConfig, train_cfg: Optional[TrainConfi
         "model_cfg": dataclasses.asdict(model_cfg),
         "train_cfg": dataclasses.asdict(train_cfg) if train_cfg else None,
     }
+    if getattr(MODEL_REGISTRY.get(model_cfg.net_type), "needs_history", False):
+        h_ids, h_mask = store.user_history(model_cfg.history_len)
+        aux["history"] = {"ids": h_ids, "mask": h_mask}
+    return aux
 
 
 def _check(loaded: Any, target: Any, where: str) -> None:

@@ -29,10 +29,9 @@ import torch
 from torchrecsys_tpu_torch.models.base import RecModel, padded_rows
 
 # config fields of the JAX package the port has no counterpart for: its
-# Pallas backend switches (the port's kernels follow the device) and the
-# sequence nets' shapes (ROADMAP.md §A item 10)
+# Pallas backend switches (the port's kernels follow the device)
 JAX_ONLY_FIELDS = {
-    "model_cfg": ("pallas_tower", "history_len", "sasrec_blocks", "sasrec_heads"),
+    "model_cfg": ("pallas_tower",),
     "train_cfg": ("pallas_step", "pallas_softmax"),
 }
 
