@@ -215,6 +215,34 @@ result line:
       one bpr epoch from one start within rtol=2e-4, atol=1e-5; the small
       LSTM saved and cold-loaded in 6n's child process, serving identical
       ids and values through #1/#2.
+   p. EASE (ROADMAP.md §A item 11) at README.md:150's width: card against
+      CPU first (3,000 users x 700 items: G bit-identical, B within
+      rtol=1e-5, atol=1e-6, ids identical); then ``RecSys(net_type=
+      "ease")`` over 3M interactions of 100K users x 30K items: fit (Gram
+      on the TF32 tensor cores and solve seconds, peak device memory, no
+      kernel launch), G bit-identical to an IEEE f32 product, the exact
+      solve's off-diagonal residual (A P)_ij / (A P)_jj at most 1e-3,
+      diag(B) == 0; evaluate(recall@10, hit_rate@10, ndcg@10), the hit
+      rate above 3x a random top-10's; 256-user predict batches at
+      top_k=10, 128 and exclude_seen (users/s), every batch's items
+      scoring the f64 top-k within atol=1e-4 + rtol=1e-5; similar_items
+      (the top of B's row, the query dropped); save, and a cold load in
+      6n's child serving identical ids and values; update_data of 100,000
+      interactions (1,000 new users, 100 new items), predict refused until
+      the refit, the refit's nnz; Newton-Schulz at 8192 items against the
+      exact solve within rtol=1e-3, atol=1e-4, with its iterations.
+   q. the streaming fit (ROADMAP.md §A item 13; 2.4M train rows, cut from
+      benchmarks/STREAMING.md's 200M): Linear with the category column,
+      hinge, batch 1024, ``Trainer.fit_streaming(superbatch_size=2^17)``:
+      19 chunks, #3 once per step and no other kernel, every chunk the
+      split's rows of its index in the JAX stream's order, int64, the
+      sample loss falls; resident and streamed examples/s in turns; a
+      profiled streamed epoch: the host-to-device copies on their own
+      stream, overlapping step kernels, the copy time with no kernel
+      running, the idle share; one chunk of the whole split against the
+      resident epoch from one state and keys (6n's rule); sampled softmax
+      at batch 4096 and 2^19 (#4/#5 once per step); the north-star AMP MLP
+      at 2^20 (#6/#7 twice per step).
 7. times: per-kernel CUDA-event ms and device us per call from
    torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
@@ -234,6 +262,7 @@ The line before the last is {"kernels": [...]}; the last is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1002,18 +1031,20 @@ def tower_kernel_phase(torch):
 # ---------------------------------------------------------------------------
 
 
-def synthetic_interactions(seed: int = 0):
+def synthetic_interactions(seed: int = 0, n_items: int = 0):
     """Block-preference interactions (bench.py:98-110): user block b prefers
     item block b, 70% on-block. Every user and item occurs at least once so
-    the catalog is exactly N items; category = item % 1000, static per item."""
+    the catalog is exactly ``n_items`` items (0: N); category = item % 1000,
+    static per item."""
+    n_items = n_items or N
     r = np.random.default_rng(seed)
-    n_rest = N_INTERACTIONS - N
-    users = np.concatenate([r.integers(0, N_USERS, N), r.integers(0, N_USERS, n_rest)])
+    n_rest = N_INTERACTIONS - n_items
+    users = np.concatenate([r.integers(0, N_USERS, n_items), r.integers(0, N_USERS, n_rest)])
     users[: N_USERS] = np.arange(N_USERS)
     on_block = r.random(n_rest) < 0.7
-    rand_items = r.integers(0, N, n_rest)
-    block_items = ((rand_items // 8) * 8 + users[N:] % 8) % N
-    items = np.concatenate([r.permutation(N), np.where(on_block, block_items, rand_items)])
+    rand_items = r.integers(0, n_items, n_rest)
+    block_items = ((rand_items // 8) * 8 + users[n_items:] % 8) % n_items
+    items = np.concatenate([r.permutation(n_items), np.where(on_block, block_items, rand_items)])
     return {"user_id": users.astype(np.int64), "item_id": items.astype(np.int64), "category_id": items % 1000}
 
 
@@ -2519,6 +2550,524 @@ def small_sequence_check(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6p: EASE at its published width
+# ---------------------------------------------------------------------------
+
+EASE_ITEMS = 30_000  # README.md:150 and BASELINE.md:131's EASE row: 100K users x 30K items
+EASE_ITER_ITEMS = 8192  # the JAX package's _EXACT_INV_MAX_N: the iterative solve against the exact one
+EASE_RESIDUAL = 1e-3  # the exact solve: max |(A P)_ij| / (A P)_jj over i != j allowed
+EASE_N_NEW, EASE_NEW_USERS, EASE_NEW_ITEMS = 100_000, 1_000, 100
+EASE_USERS_CHECKED = 256  # the cold load's users
+
+
+@contextlib.contextmanager
+def ease_parts(torch, times: dict):
+    """Synchronised timers around EASE._set_pairs, gram and _solve_b (a
+    fit's parts: the host CSR, the Gram, the solve; seconds added into
+    ``times``) and a recorder of _inv_spd_newton's
+    iterations (``times["iterations"]``); the module is restored after."""
+    from torchrecsys_tpu_torch.models import ease as em
+
+    real = (em.EASE.gram, em._solve_b, em._inv_spd_newton, em.EASE._set_pairs)
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    def newton(a, lam_min):
+        x, k = real[2](a, lam_min)
+        times["iterations"] = k
+        return x, k
+
+    em.EASE.gram, em._solve_b, em._inv_spd_newton, em.EASE._set_pairs = (
+        timed("gram_s", real[0]), timed("solve_s", real[1]), newton, timed("csr_s", real[3]))
+    try:
+        yield times
+    finally:
+        em.EASE.gram, em._solve_b, em._inv_spd_newton, em.EASE._set_pairs = real
+
+
+def row_lookup(vocab) -> np.ndarray:
+    """raw int id -> encoded row, for this data's int ids."""
+    vocab = np.asarray(vocab, np.int64)
+    out = np.full(int(vocab.max()) + 1, -1, np.int64)
+    out[vocab] = np.arange(len(vocab))
+    return out
+
+
+def ease_check_batch(torch, ease, rows, ids, top_k, exclude_seen, label):
+    """One predict batch's item rows against a rescoring in f64: each
+    user's scores as the f64 sum of B's rows of their train items (those
+    items at -inf with ``exclude_seen``); each returned item's f64 score
+    equal to the f64 top-k value at its rank within ATOL + RTOL |v| (an id
+    may differ only between items that score that value)."""
+    ptr, idx = ease.user_ptr, ease.item_idx
+    counts = ptr[rows + 1] - ptr[rows]
+    flat = np.concatenate([idx[ptr[r] : ptr[r + 1]] for r in rows]).astype(np.int64)
+    rr = torch.as_tensor(np.repeat(np.arange(len(rows)), counts), device=DEVICE)
+    ft = torch.as_tensor(flat, device=DEVICE)
+    s = torch.zeros((len(rows), ease.num_items), dtype=torch.float64, device=DEVICE)
+    s.index_add_(0, rr, ease.b[ft].double())
+    if exclude_seen:
+        s[rr, ft] = -float("inf")
+    want = torch.sort(s, dim=1, descending=True, stable=True)[0][:, :top_k]
+    got = torch.gather(s, 1, torch.as_tensor(ids, device=DEVICE))
+    check(bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all()),
+          f"{label}: predict's items do not score the f64 top-{top_k}")
+
+
+def small_ease_check(torch):
+    """6p card against CPU: a small EASE (3,000 users x 700 items, 20,000
+    interactions, lam=10): G on the card's TF32 tensor cores bit-identical
+    to the CPU's IEEE f32 G; B within rtol=1e-5, atol=1e-6 (two LU
+    factorizations: cuSOLVER's and LAPACK's); scores within rtol=1e-5,
+    atol=1e-5; predict ids identical for 40 users, with and without
+    exclude_seen."""
+    from torchrecsys_tpu_torch.models import EASE
+
+    r = np.random.default_rng(10)
+    u, i = r.integers(0, 3000, 20000), r.integers(0, 700, 20000)
+    m = {dev: EASE(3000, 700, lam=10.0, device=dev) for dev in ("cpu", DEVICE)}
+    for e in m.values():
+        e._set_pairs(u, i)
+    g_cpu, g_card = m["cpu"].gram(512), m[DEVICE].gram(512).cpu()
+    check(torch.equal(g_card, g_cpu), "small EASE: the card's G differs from the CPU's")
+    for e in m.values():
+        e.fit(u, i, user_chunk=512)
+    bc, bg = m["cpu"].b, m[DEVICE].b.cpu()
+    check(torch.allclose(bg, bc, rtol=1e-5, atol=1e-6), "small EASE: B differs from the CPU's")
+    users = np.arange(0, 3000, 75)
+    sc, sg = m["cpu"].scores(users), m[DEVICE].scores(users).cpu()
+    check(torch.allclose(sg, sc, rtol=1e-5, atol=1e-5), "small EASE: scores differ from the CPU's")
+    for user in users:
+        for excl in (True, False):
+            check(np.array_equal(m[DEVICE].predict(int(user), 20, excl), m["cpu"].predict(int(user), 20, excl)),
+                  f"small EASE: user {user} exclude_seen={excl}: card ids != CPU ids")
+    log(f"[main] small EASE: G card == CPU bit for bit (max count {float(g_cpu.max()):.0f}); max |B diff| "
+        f"{float((bg - bc).abs().max()):.3g}; max |score diff| {float((sg - sc).abs().max()):.3g}; predict ids "
+        f"identical for {len(users)} users x 2")
+
+
+def ease_new_interactions(seed: int = 2):
+    """EASE_N_NEW rows for update_data: known users and items, with
+    EASE_NEW_USERS new users and EASE_NEW_ITEMS new items mixed in."""
+    r = np.random.default_rng(seed)
+    users = r.integers(0, N_USERS + EASE_NEW_USERS, EASE_N_NEW)
+    items = r.integers(0, EASE_ITEMS + EASE_NEW_ITEMS, EASE_N_NEW)
+    users[:EASE_NEW_USERS] = N_USERS + np.arange(EASE_NEW_USERS)
+    items[:EASE_NEW_ITEMS] = EASE_ITEMS + np.arange(EASE_NEW_ITEMS)
+    return {"user_id": users.astype(np.int64), "item_id": items.astype(np.int64)}
+
+
+def ease_residual(torch, ease, em):
+    """G again, on the TF32 tensor cores and as an IEEE f32 product (bit
+    for bit equal), then the exact solve's residual without P: B = I -
+    P diag(P)^-1, so A (I - B) = A P diag(P)^-1 and (A (I - B))_ij /
+    (A (I - B))_jj = (A P)_ij / (A P)_jj. Returns the largest and the rms
+    off-diagonal |.| of that ratio and G's largest count."""
+    g = ease.gram()
+    g_ieee = torch.zeros_like(g)
+    with em._tf32(ease.device, False):
+        for lo in range(0, ease.num_users, 4096):
+            x = ease._rows(np.arange(lo, min(lo + 4096, ease.num_users)))
+            g_ieee.addmm_(x.T, x)
+    check(torch.equal(g, g_ieee), "EASE: the TF32 Gram differs from the IEEE f32 product")
+    del g_ieee, x
+    g_max = float(g.max())
+    check(g_max < 2**24, f"EASE: a count {g_max} past f32's exact integers")
+    g.diagonal().add_(ease.lam)
+    ib = -ease.b
+    ib.diagonal().add_(1.0)
+    with em._tf32(ease.device, False):
+        m = g @ ib
+    del g, ib
+    m.div_(torch.diagonal(m).clone()[None, :])
+    m.diagonal().zero_()
+    res_max, res_rms = float(m.abs().max()), float(m.square().mean().sqrt())
+    del m
+    torch.cuda.empty_cache()
+    return res_max, res_rms, g_max
+
+
+def ease_path(torch):
+    """6p: ``RecSys(net_type="ease")`` at README.md:150's width (100K users
+    x 30K items, 3M interactions from bench.py:98-110's generator): fit
+    (Gram and solve seconds, peak device memory; no kernel launch), G
+    bit-identical to an IEEE f32 product and the solve's residual bounded,
+    diag(B) == 0; evaluate(recall@10, hit_rate@10, ndcg@10) above a random
+    top-10's hit rate; 256-user predict batches at top_k=10, 128 and
+    exclude_seen (users/s), each batch's ids held to an f64 rescoring;
+    similar_items; save (its cold load rides 6n's child process);
+    update_data, predict refused until the refit, the refit (seconds);
+    the Newton-Schulz solve at 8192 items against the exact one within
+    the JAX package's rtol=1e-3, atol=1e-4."""
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.models import EASE
+    from torchrecsys_tpu_torch.models import ease as em
+
+    small_ease_check(torch)
+    t0 = time.perf_counter()
+    rs = RecSys(synthetic_interactions(n_items=EASE_ITEMS), net_type="ease", device=DEVICE)
+    ingest_s = time.perf_counter() - t0
+    st, ease = rs.store, rs.ease
+    check(rs.model is None and rs.config["num_users"] == N_USERS and rs.config["num_items"] == EASE_ITEMS,
+          f"EASE: config {rs.config}")
+    train_users, train_items = st.train_users, st.train_items
+    times: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with ease_parts(torch, times):
+        losses, fit_s, counts = counted(torch, rs.fit)
+    peak = torch.cuda.max_memory_allocated()
+    check(losses == [] and not nonzero(counts), f"EASE: fit returned {losses}, launched {counts}")
+    b = ease.b
+    check(tuple(b.shape) == (EASE_ITEMS, EASE_ITEMS) and int(torch.count_nonzero(torch.diagonal(b))) == 0
+          and bool(torch.isfinite(b).all()), "EASE: B is not finite with a zero diagonal")
+    res_max, res_rms, g_max = ease_residual(torch, ease, em)
+    check(res_max <= EASE_RESIDUAL, f"EASE: the solve's residual {res_max:.3g} is above {EASE_RESIDUAL}")
+    log(f"[train] EASE: RecSys over {N_INTERACTIONS} interactions {ingest_s:.2f} s; fit {fit_s:.3f} s (host CSR "
+        f"{times['csr_s']:.3f} s, Gram {times['gram_s']:.3f} s, solve {times['solve_s']:.3f} s), peak device memory {peak / 2**30:.2f} GiB; "
+        f"nnz {ease.nnz}; G (largest count {g_max:.0f}) on the TF32 tensor cores == the IEEE f32 product bit for "
+        f"bit; (A P)_ij / (A P)_jj off the diagonal: max {res_max:.3g}, rms {res_rms:.3g}; diag(B) == 0")
+    keys = train_users.astype(np.int64) * EASE_ITEMS + train_items
+    t0 = time.perf_counter()
+    np.unique(keys)
+    t1 = time.perf_counter()
+    np.sort(keys)
+    log(f"[train] EASE: numpy {np.__version__} on this host: np.unique of the {len(keys)} train keys "
+        f"{t1 - t0:.3f} s, np.sort {time.perf_counter() - t1:.3f} s (the host CSR dedups after a sort)")
+    metrics = ("recall@10", "hit_rate@10", "ndcg@10")
+    ev, eval_s, counts = counted(torch, lambda: rs.evaluate(eval_metrics=metrics, verbose=False))
+    uniq, inv = np.unique(st.test_users, return_inverse=True)
+    rand_hit = float(np.mean(1 - (1 - 10 / EASE_ITEMS) ** np.bincount(inv)))
+    check(not nonzero(counts) and all(0 <= ev[m] <= 1 for m in metrics) and ev["hit_rate@10"] > 3 * rand_hit,
+          f"EASE: evaluate {ev} (a random top-10 hits {rand_hit:.4g}), launches {counts}")
+    log(f"[main] evaluate EASE: {ev} in {eval_s:.3f} s over {len(uniq)} test users ({st.num_test} rows; a random "
+        f"top-10's hit rate {rand_hit:.4g})")
+    user_row, item_row = row_lookup(st.user_encoder.to_list()), row_lookup(st.item_encoder.to_list())
+    users = st.user_encoder.to_list()
+    batches = [users[s : s + U] for s in range(0, 40 * U, U)]
+    rates = {}
+    for case, top_k, excl in (("top_k=10", 10, False), ("top_k=128", 128, False), ("exclude_seen top_k=10", 10, True)):
+        rs.predict(batches[0], top_k=top_k, exclude_seen=excl)  # warm-up
+        outs, secs, counts = counted(torch, lambda: [rs.predict(bt, top_k=top_k, exclude_seen=excl)
+                                                     for bt in batches[1:]])
+        check(not nonzero(counts), f"EASE predict {case}: launches {counts}")
+        rates[case] = U * len(outs) / secs
+        for bt, out in zip(batches[1:], outs):
+            ease_check_batch(torch, ease, user_row[np.asarray(bt)], item_row[out], top_k, excl, f"EASE {case}")
+        log(f"[main] predict EASE {case}: {len(outs)} batches of {U} users, {rates[case]:.1f} users/s; every "
+            f"batch's items score the f64 top-{top_k}")
+    items = st.item_encoder.to_list()[:64]
+    sims, sim_s, _ = counted(torch, lambda: [rs.similar_items(it, top_k=10) for it in items])
+    for it, sim in zip(items, sims):
+        r = int(item_row[it])
+        w = b[r].clone()
+        w[r] = -float("inf")
+        want = torch.sort(w, descending=True, stable=True)[0][:10]
+        check(r not in item_row[sim] and torch.equal(b[r][torch.as_tensor(item_row[sim], device=DEVICE)], want),
+              f"EASE similar_items({it}) is not the top of B's row")
+    d = ckpt_dir("ease")
+    _, save_s, _ = counted(torch, lambda: rs.save(d))
+    job_users = users[:EASE_USERS_CHECKED]
+    job = {"name": "EASE", "dir": d, "users": job_users, "ks": (10, 128),
+           "warm": serve_outputs(torch, rs, job_users, (10, 128)), "config": dict(rs.config)}
+    log(f"[main] EASE similar_items: 64 items in {sim_s:.3f} s, each the top of its B row; save "
+        f"{ckpt_bytes(d) / 2**20:.1f} MiB in {save_s:.3f} s")
+    _, update_s, _ = counted(torch, lambda: rs.update_data(ease_new_interactions()))
+    try:
+        rs.predict(users[:2])
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused and rs.ease.b is None, "EASE: predict served between update_data and the refit")
+    st2 = rs.store
+    check(rs.config["num_users"] == N_USERS + EASE_NEW_USERS and rs.config["num_items"] == EASE_ITEMS
+          + EASE_NEW_ITEMS, f"EASE: grown config {rs.config}")
+    refit_times: dict = {}
+    with ease_parts(torch, refit_times):
+        _, refit_s, counts = counted(torch, rs.fit)
+    n2 = EASE_ITEMS + EASE_NEW_ITEMS
+    want_nnz = len(np.unique(st2.train_users.astype(np.int64) * n2 + st2.train_items))
+    check(rs.ease.nnz == want_nnz and not nonzero(counts) and int(torch.count_nonzero(torch.diagonal(rs.ease.b))) == 0,
+          f"EASE refit: nnz {rs.ease.nnz} (want {want_nnz}), launches {counts}")
+    new_users = list(range(N_USERS, N_USERS + U))
+    got = rs.predict(new_users, top_k=10, exclude_seen=True)
+    check(got.shape == (U, 10), f"EASE: new users' predict {got.shape}")
+    log(f"[ckpt] EASE update_data of {EASE_N_NEW} interactions ({EASE_NEW_USERS} new users, {EASE_NEW_ITEMS} new "
+        f"items) {update_s:.3f} s on the host, predict refused until the refit; refit {refit_s:.3f} s (host CSR "
+        f"{refit_times['csr_s']:.3f} s, Gram {refit_times['gram_s']:.3f} s, solve {refit_times['solve_s']:.3f} s), nnz {rs.ease.nnz}")
+    del rs, ease, b
+    torch.cuda.empty_cache()
+    keep = train_items < EASE_ITER_ITEMS
+    solves = {}
+    for solve in ("exact", "iterative"):
+        e, t = EASE(N_USERS, EASE_ITER_ITEMS, device=DEVICE), {}
+        with ease_parts(torch, t):
+            _, secs, _ = counted(torch, lambda: e.fit(train_users[keep], train_items[keep], solve=solve))
+        solves[solve] = (e.b, t, secs)
+    (bx, tx, sx), (bi, ti, si) = solves["exact"], solves["iterative"]
+    diff = (bi - bx).abs()
+    check(bool(torch.allclose(bi, bx, rtol=1e-3, atol=1e-4)), f"EASE iterative at {EASE_ITER_ITEMS} items: max "
+          f"|diff| {float(diff.max()):.3g} beyond rtol=1e-3, atol=1e-4")
+    log(f"[main] EASE Newton-Schulz at {EASE_ITER_ITEMS} items ({int(keep.sum())} train rows): {ti['iterations']} "
+        f"iterations, solve {ti['solve_s']:.3f} s (exact {tx['solve_s']:.3f} s; fits {si:.3f} / {sx:.3f} s), "
+        f"max |B diff| {float(diff.max()):.3g} within rtol=1e-3, atol=1e-4")
+    del solves, bx, bi, diff
+    torch.cuda.empty_cache()
+    return {"job": job, "fit_s": fit_s, "csr_s": times["csr_s"], "gram_s": times["gram_s"], "solve_s": times["solve_s"], "peak": peak,
+            "eval_s": eval_s, "eval": ev, "rates": rates, "save_s": save_s, "update_s": update_s,
+            "refit_s": refit_s, "iter_s": ti["solve_s"], "iterations": ti["iterations"], "res_max": res_max}
+
+
+# ---------------------------------------------------------------------------
+# phase 6q: the streaming fit
+# ---------------------------------------------------------------------------
+
+STREAM_SB, STREAM_MLP_SB, STREAM_SOFTMAX_SB = 1 << 17, 1 << 20, 1 << 19
+
+
+def stream_steps(n: int, sb: int, b: int) -> int:
+    """Steps of a streamed epoch: each chunk's ceil(rows / b)."""
+    return sum(-(-min(sb, n - s) // b) for s in range(0, n, sb))
+
+
+def _union(iv):
+    out = []
+    for s, e in sorted(iv):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap(a, b) -> int:
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = tot = 0
+    while i < len(a) and j < len(b):
+        tot += max(0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def stream_overlap(prof, wall_us: float) -> dict:
+    """From a profiled streamed epoch's records: the chunk copies (the
+    host-to-device copies on a stream no kernel ran on: count, device ms,
+    streams), the other copies, the kernels' streams, the chunk-copy time
+    during which no kernel ran (exposed), the chunk copies that overlap a
+    kernel and a step kernel, and the device's idle share over the
+    window."""
+    copies, kernels, steps = [], [], []
+    kernel_streams = set()
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if "spin_kernel" in name or "Memset" in name:
+            continue
+        if "Memcpy HtoD" in name:
+            copies.append((e.start_ns(), e.end_ns(), e.device_resource_id()))
+        elif str(e.device_type()).endswith("CUDA"):
+            kernels.append((e.start_ns(), e.end_ns()))
+            kernel_streams.add(e.device_resource_id())
+            if "fused_pairwise" in name:
+                steps.append((e.start_ns(), e.end_ns()))
+    side = [(a, b) for a, b, sid in copies if sid not in kernel_streams]
+    cu, ku, su = _union(side), _union(kernels), _union(steps)
+    copy_ns = sum(e - s for s, e in cu)
+    busy_ns = sum(e - s for s, e in _union([(a, b) for a, b, _ in copies] + kernels))
+    return {"copies": len(side), "other_copies": len(copies) - len(side), "copy_ms": copy_ns / 1e6,
+            "exposed_ms": (copy_ns - _overlap(cu, ku)) / 1e6,
+            "over_kernels": sum(1 for c in side if _overlap([list(c)], ku) > 0),
+            "over_steps": sum(1 for c in side if _overlap([list(c)], su) > 0),
+            "copy_streams": sorted({sid for _, _, sid in copies if sid not in kernel_streams}),
+            "kernel_streams": sorted(kernel_streams), "idle_share": 1 - busy_ns / 1e3 / wall_us}
+
+
+def stream_chunk_parts(torch, tr, rs, rows: int) -> dict:
+    """Host ms (synchronised) of the parts of one ``train_epoch`` over the
+    first ``rows`` train rows of ``rs``'s store: the epoch build (and,
+    alone, the Feistel permutation it starts with: a host-synced pass of
+    ~85 launches per cycle-walking step), the table pack, the steps and
+    the unpack (a streamed epoch pays each once per chunk). Launches here
+    are a measurement and are not counted."""
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+    from torchrecsys_tpu_torch.utils.permute import random_permutation
+
+    st = rs.store
+    data = {k: torch.as_tensor(v[:rows], device=DEVICE).long()
+            for k, v in (("user_id", st.train_users), ("pos_item_id", st.train_items))}
+    feat, saved, parts = tr.feature_tables(st), step_launches(fp), {}
+    state = clone_state(torch, rs.state)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    timed("permutation", lambda: random_permutation(torch.arange(6, device=DEVICE), rows))
+    ep = timed("build", lambda: tr.build_epoch(data, torch.arange(6, device=DEVICE), gen, feat))
+    packed = timed("pack", lambda: tr.pack_state(state))
+    timed("steps", lambda: tr.run_steps(packed, ep, feat, step0=state["step"]))
+    timed("unpack", lambda: tr.unpack_state(state, packed, ep.nb))
+    set_step_launches(fp, saved)
+    return parts
+
+
+def streaming_path(torch, data):
+    """6q, train/streaming.py at this data's depth (2.4M train rows; cut
+    from benchmarks/STREAMING.md's 200M, PERF.md §4): (i) Linear with the
+    category column, hinge, batch 1024, ``fit_streaming(superbatch_size=
+    2^17)``: 19 chunks, #3 once per step and nothing else, every chunk the
+    split's rows of its index in the JAX order, int64, the sample loss
+    falls; streamed against resident examples/s (resident, streamed,
+    streamed, resident); a profiled streamed epoch: the copies on a side
+    stream, overlapping the step kernels, the exposed copy time. (ii) one
+    chunk of the whole split against the resident epoch from one state and
+    keys, by 6n's rule (6m's tolerance, at most max(64, 2 x the noise
+    floor's) rows). (iii) the north-star AMP MLP at 2^20: #6/#7 twice per
+    step. (iv) sampled softmax at batch 4096 and 2^19: #4/#5 once per
+    step."""
+    from torchrecsys_tpu_torch.config import TrainConfig
+    from torchrecsys_tpu_torch.train import Trainer
+
+    label = "streamed Linear metadata"
+    rs, sample = seeded_recsys(torch, data, True, seed=12)
+    st, n = rs.store, rs.store.num_train
+    tr = rs._ensure_trainer(TrainConfig(batch_size=TRAIN_B, epochs=1, learning_rate=1e-2, dynamic_neg_sampling=True,
+                                        seed=rs.seed))
+    fresh = sample_loss(torch, rs, sample)
+    chunks, real = [], tr.train_epoch
+
+    def recording(state, data_, feat, keys=None, negatives=None):
+        chunks.append(data_)
+        return real(state, data_, feat, keys=keys, negatives=negatives)
+
+    def streamed(sb=STREAM_SB, trainer=tr, r=rs, **kw):
+        state, losses = trainer.fit_streaming(r.state, r.store, superbatch_size=sb, epochs=1, verbose=False, **kw)
+        r._install(state)
+        return losses
+
+    tr.train_epoch = recording
+    try:
+        losses, secs, counts = counted(torch, streamed)
+    finally:
+        del tr.train_epoch
+    steps = stream_steps(n, STREAM_SB, TRAIN_B)
+    n_chunks = -(-n // STREAM_SB)
+    check(nonzero(counts) == {"fused_pairwise_step_meta": steps}, f"{label}: launched {counts}, want #3 once per "
+          f"step ({steps})")
+    check(len(losses) == 1 and np.isfinite(losses[0]) and len(chunks) == n_chunks, f"{label}: losses {losses}, "
+          f"{len(chunks)} chunks")
+    order = np.random.default_rng(0).permutation(n_chunks)
+    cols = {"user_id": st.train_users, "pos_item_id": st.train_items}
+    for j, c in enumerate(chunks):
+        lo = int(order[j]) * STREAM_SB
+        check(sorted(c) == sorted(cols), f"{label}: chunk columns {sorted(c)}")
+        for k, v in cols.items():
+            check(c[k].dtype == torch.int64 and torch.equal(c[k], torch.as_tensor(v[lo : lo + STREAM_SB],
+                                                                                  device=DEVICE).long()),
+                  f"{label}: chunk {j} is not rows {lo}.. of the split")
+    del chunks
+    trained = sample_loss(torch, rs, sample)
+    check(trained < fresh, f"{label}: sample loss {fresh} -> {trained}")
+    launches = dict(counts)
+    log(f"[train] {label}: fit_streaming of {n} rows in {n_chunks} chunks of {STREAM_SB} in {secs:.3f} s, "
+        f"{steps} steps of {TRAIN_B}; epoch loss {losses[0]:.5f}; sample loss {fresh:.5f} -> {trained:.5f}; every "
+        f"chunk the split's rows of its index (int64), in the JAX stream's order; launches {nonzero(counts)}")
+    rates = {"resident": [], "streamed": []}
+    for kind in ("resident", "streamed", "streamed", "resident"):
+        run = streamed if kind == "streamed" else (lambda: rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False))
+        _, secs, _ = counted(torch, run)
+        rates[kind].append(n / secs)
+    log(f"[train] {label}: examples/s in turns, resident {[round(x, 1) for x in rates['resident']]}, streamed "
+        f"{[round(x, 1) for x in rates['streamed']]}")
+    chunk, whole = (stream_chunk_parts(torch, tr, rs, rows) for rows in (STREAM_SB, n))
+    log(f"[breakdown] {label}: host ms of one train_epoch's parts over a chunk of {STREAM_SB} rows "
+        f"{ {k: round(v, 3) for k, v in chunk.items()} } (x {n_chunks} chunks) and over the resident {n} rows "
+        f"{ {k: round(v, 3) for k, v in whole.items()} }")
+    # torch.profiler can drop a window's first records late in a whole run
+    # (profiled_window); a window short of chunk copies is taken once more
+    for take in (1, 2):
+        prof, wall_us = profiled_window(torch, torch.cuda.synchronize, streamed)
+        ov = stream_overlap(prof, wall_us)
+        if ov["copies"] == 2 * n_chunks:
+            break
+        log(f"[profile] {label}: window {take}: {ov['copies']} chunk-copy records of the {2 * n_chunks} copies "
+            f"issued")
+    check(ov["copies"] >= n_chunks and len(ov["copy_streams"]) == 1, f"{label}: the profiled epoch's "
+          f"copies {ov}, want the {2 * n_chunks} chunk copies on one side stream")
+    log(f"[profile] {label}: {ov['copies']} chunk copies ({ov['copy_ms']:.3f} ms of device time) on stream(s) "
+        f"{ov['copy_streams']}, kernels on {ov['kernel_streams']} ({ov['other_copies']} other copies there); "
+        f"{ov['over_kernels']} chunk copies overlap a kernel, {ov['over_steps']} a step kernel; copy time with no "
+        f"kernel running {ov['exposed_ms']:.3f} ms of a {wall_us / 1e3:.3f} ms epoch; device idle share "
+        f"{ov['idle_share']:.3f}")
+    # (ii) one chunk of the whole split against the resident epoch, from one state and one set of keys
+    data_d, feat = tr._device_train_data(st), tr.feature_tables(st)
+    keys = torch.arange(6, device=DEVICE) * 13 + 3
+    start = clone_state(torch, dict(rs.state, rng=tr._rng(dict(rs.state))))
+    res = [tr.train_epoch(clone_state(torch, start), data_d, feat, keys=keys) for _ in range(2)]
+    one_state, one_loss = tr.fit_streaming(clone_state(torch, start), st, superbatch_size=n, epochs=1,
+                                           verbose=False, keys=[keys])
+    floor = state_diff(torch, res[1][0], res[0][0])
+    bad, worst = resume_compare(torch, f"{label} one chunk", one_state, res[0][0], floor)
+    loss_res = float(res[0][1])
+    check(abs(one_loss[0] - loss_res) <= RESUME_ATOL + RESUME_RTOL * abs(loss_res),
+          f"{label} one chunk: loss {one_loss[0]} != resident {loss_res}")
+    log(f"[train] {label}: one chunk of {n} rows against the resident epoch from one state and keys: loss "
+        f"{one_loss[0]:.7f} / {loss_res:.7f}, max |diff| {worst:.3g}, rows beyond rtol={RESUME_RTOL}/atol="
+        f"{RESUME_ATOL} {bad} (noise floor {nonzero({k: v[0] for k, v in floor.items()})})")
+    # (iv) sampled softmax at 4096 on the same model: a resident epoch, then a streamed one
+    trs = rs._ensure_trainer(TrainConfig(batch_size=SOFTMAX_B, epochs=1, learning_rate=1e-2, loss="sampled_softmax",
+                                         dynamic_neg_sampling=True, seed=rs.seed))
+    _, sm_res_s, _ = counted(torch, lambda: rs.fit(epochs=1, batch_size=SOFTMAX_B, loss="sampled_softmax",
+                                                   verbose=False))
+    check(rs.trainer is trs, "streamed softmax: the resident fit took another trainer")
+    sm_losses, sm_s, counts = counted(torch, lambda: streamed(STREAM_SOFTMAX_SB, trs))
+    sm_steps = stream_steps(n, STREAM_SOFTMAX_SB, SOFTMAX_B)
+    check(nonzero(counts) == {"softmax_ce_fwd": sm_steps, "softmax_ce_bwd": sm_steps} and np.isfinite(sm_losses[0]),
+          f"streamed softmax: launched {counts}, want #4 and #5 once per step ({sm_steps}); loss {sm_losses}")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    log(f"[train] streamed Linear metadata softmax: {n} rows in chunks of {STREAM_SOFTMAX_SB}, {sm_steps} steps of "
+        f"{SOFTMAX_B} in {sm_s:.3f} s = {n / sm_s:.1f} examples/s (resident, just before: {n / sm_res_s:.1f}); "
+        f"loss {sm_losses[0]:.5f}; launches {nonzero(counts)}")
+    del rs, tr, trs, start, res, one_state, data_d, feat
+    torch.cuda.empty_cache()
+    # (iii) the north-star AMP MLP at 2^20
+    rm, _ = seeded_mlp(data, use_amp=True)
+    trm = rm._ensure_trainer(TrainConfig(batch_size=MLP_B, epochs=1, learning_rate=0.05, dynamic_neg_sampling=True,
+                                         seed=rm.seed))
+    _, mlp_res_s, _ = counted(torch, lambda: rm.fit(epochs=1, batch_size=MLP_B, learning_rate=0.05, verbose=False))
+    check(rm.trainer is trm, "streamed MLP: the resident fit took another trainer")
+    mlp_losses, mlp_s, counts = counted(torch, lambda: streamed(STREAM_MLP_SB, trm, rm))
+    mlp_steps = stream_steps(n, STREAM_MLP_SB, MLP_B)
+    want = len(MLP_HIDDEN) * mlp_steps
+    check(nonzero(counts) == {"fused_tower_fwd": want, "fused_tower_bwd": want} and np.isfinite(mlp_losses[0]),
+          f"streamed MLP AMP: launched {counts}, want #6 and #7 twice per step ({want}); loss {mlp_losses}")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    log(f"[train] streamed MLP AMP: {n} rows in chunks of {STREAM_MLP_SB}, {mlp_steps} steps of {MLP_B} in "
+        f"{mlp_s:.3f} s = {n / mlp_s:.1f} examples/s (resident, just before: {n / mlp_res_s:.1f}); loss "
+        f"{mlp_losses[0]:.5f}; launches {nonzero(counts)}")
+    del rm, trm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rates": rates, "overlap": ov, "wall_ms": wall_us / 1e3,
+            "softmax_rate": n / sm_s, "mlp_rate": n / mlp_s, "softmax_resident": n / sm_res_s,
+            "mlp_resident": n / mlp_res_s, "steps": steps, "chunks": n_chunks, "chunk_parts": chunk,
+            "whole_parts": whole}
+
+
+# ---------------------------------------------------------------------------
 # phase 6n: checkpoints and incremental training
 # ---------------------------------------------------------------------------
 
@@ -2546,12 +3095,18 @@ def ckpt_bytes(directory: str) -> int:
 def serve_outputs(torch, rs, users, ks):
     """For each k: the top-k values and item rows of ``users`` through the
     facade's scorer (catalog_topk with the kept catalog: #1 for k <= 16,
-    #2 above; the chunked scorer for the MLP) and ``predict``'s raw ids."""
+    #2 above; the chunked scorer for the MLP; EASE's scores and stable
+    top-k) and ``predict``'s raw ids."""
     from torchrecsys_tpu_torch.eval.predict import catalog_topk
+    from torchrecsys_tpu_torch.models.ease import topk_rows
 
     rows = torch.as_tensor([rs.store.user_encoder.encode_one(u) for u in users], device=rs.device)
     out = {}
     for k in ks:
+        if rs.ease is not None:  # EASE: X[u] @ B, then the stable top-k
+            vals, ids = topk_rows(rs.ease.scores(rows.cpu().numpy()), k)
+            out[k] = (vals.float().cpu().numpy(), ids.cpu().numpy(), rs.predict(users, top_k=k))
+            continue
         cat = rs._linearized() if rs.model.supports_linearized_catalog else None
         vals, ids = catalog_topk(rs.model, rs._params(), rs.state["model_state"], rows, rs.store.schema.num_items,
                                  rs.feat, top_k=k, catalog=cat)
@@ -3859,11 +4414,19 @@ def main() -> int:
     for out in seq.values():
         for kernel, n in out["launches"].items():
             seq_extra[kernel] = seq_extra.get(kernel, 0) + n
+    # 6p: EASE at 100K users x 30K items (no kernel; its cold load rides 6n's child)
+    t0 = time.perf_counter()
+    ease = ease_path(torch)
+    secs_6p = time.perf_counter() - t0
+    # 6q: the streaming fit through #3, #4/#5 and #6/#7
+    t0 = time.perf_counter()
+    stream = streaming_path(torch, data)
+    secs_6q = time.perf_counter() - t0
     # 6n: the cold loads of a, c and d (and 6o's small LSTM) in one child process; 6n's launches
     linear_job = {"name": "Linear metadata", "dir": ckpt["dir"], "users": ckpt["users"], "ks": (10, 128),
                   "warm": ckpt["warm"], "config": ckpt["config"]}
     t0 = time.perf_counter()
-    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt, seq_job])
+    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt, seq_job, ease["job"]])
     shutil.rmtree(ckpt_dir(""), ignore_errors=True)
     secs_6n += time.perf_counter() - t0
     extra: dict = {}
@@ -3874,7 +4437,8 @@ def main() -> int:
     for kernel, n in cold["small LSTM"]["counts"].items():
         seq_extra[kernel] = seq_extra.get(kernel, 0) + n
     for row in kernels:
-        row["launches"] += extra.get(row["name"], 0) + seq_extra.get(row["name"], 0)
+        row["launches"] += (extra.get(row["name"], 0) + seq_extra.get(row["name"], 0)
+                            + stream["launches"].get(row["name"], 0))
     log(f"[ckpt] {smi_line}: Linear metadata checkpoint {ckpt['bytes'] / 2**20:.1f} MiB, save "
         f"{ckpt['save_s']:.3f} s, load {ckpt['load_s']:.3f} s in process / "
         f"{cold['Linear metadata']['load_s']:.3f} s cold in the child, restore {ckpt['restore_s']:.3f} s; "
@@ -3924,6 +4488,20 @@ def main() -> int:
     log(f"[main] 6o {smi_line}: SASRec AMP softmax fit examples/s {seq['sasrec']['softmax']['examples_per_s']:.1f} "
         f"(one epoch of {SOFTMAX_B}); 6o took {secs_6o:.1f} s of the run (its cold load rides 6n's child); "
         f"6o launches {nonzero(seq_extra)}")
+    log(f"[main] 6p {smi_line}: EASE {N_USERS} users x {EASE_ITEMS} items: fit {ease['fit_s']:.3f} s (host CSR "
+        f"{ease['csr_s']:.3f} s, Gram "
+        f"{ease['gram_s']:.3f} s, solve {ease['solve_s']:.3f} s), peak {ease['peak'] / 2**30:.2f} GiB, residual "
+        f"{ease['res_max']:.3g}; evaluate {ease['eval_s']:.3f} s {json.dumps(ease['eval'])}; predict users/s "
+        f"{json.dumps(ease['rates'])}; save {ease['save_s']:.3f} s, cold load {cold['EASE']['load_s']:.3f} s in the "
+        f"child; update_data {ease['update_s']:.3f} s, refit {ease['refit_s']:.3f} s; Newton-Schulz at "
+        f"{EASE_ITER_ITEMS} items {ease['iterations']} iterations in {ease['iter_s']:.3f} s; 6p took {secs_6p:.1f} s")
+    ov = stream["overlap"]
+    log(f"[main] 6q {smi_line}: Linear metadata hinge examples/s resident {stream['rates']['resident']} streamed "
+        f"{stream['rates']['streamed']} ({stream['chunks']} chunks of {STREAM_SB}); profiled streamed epoch "
+        f"{stream['wall_ms']:.3f} ms: chunk copies {ov['copy_ms']:.3f} ms of device time, {ov['exposed_ms']:.3f} ms "
+        f"of it with no kernel running; idle share {ov['idle_share']:.3f}; softmax resident {stream['softmax_resident']:.1f} streamed "
+        f"{stream['softmax_rate']:.1f}, MLP AMP resident {stream['mlp_resident']:.1f} streamed "
+        f"{stream['mlp_rate']:.1f} examples/s; 6q launches {nonzero(stream['launches'])}; 6q took {secs_6q:.1f} s")
     log(f"[main] the popularity alias table at {N} items: {pop['alias_s']:.3f} s on the host (outside the "
         f"6j fit, inside 6k's); NeuCF AMP predict 16 users {neucf['predict_s']:.3f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")

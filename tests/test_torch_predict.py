@@ -203,8 +203,8 @@ def test_errors():
         assert seq.model.name == net and seq.feat["hist_ids"].shape == (seq.store.schema.num_users, 3)
     with pytest.raises(ValueError, match="divisible by sasrec_heads"):
         RecSys(data, net_type="sasrec", device="cpu", n_factors=5)
-    with pytest.raises(NotImplementedError, match="§A item 11"):
-        RecSys(data, net_type="ease", device="cpu")
+    ease = RecSys(data, net_type="ease", device="cpu")  # EASE builds directly (ROADMAP.md §A item 11)
+    assert ease.model is None and ease.ease.num_items == ease.store.schema.num_items
     assert RecSys(data, net_type="fm", device="cpu", n_factors=4).model.name == "fm"
     assert RecSys(data, net_type="neucf", device="cpu", n_factors=4).model.name == "neucf"
     trs = RecSys(data, device="cpu", n_factors=4)

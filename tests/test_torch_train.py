@@ -266,7 +266,7 @@ def test_amp_training_and_unknown_options():
         assert build_model(rs.store.schema, ModelConfig(net_type=net, n_factors=8)).needs_history
     with pytest.raises(ValueError, match="divisible by sasrec_heads"):
         build_model(rs.store.schema, ModelConfig(net_type="sasrec", n_factors=9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="plus 'ease' via"):  # JAX's refusal: EASE builds directly
         build_model(rs.store.schema, ModelConfig(net_type="ease"))
     wide = build_model(rs.store.schema, ModelConfig(n_factors=125))
     assert not tfp.pairwise_kernel_applicable(wide, TrainConfig())

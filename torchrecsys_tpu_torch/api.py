@@ -1,8 +1,9 @@
 """User-facing facade ``RecSys`` (port of ``torchrecsys_tpu/api.py``: the
 constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
 :128-202, ``predict`` :295-388, ``_patch_short_unseen_rows`` :391-410,
-``evaluate`` :205-269, ``_filter_seen`` :412-437, ``similar_items``
-:439-478, ``item_vectors`` / ``user_vectors`` :481-549,
+``evaluate`` :205-269, ``_evaluate_ease`` :271-293, ``_filter_seen``
+:412-437, ``similar_items`` :439-478, ``item_vectors`` / ``user_vectors``
+:481-549,
 ``_decode_items`` :551-563, ``update_data`` / ``partial_fit`` :566-653
 and ``save`` / ``restore`` / ``load`` :655-790).
 
@@ -15,7 +16,9 @@ the sampled-softmax step), from a checkpoint (:meth:`RecSys.restore`,
 ``{"tables", "dense", "model_state", "emb_opt", "dense_opt", "step"}``
 (plus the trainer's generator, ``rng``, once fit has run).
 :meth:`RecSys.update_data` grows the store and the state with new users
-and items (incremental training).
+and items (incremental training). ``net_type="ease"`` has no model,
+tables or trainer: ``self.ease`` (models/ease.py) holds the interaction
+CSR and ``B``, and every EASE branch of the JAX facade is kept here.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ from torchrecsys_tpu_torch.data.encoder import IdEncoder
 from torchrecsys_tpu_torch.data.features import feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore, extend_store, prepare_data
 from torchrecsys_tpu_torch.data.metadata import MetadataTable
-from torchrecsys_tpu_torch.eval.predict import catalog_topk, ranking_eval
+from torchrecsys_tpu_torch.eval.predict import catalog_topk, ranking_eval, topk_ranking_metrics
 from torchrecsys_tpu_torch.models import build_model
 from torchrecsys_tpu_torch.models.base import padded_rows
+from torchrecsys_tpu_torch.models.ease import EASE, topk_rows
 from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, pack_seen_mask_torch
 from torchrecsys_tpu_torch.train.optim import init_dense_opt, init_embedding_opt
 from torchrecsys_tpu_torch.train.trainer import Trainer, grow_state
@@ -95,8 +99,9 @@ class RecSys:
         """The JAX constructor's keywords, in its order and with its
         defaults, then ``device``. ``fm_sigmoid`` goes to FM's config,
         ``history_len`` (each user's window of train items) to the sequence
-        nets' (lstm, sasrec); ``ease_lam`` is kept: only EASE reads it, and
-        it raises at ``build_model``. ``debug=True`` writes
+        nets' (lstm, sasrec); ``ease_lam`` is EASE's ridge ``lam``
+        (``net_type="ease"``: no model, ``self.ease`` instead, api.py:93-104).
+        ``debug=True`` writes
         the store's ``config.json`` and ``meta.csv`` to ``path``
         (:meth:`InteractionStore.write_data`). A ``mesh`` raises
         ``NotImplementedError`` naming its ROADMAP.md item."""
@@ -129,6 +134,10 @@ class RecSys:
             dynamic_neg_sampling=dynamic_neg_sampling,
             seed=seed + 42,
         ))
+        self.ease: Optional[EASE] = None
+        if net_type == "ease":
+            s = self.store.schema
+            self.ease = EASE(s.num_users, s.num_items, lam=ease_lam, device=self.device)
         self.trainer: Optional[Trainer] = None
         self.state: Optional[Dict[str, Any]] = None
         if debug:
@@ -138,10 +147,14 @@ class RecSys:
         """Serve and train ``store``: a model built for its schema, its
         feature tables (the sequence nets' history windows among them), and
         none of the caches of an earlier store: the kept catalog encodes the
-        users' histories, so a new store (``update_data``) drops it."""
+        users' histories, so a new store (``update_data``) drops it. EASE
+        has neither model nor feature tables."""
         self.store = store
-        self.model = build_model(store.schema, self.model_cfg).to(self.device)
-        self.feat = feature_tables(store, self.model, self.device)
+        if self.model_cfg.net_type == "ease":
+            self.model, self.feat = None, {}
+        else:
+            self.model = build_model(store.schema, self.model_cfg).to(self.device)
+            self.feat = feature_tables(store, self.model, self.device)
         # kept between calls; rebuilt for a new store, the catalog also
         # when the tables change (_install)
         self._seen_index = None  # (train item rows sorted by user, offsets)
@@ -179,6 +192,7 @@ class RecSys:
         ``state["dense"]`` (the MLP tower; None = a fresh seeded draw) and
         ``model_state`` its ``state["model_state"]`` (batch-norm running
         statistics; None = fresh), as numpy arrays (see utils/convert.py)."""
+        self._require_tables("load_jax_tables()")
         dev = self.device
         self._install_tables(
             tables_from_jax(tables, self.model, dev), emb_opt,
@@ -189,9 +203,17 @@ class RecSys:
     def init_tables(self) -> None:
         """Fresh seeded tables and dense parameters (the reference's init;
         draws differ from jax.random's) and zero accumulators."""
+        self._require_tables("init_tables()")
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         params, _ = self.model.init(gen)
         self._install_tables(params["tables"], None, params["dense"])
+
+    def _require_tables(self, what: str) -> None:
+        if self.ease is not None:
+            raise ValueError(
+                f"net_type='ease' has no tables for {what}: its model is the "
+                "item-item B matrix, from fit() or a checkpoint"
+            )
 
     def _install_tables(self, tables: Dict[str, torch.Tensor], emb_opt, dense=None,
                         model_state=None) -> None:
@@ -252,7 +274,14 @@ class RecSys:
         dense. Training starts from the installed tables and accumulators,
         or from fresh seeded ones; afterwards ``predict`` serves the trained
         tables. ``profile_epochs > 0`` raises ``NotImplementedError`` naming
-        its ROADMAP.md item (config.py)."""
+        its ROADMAP.md item (config.py).
+
+        ``net_type="ease"`` has no gradient loop: fit() runs the
+        closed-form solve on the train split (models/ease.py; the other
+        arguments are ignored) and returns ``[]`` (api.py:175-181)."""
+        if self.ease is not None:
+            self.ease.fit(self.store.train_users, self.store.train_items)
+            return []
         train_cfg = TrainConfig(
             batch_size=batch_size,
             epochs=epochs,
@@ -288,7 +317,8 @@ class RecSys:
         the top-k kernels (eval/predict.py::ranking_eval). Unknown metrics
         raise ``ValueError``; an empty test split gives ``{}``. Tables
         installed without ``fit`` evaluate under the default hinge
-        config."""
+        config. ``net_type="ease"`` gives the ranking metrics only
+        (:meth:`_evaluate_ease`); ``loss`` or ``auc`` raise ``ValueError``."""
         self._require_fitted("evaluate()")
         if self.store.num_test == 0:
             return {}
@@ -302,6 +332,13 @@ class RecSys:
                 rank_ks.append(int(k_str))
             elif m not in ("loss", "auc"):
                 raise ValueError(f"unknown eval metric {m!r}")
+        if self.ease is not None:
+            if pair_wanted:
+                raise ValueError(
+                    "net_type='ease' has no pairwise loss/auc; request "
+                    "ranking metrics like 'recall@10' instead"
+                )
+            return self._evaluate_ease(tuple(sorted(set(rank_ks))), eval_metrics)
         out: Dict[str, float] = {}
         if pair_wanted:
             if self.trainer is None:
@@ -321,8 +358,24 @@ class RecSys:
             ))
         return {m: out[m] for m in eval_metrics}
 
+    def _evaluate_ease(self, ks: Tuple[int, ...], eval_metrics: Sequence[str]) -> Dict[str, float]:
+        """Per-user ranking metrics from EASE's dense scores, 512 test users
+        at a time, aggregated as ranking_eval aggregates (api.py:271-293)."""
+        num_items = self.store.schema.num_items
+        max_k = min(max(ks), num_items)
+        uniq, inv = np.unique(np.asarray(self.store.test_users), return_inverse=True)
+        parts = [
+            topk_rows(self.ease.scores(uniq[s : s + 512]), max_k)[1].cpu().numpy()
+            for s in range(0, len(uniq), 512)
+        ]
+        out = topk_ranking_metrics(
+            np.concatenate(parts, axis=0), inv, np.asarray(self.store.test_items), len(uniq), ks, num_items
+        )
+        return {m: out[m] for m in eval_metrics}
+
     def _require_fitted(self, what: str) -> None:
-        if self.state is None:
+        fitted = self.ease.b is not None if self.ease is not None else self.state is not None
+        if not fitted:
             raise RuntimeError(
                 f"{what} requires model weights -- call fit() or install them "
                 "with load_jax_tables() or init_tables()"
@@ -374,6 +427,9 @@ class RecSys:
         per-user bitmask rides into the scorer, seen items score as the
         float32 minimum, and the result is exactly the top-k unseen items.
         ``approx_recall`` is accepted and exact (see ops/dot_topk.py).
+        EASE scores every item (``X[u] @ B``), fetches ``top_k + max|seen|``
+        candidates under ``exclude_seen`` and drops the seen ones on the host
+        (api.py:354-366).
         Returns (top_k,) for a scalar user or (U, top_k) for a sequence."""
         self._require_fitted("predict()")
         scalar = not isinstance(user_id, (list, tuple, np.ndarray))
@@ -385,6 +441,13 @@ class RecSys:
         except KeyError as e:
             raise KeyError(f"predict: unknown user_id -- {e.args[0]}") from None
         num_items = self.store.schema.num_items
+        if self.ease is not None:
+            seen = self._seen(rows) if exclude_seen else None
+            k_fetch = min(top_k + (max(len(s) for s in seen) if seen else 0), num_items)
+            ids = topk_rows(self.ease.scores(rows), k_fetch)[1].cpu().numpy()
+            if seen is not None:
+                ids = self._filter_seen(ids, seen, top_k)
+            return self._decode_items(ids, return_raw_ids, scalar)
         seen: Optional[List[np.ndarray]] = None
         seen_mask = None
         if exclude_seen:
@@ -456,8 +519,8 @@ class RecSys:
         self, item_id: Any, top_k: int = 10, return_raw_ids: bool = True
     ) -> np.ndarray:
         """Top-k catalog items by dot product of item factor vectors with
-        ``item_id``'s, through the fused kernels; the query item itself is
-        excluded."""
+        ``item_id``'s, through the fused kernels (EASE: by its ``B`` row,
+        api.py:461-463); the query item itself is excluded."""
         self._require_fitted("similar_items()")
         try:
             row = self.store.item_encoder.encode_one(item_id)
@@ -465,10 +528,12 @@ class RecSys:
             raise KeyError(f"similar_items: unknown item_id -- {item_id!r}") from None
         n = self.store.schema.num_items
         k = min(top_k + 1, n)  # +1: the query item ranks first, drop it
-        vecs = self.state["tables"]["item"][:n].float()
-        bias = torch.zeros((n,), dtype=torch.float32, device=self.device)
-        _, ids = dot_topk(vecs[row][None, :], vecs, bias, k)
-        ids = ids.cpu().numpy()
+        if self.ease is not None:
+            ids = topk_rows(self.ease.b[row][None, :], k)[1].cpu().numpy()
+        else:
+            vecs = self.state["tables"]["item"][:n].float()
+            bias = torch.zeros((n,), dtype=torch.float32, device=self.device)
+            ids = dot_topk(vecs[row][None, :], vecs, bias, k)[1].cpu().numpy()
         keep = ids[0][ids[0] != row][: min(top_k, n - 1)]
         return self._decode_items(keep[None, :], return_raw_ids, scalar=True)
 
@@ -478,6 +543,11 @@ class RecSys:
         model whose score does not factorize raises ValueError (api.py:
         482-501)."""
         self._require_fitted("factor-vector export")
+        if self.ease is not None:
+            raise ValueError(
+                "net_type='ease' has no factor vectors (its model is the "
+                "item-item B matrix); use predict()/similar_items()"
+            )
         if self._catalog is None:
             self._catalog = self.model.linearized_catalog(self._params(), self.feat)
         if self._catalog is None:
@@ -540,9 +610,7 @@ class RecSys:
         return out[0] if scalar else out
 
     # ------------------------------------------------------------------
-    # incremental training (api.py:566-653). EASE's branches of update_data,
-    # save and restore (api.py:617-630, :674-685, :692-702) come with EASE,
-    # ROADMAP.md §A item 11: build_model refuses net_type="ease" until then.
+    # incremental training (api.py:566-653)
     def update_data(
         self,
         dataset: Any,
@@ -558,8 +626,11 @@ class RecSys:
         columns and split ratio default to the constructor's. A cold-loaded
         store's frozen encoders thaw for the extension and freeze again
         after. The model, its feature tables, the serving caches and the
-        trainer are rebuilt for the grown store. Continue with ``fit``, or
-        use :meth:`partial_fit`."""
+        trainer are rebuilt for the grown store. EASE is rebuilt for the
+        grown vocabularies, seeded with the interaction CSR it held (a cold
+        load's original data merges with the new); until the next ``fit``
+        it serves nothing (api.py:617-630). Continue with ``fit``, or use
+        :meth:`partial_fit`."""
         encoders = [self.store.user_encoder, self.store.item_encoder, *self.store.metadata.encoders]
         thawed = [e for e in encoders if e.frozen]
         for e in thawed:
@@ -579,6 +650,12 @@ class RecSys:
             for e in thawed:
                 e.freeze()
         self._bind_store(store)
+        if self.ease is not None:
+            old, s = self.ease, store.schema
+            self.ease = EASE(s.num_users, s.num_items, lam=old.lam, device=self.device)
+            if old.item_idx is not None:
+                self.ease.seed_csr(old.user_ptr, old.item_idx)
+            return
         if self.state is not None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
             self._install(grow_state(self.state, self.model, gen))
@@ -596,8 +673,9 @@ class RecSys:
         """Write what a cold process needs to ``directory``: the train
         state (``state.pt``), the schema, the raw-id vocabularies, the
         metadata table, the model and train configs and the dataset-facing
-        constructor arguments (``aux.pkl``). Read it back with
-        :meth:`restore` (same dataset) or :meth:`RecSys.load` (no
+        constructor arguments (``aux.pkl``). EASE saves ``{"b"}`` and its
+        interaction CSR as ``aux["ease_csr"]`` (api.py:676-685). Read it back
+        with :meth:`restore` (same dataset) or :meth:`RecSys.load` (no
         dataset)."""
         self._require_fitted("save()")
         aux = pack_store_aux(self.store, self.model_cfg, self.trainer.cfg if self.trainer else None)
@@ -607,7 +685,11 @@ class RecSys:
             "split_ratio": self._split_ratio,
             "n_updates": self._n_updates,
         }
-        save_checkpoint(directory, self.state, self.store.schema, aux=aux)
+        state = self.state
+        if self.ease is not None:
+            state = {"b": self.ease.b}
+            aux["ease_csr"] = {"user_ptr": self.ease.user_ptr, "item_idx": self.ease.item_idx}
+        save_checkpoint(directory, state, self.store.schema, aux=aux)
 
     def _train_cfg(self, aux: Optional[Dict[str, Any]]) -> TrainConfig:
         """The checkpoint's train config, else this RecSys's trainer's, else
@@ -643,8 +725,17 @@ class RecSys:
         and model). Every table, accumulator, dense parameter and
         optimizer leaf is checked against this model's layout: another
         dataset's or model's checkpoint raises ValueError naming the first
-        leaf that differs."""
-        cfg = self._train_cfg(load_aux(directory))
+        leaf that differs. EASE reads ``B`` (checked against (I, I) f32) and
+        adopts the saved CSR (api.py:692-702)."""
+        aux = load_aux(directory)
+        if self.ease is not None:
+            n = self.store.schema.num_items
+            target = {"b": torch.empty((n, n), dtype=torch.float32, device="meta")}
+            self.ease.b = restore_checkpoint(directory, target, self.device)["b"]
+            if aux and "ease_csr" in aux:
+                self.ease.seed_csr(aux["ease_csr"]["user_ptr"], aux["ease_csr"]["item_idx"])
+            return
+        cfg = self._train_cfg(aux)
         self._install(restore_checkpoint(directory, self._target_state(cfg), self.device, seed=cfg.seed))
 
     @classmethod
@@ -656,7 +747,9 @@ class RecSys:
         raises, and training goes on after :meth:`update_data` (which
         thaws the encoders for the new ids). The trainer is rebuilt from
         the saved train config, the generator restored (see
-        utils/checkpoint.py::restore_checkpoint). A ``mesh`` raises
+        utils/checkpoint.py::restore_checkpoint). EASE comes back with
+        ``lam=100``, the default, whatever ``ease_lam`` it was fitted with,
+        as JAX's cold load does (api.py:776-784). A ``mesh`` raises
         ``NotImplementedError`` naming its ROADMAP.md item."""
         if mesh is not None:
             raise _not_ported("mesh", _PARALLEL_ITEM)
@@ -700,6 +793,11 @@ class RecSys:
         self.dynamic_neg_sampling = train_cfg.dynamic_neg_sampling
         self.model_cfg = model_cfg
         self._bind_store(store)
+        self.trainer, self.state, self.ease = None, None, None
+        if model_cfg.net_type == "ease":
+            self.ease = EASE(schema.num_users, schema.num_items, device=self.device)
+            self.restore(directory)
+            return self
         self.trainer = Trainer(self.model, train_cfg, self.device)
         self._install(restore_checkpoint(directory, self._target_state(train_cfg), self.device,
                                          seed=train_cfg.seed))

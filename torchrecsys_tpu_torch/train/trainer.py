@@ -4,7 +4,7 @@
 :321-356, ``_apply_batch_order`` :368-403, ``_step_impl`` :405-574, ``_epoch_fn``
 :606-819, ``fit`` :822-869, ``_device_train_data`` :870-891,
 ``feature_tables`` :904-928, ``_logq_from`` :930-941, ``_eval_fn`` and
-``evaluate`` :944-1074).
+``evaluate`` :944-1074, ``fit_streaming`` :893-902).
 
 The JAX package compiles a whole epoch (shuffle + ``lax.scan`` over
 batches). Here an epoch is
@@ -748,6 +748,24 @@ class Trainer:
         if not verbose:
             out = [float(x) for x in torch.stack(device_losses).cpu()] if device_losses else []
         return state, out
+
+    def fit_streaming(
+        self,
+        state: TrainState,
+        store: InteractionStore,
+        superbatch_size: int = 1 << 21,
+        epochs: Optional[int] = None,
+        seed: int = 0,
+        verbose: bool = True,
+        keys: Optional[Sequence[torch.Tensor]] = None,
+        negatives: Optional[Sequence[Any]] = None,
+    ) -> Tuple[TrainState, List[float]]:
+        """The double-buffered streaming fit for splits larger than device
+        memory (:893-902; train/streaming.py::fit_streaming)."""
+        from torchrecsys_tpu_torch.train.streaming import fit_streaming
+
+        return fit_streaming(self, state, store, superbatch_size=superbatch_size, epochs=epochs, seed=seed,
+                             verbose=verbose, keys=keys, negatives=negatives)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -16,7 +16,8 @@ over like Linear's biases. :func:`dense_from_jax` and
 these, the rowwise-adagrad accumulators (``state["emb_opt"]``) and the
 step counter. :func:`checkpoint_from_jax` writes a port checkpoint from a
 JAX checkpoint's state, ``aux.pkl`` and ``schema.json``, so a model the
-JAX package trained reaches ``RecSys.load`` without its dataset.
+JAX package trained reaches ``RecSys.load`` without its dataset; an EASE
+checkpoint carries its ``B`` and ``aux["ease_csr"]``.
 """
 
 from __future__ import annotations
@@ -198,7 +199,9 @@ def checkpoint_from_jax(
     lose :data:`JAX_ONLY_FIELDS`; the state goes through
     :func:`train_state_from_jax` against the port model of the configs
     (the JAX generator key is not carried: a fit from the result draws
-    from a generator seeded with the train config's seed)."""
+    from a generator seeded with the train config's seed). An EASE
+    checkpoint's state is ``{"b": (I, I) f32}``, checked against the
+    schema; its CSR rides ``aux["ease_csr"]`` as it is."""
     from torchrecsys_tpu_torch.config import DataSchema, ModelConfig
     from torchrecsys_tpu_torch.models import build_model
     from torchrecsys_tpu_torch.utils.checkpoint import save_checkpoint
@@ -208,6 +211,11 @@ def checkpoint_from_jax(
         if aux.get(key) is not None:
             aux[key] = {k: v for k, v in aux[key].items() if k not in drop}
     data_schema = DataSchema.from_dict(schema)
+    if aux["model_cfg"]["net_type"] == "ease":
+        n = data_schema.num_items
+        b = _tree_from_jax(state["b"], torch.empty((n, n), dtype=torch.float32), "b", "cpu")
+        save_checkpoint(out_dir, {"b": b}, data_schema, aux=aux)
+        return
     model = build_model(data_schema, ModelConfig(**aux["model_cfg"]))
     kind = (aux.get("train_cfg") or {}).get("dense_optimizer", "adam")
     port_state = train_state_from_jax(state, model, "cpu", dense_optimizer=kind)
