@@ -44,7 +44,10 @@ result line:
    sums in another order, FMA contraction), rows whose hinge diff lies
    within 1e-4 of the kink excluded (their subgradient may flip; counted).
    The in-batch softmax CE kernels (forward; the one-pass backward of dh,
-   dv and dvb) against their plain versions: B=4096 x D=80 with a
+   dv and dvb) against their plain versions, square and rectangular (Br
+   rows against Bc columns from off: (1024, 4096, 0), (1024, 4096, 3072),
+   (1000, 4000, 3000), (1, 4096, 4095), positives from 50 ids so that
+   duplicates sit on both sides of each shard boundary): B=4096 x D=80 with a
    logQ-shifted bias, duplicate-heavy positives (10 ids), a ragged B=1000,
    D in {16, 128}, a cotangent with zero rows, D=13 (rows with no 16-byte
    copies), B=7 (below one tile), D=84 (16-byte rows, not a multiple of 8),
@@ -243,6 +246,30 @@ result line:
       resident epoch from one state and keys (6n's rule); sampled softmax
       at batch 4096 and 2^19 (#4/#5 once per step); the north-star AMP MLP
       at 2^20 (#6/#7 twice per step).
+   r. the mesh (ROADMAP.md §A item 14a): four rank processes on this one
+      card over gloo (NCCL refuses two ranks on one device), one world,
+      three meshes in turn, at the main path's width (100K users x 1M
+      items, D=80, the category column), while the parent runs the
+      single-device references. (4, 1): Linear, hinge, batch 1024, one
+      epoch of 2,344 steps through fused_pairwise_step_meta_dp (B3): each
+      rank's 256 rows through the row-level #3 once per step and no other
+      kernel; then sampled softmax at 4096, 586 steps through
+      inbatch_softmax_ce_dp (B5): #4/#5 once per step per rank at Br=1024
+      rows against Bc=4096 columns. (2, 2): FM with metadata, 300 steps
+      through fused_pairwise_step_meta_tp (B4), evaluate (loss, AUC,
+      recall@10 through B6) within 1e-4 of the single device's, save (rank
+      0 writes the gathered state; a cold RecSys.load without a mesh in
+      6n's child serves identical ids and values). (1, 4): the (4, 1)
+      model's checkpoint restored onto the mesh, 4 batches of 256 users at
+      top_k 10 and 128, with and without exclude_seen, through #1/#2 on
+      250,000-row shards (B6): ids, values and raw ids identical to the
+      single device's. Every table against the single-device run from the
+      same seeded state and epoch by 6n's rule (softmax at rtol 2e-4);
+      every rank's replicated tables bitwise equal (sha256); each rank's
+      launch counts exactly as stated; each rank's step ms, collective ms
+      per step (timed between device syncs) and examples/s, labelled as
+      four ranks sharing one card: no scaling figure. A rank that fails,
+      or a rank still running after 600 s, fails the phase.
 7. times: per-kernel CUDA-event ms and device us per call from
    torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
    and, where one exists, one library call the port never uses; predict
@@ -879,47 +906,70 @@ def ce_kernel_phase(torch):
     main = None
     for label, b, d, n_ids, zero_from, spread in cases:
         h, v, vbq, pos, g = ce_inputs(torch, gen, b, d, n_ids, zero_from, spread)
-        loss, lse = sce.softmax_ce_fwd(h, v, vbq, pos)
-        loss2, lse2 = sce.softmax_ce_fwd(h, v, vbq, pos)
-        ploss, plse = sce.softmax_ce_fwd_plain(h, v, vbq, pos)
-        got = sce.softmax_ce_bwd(h, v, vbq, pos, plse, g)
-        again = sce.softmax_ce_bwd(h, v, vbq, pos, plse, g)
-        want = sce.softmax_ce_bwd_plain(h, v, vbq, pos, plse, g)
-        torch.cuda.synchronize()
-        fwd_err = 0.0
-        for name, x, y in (("loss", loss, ploss), ("lse", lse, plse)):
-            check(bool(torch.isfinite(x).all()), f"CE {label}: non-finite {name}")
-            diff = (x - y).abs()
-            check(bool((diff <= 1e-5 + 1e-5 * y.abs()).all()),
-                  f"CE {label}: {name} differs from the plain version by {float(diff.max()):.3g}")
-            fwd_err = max(fwd_err, float(diff.max()))
-        check(torch.equal(loss, loss2) and torch.equal(lse, lse2), f"CE {label}: forward not deterministic")
-        errs["softmax_ce_fwd"] = max(errs["softmax_ce_fwd"], fwd_err)
-        if spread != 1.0:
-            # a forward case: at logits of ~500 an f32 logit's own rounding
-            # (~3e-5) moves a softmax probability by more than the backward
-            # check's atol (1e-5 of the largest dh entry) allows, in any f32
-            # implementation, the plain version included
-            log(f"[ce-kernel] {label}: loss/lse max|d| {fwd_err:.3g}; repeated runs bit-identical "
-                "(forward only)")
-            continue
-        bwd_err, parts = 0.0, []
-        for name, x, y, z in zip(("dh", "dv", "dvb"), got, again, want):
-            diff = (x - z).abs()
-            scale = float(z.abs().max())
-            check(bool((diff <= 1e-4 * z.abs() + 1e-5 * scale).all()),
-                  f"CE {label}: {name} differs from the plain version by {float(diff.max()):.3g} "
-                  f"(largest |reference| {scale:.3g})")
-            check(torch.equal(x, y), f"CE {label}: {name} not deterministic")
-            bwd_err = max(bwd_err, float(diff.max()))
-            parts.append(f"{name} {float(diff.max()):.3g} of {scale:.3g}")
-        errs["softmax_ce_bwd"] = max(errs["softmax_ce_bwd"], bwd_err)
-        log(f"[ce-kernel] {label}: loss/lse max|d| {fwd_err:.3g}; backward max|d| " + ", ".join(parts)
-            + "; repeated runs bit-identical")
+        plse = ce_case(torch, sce, label, errs, (h, v, vbq, pos), g, spread == 1.0)
         if main is None:
             main = (h, v, vbq, pos, g, plse)
+    # the rectangular call of a data-parallel shard: Br rows (the shard's
+    # slice of a batch) against the Bc columns of the whole batch, the label
+    # of row r in column r + off; ids from 50 values, so duplicates of a
+    # row's positive sit on both sides of every shard boundary
+    for br, bc, off in CE_RECT:
+        h, v, vbq, pos, g = ce_inputs(torch, gen, bc, D, 50)
+        rows = slice(off, off + br)
+        ce_case(torch, sce, f"rectangular Br={br} Bc={bc} off={off}", errs,
+                (h[rows].contiguous(), v, vbq, pos[rows].contiguous()), g[rows].contiguous(), True,
+                rect=(pos, off))
     sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved  # comparisons do not count
     return errs, main
+
+
+CE_RECT = ((1024, 4096, 0), (1024, 4096, 3072), (1000, 4000, 3000), (1, 4096, 4095))
+
+
+def ce_case(torch, sce, label, errs, args, g, backward: bool, rect=()):
+    """One CE case, kernels against plain versions: loss/lse within
+    rtol=atol=1e-5, dh/dv/dvb within rtol=1e-4 plus 1e-5 of the largest
+    |reference| entry, a second run the same bits. ``rect`` = (pos_col,
+    off) makes it the rectangular call. Returns the plain lse."""
+    loss, lse = sce.softmax_ce_fwd(*args, *rect)
+    loss2, lse2 = sce.softmax_ce_fwd(*args, *rect)
+    ploss, plse = sce.softmax_ce_fwd_plain(*args, *rect)
+    torch.cuda.synchronize()
+    fwd_err = 0.0
+    for name, x, y in (("loss", loss, ploss), ("lse", lse, plse)):
+        check(bool(torch.isfinite(x).all()), f"CE {label}: non-finite {name}")
+        diff = (x - y).abs()
+        check(bool((diff <= 1e-5 + 1e-5 * y.abs()).all()),
+              f"CE {label}: {name} differs from the plain version by {float(diff.max()):.3g}")
+        fwd_err = max(fwd_err, float(diff.max()))
+    check(torch.equal(loss, loss2) and torch.equal(lse, lse2), f"CE {label}: forward not deterministic")
+    errs["softmax_ce_fwd"] = max(errs["softmax_ce_fwd"], fwd_err)
+    if not backward:
+        # a forward case: at logits of ~500 an f32 logit's own rounding
+        # (~3e-5) moves a softmax probability by more than the backward
+        # check's atol (1e-5 of the largest dh entry) allows, in any f32
+        # implementation, the plain version included
+        log(f"[ce-kernel] {label}: loss/lse max|d| {fwd_err:.3g}; repeated runs bit-identical "
+            "(forward only)")
+        return plse
+    got = sce.softmax_ce_bwd(*args, plse, g, *rect)
+    again = sce.softmax_ce_bwd(*args, plse, g, *rect)
+    want = sce.softmax_ce_bwd_plain(*args, plse, g, *rect)
+    bwd_err, parts = 0.0, []
+    for name, x, y, z in zip(("dh", "dv", "dvb"), got, again, want):
+        check(tuple(x.shape) == tuple(z.shape), f"CE {label}: {name} shape {tuple(x.shape)} != {tuple(z.shape)}")
+        diff = (x - z).abs()
+        scale = float(z.abs().max())
+        check(bool((diff <= 1e-4 * z.abs() + 1e-5 * scale).all()),
+              f"CE {label}: {name} differs from the plain version by {float(diff.max()):.3g} "
+              f"(largest |reference| {scale:.3g})")
+        check(torch.equal(x, y), f"CE {label}: {name} not deterministic")
+        bwd_err = max(bwd_err, float(diff.max()))
+        parts.append(f"{name} {float(diff.max()):.3g} of {scale:.3g}")
+    errs["softmax_ce_bwd"] = max(errs["softmax_ce_bwd"], bwd_err)
+    log(f"[ce-kernel] {label}: loss/lse max|d| {fwd_err:.3g}; backward max|d| " + ", ".join(parts)
+        + "; repeated runs bit-identical")
+    return plse
 
 
 # ---------------------------------------------------------------------------
@@ -2033,10 +2083,11 @@ def counted(torch, fn):
     ws = wrappers()
     for w in ws:
         w.launches = 0
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    sync()
     t = time.perf_counter()
     res = fn()
-    torch.cuda.synchronize()
+    sync()
     return res, time.perf_counter() - t, {w.__name__: w.launches for w in ws}
 
 
@@ -4241,6 +4292,486 @@ def mlp_breakdown(torch, rs, window: int = 40, label: str = "MLP AMP"):
             "busy_us": busy / window}
 
 
+# ---------------------------------------------------------------------------
+# phase 6r: the mesh, four ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4
+MESH_WRAPPERS = {  # the mesh wrappers that launch each kernel on a rank's shard
+    "pairwise_updates_rows": ["fused_pairwise_step_dp (B1)", "fused_pairwise_step_tp (B2)",
+                              "fused_pairwise_step_meta_dp (B3)", "fused_pairwise_step_meta_tp (B4)"],
+    "softmax_ce_fwd": ["inbatch_softmax_ce_dp (B5)"],
+    "softmax_ce_bwd": ["inbatch_softmax_ce_dp (B5)"],
+    "dot_topk_small": ["_sharded_catalog_topk (B6)"],
+    "dot_topk_large": ["_sharded_catalog_topk (B6)"],
+}
+MESH_FM_STEPS = 300  # FM with metadata on (2, 2): a few hundred steps of one epoch
+MESH_WINDOW_STEPS = 50  # the steps of each run's second, collective-timed window
+MESH_PREDICT_BATCHES = 4  # (1, 4): predict batches of U = 256 users
+MESH_TIMEOUT_S = 600
+MESH_SM_RTOL, MESH_SM_ATOL = 2e-4, 1e-5  # the softmax fits' tolerance (the CPU tests' rtol; 6m's atol)
+MESH_RANK = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.mesh_rank_main(int(sys.argv[1]), sys.argv[2]))
+"""
+# the parent's sizes a rank takes over (settings.json): a rehearsal at a small size sets them in the parent
+MESH_SETTINGS = ("DEVICE", "N", "N_USERS", "N_INTERACTIONS", "U", "TRAIN_B", "SOFTMAX_B", "MESH_FM_STEPS",
+                 "MESH_PREDICT_BATCHES", "MESH_WINDOW_STEPS")
+
+
+def mesh_train_cfg(torch, rs, loss: str, batch: int):
+    """The TrainConfig RecSys.fit makes for ``rs`` at ``loss`` and ``batch``."""
+    from torchrecsys_tpu_torch.config import TrainConfig
+
+    return TrainConfig(batch_size=batch, epochs=1, learning_rate=1e-2, dynamic_neg_sampling=rs.dynamic_neg_sampling,
+                       loss=loss, seed=rs.seed)
+
+
+def mesh_seed(rs):
+    """The seeded JAX-layout tables (seed 1) and zero accumulators of 6a."""
+    tables = seeded_tables(rs.model, seed=1)
+    rs.load_jax_tables(tables, {k: {"acc": np.zeros(v.shape[0], np.float32)} for k, v in tables.items()})
+
+
+def mesh_fm_steps(torch, rs):
+    """MESH_FM_STEPS steps of FM's one epoch through the trainer (the
+    batches fit would build), then installed."""
+    tr = rs._ensure_trainer(mesh_train_cfg(torch, rs, "hinge", TRAIN_B))
+    from torchrecsys_tpu_torch.utils.permute import round_keys
+
+    state = rs.state
+    gen = tr._rng(state)
+    data, feat = tr._device_train_data(rs.store), tr.feature_tables(rs.store)
+    epoch = tr.build_epoch(data, round_keys(gen), gen, feat)
+    packed = tr.pack_state(state)
+    losses = tr.run_steps(packed, epoch, feat, steps=range(MESH_FM_STEPS), step0=state["step"])
+    rs._install(tr.unpack_state(state, packed, MESH_FM_STEPS))
+    return losses
+
+
+def mesh_serve(torch, rs, users, ks, mesh=None, exclude=(False,)):
+    """(vals, ids) of catalog_topk and predict's raw ids, for each (k,
+    exclude_seen): what a warm model serves (serve_outputs, on a mesh
+    through B6)."""
+    from torchrecsys_tpu_torch.eval.predict import catalog_topk
+    from torchrecsys_tpu_torch.ops.dot_topk import pack_seen_mask_torch
+
+    rows = np.asarray([rs.store.user_encoder.encode_one(u) for u in users], np.int64)
+    out = {}
+    for k in ks:
+        for excl in exclude:
+            mask = None
+            if excl:
+                seen = rs._seen(rows)
+                pos = np.repeat(np.arange(len(rows)), [len(s) for s in seen])
+                mask = pack_seen_mask_torch(torch.as_tensor(pos, device=rs.device),
+                                            torch.as_tensor(np.concatenate(seen), device=rs.device), len(rows),
+                                            rs.store.schema.num_items)
+            vals, ids = catalog_topk(rs.model, rs._params(), rs.state["model_state"], torch.as_tensor(rows, device=rs.device),
+                                     rs.store.schema.num_items, rs.feat, top_k=k, catalog=rs._linearized(),
+                                     seen_mask=mask, mesh=mesh)
+            raw = rs.predict(users, top_k=k, exclude_seen=excl)
+            out[(k, excl)] = (vals.float().cpu().numpy(), ids.cpu().numpy(), raw)
+    return out
+
+
+def mesh_recsys(rs, mesh, net_type: str):
+    """A RecSys over ``rs``'s store (its 7 s ingest once per rank) for
+    ``net_type`` on ``mesh``: what ``RecSys(data, net_type=..., mesh=mesh)``
+    builds from the same data."""
+    import copy
+    import dataclasses
+
+    out = copy.copy(rs)
+    out.mesh, out.device = mesh, mesh.device
+    out.model_cfg = dataclasses.replace(rs.model_cfg, net_type=net_type)
+    out.trainer, out.state = None, None
+    out._bind_store(rs.store)
+    return out
+
+
+def mesh_collective_window(torch, rs, loss: str, batch: int) -> dict:
+    """MESH_WINDOW_STEPS more steps at ``loss`` and ``batch`` with every
+    collective timed between device syncs (``stats.timing``), on a copy of
+    ``rs``'s state and generator, so nothing a check compares moves: the
+    collectives' share of an instrumented step. The runs users make, and
+    the ms per step and examples/s 6r reports, have the timing off."""
+    from torchrecsys_tpu_torch.parallel.mesh import stats
+
+    tr = rs._ensure_trainer(mesh_train_cfg(torch, rs, loss, batch))
+    gen = torch.Generator(device=tr.device)
+    gen.set_state(tr._rng(rs.state).get_state())
+    data = tr._device_train_data(rs.store)
+    rows = min(MESH_WINDOW_STEPS * batch, rs.store.num_train)
+    data = {k: v[:rows] for k, v in data.items()}
+    feat = tr.feature_tables(rs.store)
+    stats.reset()
+    stats.timing = True
+    try:
+        _, secs, _ = counted(torch, lambda: tr.train_epoch(dict(rs.state, rng=gen), data, feat)[1].item())
+    finally:
+        stats.timing = False
+    return {"window_steps": -(-rows // batch), "window_s": secs, "coll_s": stats.seconds,
+            "coll_calls": stats.calls, "coll_bytes": stats.bytes}
+
+
+def table_hashes(state) -> dict:
+    """sha256 of each table and accumulator as this rank holds it."""
+    import hashlib
+
+    out = {f"tables.{k}": hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() for k, v in state["tables"].items()}
+    out.update({f"acc.{k}": hashlib.sha256(o["acc"].cpu().numpy().tobytes()).hexdigest()
+                for k, o in state["emb_opt"].items() if "acc" in o})
+    return out
+
+
+def mesh_rank_main(rank: int, directory: str) -> int:
+    """One rank of 6r: the (4, 1), (2, 2) and (1, 4) meshes of one 4-rank
+    gloo world on the card, in turn. Writes ``r{rank}.pkl``; rank 0 also
+    writes the trained states the parent compares (``*.pt``) and a marker
+    once the (4, 1) Linear checkpoint is on disk."""
+    import pickle
+
+    import torch
+
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.parallel import gather_state, init_distributed, make_mesh
+    from torchrecsys_tpu_torch.utils.checkpoint import _to_cpu
+
+    with open(os.path.join(directory, "settings.json")) as f:
+        globals().update(json.load(f))
+    torch.set_num_threads(1)  # four ranks and the parent share the host's cores; the work is on the card
+    init_distributed(f"file://{os.path.join(directory, 'rendezvous')}", MESH_WORLD, rank, backend="gloo")
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    data = synthetic_interactions()
+    out = {"data_s": time.perf_counter() - t0}
+
+    def fit(rs, loss, batch, label):
+        losses, secs, counts = counted(torch, lambda: rs.fit(epochs=1, batch_size=batch, loss=loss, verbose=False))
+        steps = -(-rs.store.num_train // batch)
+        return {"label": label, "losses": losses, "fit_s": secs, "steps": steps, "counts": counts,
+                "examples_per_s": rs.store.num_train / secs, "hashes": table_hashes(rs.state),
+                **mesh_collective_window(torch, rs, loss, batch)}
+
+    def keep(rs, name):  # the whole trained state, for the parent's comparison
+        whole = gather_state(rs.state, rs.mesh)
+        if rank == 0:
+            torch.save(_to_cpu({"tables": whole["tables"], "emb_opt": whole["emb_opt"]}),
+                       os.path.join(directory, name))
+
+    # (4, 1): Linear with metadata, hinge; then sampled softmax from the same seeded state
+    mesh = make_mesh(data=4, model=1, device=DEVICE)
+    t0 = time.perf_counter()
+    rs = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE, dynamic_neg_sampling=True,
+                mesh=mesh)
+    out["ingest_s"] = time.perf_counter() - t0
+    mesh_seed(rs)
+    out["linear"] = fit(rs, "hinge", TRAIN_B, "Linear metadata hinge (4, 1)")
+    keep(rs, "linear.pt")
+    rs.save(ckpt_dir("mesh_linear"))
+    if rank == 0:
+        open(os.path.join(directory, "linear.done"), "w").close()
+    mesh_seed(rs)
+    out["softmax"] = fit(rs, "sampled_softmax", SOFTMAX_B, "Linear metadata sampled softmax (4, 1)")
+    keep(rs, "softmax.pt")
+    base = rs
+    # (2, 2): FM with metadata, MESH_FM_STEPS steps, evaluate, save (a cold load in 6n's child serves it)
+    mesh = make_mesh(data=2, model=2, device=DEVICE)
+    fm = mesh_recsys(base, mesh, "fm")
+    mesh_seed(fm)
+    losses, secs, counts = counted(torch, lambda: mesh_fm_steps(torch, fm))
+    res = {"label": "FM metadata hinge (2, 2)", "losses": float(losses.mean()), "fit_s": secs,
+           "steps": MESH_FM_STEPS, "counts": counts, "examples_per_s": MESH_FM_STEPS * TRAIN_B / secs,
+           "hashes": table_hashes(fm.state), **mesh_collective_window(torch, fm, "hinge", TRAIN_B)}
+    res["eval"], res["eval_s"], res["eval_counts"] = counted(
+        torch, lambda: fm.evaluate(batch_size=SOFTMAX_B, eval_metrics=("loss", "auc", "recall@10"), verbose=False))
+    keep(fm, "fm.pt")
+    fm.save(ckpt_dir("mesh_fm"))
+    users = fm.store.user_encoder.to_list()[:U]
+    res["warm"], res["serve_s"], res["serve_counts"] = counted(torch, lambda: {
+        k: v for (k, _), v in mesh_serve(torch, fm, users, (10, 128), mesh).items()})
+    res["users"], res["config"] = users, fm.config
+    res["shard_rows"] = fm._linearized()[0].shape[0]
+    out["fm"] = res
+    del fm
+    torch.cuda.empty_cache()
+    # (1, 4): the (4, 1) Linear's checkpoint served from 250,000-row shards
+    mesh = make_mesh(data=1, model=4, device=DEVICE)
+    rs = mesh_recsys(base, mesh, "linear")
+    del base
+    torch.cuda.empty_cache()
+    rs.restore(ckpt_dir("mesh_linear"))
+    users = rs.store.user_encoder.to_list()[: MESH_PREDICT_BATCHES * U]
+    served, secs, counts = counted(torch, lambda: [
+        mesh_serve(torch, rs, users[i * U:(i + 1) * U], (10, 128), mesh, exclude=(False, True))
+        for i in range(MESH_PREDICT_BATCHES)])
+    out["predict"] = {"served": served, "s": secs, "counts": counts, "shard_rows": rs._linearized()[0].shape[0]}
+    del rs
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(directory, f"r{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def start_mesh_ranks(directory: str):
+    """The four rank processes of 6r, started together (the kernels are
+    built already: a rank only loads them)."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "settings.json"), "w") as f:
+        json.dump({k: globals()[k] for k in MESH_SETTINGS}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(directory, f"r{r}.log"), "w") for r in range(MESH_WORLD)]
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK, str(r), directory], cwd=root, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(MESH_WORLD)]
+    return procs, logs
+
+
+def wait_mesh_ranks(procs, logs, directory: str, t_start: float):
+    """Every rank's exit code within MESH_TIMEOUT_S of the start; a rank
+    that fails (or a timeout) ends all of them and fails the phase."""
+    failed = None
+    for r, p in enumerate(procs):
+        try:
+            rc = p.wait(timeout=max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t_start)))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        if rc != 0 and failed is None:
+            failed = (r, rc)
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+    for p in procs:
+        p.wait()
+    for f in logs:
+        f.close()
+    if failed is not None:
+        r, rc = failed
+        with open(os.path.join(directory, f"r{r}.log")) as f:
+            tail = f.read()[-3000:]
+        check(False, f"6r: rank {r} failed (exit {rc}): {tail}")
+
+
+def mesh_reference(torch, data, directory: str):
+    """The single-device port runs 6r is held against, in the parent while
+    the ranks run: the same seeded state, the same epoch (the same
+    generator, hence permutation and negatives). Returns the reference
+    states, FM's evaluate and the (1, 4) predict outputs."""
+    from torchrecsys_tpu_torch import RecSys
+
+    ref = {}
+    rs = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE, dynamic_neg_sampling=True)
+    mesh_seed(rs)
+    rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False)
+    ref["linear"] = clone_state(torch, rs.state)
+    mesh_seed(rs)
+    rs.fit(epochs=1, batch_size=SOFTMAX_B, loss="sampled_softmax", verbose=False)
+    ref["softmax"] = clone_state(torch, rs.state)
+    fm = RecSys(data, metadata_id_col=["category_id"], n_factors=D, net_type="fm", device=DEVICE,
+                dynamic_neg_sampling=True)  # the user's entry point, as the ranks' (2, 2) copy builds it
+    mesh_seed(fm)
+    mesh_fm_steps(torch, fm)
+    ref["fm"] = clone_state(torch, fm.state)
+    ref["fm_eval"] = fm.evaluate(batch_size=SOFTMAX_B, eval_metrics=("loss", "auc", "recall@10"), verbose=False)
+    del fm
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    while not os.path.exists(os.path.join(directory, "linear.done")):
+        check(time.perf_counter() < deadline, "6r: the (4, 1) Linear checkpoint never appeared")
+        time.sleep(0.5)
+    rs.restore(ckpt_dir("mesh_linear"))
+    users = rs.store.user_encoder.to_list()[: MESH_PREDICT_BATCHES * U]
+    ref["predict"] = [mesh_serve(torch, rs, users[i * U:(i + 1) * U], (10, 128), exclude=(False, True))
+                      for i in range(MESH_PREDICT_BATCHES)]
+    del rs
+    torch.cuda.empty_cache()
+    return ref
+
+
+def mesh_compare(torch, label, got_path, want, rtol, atol):
+    """The whole mesh state (rank 0's gather) against the single-device
+    one: rows beyond rtol/atol at most RESUME_ROWS per table (6n's rule:
+    the single device adds a batch's duplicate updates by atomics in no
+    fixed order, and a row within rounding of the hinge kink may take the
+    other subgradient). Returns (largest |diff|, rows beyond per leaf)."""
+    got = torch.load(got_path, weights_only=True)
+    worst, bad = 0.0, {}
+    pairs = [(f"tables.{k}", got["tables"][k], want["tables"][k]) for k in want["tables"]]
+    pairs += [(f"acc.{k}", got["emb_opt"][k]["acc"], want["emb_opt"][k]["acc"]) for k in want["emb_opt"]]
+    for name, g, w in pairs:
+        g, w = g.to(w.device).float(), w.float()
+        check(g.shape == w.shape, f"6r {label}: {name} {tuple(g.shape)} != {tuple(w.shape)}")
+        diff = (g - w).abs()
+        beyond = diff > atol + rtol * w.abs()
+        rows = int(beyond.reshape(beyond.shape[0], -1).any(dim=1).sum())
+        check(rows <= RESUME_ROWS, f"6r {label}: {name}: {rows} rows beyond rtol={rtol}/atol={atol} of the "
+              f"single-device run (allowed {RESUME_ROWS}; max |diff| {float(diff.max()):.3g})")
+        worst = max(worst, float(diff.max()))
+        if rows:
+            bad[name] = rows
+    return worst, bad
+
+
+def mesh_kernel_timing(torch, smi_line: str) -> dict:
+    """The kernels at the mesh's shapes: the row-level #3 at 256 and 512
+    rows (a rank's share of a 1024 batch at data 4 and 2) and #4/#5 at
+    Br=1024 rows against Bc=4096 columns; CUDA-event ms, bounds, plain
+    ms."""
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    saved = (fp.pairwise_updates_rows.launches, sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches)
+    out = {}
+    for b in (256, 512):
+        rows = [torch.randn(b, 128, generator=gen, device=DEVICE) * 0.1 for _ in range(3)]
+        for r in rows:
+            r[:, D] = r[:, D].abs()
+            r[:, D + 2] = r[:, D + 2].abs()
+        kw = dict(d=D, margin=1.0, loss_kind="hinge", sigmoid=False, eps=1e-10, emit_g=True, item_upd=True)
+        ms = cuda_ms(torch, lambda: fp.pairwise_updates_rows(*rows, None, 1.0 / 1024, 0.01, **kw), reps=200)
+        dev_us, _ = device_call(torch, lambda: fp.pairwise_updates_rows(*rows, None, 1.0 / 1024, 0.01, **kw))
+        plain = cuda_ms(torch, lambda: fp.pairwise_updates_rows_plain(*rows, None, 1.0 / 1024, 0.01, **kw))
+        sector = -(-4 * (D + 3) // 32) * 32
+        nbytes = b * (3 * sector + 3 * 4 * 128)
+        bound = max(nbytes / PEAK_BYTES, 10 * b * 128 / PEAK_F32_FLOPS) * 1e3
+        out[f"pairwise_updates_rows B={b}"] = {"ms": ms, "device_ms": dev_us / 1e3, "plain_ms": plain,
+                                               "bound_ms": bound, "bound_by": "bytes"}
+    h, v, vbq, pos, g = ce_inputs(torch, gen, SOFTMAX_B, D, N)
+    br = SOFTMAX_B // MESH_WORLD
+    args = (h[:br].contiguous(), v, vbq, pos[:br].contiguous())
+    lse = sce.softmax_ce_fwd_plain(*args, pos, 0)[1]
+    gr = g[:br].contiguous()
+    in_bytes = (br + SOFTMAX_B) * D * 4 + SOFTMAX_B * 4 + (br + SOFTMAX_B) * 8
+    for name, fn, plain, flops, nbytes in (
+        ("softmax_ce_fwd", lambda: sce.softmax_ce_fwd(*args, pos, 0), lambda: sce.softmax_ce_fwd_plain(*args, pos, 0),
+         2.0 * br * SOFTMAX_B * D, in_bytes + 2 * br * 4),
+        ("softmax_ce_bwd", lambda: sce.softmax_ce_bwd(*args, lse, gr, pos, 0),
+         lambda: sce.softmax_ce_bwd_plain(*args, lse, gr, pos, 0), 6.0 * br * SOFTMAX_B * D,
+         in_bytes + 2 * br * 4 + (br + SOFTMAX_B) * D * 4 + SOFTMAX_B * 4),
+    ):
+        ms = cuda_ms(torch, fn, reps=50)
+        dev_us, _ = device_call(torch, fn)
+        plain_ms = cuda_ms(torch, plain)
+        bound = max(flops / SPLIT_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if flops / SPLIT_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        out[f"{name} Br={br} Bc={SOFTMAX_B}"] = {"ms": ms, "device_ms": dev_us / 1e3, "plain_ms": plain_ms,
+                                                 "bound_ms": bound, "bound_by": by}
+    fp.pairwise_updates_rows.launches, sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved
+    for k, r in out.items():
+        log(f"[time] {smi_line}: {k} (D={D}, a mesh rank's shape): {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.5f} ms per call, torch.profiler); bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; library: none")
+    return out
+
+
+def mesh_path(torch, data, smi_line: str):
+    """6r: four ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), one world, the three meshes in turn. (4, 1): Linear with
+    metadata, hinge, one epoch of 2,344 steps at batch 1024 (the row-level
+    #3 once per step on each rank's 256 rows, no other kernel), then
+    sampled softmax, one epoch of 586 steps at batch 4096 (#4/#5 once per
+    step at Br=1024 against Bc=4096); each against the single-device
+    port's epoch from the same seeded state (6n's rule; the softmax at
+    rtol 2e-4), every rank's tables bitwise equal. (2, 2): FM with
+    metadata (B4) for 300 steps, evaluate against the single device, save
+    (its cold load rides 6n's child). (1, 4): the (4, 1) model's
+    checkpoint served in 256-user batches at top_k 10 and 128, with and
+    without exclude_seen, through #1/#2 on 250,000-row shards: ids and
+    values identical to the single device's. Returns the launches, the
+    cold-load job and the numbers."""
+    import pickle
+
+    directory = ckpt_dir("mesh")
+    shutil.rmtree(directory, ignore_errors=True)
+    t_start = time.perf_counter()
+    procs, logs = start_mesh_ranks(directory)
+    try:
+        ref = mesh_reference(torch, data, directory)
+    finally:
+        wait_mesh_ranks(procs, logs, directory, t_start)
+    ranks_s = time.perf_counter() - t_start
+    res = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(directory, f"r{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    launches: dict = {}
+    for r, out in enumerate(res):
+        for key in ("linear", "softmax", "fm"):
+            for k, n in out[key]["counts"].items():
+                launches[k] = launches.get(k, 0) + n
+        for key in ("eval_counts", "serve_counts"):
+            for k, n in out["fm"][key].items():
+                launches[k] = launches.get(k, 0) + n
+        for k, n in out["predict"]["counts"].items():
+            launches[k] = launches.get(k, 0) + n
+        lin, sm, fm = out["linear"], out["softmax"], out["fm"]
+        check(nonzero(lin["counts"]) == {"pairwise_updates_rows": lin["steps"]},
+              f"6r rank {r}: the (4, 1) hinge epoch launched {lin['counts']}; want the row-level #3 once per step "
+              f"({lin['steps']})")
+        check(nonzero(sm["counts"]) == {"softmax_ce_fwd": sm["steps"], "softmax_ce_bwd": sm["steps"]},
+              f"6r rank {r}: the softmax epoch launched {sm['counts']}")
+        check(nonzero(fm["counts"]) == {"pairwise_updates_rows": MESH_FM_STEPS},
+              f"6r rank {r}: FM (2, 2) launched {fm['counts']}")
+        pc = nonzero(out["predict"]["counts"])
+        want = 2 * 2 * MESH_PREDICT_BATCHES  # per k: (catalog_topk + predict) x exclude_seen in (False, True)
+        check(pc == {"dot_topk_small": want, "dot_topk_large": want},
+              f"6r rank {r}: the (1, 4) predict launched {pc}")
+        check(out["predict"]["shard_rows"] == N // 4, f"6r: a (1, 4) catalog shard holds "
+              f"{out['predict']['shard_rows']} rows, want {N // 4}")
+    # replicas: every rank of a model column holds the same bits
+    for key, m in (("linear", 1), ("softmax", 1), ("fm", 2)):
+        for r in range(MESH_WORLD):
+            check(res[r][key]["hashes"] == res[r % m][key]["hashes"],
+                  f"6r {key}: rank {r}'s tables differ from rank {r % m}'s, which hold the same rows")
+    lin_err = mesh_compare(torch, "Linear hinge (4, 1)", os.path.join(directory, "linear.pt"), ref["linear"],
+                           RESUME_RTOL, RESUME_ATOL)
+    sm_err = mesh_compare(torch, "softmax (4, 1)", os.path.join(directory, "softmax.pt"), ref["softmax"],
+                          MESH_SM_RTOL, MESH_SM_ATOL)
+    fm_err = mesh_compare(torch, "FM (2, 2)", os.path.join(directory, "fm.pt"), ref["fm"], RESUME_RTOL, RESUME_ATOL)
+    for r, out in enumerate(res):
+        for m, v in ref["fm_eval"].items():
+            got = out["fm"]["eval"][m]
+            check(abs(got - v) <= 1e-4 * max(1.0, abs(v)), f"6r rank {r}: FM (2, 2) evaluate {m} {got} != "
+                  f"the single device's {v}")
+        for i, batch in enumerate(out["predict"]["served"]):
+            for key, (vals, ids, raw) in batch.items():
+                wv, wi, wr = ref["predict"][i][key]
+                check(np.array_equal(vals, wv) and np.array_equal(ids, wi) and np.array_equal(raw, wr),
+                      f"6r rank {r}: (1, 4) predict batch {i} top_k/exclude_seen {key}: other ids or values than "
+                      "the single device's")
+    fm0 = res[0]["fm"]
+    job = {"name": "FM metadata (2, 2) mesh", "dir": ckpt_dir("mesh_fm"), "users": fm0["users"], "ks": (10, 128),
+           "warm": fm0["warm"], "config": fm0["config"]}
+    timing = mesh_kernel_timing(torch, smi_line)
+    for r, out in enumerate(res):
+        for key in ("linear", "softmax", "fm"):
+            x = out[key]
+            w = x["window_steps"]
+            log(f"[mesh] {smi_line}: four ranks sharing one card over gloo, rank {r}: {x['label']}: "
+                f"{x['steps']} steps in {x['fit_s']:.3f} s = {x['fit_s'] / x['steps'] * 1e3:.3f} ms per step, "
+                f"{x['examples_per_s']:.1f} examples/s (timing off); launches {nonzero(x['counts'])}; a second "
+                f"window of {w} steps with the collectives timed between device syncs: "
+                f"{x['window_s'] / w * 1e3:.3f} ms per step, collectives {x['coll_s'] / w * 1e3:.3f} ms per step "
+                f"(share {x['coll_s'] / x['window_s']:.3f}; {x['coll_calls'] / w:.1f} all-reduces, "
+                f"{x['coll_bytes'] / w / 2**20:.3f} MiB per step)")
+        log(f"[mesh] rank {r}: synthetic data {out['data_s']:.2f} s, RecSys ingest {out['ingest_s']:.2f} s; FM "
+            f"(2, 2) evaluate {out['fm']['eval']} in {out['fm']['eval_s']:.3f} s; (1, 4) predict "
+            f"{MESH_PREDICT_BATCHES} x {U} users x (top_k 10, 128) x (exclude_seen no, yes), catalog_topk and predict "
+            f"each, {out['predict']['s']:.3f} s; launches {nonzero(out['predict']['counts'])}")
+    log(f"[mesh] single-device comparison: Linear hinge (4, 1) max |diff| {lin_err[0]:.3g} (rows beyond "
+        f"rtol={RESUME_RTOL}/atol={RESUME_ATOL}: {lin_err[1]}), softmax (4, 1) {sm_err[0]:.3g} (rows beyond "
+        f"rtol={MESH_SM_RTOL}/atol={MESH_SM_ATOL}: {sm_err[1]}), FM (2, 2) {fm_err[0]:.3g} ({fm_err[1]}); FM "
+        f"evaluate single device {ref['fm_eval']}; every rank's replicated tables bitwise equal; (1, 4) ids and "
+        f"values identical; ranks ran {ranks_s:.1f} s (start, data, ingest, the three meshes)")
+    return {"launches": launches, "job": job, "timing": timing, "ranks_s": ranks_s, "res": res}
+
+
 def profile_phase(torch, rs, users_raw):
     """Device time per launch of each kernel and of the split merge, from
     torch.profiler, for K1 and K2 across k at the main-path shape."""
@@ -4422,23 +4953,42 @@ def main() -> int:
     t0 = time.perf_counter()
     stream = streaming_path(torch, data)
     secs_6q = time.perf_counter() - t0
+    # 6r: the mesh, four ranks sharing the card over gloo (its FM checkpoint's cold load rides 6n's child)
+    t0 = time.perf_counter()
+    mesh = mesh_path(torch, data, smi_line)
+    secs_6r = time.perf_counter() - t0
     # 6n: the cold loads of a, c and d (and 6o's small LSTM) in one child process; 6n's launches
     linear_job = {"name": "Linear metadata", "dir": ckpt["dir"], "users": ckpt["users"], "ks": (10, 128),
                   "warm": ckpt["warm"], "config": ckpt["config"]}
     t0 = time.perf_counter()
-    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt, seq_job, ease["job"]])
+    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt, seq_job, ease["job"], mesh["job"]])
     shutil.rmtree(ckpt_dir(""), ignore_errors=True)
     secs_6n += time.perf_counter() - t0
     extra: dict = {}
+    mesh_extra: dict = {}
+    mesh_cold = cold.pop(mesh["job"]["name"])["counts"]
     for counts in (ckpt["launches"], grown["launches"], mlp_ckpt["launches"],
                    *(res["counts"] for name, res in cold.items() if name != "small LSTM")):
         for kernel, n in counts.items():
             extra[kernel] = extra.get(kernel, 0) + n
     for kernel, n in cold["small LSTM"]["counts"].items():
         seq_extra[kernel] = seq_extra.get(kernel, 0) + n
+    for counts in (mesh["launches"], mesh_cold):
+        for kernel, n in counts.items():
+            mesh_extra[kernel] = mesh_extra.get(kernel, 0) + n
     for row in kernels:
         row["launches"] += (extra.get(row["name"], 0) + seq_extra.get(row["name"], 0)
-                            + stream["launches"].get(row["name"], 0))
+                            + stream["launches"].get(row["name"], 0) + mesh_extra.get(row["name"], 0))
+        if row["name"] in MESH_WRAPPERS:
+            row["mesh_wrappers"] = MESH_WRAPPERS[row["name"]]
+            row["mesh_launches_6r"] = mesh_extra.get(row["name"], 0)
+        shapes = {k: v for k, v in mesh["timing"].items() if k.split(" ")[0] == row["name"]}
+        if shapes:
+            row["mesh_shapes"] = shapes
+        if row["name"].startswith("softmax_ce"):
+            row["variants"] = ["square (one device: B rows against B columns)",
+                               f"rectangular (a data rank: Br={SOFTMAX_B // MESH_WORLD} rows against Bc={SOFTMAX_B} "
+                               "columns from off = rank x Br), the same kernels"]
     log(f"[ckpt] {smi_line}: Linear metadata checkpoint {ckpt['bytes'] / 2**20:.1f} MiB, save "
         f"{ckpt['save_s']:.3f} s, load {ckpt['load_s']:.3f} s in process / "
         f"{cold['Linear metadata']['load_s']:.3f} s cold in the child, restore {ckpt['restore_s']:.3f} s; "
@@ -4502,6 +5052,9 @@ def main() -> int:
         f"of it with no kernel running; idle share {ov['idle_share']:.3f}; softmax resident {stream['softmax_resident']:.1f} streamed "
         f"{stream['softmax_rate']:.1f}, MLP AMP resident {stream['mlp_resident']:.1f} streamed "
         f"{stream['mlp_rate']:.1f} examples/s; 6q launches {nonzero(stream['launches'])}; 6q took {secs_6q:.1f} s")
+    log(f"[main] 6r {smi_line}: the mesh, four ranks sharing one card over gloo (no scaling figure): 6r took "
+        f"{secs_6r:.1f} s of the run (the ranks {mesh['ranks_s']:.1f} s); 6r launches over all ranks "
+        f"{nonzero(mesh['launches'])}, its FM checkpoint's cold load {nonzero(mesh_cold)}")
     log(f"[main] the popularity alias table at {N} items: {pop['alias_s']:.3f} s on the host (outside the "
         f"6j fit, inside 6k's); NeuCF AMP predict 16 users {neucf['predict_s']:.3f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")

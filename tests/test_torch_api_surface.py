@@ -11,6 +11,7 @@ import pytest
 
 from torchrecsys_tpu import RecSys as JRecSys
 from torchrecsys_tpu_torch import RecSys
+from torchrecsys_tpu_torch.parallel import make_mesh
 
 NEW_KEYWORDS = ("debug", "path", "mesh", "history_len", "ease_lam", "fm_sigmoid")
 
@@ -49,8 +50,12 @@ def test_stored_keywords_change_nothing_for_ported_nets():
 
 @pytest.mark.parametrize("kw, item", [({"mesh": object()}, "item 14")])
 def test_unported_constructor_values_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §A {item} "):
+    """A mesh that is not a parallel.Mesh is refused; on a Mesh the nets
+    the generic mesh step would run (item 14b) raise naming their item."""
+    with pytest.raises(TypeError, match="Mesh"):
         RecSys(_data(), n_factors=4, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §A {item}b "):
+        RecSys(_data(), n_factors=4, device="cpu", net_type="mlp", mesh=make_mesh(device="cpu"))
 
 
 def test_load_takes_jax_parameters_then_device():
@@ -58,7 +63,7 @@ def test_load_takes_jax_parameters_then_device():
     port = inspect.signature(RecSys.load).parameters
     assert list(port) == jax_names + ["device"]
     assert port["mesh"].default is None and port["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 14 "):
+    with pytest.raises(TypeError, match="Mesh"):
         RecSys.load("ckpt/", mesh=object(), device="cpu")
 
 

@@ -22,10 +22,12 @@ import pytest
 import torch
 
 from torchrecsys_tpu.train import SuperBatchStream as JSuperBatchStream
+from torchrecsys_tpu_torch import RecSys
 from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
 from torchrecsys_tpu_torch.data import prepare_data
 from torchrecsys_tpu_torch.models import build_model
 from torchrecsys_tpu_torch.ops import fused_pairwise as tfp
+from torchrecsys_tpu_torch.parallel import make_mesh
 from torchrecsys_tpu_torch.train import SuperBatchStream, Trainer, fit_streaming
 from torchrecsys_tpu_torch.utils.convert import train_state_from_jax
 
@@ -70,8 +72,12 @@ def test_chunk_order_equals_jax_stream(seed):
 
 
 def test_a_sharding_raises_naming_item_14():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """A sharding that is not parallel.sharding.batch_sharding(mesh) is
+    refused; an MLP on a mesh raises naming item 14b."""
+    with pytest.raises(TypeError, match="batch_sharding"):
         SuperBatchStream({"x": np.arange(10)}, 4, sharding=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        RecSys(_data(False), n_factors=4, net_type="mlp", device="cpu", mesh=make_mesh(device="cpu"))
     with pytest.raises(ValueError, match="lengths differ"):
         SuperBatchStream({"x": np.arange(10), "y": np.arange(9)}, 4, device="cpu")
 

@@ -7,6 +7,14 @@ constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
 ``_decode_items`` :551-563, ``update_data`` / ``partial_fit`` :566-653
 and ``save`` / ``restore`` / ``load`` :655-790).
 
+On a mesh (``mesh=make_mesh(...)``, parallel/mesh.py; one process per
+rank, every rank making the same calls) ``linear`` and ``fm`` fit
+(pairwise through the mesh wrappers of ops/fused_pairwise.py, sampled
+softmax through the data-parallel CE), evaluate, predict (the
+model-sharded top-k), stream, save and load; ``self.state`` is this rank's
+piece (tables row-split over ``model``). Other nets raise
+``NotImplementedError`` naming ROADMAP.md §A item 14b.
+
 Weights come from :meth:`RecSys.fit` (train/trainer.py: the fused
 pairwise step, the autograd pairwise step, e.g. the MLP's and NeuCF's, or
 the sampled-softmax step), from a checkpoint (:meth:`RecSys.restore`,
@@ -38,8 +46,12 @@ from torchrecsys_tpu_torch.models import build_model
 from torchrecsys_tpu_torch.models.base import padded_rows
 from torchrecsys_tpu_torch.models.ease import EASE, topk_rows
 from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, pack_seen_mask_torch
+from torchrecsys_tpu_torch.parallel.embedding import sharded_lookup
+from torchrecsys_tpu_torch.parallel.mesh import Mesh, all_gather
+from torchrecsys_tpu_torch.parallel.sharding import gather_state, shard_state
+from torchrecsys_tpu_torch.eval.predict import _sharded_catalog_topk, shard_catalog
 from torchrecsys_tpu_torch.train.optim import init_dense_opt, init_embedding_opt
-from torchrecsys_tpu_torch.train.trainer import Trainer, grow_state
+from torchrecsys_tpu_torch.train.trainer import MESH_ITEM, Trainer, grow_state
 from torchrecsys_tpu_torch.utils.checkpoint import (
     load_aux,
     load_schema,
@@ -55,7 +67,14 @@ from torchrecsys_tpu_torch.utils.convert import (
 )
 
 
-_PARALLEL_ITEM = "§A item 14 (parallel)"
+def _check_mesh(mesh: Any, net_type: str) -> None:
+    """A mesh is a :class:`Mesh`, and only Linear and FM run on one yet."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a torchrecsys_tpu_torch.parallel.Mesh (make_mesh), got {type(mesh).__name__}")
+    if net_type not in ("linear", "fm"):
+        raise _not_ported(f"net_type={net_type!r} on a mesh", MESH_ITEM)
 
 
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -103,12 +122,14 @@ class RecSys:
         (``net_type="ease"``: no model, ``self.ease`` instead, api.py:93-104).
         ``debug=True`` writes
         the store's ``config.json`` and ``meta.csv`` to ``path``
-        (:meth:`InteractionStore.write_data`). A ``mesh`` raises
-        ``NotImplementedError`` naming its ROADMAP.md item."""
+        (:meth:`InteractionStore.write_data`). ``mesh`` (a
+        :class:`~torchrecsys_tpu_torch.parallel.Mesh`) runs Linear and FM
+        on its ranks, on the mesh's device; any other object raises
+        ``TypeError``, another net on a mesh ``NotImplementedError`` naming
+        ROADMAP.md §A item 14b."""
         del use_cuda  # the device is `device`
-        if mesh is not None:
-            raise _not_ported("mesh", _PARALLEL_ITEM)
-        self.device = _resolve_device(device)
+        _check_mesh(mesh, net_type)
+        self.device = mesh.device if mesh is not None else _resolve_device(device)
         self.seed = seed
         self.debug, self.path, self.mesh = debug, path, mesh
         self.history_len, self.ease_lam, self.fm_sigmoid = history_len, ease_lam, fm_sigmoid
@@ -174,7 +195,8 @@ class RecSys:
 
     def _install(self, state: Dict[str, Any]) -> None:
         """Make ``state`` current: its tables become the model's and the
-        kept catalog is dropped, so predict serves these tables."""
+        kept catalog is dropped, so predict serves these tables. On a mesh
+        ``state`` is this rank's piece."""
         self.model.set_tables(state["tables"])
         self.state = dict(state, tables=dict(self.model.tables))
         self._catalog = None
@@ -221,20 +243,21 @@ class RecSys:
         :meth:`load_jax_tables`; ``dense`` and ``model_state`` as given, or
         the model's fresh ones (dense drawn from a generator seeded with
         ``seed``); the dense optimizer's state starts with the first fit;
-        step 0."""
+        step 0. On a mesh each rank keeps its piece."""
         if dense is None:
             dense = self.model.init_dense(torch.Generator(device=self.device).manual_seed(self.seed))
-        self._install({
+        state = {
             "tables": tables, "dense": dense,
             "model_state": self.model.init_state(self.device) if model_state is None else model_state,
             "emb_opt": emb_opt_from_jax(emb_opt, tables, self.device), "dense_opt": None,
             "step": 0,
-        })
+        }
+        self._install(state if self.mesh is None else shard_state(state, self.mesh))
 
     # ------------------------------------------------------------------
     def _ensure_trainer(self, train_cfg: TrainConfig) -> Trainer:
         if self.trainer is None or self.trainer.cfg != train_cfg:
-            self.trainer = Trainer(self.model, train_cfg, self.device)
+            self.trainer = Trainer(self.model, train_cfg, self.device, mesh=self.mesh)
         return self.trainer
 
     def fit(
@@ -355,6 +378,7 @@ class RecSys:
                 self.store.test_users, self.store.test_items, self.store.schema.num_items,
                 self.feat, ks=ks, item_chunk=None, batch_size=batch_size, device=self.device,
                 catalog=self._linearized() if self.model.supports_linearized_catalog else None,
+                mesh=self.mesh,
             ))
         return {m: out[m] for m in eval_metrics}
 
@@ -471,6 +495,7 @@ class RecSys:
             approx_recall=approx_recall,
             seen_mask=seen_mask,
             catalog=self._linearized() if self.model.supports_linearized_catalog else None,
+            mesh=self.mesh,
         )
         ids = ids.cpu().numpy()
         if seen_mask is not None:
@@ -530,12 +555,33 @@ class RecSys:
         k = min(top_k + 1, n)  # +1: the query item ranks first, drop it
         if self.ease is not None:
             ids = topk_rows(self.ease.b[row][None, :], k)[1].cpu().numpy()
+        elif self.mesh is not None:
+            ids = self._similar_on_mesh(row, n, k)
         else:
             vecs = self.state["tables"]["item"][:n].float()
             bias = torch.zeros((n,), dtype=torch.float32, device=self.device)
             ids = dot_topk(vecs[row][None, :], vecs, bias, k)[1].cpu().numpy()
         keep = ids[0][ids[0] != row][: min(top_k, n - 1)]
         return self._decode_items(keep[None, :], return_raw_ids, scalar=True)
+
+    def _similar_on_mesh(self, row: int, n: int, k: int) -> np.ndarray:
+        """:meth:`similar_items`' scores on a mesh: each ``model`` rank
+        scores its item rows against the query row (a sharded lookup), the
+        shards' winners merged as B6 merges them."""
+        t = self.state["tables"]["item"]
+        rows = t.shape[0]
+        start = self.mesh.model_rank * rows if self.mesh.shape["model"] > 1 else 0
+        n_loc = max(0, min(n - start, rows))
+        vecs = torch.zeros((rows, t.shape[1]), dtype=torch.float32, device=self.device)
+        vecs[:n_loc] = t[:n_loc].float()
+        bias = torch.full((rows,), -torch.inf, dtype=torch.float32, device=self.device)
+        bias[:n_loc] = 0.0
+        query = torch.tensor([row], device=self.device)
+        q = sharded_lookup(t, query, self.mesh, "model").float()
+        catalog = (vecs, bias, lambda params, users: (q, torch.zeros((1,), device=self.device)),
+                   lambda raw, const: raw, start)
+        _, ids = _sharded_catalog_topk(self.model, self._params(), query, n, None, k, self.mesh, catalog=catalog)
+        return ids.cpu().numpy()
 
     # ------------------------------------------------------------------
     def _linearized(self):
@@ -549,7 +595,10 @@ class RecSys:
                 "item-item B matrix); use predict()/similar_items()"
             )
         if self._catalog is None:
-            self._catalog = self.model.linearized_catalog(self._params(), self.feat)
+            if self.mesh is not None and self.model.supports_linearized_catalog:
+                self._catalog = shard_catalog(self.model, self._params(), self.feat, self.mesh)
+            else:
+                self._catalog = self.model.linearized_catalog(self._params(), self.feat)
         if self._catalog is None:
             raise ValueError(
                 f"net_type {self.model_cfg.net_type!r} does not factorize "
@@ -561,8 +610,13 @@ class RecSys:
     def item_vectors(self) -> "tuple[np.ndarray, np.ndarray]":
         """``(vecs (num_items, D) f32, bias (num_items,) f32)`` in encoded-row
         order, metadata folded in: index ``[vecs[i], bias[i]]`` and query
-        with ``[user_vec, 1.0]`` in an external ANN engine."""
-        item_vecs, item_bias, _, _ = self._linearized()
+        with ``[user_vec, 1.0]`` in an external ANN engine. On a mesh the
+        shards' rows are all-gathered over ``model``."""
+        item_vecs, item_bias = self._linearized()[:2]
+        if self.mesh is not None:
+            n = self.store.schema.num_items
+            item_vecs = all_gather(item_vecs, self.mesh, "model")[:n]
+            item_bias = all_gather(item_bias, self.mesh, "model")[:n]
         return item_vecs.float().cpu().numpy(), item_bias.float().cpu().numpy()
 
     def user_vectors(
@@ -572,7 +626,7 @@ class RecSys:
         encoded-row order) or for raw ids; ``const`` is the user's
         row-constant score term (Linear's user bias, FM's linear user
         term)."""
-        _, _, user_fn, _ = self._linearized()
+        user_fn = self._linearized()[2]
         if user_id is None:
             rows = torch.arange(self.store.schema.num_users, device=self.device)
         else:
@@ -658,9 +712,13 @@ class RecSys:
             return
         if self.state is not None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-            self._install(grow_state(self.state, self.model, gen))
+            if self.mesh is None:
+                self._install(grow_state(self.state, self.model, gen))
+            else:  # grown whole on every rank, then each keeps its piece
+                whole = gather_state(self.state, self.mesh)
+                self._install(shard_state(grow_state(whole, self.model, gen), self.mesh))
         if self.trainer is not None:  # it holds the old model
-            self.trainer = Trainer(self.model, self.trainer.cfg, self.device)
+            self.trainer = Trainer(self.model, self.trainer.cfg, self.device, mesh=self.mesh)
 
     def partial_fit(self, dataset: Any, **fit_kwargs) -> List[float]:
         """``update_data(dataset)`` then ``fit(**fit_kwargs)``."""
@@ -676,7 +734,8 @@ class RecSys:
         constructor arguments (``aux.pkl``). EASE saves ``{"b"}`` and its
         interaction CSR as ``aux["ease_csr"]`` (api.py:676-685). Read it back
         with :meth:`restore` (same dataset) or :meth:`RecSys.load` (no
-        dataset)."""
+        dataset). On a mesh every rank calls it: the state is gathered and
+        world rank 0 writes the files a single device writes."""
         self._require_fitted("save()")
         aux = pack_store_aux(self.store, self.model_cfg, self.trainer.cfg if self.trainer else None)
         aux["dataset_cols"] = {
@@ -689,7 +748,7 @@ class RecSys:
         if self.ease is not None:
             state = {"b": self.ease.b}
             aux["ease_csr"] = {"user_ptr": self.ease.user_ptr, "item_idx": self.ease.item_idx}
-        save_checkpoint(directory, state, self.store.schema, aux=aux)
+        save_checkpoint(directory, state, self.store.schema, aux=aux, mesh=None if self.ease else self.mesh)
 
     def _train_cfg(self, aux: Optional[Dict[str, Any]]) -> TrainConfig:
         """The checkpoint's train config, else this RecSys's trainer's, else
@@ -736,7 +795,8 @@ class RecSys:
                 self.ease.seed_csr(aux["ease_csr"]["user_ptr"], aux["ease_csr"]["item_idx"])
             return
         cfg = self._train_cfg(aux)
-        self._install(restore_checkpoint(directory, self._target_state(cfg), self.device, seed=cfg.seed))
+        self._install(restore_checkpoint(directory, self._target_state(cfg), self.device, seed=cfg.seed,
+                                         mesh=self.mesh))
 
     @classmethod
     def load(cls, directory: str, mesh: Any = None, device: Union[str, torch.device] = "cuda") -> "RecSys":
@@ -749,10 +809,10 @@ class RecSys:
         the saved train config, the generator restored (see
         utils/checkpoint.py::restore_checkpoint). EASE comes back with
         ``lam=100``, the default, whatever ``ease_lam`` it was fitted with,
-        as JAX's cold load does (api.py:776-784). A ``mesh`` raises
-        ``NotImplementedError`` naming its ROADMAP.md item."""
-        if mesh is not None:
-            raise _not_ported("mesh", _PARALLEL_ITEM)
+        as JAX's cold load does (api.py:776-784). ``mesh`` re-shards the
+        state onto the loading process's mesh (Linear and FM; every rank
+        calls it), whatever mesh or device saved it."""
+        _check_mesh(mesh, "linear")  # a Mesh, before anything is read; the net is checked below
         aux = load_aux(directory)
         if aux is None:
             raise FileNotFoundError(
@@ -779,12 +839,13 @@ class RecSys:
             history_override=(hist["ids"], hist["mask"]) if hist else None,
         )
         model_cfg = ModelConfig(**aux["model_cfg"])
+        _check_mesh(mesh, model_cfg.net_type)
         train_cfg = TrainConfig(**aux["train_cfg"]) if aux["train_cfg"] else TrainConfig()
         cols = aux.get("dataset_cols") or {}
         self = cls.__new__(cls)
-        self.device = _resolve_device(device)
+        self.device = mesh.device if mesh is not None else _resolve_device(device)
         self.seed = train_cfg.seed
-        self.debug, self.path, self.mesh = False, directory, None
+        self.debug, self.path, self.mesh = False, directory, mesh
         self.history_len, self.ease_lam, self.fm_sigmoid = model_cfg.history_len, 100.0, model_cfg.fm_sigmoid
         self._user_col = cols.get("user", "user_id")
         self._item_col = cols.get("item", "item_id")
@@ -798,7 +859,7 @@ class RecSys:
             self.ease = EASE(schema.num_users, schema.num_items, device=self.device)
             self.restore(directory)
             return self
-        self.trainer = Trainer(self.model, train_cfg, self.device)
+        self.trainer = Trainer(self.model, train_cfg, self.device, mesh=mesh)
         self._install(restore_checkpoint(directory, self._target_state(train_cfg), self.device,
-                                         seed=train_cfg.seed))
+                                         seed=train_cfg.seed, mesh=mesh))
         return self

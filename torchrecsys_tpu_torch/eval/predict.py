@@ -6,9 +6,23 @@ fused score + top-k kernels of ``ops/dot_topk.py``; any model can take the
 generic chunked scorer :func:`full_catalog_topk`, plain torch with a
 running top-k merge (the MLP's path, its eval tower on running batch-norm
 statistics), which is also the fused path's second yardstick.
+
+On a mesh (B6, :144-246) each ``model`` rank scores only the catalog rows
+of its item-table shard (:func:`shard_catalog`): its item rows and biases
+where they lie, the metadata tables all-gathered over ``model`` (vocabulary
+rows, not catalog rows), the padded rows at a -inf bias, the seen mask
+re-packed for the shard's items. The (U, k_local) winners of every shard
+are all-gathered over ``model`` and merged in (value desc, index asc)
+order, ``lax.top_k``'s over shard-ordered candidates, so ids and values
+are the single-device call's bit for bit. The generic scorer on a mesh
+(:311-326) is ROADMAP.md §A item 14b.
 """
 
 from __future__ import annotations
+
+import copy
+import dataclasses
+from collections.abc import Mapping
 
 from typing import Dict, Optional, Tuple
 
@@ -17,7 +31,9 @@ import torch
 
 from torchrecsys_tpu_torch.data.features import Features, attach_features
 from torchrecsys_tpu_torch.models.base import Params, RecModel, State
-from torchrecsys_tpu_torch.ops.dot_topk import dot_topk, mask_bits_for_items
+from torchrecsys_tpu_torch.ops.dot_topk import _MASK_TILE, _round_up, dot_topk, mask_bits_for_items
+from torchrecsys_tpu_torch.parallel.embedding import sharded_lookup
+from torchrecsys_tpu_torch.parallel.mesh import all_gather, all_gather_many
 
 
 def _score_chunk(
@@ -101,6 +117,112 @@ def _fused_catalog_topk(
     return transform(raw, user_const), ids
 
 
+class _UserRows(Mapping):
+    """Tables looked up at ``user_ids`` on first use, by a sharded lookup
+    over ``model``: what a linearized catalog's ``user_fn`` reads as
+    ``tables[name][arange(U)]``."""
+
+    def __init__(self, tables, user_ids, mesh):
+        self._tables, self._ids, self._mesh, self._rows = tables, user_ids, mesh, {}
+
+    def __getitem__(self, name):
+        if name not in self._rows:
+            self._rows[name] = sharded_lookup(self._tables[name], self._ids, self._mesh, "model")
+        return self._rows[name]
+
+    def __iter__(self):
+        return iter(self._tables)
+
+    def __len__(self):
+        return len(self._tables)
+
+
+def shard_catalog(model: RecModel, params: Params, feat: Optional[Features], mesh):
+    """This ``model`` rank's part of the linearized catalog: ``(item_vecs
+    (R, D), item_bias (R,), user_fn, transform, start)`` for the R rows
+    ``[start, start + R)`` of its item-table shard, rows past the catalog
+    at a -inf bias so they never win. ``user_fn`` takes the user ids and
+    looks their rows up over ``model``."""
+    tables = params["tables"]
+    rows = tables["item"].shape[0]
+    start = mesh.model_rank * rows
+    n = model.schema.num_items
+    n_loc = max(0, min(n - start, rows))
+    view = dict(tables)
+    if mesh.shape["model"] > 1:  # the metadata vocabularies whole on every rank
+        for name in tables:
+            if name.startswith(("meta_", "linear_meta_")):
+                view[name] = all_gather(tables[name], mesh, "model")
+    local = copy.copy(model)
+    local.schema = dataclasses.replace(model.schema, num_items=n_loc)
+    sub = None
+    if feat and "meta_ids" in feat:
+        sub = dict(feat, meta_ids=feat["meta_ids"][start : start + n_loc],
+                   meta_mask=feat["meta_mask"][start : start + n_loc])
+    q, bias, user_fn, transform = local.linearized_catalog({"tables": view, "dense": params.get("dense")}, sub)
+    item_vecs = torch.zeros((rows, q.shape[1]), dtype=q.dtype, device=q.device)
+    item_vecs[:n_loc] = q
+    item_bias = torch.full((rows,), -torch.inf, dtype=torch.float32, device=q.device)
+    item_bias[:n_loc] = bias
+
+    def sharded_user_fn(params_, user_ids):
+        return user_fn({"tables": _UserRows(params_["tables"], user_ids, mesh)},
+                       torch.arange(user_ids.shape[0], device=user_ids.device))
+
+    return item_vecs, item_bias, sharded_user_fn, transform, start
+
+
+def _shard_mask(seen_mask: torch.Tensor, start: int, n_loc: int, rows: int) -> torch.Tensor:
+    """The packed seen mask of items ``[start, start + n_loc)`` as a mask of
+    an ``rows``-item catalog of its own (ops/dot_topk.py's layout)."""
+    dev = seen_mask.device
+    items = torch.arange(n_loc, device=dev)
+    bits = mask_bits_for_items(seen_mask, items + start).to(torch.int32)  # (U, n_loc)
+    w = _MASK_TILE // 32
+    j = items % _MASK_TILE
+    word = (items // _MASK_TILE) * w + (j % w)
+    bit = (j // w).to(torch.int32)
+    val = torch.where(bit == 31, torch.iinfo(torch.int32).min, torch.ones_like(bit) << bit.clamp(max=30))
+    out = torch.zeros((seen_mask.shape[0], _round_up(max(rows, 1), _MASK_TILE) // 32), dtype=torch.int32,
+                      device=dev)
+    out.index_add_(1, word, bits * val[None, :])  # one bit per item: the sum is the OR
+    return out
+
+
+def _sharded_catalog_topk(
+    model: RecModel,
+    params: Params,
+    user_ids: torch.Tensor,
+    num_items: int,
+    feat: Optional[Features],
+    top_k: int,
+    mesh,
+    seen_mask: Optional[torch.Tensor] = None,
+    catalog=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6 (:144-246): this rank's catalog shard through the fused kernels
+    with ``k_local = min(k, shard rows)``, the (U, k_local) winners of every
+    shard all-gathered over ``model`` and merged. ``catalog`` is a kept
+    :func:`shard_catalog`."""
+    item_vecs, item_bias, user_fn, transform, start = catalog or shard_catalog(model, params, feat, mesh)
+    rows = item_vecs.shape[0]
+    user_vecs, user_const = user_fn(params, user_ids)
+    k = min(top_k, num_items)
+    mask = None
+    if seen_mask is not None:
+        mask = _shard_mask(seen_mask, start, max(0, min(num_items - start, rows)), rows)
+    vals, ids = dot_topk(user_vecs, item_vecs, item_bias, min(k, rows), seen_mask=mask)
+    ids = ids.to(torch.int64) + start
+    m = mesh.shape["model"]
+    if m > 1:
+        u, kl = vals.shape
+        vals, ids = (x.reshape(m, u, kl).permute(1, 0, 2).reshape(u, m * kl)
+                     for x in all_gather_many([vals, ids], mesh, "model"))
+    # (value desc, index asc): the stable sort keeps shard order among ties
+    raw, pos = torch.sort(vals, dim=1, descending=True, stable=True)
+    return transform(raw[:, :k], user_const), torch.gather(ids, 1, pos[:, :k]).to(torch.int32)
+
+
 def catalog_topk(
     model: RecModel,
     params: Params,
@@ -114,13 +236,23 @@ def catalog_topk(
     approx_recall: Optional[float] = None,
     seen_mask: Optional[torch.Tensor] = None,
     catalog=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-catalog top-k with kernel dispatch (predict.py:248-335, without
-    the mesh): linearizable models take the fused kernels, everything else
-    the generic chunked scorer. ``approx_recall`` is exact in the port (see
+    """Full-catalog top-k with kernel dispatch (predict.py:248-335):
+    linearizable models take the fused kernels, on a ``mesh`` the
+    model-sharded B6 (:func:`_sharded_catalog_topk`); everything else the
+    generic chunked scorer. ``approx_recall`` is exact in the port (see
     ``ops.dot_topk.dot_topk``) and, as in JAX, refused off the fused path.
-    ``catalog`` optionally passes a kept ``model.linearized_catalog`` to the
-    fused path (the facade keeps it between table installs)."""
+    ``catalog`` optionally passes a kept ``model.linearized_catalog`` (on a
+    mesh, :func:`shard_catalog`) to the fused path (the facade keeps it
+    between table installs)."""
+    if mesh is not None:
+        if not (use_fused and model.supports_linearized_catalog):
+            from torchrecsys_tpu_torch.config import _not_ported
+
+            raise _not_ported("the generic catalog scorer on a mesh", "§A item 14b (the generic step on a mesh)")
+        return _sharded_catalog_topk(model, params, user_ids, num_items, feat, top_k, mesh,
+                                     seen_mask=seen_mask, catalog=catalog)
     if use_fused and model.supports_linearized_catalog:
         return _fused_catalog_topk(
             model, params, user_ids, num_items, feat, top_k,
@@ -153,9 +285,11 @@ def ranking_eval(
     batch_size: Optional[int] = None,
     device: Optional[torch.device] = None,
     catalog=None,
+    mesh=None,
 ) -> Dict[str, float]:
     """Per-user recall/precision/hit_rate/ndcg@k over a test split
-    (predict.py:338-389): top-k ids from :func:`catalog_topk`, aggregated
+    (predict.py:338-389): top-k ids from :func:`catalog_topk` (on a
+    ``mesh`` through B6; every rank gets the same ids), aggregated
     host-side by :func:`topk_ranking_metrics`. Items are not filtered by
     train-set membership, matching the reference. ``catalog`` as in
     :func:`catalog_topk`."""
@@ -168,7 +302,7 @@ def ranking_eval(
         chunk = torch.as_tensor(uniq[s : s + user_chunk], device=device).long()
         _, ids = catalog_topk(
             model, params, state, chunk, num_items, feat,
-            top_k=max_k, chunk_size=item_chunk, catalog=catalog,
+            top_k=max_k, chunk_size=item_chunk, catalog=catalog, mesh=mesh,
         )
         parts.append(ids.cpu().numpy())
     topk = np.concatenate(parts, axis=0)

@@ -3,17 +3,22 @@
 // torchrecsys_tpu_torch/ops/softmax_ce.py, built by ops/_build.py).
 //
 // Replaces torchrecsys_tpu/ops/softmax_ce.py::_fwd_kernel (:67) and
-// ::_bwd_kernel (:92). For a batch of B rows -- user-side vectors h (B, D),
-// item-side vectors v (B, D), column biases vbq = item bias - logQ(pos)
-// (B,), positive ids pos (B,) --
-//     s[r][c] = h[r] . v[c] + vbq[c], dropped where pos[c] == pos[r], c != r
-//     lse[r]  = log sum_c exp(s[r][c]),   loss[r] = lse[r] - s[r][r]
-// and, for a per-row cotangent g (B,), with dlog[r][c] = g[r] * (softmax
+// ::_bwd_kernel (:92), with their rectangular contract. For Br rows --
+// user-side vectors h (Br, D), positive ids pos_row (Br,) -- against Bc
+// columns -- item-side vectors v (Bc, D), column biases vbq = item bias -
+// logQ(pos) (Bc,), positive ids pos_col (Bc,) -- and a row offset off (the
+// positive of row r sits in column r + off; 0 <= off, off + Br <= Bc):
+//     s[r][c] = h[r] . v[c] + vbq[c], dropped where pos_col[c] == pos_row[r], c != r + off
+//     lse[r]  = log sum_c exp(s[r][c]),   loss[r] = lse[r] - s[r][r + off]
+// and, for a per-row cotangent g (Br,), with dlog[r][c] = g[r] * (softmax
 // - onehot)[r][c] (a dropped logit has probability exactly 0):
-//     dh = dlog . v,  dv = dlog^T . h,  dvb = column sums of dlog.
-// The diagonal is never dropped, so every row has a finite LSE. Any
-// B >= 1 and 1 <= D <= 128 are taken as they are: tiles are zero-filled
-// past B and past D, and the ragged edges are masked.
+//     dh = dlog . v (Br, D),  dv = dlog^T . h (Bc, D),  dvb = column sums of dlog (Bc,).
+// The single-device call is the square case: Br = Bc = B, off = 0, pos_row =
+// pos_col. A data-parallel shard is Br = B / n local rows against the Bc = B
+// all-gathered columns, off = its rank x Br. The diagonal is never dropped,
+// so every row has a finite LSE. Any Br, Bc >= 1 and 1 <= D <= 128 are taken
+// as they are: tiles are zero-filled past Br, Bc and D, the ragged edges are
+// masked, and the diagonal may start anywhere in a column tile.
 //
 // Forward. The TPU kernel holds a (TR, B) logit row block in VMEM and takes
 // the row max, then the sum. Here a block owns 128 rows and a range of
@@ -25,7 +30,7 @@
 // - A split pass writes each 64-column tile of v once per call as the image
 //   its shared-memory slot takes: v_big and v_small in 128-byte-swizzled
 //   [row][32 floats] chunks (D padded with zeros to a multiple of 16, then
-//   to 32), vbq (-inf past B, so padded columns drop out) and the ids. A
+//   to 32), vbq (-inf past Bc, so padded columns drop out) and the ids. A
 //   producer warp copies each image whole (one bulk copy on the copy
 //   engine) into a 3-slot ring, its arrival counted on an mbarrier. Each
 //   warpgroup's h (64 rows, split once) lives in registers as wgmma's A
@@ -76,6 +81,10 @@
 // - A D that is not a multiple of 4 (or an unaligned row) has no 16-byte
 //   copies; those tiles are staged by plain loads into the same layout.
 //
+// A data-parallel shard's call (Br = 1024 rows of a 4096-row batch over 4
+// ranks) does Br / B of the square call's work on the same plan: a quarter
+// of the row tiles, each over every column tile.
+//
 // Bound at the main path's B = 4096, D = 80. Forward: 2.B^2.D = 2.68 GFLOP
 // of f32 products, 8.05 GFLOP of TF32 as 3xTF32, 16.3 us at 495 TFLOP/s
 // (40 us at the CUDA cores' 67); its inputs and outputs are ~2.7 MB (~0.8
@@ -116,17 +125,18 @@ struct BwdArgs {
   const float* h;
   const float* v;
   const float* vbq;
-  const long long* pos;
+  const long long* pos_row;
+  const long long* pos_col;
   const float* lse;
   const float* g;
-  int B, D;
+  int Br, Bc, off, D;
   int DP;     // D rounded up to a multiple of 8: the k extent of h . v^T
   int LD;     // shared row stride in floats: D rounded up to a multiple of 32
   int tiles;  // row tiles per block
   int vec;    // 1: 16-byte cp.async staging (D % 4 == 0, aligned rows)
-  float* part_dh;   // (column groups, B, D)
-  float* part_dv;   // (row groups, B, D)
-  float* part_dvb;  // (row groups, B)
+  float* part_dh;   // (column groups, Br, D)
+  float* part_dv;   // (row groups, Bc, D)
+  float* part_dvb;  // (row groups, Bc)
 };
 
 // Shared tiles are row-major with a stride that is a multiple of 32 floats;
@@ -157,21 +167,21 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
-// Rows [x0, x0 + rows) of X (B, D) into dst (rows x LD, swizzled), zero
-// past B and past D. 16-byte cp.async where rows allow it, else plain loads
+// Rows [x0, x0 + rows) of X (n, D) into dst (rows x LD, swizzled), zero
+// past n and past D. 16-byte cp.async where rows allow it, else plain loads
 // (any D, any alignment): the same layout either way.
-__device__ void stage_rows(float* dst, const float* __restrict__ X, int x0, int rows, const BwdArgs& a) {
+__device__ void stage_rows(float* dst, const float* __restrict__ X, int x0, int rows, int n, const BwdArgs& a) {
   if (a.vec) {
     const int groups = a.LD >> 2;
     for (int e = threadIdx.x; e < rows * groups; e += kBwdThreads) {
       const int i = e / groups, c = (e - i * groups) << 2, r = x0 + i;
-      const bool in = r < a.B && c < a.D;
+      const bool in = r < n && c < a.D;
       cp_async16(dst + at(i, c, a.LD), in ? X + (size_t)r * a.D + c : X, in ? 16 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < rows * a.LD; e += kBwdThreads) {
       const int i = e / a.LD, c = e - i * a.LD, r = x0 + i;
-      dst[at(i, c, a.LD)] = (r < a.B && c < a.D) ? X[(size_t)r * a.D + c] : 0.0f;
+      dst[at(i, c, a.LD)] = (r < n && c < a.D) ? X[(size_t)r * a.D + c] : 0.0f;
     }
   }
 }
@@ -266,28 +276,28 @@ __global__ void __launch_bounds__(kBwdThreads, 1) softmax_ce_bwd_kernel(const Bw
   const int pa = 16 * ((warp >> 1) & 3) + g, nf0 = (warp & 1) * NF;
   const int pact = max(0, min(NF, nfd - nf0));
   const int c0 = blockIdx.x * kCG;
-  const int row_tiles = (a.B + kBT - 1) / kBT;
+  const int row_tiles = (a.Br + kBT - 1) / kBT;
   const int t_begin = blockIdx.y * a.tiles, t_end = min(t_begin + a.tiles, row_tiles);
 
-  // lse, g and pos of the 64 rows from r0 into row-scalar slot ``slot``
+  // lse, g and pos_row of the 64 rows from r0 into row-scalar slot ``slot``
   auto stage_row_scalars = [&](int r0, int slot) {
     if (tid < kBT) {
       const int r = r0 + tid;
-      const bool in = r < a.B;
+      const bool in = r < a.Br;
       cp_async_small<4>(rlse + slot * kBT + tid, a.lse + (in ? r : 0), in);
       cp_async_small<4>(rgs + slot * kBT + tid, a.g + (in ? r : 0), in);
-      cp_async_small<8>(rpos + slot * kBT + tid, a.pos + (in ? r : 0), in);
+      cp_async_small<8>(rpos + slot * kBT + tid, a.pos_row + (in ? r : 0), in);
     }
   };
-  stage_rows(Vs, a.v, c0, kCG, a);
-  stage_rows(Hs, a.h, t_begin * kBT, kBT, a);
+  stage_rows(Vs, a.v, c0, kCG, a.Bc, a);
+  stage_rows(Hs, a.h, t_begin * kBT, kBT, a.Br, a);
   stage_row_scalars(t_begin * kBT, 0);
   cp_async_commit();
   for (int e = tid; e < kCG * LD; e += kBwdThreads) dVs[e] = 0.0f;
   if (tid < kCG) {
     const int c = c0 + tid;
-    cpos[tid] = c < a.B ? a.pos[c] : 0;
-    colv[tid] = c < a.B ? a.vbq[c] : 0.0f;
+    cpos[tid] = c < a.Bc ? a.pos_col[c] : 0;
+    colv[tid] = c < a.Bc ? a.vbq[c] : 0.0f;
     dvbs[tid] = 0.0f;
   }
 
@@ -298,7 +308,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) softmax_ce_bwd_kernel(const Bw
     const float* g_r = rgs + buf * kBT;
     const long long* pos_r = rpos + buf * kBT;
     if (tt + 1 < t_end) {  // the next row tile's h and scalars, one tile ahead
-      stage_rows(Hs + (buf ^ 1) * kBT * LD, a.h, r0 + kBT, kBT, a);
+      stage_rows(Hs + (buf ^ 1) * kBT * LD, a.h, r0 + kBT, kBT, a.Br, a);
       stage_row_scalars(r0 + kBT, buf ^ 1);
     }
     cp_async_commit();
@@ -313,7 +323,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) softmax_ce_bwd_kernel(const Bw
 
     for (int ct = 0; ct < kCG / kBT; ++ct) {
       const int cc0 = c0 + ct * kBT;
-      if (cc0 >= a.B) break;  // uniform across the block
+      if (cc0 >= a.Bc) break;  // uniform across the block
       const float* V = Vs + ct * kBT * LD;
 
       // S = h_r . v_c^T over k = d
@@ -349,8 +359,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) softmax_ce_bwd_kernel(const Bw
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             const int cl = 16 * wn + 8 * j + 2 * t + q, c = cc0 + cl;
-            const bool diag = c == r;
-            const bool keep = r < a.B && c < a.B && (diag || cpos[ct * kBT + cl] != pos_r[rl]);
+            const bool diag = c == r + a.off;
+            const bool keep = r < a.Br && c < a.Bc && (diag || cpos[ct * kBT + cl] != pos_r[rl]);
             p[q] = keep ? g_r[rl] * (expf(s[j][2 * hh + q] + colv[ct * kBT + cl] - lse_r[rl]) -
                                      (diag ? 1.0f : 0.0f))
                         : 0.0f;
@@ -433,14 +443,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) softmax_ce_bwd_kernel(const Bw
 
     // dh of this row tile over the group's columns -> the group's slab
     if (warp < 8) {
-      float* out = a.part_dh + (size_t)blockIdx.x * a.B * a.D;
+      float* out = a.part_dh + (size_t)blockIdx.x * a.Br * a.D;
 #pragma unroll
       for (int jj = 0; jj < NF; ++jj) {
         if (jj >= pact) continue;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int r = r0 + pa + 8 * hh, d = 8 * (nf0 + jj) + 2 * t;
-          if (r >= a.B || d >= a.D) continue;
+          if (r >= a.Br || d >= a.D) continue;
           float* o = out + (size_t)r * a.D + d;
           if ((a.D & 1) == 0) {  // d even, D even: 8-byte aligned
             *reinterpret_cast<float2*>(o) = make_float2(dh[jj][2 * hh], dh[jj][2 * hh + 1]);
@@ -454,34 +464,34 @@ __global__ void __launch_bounds__(kBwdThreads, 1) softmax_ce_bwd_kernel(const Bw
   }
 
   // dv and dvb of the group's columns over the block's rows -> its slab
-  float* pdv = a.part_dv + (size_t)blockIdx.y * a.B * a.D;
+  float* pdv = a.part_dv + (size_t)blockIdx.y * a.Bc * a.D;
   for (int e = tid; e < kCG * a.D; e += kBwdThreads) {
     const int i = e / a.D, d = e - i * a.D, c = c0 + i;
-    if (c < a.B) pdv[(size_t)c * a.D + d] = dVs[at(i, d, LD)];
+    if (c < a.Bc) pdv[(size_t)c * a.D + d] = dVs[at(i, d, LD)];
   }
-  if (tid < kCG && c0 + tid < a.B) a.part_dvb[(size_t)blockIdx.y * a.B + c0 + tid] = dvbs[tid];
+  if (tid < kCG && c0 + tid < a.Bc) a.part_dvb[(size_t)blockIdx.y * a.Bc + c0 + tid] = dvbs[tid];
 }
 
 // dh = sum of the column groups' slabs, dv and dvb = sums of the row
 // ranges' slabs, each in slab order.
 __global__ void softmax_ce_bwd_sum_kernel(const BwdArgs a, int groups, int ranges, float* __restrict__ dh,
                                           float* __restrict__ dv, float* __restrict__ dvb) {
-  const size_t n = (size_t)a.B * a.D, total = 2 * n + a.B;
+  const size_t nh = (size_t)a.Br * a.D, nv = (size_t)a.Bc * a.D, total = nh + nv + a.Bc;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     float s = 0.0f;
-    if (e < n) {
+    if (e < nh) {
 #pragma unroll 8
-      for (int k = 0; k < groups; ++k) s += a.part_dh[(size_t)k * n + e];
+      for (int k = 0; k < groups; ++k) s += a.part_dh[(size_t)k * nh + e];
       dh[e] = s;
-    } else if (e < 2 * n) {
+    } else if (e < nh + nv) {
 #pragma unroll 8
-      for (int k = 0; k < ranges; ++k) s += a.part_dv[(size_t)k * n + e - n];
-      dv[e - n] = s;
+      for (int k = 0; k < ranges; ++k) s += a.part_dv[(size_t)k * nv + e - nh];
+      dv[e - nh] = s;
     } else {
 #pragma unroll 8
-      for (int k = 0; k < ranges; ++k) s += a.part_dvb[(size_t)k * a.B + e - 2 * n];
-      dvb[e - 2 * n] = s;
+      for (int k = 0; k < ranges; ++k) s += a.part_dvb[(size_t)k * a.Bc + e - nh - nv];
+      dvb[e - nh - nv] = s;
     }
   }
 }
@@ -500,14 +510,15 @@ struct FwdArgs {
   const float* h;
   const float* v;
   const float* vbq;
-  const long long* pos;
-  int B, D;
+  const long long* pos_row;
+  const long long* pos_col;
+  int Br, Bc, off, D;
   int KP;         // floats per staged row: D rounded up to 16, then to 32 (128-byte chunks)
   int SB;         // bytes of one column tile's image (a multiple of 1024)
-  int col_tiles;  // ceil(B / 64)
+  int col_tiles;  // ceil(Bc / 64)
   int per_split;  // column tiles per block
   uint8_t* img;   // col_tiles images, each as the stage it is copied into
-  float* p0;      // per-split partials (splits, B): running max, sum, label
+  float* p0;      // per-split partials (splits, Br): running max, sum, label
   float* p1;
   float* p2;
 };
@@ -518,8 +529,8 @@ __device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(__fl
 
 // One column tile's image, as it sits in shared memory: v_big and v_small
 // (64 rows x KP floats each, KP / 32 chunks of [row][128 bytes] in the
-// 128-byte swizzle, zero past B and past D), then vbq (-inf past B, so a
-// padded column drops out of every sum) and pos of the 64 columns.
+// 128-byte swizzle, zero past Bc and past D), then vbq (-inf past Bc, so a
+// padded column drops out of every sum) and pos_col of the 64 columns.
 __device__ __forceinline__ int img_small(int KP) { return kFN * KP * 4; }
 __device__ __forceinline__ int img_cols(int KP) { return 2 * kFN * KP * 4; }
 
@@ -536,7 +547,7 @@ __global__ void softmax_ce_fwd_split_kernel(const FwdArgs a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k = 4 * u + j;
-        const float x = (c < a.B && k < a.D) ? a.v[(size_t)c * a.D + k] : 0.0f;
+        const float x = (c < a.Bc && k < a.D) ? a.v[(size_t)c * a.D + k] : 0.0f;
         big[j] = tf32_big(x);
         small[j] = tf32_big(x - big[j]);
       }
@@ -546,8 +557,8 @@ __global__ void softmax_ce_fwd_split_kernel(const FwdArgs a) {
     } else {
       const int c = (int)(e - units), tile = c / kFN, n = c - tile * kFN;
       uint8_t* p = a.img + (size_t)tile * a.SB + img_cols(a.KP);
-      reinterpret_cast<float*>(p)[n] = c < a.B ? a.vbq[c] : -INFINITY;
-      reinterpret_cast<long long*>(p + kFN * 4)[n] = c < a.B ? a.pos[c] : 0;
+      reinterpret_cast<float*>(p)[n] = c < a.Bc ? a.vbq[c] : -INFINITY;
+      reinterpret_cast<long long*>(p + kFN * 4)[n] = c < a.Bc ? a.pos_col[c] : 0;
     }
   }
 }
@@ -696,14 +707,14 @@ __global__ void __launch_bounds__(kFThreads + 32, 1) softmax_ce_fwd_kernel(const
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row[i & 1], k = 8 * kk + t + 4 * (i >> 1);
-      const float x = (r < a.B && k < a.D) ? a.h[(size_t)r * a.D + k] : 0.0f;
+      const float x = (r < a.Br && k < a.D) ? a.h[(size_t)r * a.D + k] : 0.0f;
       const float big = tf32_big(x);
       hb[kk][i] = __float_as_uint(big);
       hs[kk][i] = __float_as_uint(tf32_big(x - big));
     }
   long long prow[2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) prow[hh] = row[hh] < a.B ? a.pos[row[hh]] : 0;
+  for (int hh = 0; hh < 2; ++hh) prow[hh] = row[hh] < a.Br ? a.pos_row[row[hh]] : 0;
 
   float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.0f, 0.0f}, lab[2] = {0.0f, 0.0f};
   float acc[32];
@@ -734,7 +745,10 @@ __global__ void __launch_bounds__(kFThreads + 32, 1) softmax_ce_fwd_kernel(const
     const uint8_t* cs = vb + img_cols(a.KP);
     const float* cv = reinterpret_cast<const float*>(cs);
     const long long* cp = reinterpret_cast<const long long*>(cs + kFN * 4);
-    const bool diag = c0 == rw0;  // the tile that holds the warpgroup's labels
+    // a tile that holds some of the warpgroup's labels (columns rw0 + off ..
+    // + 64, which may straddle two tiles)
+    const int dlo = rw0 + a.off;
+    const bool diag = c0 < dlo + 64 && dlo < c0 + kFN;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float x[16];
@@ -748,7 +762,7 @@ __global__ void __launch_bounds__(kFThreads + 32, 1) softmax_ce_fwd_kernel(const
         for (int q = 0; q < 2; ++q) {
           const float val = acc[4 * j + 2 * hh + q] + (q ? vq.y : vq.x);
           bool keep = (q ? pc.y : pc.x) != prow[hh];
-          if (diag && c0 + cl + q == row[hh]) {
+          if (diag && c0 + cl + q == row[hh] + a.off) {
             keep = true;
             lab[hh] = val;
           }
@@ -777,8 +791,8 @@ __global__ void __launch_bounds__(kFThreads + 32, 1) softmax_ce_fwd_kernel(const
     s[hh] += __shfl_xor_sync(kFull, s[hh], 2);
     lab[hh] += __shfl_xor_sync(kFull, lab[hh], 1);
     lab[hh] += __shfl_xor_sync(kFull, lab[hh], 2);
-    if (t == 0 && row[hh] < a.B) {
-      const size_t o = (size_t)blockIdx.y * a.B + row[hh];
+    if (t == 0 && row[hh] < a.Br) {
+      const size_t o = (size_t)blockIdx.y * a.Br + row[hh];
       a.p0[o] = m[hh];
       a.p1[o] = s[hh];
       a.p2[o] = lab[hh];
@@ -799,10 +813,10 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2
 __global__ void softmax_ce_fwd_combine_kernel(const FwdArgs a, int splits, float* __restrict__ loss,
                                               float* __restrict__ lse) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.B) return;
+  if (r >= a.Br) return;
   float m = -INFINITY, s = 0.0f, lab = 0.0f;
   for (int sp = 0; sp < splits; ++sp) {
-    const size_t o = (size_t)sp * a.B + r;
+    const size_t o = (size_t)sp * a.Br + r;
     lse_merge(m, s, a.p0[o], a.p1[o]);
     lab += a.p2[o];
   }
@@ -816,8 +830,8 @@ struct BwdPlan {
   int groups, ranges, tiles;
 };
 
-BwdPlan bwd_plan(int B) {
-  const int groups = (B + kCG - 1) / kCG, row_tiles = (B + kBT - 1) / kBT;
+BwdPlan bwd_plan(int Br, int Bc) {
+  const int groups = (Bc + kCG - 1) / kCG, row_tiles = (Br + kBT - 1) / kBT;
   int ranges = kWave / groups;
   if (ranges < 1) ranges = 1;
   if (ranges > row_tiles) ranges = row_tiles;
@@ -833,9 +847,9 @@ size_t bwd_smem(int D) {
          sizeof(long long) * (kCG + 2 * kBT);
 }
 
-size_t bwd_scratch(int B, int D) {
-  const BwdPlan p = bwd_plan(B);
-  return ((size_t)p.groups + p.ranges) * B * D + (size_t)p.ranges * B;
+size_t bwd_scratch(int Br, int Bc, int D) {
+  const BwdPlan p = bwd_plan(Br, Bc);
+  return (size_t)p.groups * Br * D + (size_t)p.ranges * Bc * (D + 1);
 }
 
 // The forward's layout and grid: row tiles of 128 x column ranges, about
@@ -845,12 +859,12 @@ struct FwdPlan {
   int KP, SB, col_tiles, row_tiles, splits, per_split;
 };
 
-FwdPlan fwd_plan(int B, int D) {
+FwdPlan fwd_plan(int Br, int Bc, int D) {
   FwdPlan p;
   p.KP = ((D + 15) / 16 * 16 + 31) / 32 * 32;
   p.SB = (2 * kFN * p.KP * 4 + kFN * 12 + 1023) / 1024 * 1024;
-  p.col_tiles = (B + kFN - 1) / kFN;
-  p.row_tiles = (B + kFM - 1) / kFM;
+  p.col_tiles = (Bc + kFN - 1) / kFN;
+  p.row_tiles = (Br + kFM - 1) / kFM;
   int splits = kWave / p.row_tiles;
   if (splits > p.col_tiles) splits = p.col_tiles;
   if (splits < 1) splits = 1;
@@ -859,9 +873,13 @@ FwdPlan fwd_plan(int B, int D) {
   return p;
 }
 
-size_t fwd_scratch(int B, int D) {
-  const FwdPlan p = fwd_plan(B, D);
-  return (size_t)p.col_tiles * p.SB / 4 + 3 * (size_t)p.splits * B;
+size_t fwd_scratch(int Br, int Bc, int D) {
+  const FwdPlan p = fwd_plan(Br, Bc, D);
+  return (size_t)p.col_tiles * p.SB / 4 + 3 * (size_t)p.splits * Br;
+}
+
+bool bad_shape(int Br, int Bc, int off, int D) {
+  return Br < 1 || Bc < 1 || off < 0 || (long long)off + Br > Bc || D < 1 || D > kMaxDim;
 }
 
 // Above 48 KB a kernel's dynamic shared memory must be opted into.
@@ -893,36 +911,41 @@ extern "C" {
 
 int trs_softmax_ce_max_dim() { return kMaxDim; }
 
-// Floats of scratch the forward needs for a batch of B at width D: the
-// column tiles' split images, then the column ranges' (max, sum, label)
-// partials.
-long long trs_softmax_ce_fwd_scratch(int B, int D) {
-  if (B < 1 || D < 1 || D > kMaxDim) return -1;
-  return (long long)fwd_scratch(B, D);
+// Floats of scratch the forward needs for Br rows against Bc columns at
+// width D: the column tiles' split images, then the column ranges' (max,
+// sum, label) partials.
+long long trs_softmax_ce_fwd_scratch(int Br, int Bc, int D) {
+  if (bad_shape(Br, Bc, 0, D)) return -1;
+  return (long long)fwd_scratch(Br, Bc, D);
 }
 
-// Floats of scratch the backward needs for a batch of B at width D: the
-// column groups' dh slabs, the row ranges' dv and dvb slabs.
-long long trs_softmax_ce_bwd_scratch(int B, int D) {
-  if (B < 1 || D < 1 || D > kMaxDim) return -1;
-  return (long long)bwd_scratch(B, D);
+// Floats of scratch the backward needs for Br rows against Bc columns at
+// width D: the column groups' dh slabs, the row ranges' dv and dvb slabs.
+long long trs_softmax_ce_bwd_scratch(int Br, int Bc, int D) {
+  if (bad_shape(Br, Bc, 0, D)) return -1;
+  return (long long)bwd_scratch(Br, Bc, D);
 }
 
-// Forward on ``stream``. h, v: (B, D) f32; vbq: (B,) f32; pos: (B,) int64,
-// all contiguous; part: trs_softmax_ce_fwd_scratch(B, D) floats (16-byte
-// aligned); loss, lse: (B,) f32. Three launches: the split of v into its
-// column tiles' images, the products with the running (max, sum), the
-// combine. Returns a cudaError_t (cudaGetLastError after the launches).
-int trs_softmax_ce_fwd(const float* h, const float* v, const float* vbq, const long long* pos,
-                       int B, int D, float* part, float* loss, float* lse, cudaStream_t stream) {
-  if (B < 1 || D < 1 || D > kMaxDim) return cudaErrorInvalidValue;
-  const FwdPlan p = fwd_plan(B, D);
+// Forward on ``stream``. h: (Br, D) f32; v: (Bc, D) f32; vbq: (Bc,) f32;
+// pos_row: (Br,) and pos_col: (Bc,) int64, all contiguous; 0 <= off,
+// off + Br <= Bc; part: trs_softmax_ce_fwd_scratch(Br, Bc, D) floats
+// (16-byte aligned); loss, lse: (Br,) f32. Three launches: the split of v
+// into its column tiles' images, the products with the running (max, sum),
+// the combine. Returns a cudaError_t (cudaGetLastError after the launches).
+int trs_softmax_ce_fwd(const float* h, const float* v, const float* vbq, const long long* pos_row,
+                       const long long* pos_col, int Br, int Bc, int off, int D, float* part, float* loss,
+                       float* lse, cudaStream_t stream) {
+  if (bad_shape(Br, Bc, off, D)) return cudaErrorInvalidValue;
+  const FwdPlan p = fwd_plan(Br, Bc, D);
   FwdArgs a{};
   a.h = h;
   a.v = v;
   a.vbq = vbq;
-  a.pos = pos;
-  a.B = B;
+  a.pos_row = pos_row;
+  a.pos_col = pos_col;
+  a.Br = Br;
+  a.Bc = Bc;
+  a.off = off;
   a.D = D;
   a.KP = p.KP;
   a.SB = p.SB;
@@ -931,8 +954,8 @@ int trs_softmax_ce_fwd(const float* h, const float* v, const float* vbq, const l
   a.img = reinterpret_cast<uint8_t*>(part);
   float* partials = part + (size_t)p.col_tiles * p.SB / 4;
   a.p0 = partials;
-  a.p1 = partials + (size_t)p.splits * B;
-  a.p2 = partials + 2 * (size_t)p.splits * B;
+  a.p1 = partials + (size_t)p.splits * Br;
+  a.p2 = partials + 2 * (size_t)p.splits * Br;
   const long long units = (long long)p.col_tiles * kFN * (p.KP / 4 + 1);
   long long blocks = (units + 255) / 256;
   if (blocks > 2048) blocks = 2048;
@@ -951,35 +974,38 @@ int trs_softmax_ce_fwd(const float* h, const float* v, const float* vbq, const l
     default: e = launch_fwd<8>(a, grid, stream); break;
   }
   if (e != cudaSuccess) return e;
-  softmax_ce_fwd_combine_kernel<<<(B + 255) / 256, 256, 0, stream>>>(a, p.splits, loss, lse);
+  softmax_ce_fwd_combine_kernel<<<(Br + 255) / 256, 256, 0, stream>>>(a, p.splits, loss, lse);
   return cudaGetLastError();
 }
 
 // Backward on ``stream``: the forward's inputs, its lse and the per-row
-// cotangent g (B,) f32; part: trs_softmax_ce_bwd_scratch(B, D) floats;
-// dh, dv: (B, D) f32; dvb: (B,) f32. One pass, then one fixed-order sum of
-// its slabs. Returns a cudaError_t.
-int trs_softmax_ce_bwd(const float* h, const float* v, const float* vbq, const long long* pos,
-                       const float* lse, const float* g, int B, int D, float* part, float* dh,
-                       float* dv, float* dvb, cudaStream_t stream) {
-  if (B < 1 || D < 1 || D > kMaxDim) return cudaErrorInvalidValue;
-  const BwdPlan p = bwd_plan(B);
+// cotangent g (Br,) f32; part: trs_softmax_ce_bwd_scratch(Br, Bc, D)
+// floats; dh: (Br, D), dv: (Bc, D) f32; dvb: (Bc,) f32. One pass, then one
+// fixed-order sum of its slabs. Returns a cudaError_t.
+int trs_softmax_ce_bwd(const float* h, const float* v, const float* vbq, const long long* pos_row,
+                       const long long* pos_col, const float* lse, const float* g, int Br, int Bc, int off,
+                       int D, float* part, float* dh, float* dv, float* dvb, cudaStream_t stream) {
+  if (bad_shape(Br, Bc, off, D)) return cudaErrorInvalidValue;
+  const BwdPlan p = bwd_plan(Br, Bc);
   BwdArgs a{};
   a.h = h;
   a.v = v;
   a.vbq = vbq;
-  a.pos = pos;
+  a.pos_row = pos_row;
+  a.pos_col = pos_col;
   a.lse = lse;
   a.g = g;
-  a.B = B;
+  a.Br = Br;
+  a.Bc = Bc;
+  a.off = off;
   a.D = D;
   a.DP = (D + 7) / 8 * 8;
   a.LD = ld_of(D);
   a.tiles = p.tiles;
   a.vec = (D % 4 == 0) && ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   a.part_dh = part;
-  a.part_dv = part + (size_t)p.groups * B * D;
-  a.part_dvb = a.part_dv + (size_t)p.ranges * B * D;
+  a.part_dv = part + (size_t)p.groups * Br * D;
+  a.part_dvb = a.part_dv + (size_t)p.ranges * Bc * D;
   const dim3 grid(p.groups, p.ranges);
   cudaError_t e;
   switch ((a.DP / 8 + 1) / 2) {
@@ -993,7 +1019,7 @@ int trs_softmax_ce_bwd(const float* h, const float* v, const float* vbq, const l
     default: e = launch_bwd<8>(a, grid, stream); break;
   }
   if (e != cudaSuccess) return e;
-  const size_t total = 2 * (size_t)B * D + B;
+  const size_t total = ((size_t)Br + Bc) * D + Bc;
   size_t blocks = (total + 255) / 256;
   if (blocks > 4096) blocks = 4096;
   softmax_ce_bwd_sum_kernel<<<(unsigned)blocks, 256, 0, stream>>>(a, p.groups, p.ranges, dh, dv, dvb);

@@ -52,8 +52,20 @@ lane.
   step wrappers record the step kernel's variant index of their last
   launch in ``.variant`` (``pairwise_updates_rows.variant`` the row-level
   kernel's), so a check can tell the bf16 variants were the ones run.
-- The mesh wrappers (``_dp``, ``_tp``) are still to be ported (ROADMAP.md
-  §A item 14).
+- The mesh wrappers (:415-641, :867-1034), for one rank of a
+  ('data', 'model') mesh (parallel/mesh.py) holding its ``data`` shard of
+  the batch: :func:`fused_pairwise_step_dp` / :func:`fused_pairwise_step_tp`
+  (B1/B2) and :func:`fused_pairwise_step_meta_dp` /
+  :func:`fused_pairwise_step_meta_tp` (B3/B4, Linear and FM). Each gathers
+  its rows (tp: masked local gather + psum over ``model``, exact), launches
+  the row-level kernel once on them (FM's metadata step and Linear's
+  alike: the step kernel scatters in place, so its updates could not be
+  shared), all-gathers the update rows and ids over ``data`` (one
+  collective per dtype) and scatters the whole batch's updates: every
+  replica the same rows (dp), each rank the rows of its shard (tp), in the
+  fixed order of parallel/embedding.py::scatter_add_rows, so replicas stay
+  bitwise equal. The loss normalizer is the global weight sum, or
+  ``1/(B_local n_data)`` without weights.
 """
 
 from __future__ import annotations
@@ -67,6 +79,8 @@ import numpy as np
 import torch
 
 from torchrecsys_tpu_torch.ops import _build
+from torchrecsys_tpu_torch.parallel.embedding import scatter_add_rows, sharded_lookup, sharded_scatter_add
+from torchrecsys_tpu_torch.parallel.mesh import all_gather_many, all_reduce_
 
 LANES = 128
 SUPPORTED_LOSSES = ("hinge", "bpr", "logistic")
@@ -431,6 +445,11 @@ def fused_pairwise_step_plain(
     return user_pk, item_pk, _put_loss(loss_sum * inv, loss_out, loss_index)
 
 
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` (any shape) of a whole table."""
+    return table[ids]
+
+
 def _meta_step_core(
     user_pk: torch.Tensor,
     item_pk: torch.Tensor,
@@ -450,9 +469,13 @@ def _meta_step_core(
     sigmoid: bool,
     bf16: bool,
     eps: float,
+    rows_fn: Callable = pairwise_updates_rows_plain,
+    gather: Callable = _take,
 ):
     """Composite-row step + the metadata updates, Linear (:660-801 with
-    ``fm=False``).
+    ``fm=False``); ``rows_fn`` runs the row math (the plain version, or
+    the row-level kernel on a mesh), ``gather`` reads rows of a table (a
+    sharded lookup under a row-sharded mesh).
 
     The item rows the row math sees are composite: their vector lanes hold
     ``item_vec + sum_f masked_sum(meta_f)``, so the score, the loss and the
@@ -467,21 +490,21 @@ def _meta_step_core(
     b = user_ids.shape[0]
     f32 = torch.float32
     iids = torch.cat([pos_ids, neg_ids])
-    u = user_pk.index_select(0, user_ids)
-    pn = item_pk.index_select(0, iids)  # (2B, 128), composited in place below
+    u = gather(user_pk, user_ids)
+    pn = gather(item_pk, iids)  # (2B, 128), composited in place below
     mids = meta_ids.index_select(0, iids)  # (2B, F, W)
     mm = meta_mask.index_select(0, iids).to(f32)
     rows = []
     csum = None
     for f in range(len(meta_vec)):
-        r = meta_vec[f][mids[:, f, :]]  # (2B, W, D+1)
+        r = gather(meta_vec[f], mids[:, f, :])  # (2B, W, D+1)
         rows.append(r)
         c = torch.sum(r[..., :d] * mm[:, f, :, None], dim=1)  # masked_sum
         csum = c if csum is None else csum + c
     if csum is not None:
         pn[:, :d] += csum
 
-    upd_u, item_rows, loss_sum = pairwise_updates_rows_plain(
+    upd_u, item_rows, loss_sum = rows_fn(
         u, pn[:b], pn[b:], weights, inv, lr,
         d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, eps=eps,
         emit_g=True, item_upd=True, bf16=bf16,
@@ -586,9 +609,11 @@ def _fm_meta_step_core(
     sigmoid: bool,
     bf16: bool,
     eps: float,
+    gather: Callable = _take,
 ):
     """FM's composite-row step (:660-801 with ``fm=True``); ``rows_fn`` is
-    :func:`pairwise_updates_rows` or its plain version.
+    :func:`pairwise_updates_rows` or its plain version, ``gather`` as in
+    :func:`_meta_step_core`.
 
     The rows the row math sees are composite: vector lanes ``q = i +
     sum_f c_f`` (``c_f`` the masked sum of field f's rows), bias lane ``b_i
@@ -607,16 +632,16 @@ def _fm_meta_step_core(
     b = user_ids.shape[0]
     f32 = torch.float32
     iids = torch.cat([pos_ids, neg_ids])
-    u = user_pk.index_select(0, user_ids)
-    pn = item_pk.index_select(0, iids)  # (2B, 128): the items' own rows
+    u = gather(user_pk, user_ids)
+    pn = gather(item_pk, iids)  # (2B, 128): the items' own rows
     mids = meta_ids.index_select(0, iids)  # (2B, F, W)
     mm = meta_mask.index_select(0, iids).to(f32)
     vrows, lrows, c = [], [], []
     for f in range(len(meta_vec)):
-        r = meta_vec[f][mids[:, f, :]]  # (2B, W, D+1)
+        r = gather(meta_vec[f], mids[:, f, :])  # (2B, W, D+1)
         vrows.append(r)
         c.append(torch.sum(r[..., :d] * mm[:, f, :, None], dim=1))  # masked_sum
-        lrows.append(meta_lin[f][mids[:, f, :]])  # (2B, W, 2)
+        lrows.append(gather(meta_lin[f], mids[:, f, :]))  # (2B, W, 2)
     ivec = pn[:, :d]
     q = ivec + sum(c)
     sq = torch.sum(ivec * ivec, dim=1) + sum(torch.sum(cf * cf, dim=1) for cf in c)
@@ -926,18 +951,247 @@ fused_pairwise_step_meta.variant = None
 
 
 # ---------------------------------------------------------------------------
-# applicability (:1041-1085, no mesh)
+# mesh wrappers (:415-641, :867-1034)
 # ---------------------------------------------------------------------------
 
 
-def pairwise_kernel_applicable(model, cfg) -> bool:
+def _mesh_inv(mesh, b: int, weights: Optional[torch.Tensor], weight_sum: Optional[float]) -> float:
+    """The loss normalizer of the global batch: ``1/(b n_data)`` without
+    weights, else ``1 / max(global weight sum, 1)`` (``weight_sum``, the
+    global sum when the caller knows it, saves a collective and a sync)."""
+    if weights is None:
+        return _inv_of(b * mesh.shape["data"], None)
+    if weight_sum is None:
+        weight_sum = float(all_reduce_(weights.to(torch.float32).sum().reshape(1), mesh.data))
+    return _inv_of(b, weight_sum)
+
+
+def _mesh_gather(mesh, tp: bool) -> Callable:
+    if tp:
+        return lambda t, ids: sharded_lookup(t, ids, mesh, "model")
+    return _take
+
+
+def _mesh_scatter(mesh, tp: bool) -> Callable:
+    if tp:
+        return lambda t, ids, rows: sharded_scatter_add(t, ids, rows, mesh, "model")
+    return scatter_add_rows
+
+
+def _mesh_step(mesh, tp, user_pk, item_pk, user_ids, pos_ids, neg_ids, weights, lr, *, d, margin, loss_kind,
+               sigmoid, eps, bf16, weight_sum, loss_out, loss_index):
+    _check_step("fused_pairwise_step_" + ("tp" if tp else "dp"), d, loss_kind, user_pk, item_pk,
+                (user_ids, pos_ids, neg_ids), weights, loss_out, loss_index)
+    b = user_ids.shape[0]
+    inv = _mesh_inv(mesh, b, weights, weight_sum)
+    gather = _mesh_gather(mesh, tp)
+    iids = torch.cat([pos_ids, neg_ids])
+    u, pn = gather(user_pk, user_ids), gather(item_pk, iids)
+    upd_u, upd_items, loss_sum = pairwise_updates_rows(
+        u, pn[:b], pn[b:], weights, inv, lr, d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid,
+        eps=eps, bf16=bf16,
+    )
+    g_uids, g_iids, g_u, g_items = all_gather_many([user_ids, iids, upd_u, upd_items], mesh, "data")
+    scatter = _mesh_scatter(mesh, tp)
+    scatter(user_pk, g_uids, g_u)
+    scatter(item_pk, g_iids, g_items)
+    return user_pk, item_pk, _put_loss(loss_sum * inv, loss_out, loss_index)
+
+
+def fused_pairwise_step_dp(
+    mesh,
+    user_pk: torch.Tensor,
+    item_pk: torch.Tensor,
+    user_ids: torch.Tensor,
+    pos_ids: torch.Tensor,
+    neg_ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    lr: float = 1e-2,
+    *,
+    d: int,
+    margin: float,
+    loss_kind: str,
+    sigmoid: bool,
+    eps: float = 1e-10,
+    bf16: bool = False,
+    weight_sum: Optional[float] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Data-parallel fused step, B1 (:415-494): whole packed tables on every
+    rank, ``user_ids``/``pos_ids``/``neg_ids``/``weights`` this rank's
+    ``data`` shard of the batch (``weight_sum`` the global weight sum, if
+    known). One launch of the row-level kernel on the shard's rows, the
+    update rows and ids all-gathered over ``data``, the whole batch's
+    updates scattered into every replica in the same fixed order (the
+    tables stay bitwise replicated; duplicates across the global batch see
+    the same accumulators, as on one device). Returns the tables (updated
+    in place) and this rank's share of the step's loss
+    (``loss_out[loss_index]`` too); the step's loss is the sum of the shares
+    over ``data``, which the caller takes (the trainer once per epoch)."""
+    return _mesh_step(mesh, False, user_pk, item_pk, user_ids, pos_ids, neg_ids, weights, lr, d=d,
+                      margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, eps=eps, bf16=bf16,
+                      weight_sum=weight_sum, loss_out=loss_out, loss_index=loss_index)
+
+
+def fused_pairwise_step_tp(
+    mesh,
+    user_pk: torch.Tensor,
+    item_pk: torch.Tensor,
+    user_ids: torch.Tensor,
+    pos_ids: torch.Tensor,
+    neg_ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    lr: float = 1e-2,
+    *,
+    d: int,
+    margin: float,
+    loss_kind: str,
+    sigmoid: bool,
+    eps: float = 1e-10,
+    bf16: bool = False,
+    weight_sum: Optional[float] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused step on packed tables row-sharded over ``model``, B2
+    (:497-641): the rows of the shard's ids rebuilt by masked local gather
+    + psum over ``model`` (exact), one launch of the row-level kernel, the
+    update rows and ids all-gathered over ``data``, and each rank adding
+    the updates that land in its rows. Arguments as in
+    :func:`fused_pairwise_step_dp`, with ``user_pk``/``item_pk`` this
+    rank's row shards."""
+    return _mesh_step(mesh, True, user_pk, item_pk, user_ids, pos_ids, neg_ids, weights, lr, d=d,
+                      margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, eps=eps, bf16=bf16,
+                      weight_sum=weight_sum, loss_out=loss_out, loss_index=loss_index)
+
+
+def _mesh_meta_step(mesh, tp, user_pk, item_pk, meta_vec, meta_ids, meta_mask, user_ids, pos_ids, neg_ids,
+                    weights, lr, *, d, margin, loss_kind, sigmoid, bf16, eps, weight_sum, loss_out, loss_index,
+                    meta_lin, fm):
+    name = "fused_pairwise_step_meta_" + ("tp" if tp else "dp")
+    if fm != (meta_lin is not None):
+        raise ValueError(f"{name}: meta_lin goes with fm=True, and only with it")
+    _check_step(name, d, loss_kind, user_pk, item_pk, (user_ids, pos_ids, neg_ids), weights, loss_out,
+                loss_index, (meta_vec, meta_ids, meta_mask), meta_lin)
+    inv = _mesh_inv(mesh, user_ids.shape[0], weights, weight_sum)
+    gather = _mesh_gather(mesh, tp)
+    kw = dict(d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid, bf16=bf16, eps=eps, gather=gather)
+    if fm:
+        upd_u, iids, item_rows, meta_deltas, lin_deltas, loss_sum = _fm_meta_step_core(
+            pairwise_updates_rows, user_pk, item_pk, meta_vec, meta_lin, meta_ids, meta_mask, user_ids,
+            pos_ids, neg_ids, weights, inv, lr, **kw,
+        )
+    else:
+        upd_u, iids, item_rows, meta_deltas, loss_sum = _meta_step_core(
+            user_pk, item_pk, meta_vec, meta_ids, meta_mask, user_ids, pos_ids, neg_ids, weights, inv, lr,
+            rows_fn=pairwise_updates_rows, **kw,
+        )
+        lin_deltas = []
+    tables = [user_pk, item_pk, *meta_vec, *(meta_lin or ())]
+    pairs = [(user_ids, upd_u), (iids, item_rows), *meta_deltas, *lin_deltas]
+    got = all_gather_many([t for pair in pairs for t in pair], mesh, "data")
+    scatter = _mesh_scatter(mesh, tp)
+    for j, table in enumerate(tables):
+        scatter(table, got[2 * j], got[2 * j + 1])
+    return user_pk, item_pk, meta_vec, _put_loss(loss_sum * inv, loss_out, loss_index)
+
+
+def fused_pairwise_step_meta_dp(
+    mesh,
+    user_pk: torch.Tensor,
+    item_pk: torch.Tensor,
+    meta_vec: Sequence[torch.Tensor],
+    meta_ids: torch.Tensor,
+    meta_mask: torch.Tensor,
+    user_ids: torch.Tensor,
+    pos_ids: torch.Tensor,
+    neg_ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    lr: float = 1e-2,
+    *,
+    d: int,
+    margin: float,
+    loss_kind: str,
+    sigmoid: bool,
+    bf16: bool = False,
+    eps: float = 1e-10,
+    weight_sum: Optional[float] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
+    meta_lin: Optional[Sequence[torch.Tensor]] = None,
+    fm: bool = False,
+):
+    """Data-parallel metadata step, B3 (:867-938), Linear and FM
+    (``fm=True`` with ``meta_lin``): the composite-row step of
+    :func:`_meta_step_core` / :func:`_fm_meta_step_core` on this rank's
+    shard with the row-level kernel (one launch), every update row (user,
+    item, per-feature metadata and linear-metadata deltas) all-gathered
+    over ``data`` and scattered into every replica in the same fixed order.
+    Returns ``(user_pk, item_pk, meta_vec, loss)``, all tables updated in
+    place, ``loss`` this rank's share as in :func:`fused_pairwise_step_dp`."""
+    return _mesh_meta_step(mesh, False, user_pk, item_pk, meta_vec, meta_ids, meta_mask, user_ids, pos_ids,
+                           neg_ids, weights, lr, d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid,
+                           bf16=bf16, eps=eps, weight_sum=weight_sum, loss_out=loss_out,
+                           loss_index=loss_index, meta_lin=meta_lin, fm=fm)
+
+
+def fused_pairwise_step_meta_tp(
+    mesh,
+    user_pk: torch.Tensor,
+    item_pk: torch.Tensor,
+    meta_vec: Sequence[torch.Tensor],
+    meta_ids: torch.Tensor,
+    meta_mask: torch.Tensor,
+    user_ids: torch.Tensor,
+    pos_ids: torch.Tensor,
+    neg_ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    lr: float = 1e-2,
+    *,
+    d: int,
+    margin: float,
+    loss_kind: str,
+    sigmoid: bool,
+    bf16: bool = False,
+    eps: float = 1e-10,
+    weight_sum: Optional[float] = None,
+    loss_out: Optional[torch.Tensor] = None,
+    loss_index: int = 0,
+    meta_lin: Optional[Sequence[torch.Tensor]] = None,
+    fm: bool = False,
+):
+    """Metadata step with every table (packed user/item, metadata, linear
+    metadata) row-sharded over ``model``, B4 (:941-1034): every gather a
+    sharded lookup, every scatter masked to the rank's rows; the (N_items,
+    F, W) feature ids and masks replicated. Arguments as in
+    :func:`fused_pairwise_step_meta_dp`."""
+    return _mesh_meta_step(mesh, True, user_pk, item_pk, meta_vec, meta_ids, meta_mask, user_ids, pos_ids,
+                           neg_ids, weights, lr, d=d, margin=margin, loss_kind=loss_kind, sigmoid=sigmoid,
+                           bf16=bf16, eps=eps, weight_sum=weight_sum, loss_out=loss_out,
+                           loss_index=loss_index, meta_lin=meta_lin, fm=fm)
+
+
+# ---------------------------------------------------------------------------
+# applicability (:1041-1085)
+# ---------------------------------------------------------------------------
+
+
+def pairwise_kernel_applicable(model, cfg, mesh=None) -> bool:
     """True when the whole train step runs as the fused kernel: a model
     with a packed pairwise layout (metadata needs two free g lanes, so
     ``n_factors <= 122`` there, else ``<= 124``), rowwise adagrad on the
     augmented layout, a one-negative supported loss, f32 params and f32 or
-    bf16 compute."""
+    bf16 compute. On a mesh whose ``model`` axis splits the tables, every
+    table's padded rows must split evenly over it (:1058-1066)."""
     if getattr(model, "pairwise_pack", None) is None:
         return False
+    if mesh is not None:
+        from torchrecsys_tpu_torch.models.base import padded_rows
+
+        m = mesh.shape.get("model", 1)
+        if m > 1 and any(padded_rows(spec.rows) % m for spec in model.table_specs().values()):
+            return False
     d = model.cfg.n_factors
     if model.schema.metadata_names and not (model.pairwise_meta and d <= LANES - 6):
         return False

@@ -18,6 +18,13 @@ every row's positive:
   ``_bwd_kernel`` (:92-125) as ``_ce_bwd`` (:187-225) calls it: ``(dh, dv,
   dvb)`` for a per-row cotangent ``g``.
 
+  Both keep the TPU kernels' rectangular contract (``_ce`` :177): Br rows
+  (``h``, ``pos``) against Bc columns (``v``, ``vbq``, ``pos_col``) with a
+  row offset ``off``, the positive of row r in column ``r + off``. The
+  single-device call is the square one (``pos_col`` None: ``pos``, ``off``
+  0); :func:`inbatch_softmax_ce_dp` passes a rank's rows against the
+  all-gathered batch.
+
   Given CPU tensors each takes its plain version
   (:func:`softmax_ce_fwd_plain`, :func:`softmax_ce_bwd_plain`); given CUDA
   tensors it launches its kernels or raises. Each counts its launches in
@@ -26,11 +33,13 @@ every row's positive:
   ``torch.autograd.Function``; :func:`inbatch_softmax_ce` its entry.
 - :func:`inbatch_softmax_rows_plain` is the XLA formulation, taken for
   ``d > 128`` (:func:`softmax_kernel_applicable`), as the JAX package does.
+- :func:`inbatch_softmax_ce_dp` (:240-264) is the data-parallel wrapper on
+  a mesh: a rank's B/n rows against the batch's B columns, all-gathered
+  over ``data`` with their gradients flowing back (parallel/mesh.py).
 
 The matmuls are f32 (IEEE on the card: the plain versions switch TF32 off
 around their products; both kernels' products are 3xTF32 on the tensor
-cores, f32-accurate to ~2^-21). The data-parallel wrapper
-``inbatch_softmax_ce_dp`` (:240-264) waits for ROADMAP.md §A item 14.
+cores, f32-accurate to ~2^-21).
 """
 
 from __future__ import annotations
@@ -60,11 +69,17 @@ def softmax_kernel_applicable(b: int, d: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _dup_mask(pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, B) accidental-hit mask (same positive, off the diagonal) and the
-    identity."""
-    eye = torch.eye(pos.shape[0], dtype=torch.bool, device=pos.device)
-    return (pos[None, :] == pos[:, None]) & ~eye, eye
+def _dup_mask(
+    pos: torch.Tensor, pos_col: Optional[torch.Tensor] = None, off: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Br, Bc) accidental-hit mask (same positive, off the diagonal) and the
+    diagonal ``c == r + off``; square (``pos_col`` = ``pos``) by default."""
+    if pos_col is None:
+        pos_col = pos
+    br, bc = pos.shape[0], pos_col.shape[0]
+    eye = (torch.arange(bc, device=pos.device)[None, :]
+           == torch.arange(br, device=pos.device)[:, None] + off)
+    return (pos_col[None, :] == pos[:, None]) & ~eye, eye
 
 
 def inbatch_softmax_rows_plain(
@@ -87,20 +102,27 @@ def inbatch_softmax_rows_plain(
     return torch.logsumexp(logits, dim=1) - torch.diagonal(logits)
 
 
-def _masked_logits(h, v, vbq, pos) -> Tuple[torch.Tensor, torch.Tensor]:
+def _masked_logits(h, v, vbq, pos, pos_col=None, off=0) -> Tuple[torch.Tensor, torch.Tensor]:
     with _ieee_f32_matmul(h.device):
         s = h.float() @ v.float().T
-    dup, eye = _dup_mask(pos)
+    dup, eye = _dup_mask(pos, pos_col, off)
     return (s + vbq.float()[None, :]).masked_fill(dup, -torch.inf), eye
 
 
 def softmax_ce_fwd_plain(
-    h: torch.Tensor, v: torch.Tensor, vbq: torch.Tensor, pos: torch.Tensor
+    h: torch.Tensor,
+    v: torch.Tensor,
+    vbq: torch.Tensor,
+    pos: torch.Tensor,
+    pos_col: Optional[torch.Tensor] = None,
+    off: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel's contract: ``(loss (B,), lse (B,))`` f32."""
-    s, _ = _masked_logits(h, v, vbq, pos)
+    """The forward kernel's contract: ``(loss (Br,), lse (Br,))`` f32 for
+    rows ``h``/``pos`` against columns ``v``/``vbq``/``pos_col`` (default
+    ``pos``), the label of row r in column ``r + off``."""
+    s, eye = _masked_logits(h, v, vbq, pos, pos_col, off)
     lse = torch.logsumexp(s, dim=1)
-    return lse - torch.diagonal(s), lse
+    return lse - s[eye], lse
 
 
 def softmax_ce_bwd_plain(
@@ -110,11 +132,14 @@ def softmax_ce_bwd_plain(
     pos: torch.Tensor,
     lse: torch.Tensor,
     g: torch.Tensor,
+    pos_col: Optional[torch.Tensor] = None,
+    off: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' contract: with ``dlog = g * (softmax -
-    onehot)`` (masked logits have probability 0), ``(dh = dlog @ v,
-    dv = dlog.T @ h, dvb = dlog.sum(0))``, f32."""
-    s, eye = _masked_logits(h, v, vbq, pos)
+    onehot)`` (masked logits have probability 0; the one-hot at ``r +
+    off``), ``(dh = dlog @ v (Br, D), dv = dlog.T @ h (Bc, D), dvb =
+    dlog.sum(0) (Bc,))``, f32."""
+    s, eye = _masked_logits(h, v, vbq, pos, pos_col, off)
     dlog = g.float()[:, None] * (torch.exp(s - lse[:, None]) - eye.float())
     with _ieee_f32_matmul(h.device):
         dh = dlog @ v.float()
@@ -130,34 +155,45 @@ def softmax_ce_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("softmax_ce.cu")
     if not getattr(lib, "_trs_bound", False):
-        lib.trs_softmax_ce_fwd_scratch.argtypes = [_CI] * 2
+        lib.trs_softmax_ce_fwd_scratch.argtypes = [_CI] * 3
         lib.trs_softmax_ce_fwd_scratch.restype = ctypes.c_longlong
-        lib.trs_softmax_ce_bwd_scratch.argtypes = [_CI] * 2
+        lib.trs_softmax_ce_bwd_scratch.argtypes = [_CI] * 3
         lib.trs_softmax_ce_bwd_scratch.restype = ctypes.c_longlong
-        lib.trs_softmax_ce_fwd.argtypes = [_VP] * 4 + [_CI] * 2 + [_VP] * 4
+        lib.trs_softmax_ce_fwd.argtypes = [_VP] * 5 + [_CI] * 4 + [_VP] * 4
         lib.trs_softmax_ce_fwd.restype = _CI
-        lib.trs_softmax_ce_bwd.argtypes = [_VP] * 6 + [_CI] * 2 + [_VP] * 5
+        lib.trs_softmax_ce_bwd.argtypes = [_VP] * 7 + [_CI] * 4 + [_VP] * 5
         lib.trs_softmax_ce_bwd.restype = _CI
         lib._trs_bound = True
     return lib
 
 
-def _check(name: str, h, v, vbq, pos, *rows: torch.Tensor) -> Tuple[int, int]:
-    """Shapes and devices of the CE inputs; returns (B, D)."""
-    if h.dim() != 2 or tuple(v.shape) != tuple(h.shape):
-        raise ValueError(f"{name}: h and v must be (B, D) alike, got {tuple(h.shape)}, {tuple(v.shape)}")
-    b, d = h.shape
-    for t in (vbq, pos) + rows:
-        if tuple(t.shape) != (b,):
-            raise ValueError(f"{name}: expected ({b},) per-row inputs, got {tuple(t.shape)}")
-    for t in (v, vbq, pos) + rows:
+def _check(name: str, h, v, vbq, pos, pos_col, off, *rows: torch.Tensor) -> Tuple[int, int, int, torch.Tensor]:
+    """Shapes and devices of the CE inputs; returns (Br, Bc, D, pos_col).
+    Square (``pos_col`` None): h and v alike, ``pos_col = pos``, off 0."""
+    square = pos_col is None
+    if h.dim() != 2 or v.dim() != 2 or h.shape[1] != v.shape[1] or (square and v.shape != h.shape):
+        raise ValueError(f"{name}: h (Br, D) and v (Bc, D) must be alike in D (and in B without "
+                         f"pos_col), got {tuple(h.shape)}, {tuple(v.shape)}")
+    br, d = h.shape
+    bc = v.shape[0]
+    if square:
+        pos_col = pos
+        if off:
+            raise ValueError(f"{name}: off={off} needs pos_col")
+    for want, ts in ((br, (pos,) + rows), (bc, (vbq, pos_col))):
+        for t in ts:
+            if tuple(t.shape) != (want,):
+                raise ValueError(f"{name}: expected ({want},) per-row inputs, got {tuple(t.shape)}")
+    for t in (v, vbq, pos, pos_col) + rows:
         if t.device != h.device:
             raise ValueError(f"{name}: inputs on different devices ({t.device} vs {h.device})")
-    if b < 1:
+    if br < 1 or bc < 1:
         raise ValueError(f"{name}: empty batch")
+    if not 0 <= off <= bc - br:
+        raise ValueError(f"{name}: off={off} outside [0, {bc - br}] for {br} rows against {bc} columns")
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors must be on CPU or CUDA, got {h.device}")
-    return b, d
+    return br, bc, d, pos_col
 
 
 def _f32(*ts: torch.Tensor):
@@ -169,33 +205,43 @@ def _check_dim(name: str, d: int) -> None:
         raise ValueError(f"{name}: the kernels take 1 <= D <= {LANES}, got D={d}")
 
 
+def _ids(*ts: torch.Tensor):
+    return tuple(t.to(torch.int64).contiguous() for t in ts)
+
+
 def softmax_ce_fwd(
-    h: torch.Tensor, v: torch.Tensor, vbq: torch.Tensor, pos: torch.Tensor
+    h: torch.Tensor,
+    v: torch.Tensor,
+    vbq: torch.Tensor,
+    pos: torch.Tensor,
+    pos_col: Optional[torch.Tensor] = None,
+    off: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row CE and LSE; the contract of :func:`softmax_ce_fwd_plain`.
     CUDA tensors launch the forward on the current stream (the split of v
     into tile images, the 3xTF32 ``wgmma`` products with a running max and
     sum per row, the fixed-order combine); CPU tensors take the plain
-    version."""
-    b, d = _check("softmax_ce_fwd", h, v, vbq, pos)
+    version. The square call and a rank's rectangular one are the same
+    kernels."""
+    br, bc, d, pos_col = _check("softmax_ce_fwd", h, v, vbq, pos, pos_col, off)
     if h.device.type == "cpu":
-        return softmax_ce_fwd_plain(h, v, vbq, pos)
+        return softmax_ce_fwd_plain(h, v, vbq, pos, pos_col, off)
     _check_dim("softmax_ce_fwd", d)
     dev = h.device
     h, v, vbq = _f32(h, v, vbq)
-    pos = pos.to(torch.int64).contiguous()
+    pos, pos_col = _ids(pos, pos_col)
     lib = _lib()
-    n = int(lib.trs_softmax_ce_fwd_scratch(b, d))
-    buf = torch.empty((n + 2 * b,), dtype=torch.float32, device=dev)  # scratch, loss, lse
+    n = int(lib.trs_softmax_ce_fwd_scratch(br, bc, d))
+    buf = torch.empty((n + 2 * br,), dtype=torch.float32, device=dev)  # scratch, loss, lse
     p = buf.data_ptr()
     with torch.cuda.device(dev):
         rc = lib.trs_softmax_ce_fwd(
-            h.data_ptr(), v.data_ptr(), vbq.data_ptr(), pos.data_ptr(), b, d,
-            p, p + 4 * n, p + 4 * (n + b), _stream(dev),
+            h.data_ptr(), v.data_ptr(), vbq.data_ptr(), pos.data_ptr(), pos_col.data_ptr(),
+            br, bc, int(off), d, p, p + 4 * n, p + 4 * (n + br), _stream(dev),
         )
     _raise_on(rc, "softmax_ce_fwd")
     softmax_ce_fwd.launches += 1
-    return buf[n : n + b], buf[n + b :]
+    return buf[n : n + br], buf[n + br :]
 
 
 softmax_ce_fwd.launches = 0
@@ -208,28 +254,30 @@ def softmax_ce_bwd(
     pos: torch.Tensor,
     lse: torch.Tensor,
     g: torch.Tensor,
+    pos_col: Optional[torch.Tensor] = None,
+    off: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dh, dv, dvb)``; the contract of :func:`softmax_ce_bwd_plain`.
     CUDA tensors launch the one-pass backward (every logit computed once,
     its three products on the tensor cores in 3xTF32) and the fixed-order
     sum of its partials; CPU tensors take the plain version."""
-    b, d = _check("softmax_ce_bwd", h, v, vbq, pos, lse, g)
+    br, bc, d, pos_col = _check("softmax_ce_bwd", h, v, vbq, pos, pos_col, off, lse, g)
     if h.device.type == "cpu":
-        return softmax_ce_bwd_plain(h, v, vbq, pos, lse, g)
+        return softmax_ce_bwd_plain(h, v, vbq, pos, lse, g, pos_col, off)
     _check_dim("softmax_ce_bwd", d)
     dev = h.device
     h, v, vbq, lse, g = _f32(h, v, vbq, lse, g)
-    pos = pos.to(torch.int64).contiguous()
+    pos, pos_col = _ids(pos, pos_col)
     lib = _lib()
-    part = torch.empty((lib.trs_softmax_ce_bwd_scratch(b, d),), dtype=torch.float32, device=dev)
-    out = torch.empty((b * (2 * d + 1),), dtype=torch.float32, device=dev)
-    dh, dv = out[: b * d].view(b, d), out[b * d : 2 * b * d].view(b, d)
-    dvb = out[2 * b * d :]
+    part = torch.empty((lib.trs_softmax_ce_bwd_scratch(br, bc, d),), dtype=torch.float32, device=dev)
+    out = torch.empty(((br + bc) * d + bc,), dtype=torch.float32, device=dev)
+    dh, dv = out[: br * d].view(br, d), out[br * d : (br + bc) * d].view(bc, d)
+    dvb = out[(br + bc) * d :]
     with torch.cuda.device(dev):
         rc = lib.trs_softmax_ce_bwd(
-            h.data_ptr(), v.data_ptr(), vbq.data_ptr(), pos.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), b, d, part.data_ptr(), dh.data_ptr(), dv.data_ptr(),
-            dvb.data_ptr(), _stream(dev),
+            h.data_ptr(), v.data_ptr(), vbq.data_ptr(), pos.data_ptr(), pos_col.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), br, bc, int(off), d, part.data_ptr(), dh.data_ptr(),
+            dv.data_ptr(), dvb.data_ptr(), _stream(dev),
         )
     _raise_on(rc, "softmax_ce_bwd")
     softmax_ce_bwd.launches += 1
@@ -247,24 +295,27 @@ CeFns = Tuple[Callable[..., Tuple[torch.Tensor, torch.Tensor]], Callable[..., Tu
 
 
 class InBatchSoftmaxCE(torch.autograd.Function):
-    """(B,) per-row CE with the backward of :func:`softmax_ce_bwd`
+    """(Br,) per-row CE with the backward of :func:`softmax_ce_bwd`
     (``jax.custom_vjp``, :176-228). ``fns`` replaces the (forward,
     backward) pair, e.g. with the plain versions for a comparison on the
-    card."""
+    card; ``pos_col``/``off`` (the rectangular call) are passed to them
+    only when given."""
 
     @staticmethod
-    def forward(ctx, h, v, vbq, pos, fns: Optional[CeFns] = None):
+    def forward(ctx, h, v, vbq, pos, fns: Optional[CeFns] = None, pos_col=None, off: int = 0):
         fwd, bwd = fns or (softmax_ce_fwd, softmax_ce_bwd)
-        loss, lse = fwd(h, v, vbq, pos)
-        ctx.save_for_backward(h, v, vbq, pos, lse)
-        ctx.bwd = bwd
+        rect = () if pos_col is None else (pos_col, off)
+        loss, lse = fwd(h, v, vbq, pos, *rect)
+        ctx.save_for_backward(h, v, vbq, pos, lse, *rect[:1])
+        ctx.bwd, ctx.off = bwd, off
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        h, v, vbq, pos, lse = ctx.saved_tensors
-        dh, dv, dvb = ctx.bwd(h, v, vbq, pos, lse, g.contiguous())
-        return dh.to(h.dtype), dv.to(v.dtype), dvb.to(vbq.dtype), None, None
+        h, v, vbq, pos, lse, *pc = ctx.saved_tensors
+        rect = () if not pc else (pc[0], ctx.off)
+        dh, dv, dvb = ctx.bwd(h, v, vbq, pos, lse, g.contiguous(), *rect)
+        return dh.to(h.dtype), dv.to(v.dtype), dvb.to(vbq.dtype), None, None, None, None
 
 
 def inbatch_softmax_ce(
@@ -277,3 +328,27 @@ def inbatch_softmax_ce(
     """(B,) per-row in-batch softmax CE, single device (:231-237).
     ``vbq = item_bias - logq[pos]``; gradients flow to h, v and vbq."""
     return InBatchSoftmaxCE.apply(h, v, vbq, pos, fns)
+
+
+def inbatch_softmax_ce_dp(
+    mesh,
+    h: torch.Tensor,
+    v: torch.Tensor,
+    vbq: torch.Tensor,
+    pos: torch.Tensor,
+    fns: Optional[CeFns] = None,
+) -> torch.Tensor:
+    """Data-parallel in-batch CE on a mesh (:240-264): this rank's (B/n,)
+    per-row losses of its rows ``h``/``pos`` against the whole batch's
+    columns. ``v``, ``vbq`` and ``pos`` are all-gathered over ``data``
+    (:func:`parallel.mesh.all_gather`, whose backward all-reduces the
+    cotangent and takes this rank's slice, so ``dv`` and ``dvb`` sum every
+    rank's rows) and the kernels run at ``off = data rank x B/n``: the
+    single-device call on the whole batch, row block by row block."""
+    from torchrecsys_tpu_torch.parallel.mesh import all_gather
+
+    v_g = all_gather(v, mesh, "data")
+    vbq_g = all_gather(vbq, mesh, "data")
+    pos_g = all_gather(pos, mesh, "data")
+    off = mesh.data_rank * h.shape[0]
+    return InBatchSoftmaxCE.apply(h, v_g, vbq_g, pos, fns, pos_g, off)

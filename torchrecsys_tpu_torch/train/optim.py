@@ -113,12 +113,15 @@ def apply_embedding_updates_fused(
     aug_tables: Mapping[str, torch.Tensor],
     grads: Mapping[str, FusedRowGrads],
     eps: float = 1e-10,
+    scatter: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Any]] = None,
 ) -> None:
     """Rowwise-adagrad step on augmented tables, IN PLACE (optim.py:149-179):
     one ``index_add_`` per table of ``[-lr * g * rsqrt(acc_old + msq +
     eps), msq]`` rows, ``msq = mean(g^2)``. A row that occurs twice in one
     batch scales each occurrence by ``acc_old + its own msq``; the
-    accumulator still gains every occurrence's msq."""
+    accumulator still gains every occurrence's msq. ``scatter(table, ids,
+    rows)`` replaces the ``index_add_`` (a mesh's fixed-order or
+    shard-masked scatter)."""
     for name, sites in grads.items():
         if not sites:
             continue
@@ -130,7 +133,10 @@ def apply_embedding_updates_fused(
         msq = torch.mean(g * g, dim=-1)
         scale = torch.rsqrt(acc_old + msq + eps)
         upd = torch.cat([(-lr * g) * scale[:, None], msq[:, None]], dim=1)
-        aug.index_add_(0, ids, upd.to(aug.dtype))
+        if scatter is None:
+            aug.index_add_(0, ids, upd.to(aug.dtype))
+        else:
+            scatter(aug, ids, upd)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,16 @@ event), and each chunk's device tensors are recorded on the compute stream
 before the steps that read them have run. On the CPU the chunks are plain
 slices. Chunks arrive as int64, the resident split's dtype
 (``Trainer._device_train_data``).
+
+On a mesh (``sharding=batch_sharding(mesh)``, parallel/sharding.py) each
+rank stages only its ``data`` shard of each chunk (rows ``[r c/d, (r+1)
+c/d)`` of a chunk of c rows), and a trailing chunk that does not split
+over ``data`` comes whole to every rank, replicated, as in JAX (:63-75).
+:func:`fit_streaming` on a mesh stages the whole chunk on every rank
+instead: the mesh's :meth:`Trainer.train_epoch` builds the global epoch
+(its permutation and batches) on every rank alike and keeps its ``data``
+slice of each batch (train/trainer.py), and every rank holds the whole
+host split already.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from torchrecsys_tpu_torch.config import _not_ported
+from torchrecsys_tpu_torch.parallel.sharding import Sharding, batch_rows
 
 log = logging.getLogger("torchrecsys_tpu_torch.streaming")
 
@@ -38,9 +48,10 @@ Chunk = Dict[str, torch.Tensor]
 
 class SuperBatchStream:
     """Super-batches of ``arrays`` (host numpy columns of equal length) on
-    ``device``, one chunk staged ahead on the card. ``sharding`` (JAX's
-    placement of each chunk onto a mesh) raises ``NotImplementedError``
-    naming its ROADMAP.md item."""
+    ``device``, one chunk staged ahead on the card. ``sharding``
+    (``batch_sharding(mesh)``) gives each rank its ``data`` shard of each
+    chunk, on the mesh's device (a trailing chunk that does not split over
+    ``data`` whole)."""
 
     def __init__(
         self,
@@ -51,7 +62,10 @@ class SuperBatchStream:
         device: Union[str, torch.device] = "cuda",
     ) -> None:
         if sharding is not None:
-            raise _not_ported("a sharded stream (sharding=...)", "§A item 14 (parallel)")
+            if not isinstance(sharding, Sharding) or sharding.spec[:1] != ("data",):
+                raise TypeError(f"sharding must be parallel.sharding.batch_sharding(mesh), got {sharding!r}")
+            device = sharding.mesh.device
+        self.sharding = sharding
         self.n = next(iter(arrays.values())).shape[0]
         if not all(v.shape[0] == self.n for v in arrays.values()):
             raise ValueError("array lengths differ")
@@ -75,8 +89,14 @@ class SuperBatchStream:
             self._stream = torch.cuda.Stream(self.device)
 
     def _bounds(self, chunk_idx: int) -> Tuple[int, int]:
+        """This rank's rows of chunk ``chunk_idx``: all of them, or its
+        ``data`` shard when the chunk splits over the mesh's ``data``."""
         start = chunk_idx * self.sb
-        return start, min(start + self.sb, self.n)
+        stop = min(start + self.sb, self.n)
+        if self.sharding is not None and (stop - start) % self.sharding.mesh.shape["data"] == 0:
+            lo, hi = batch_rows(stop - start, self.sharding.mesh)
+            return start + lo, start + hi
+        return start, stop
 
     def _stage(self, chunk_idx: int, slot: int) -> Tuple[Chunk, torch.cuda.Event]:
         """Copy chunk ``chunk_idx`` into pinned buffer ``slot`` and issue its

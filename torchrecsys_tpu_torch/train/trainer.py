@@ -48,13 +48,31 @@ batches). Here an epoch is
    ``state["step"] + i``; the dense optimizer reads it at its own count.
 
 :func:`grow_state` (:59-105) carries a state over to a model with larger
-vocabularies (``RecSys.update_data``). Meshes are still to be ported
-(ROADMAP.md §A item 14).
+vocabularies (``RecSys.update_data``).
+
+On a mesh (``Trainer(..., mesh=make_mesh(...))``, parallel/mesh.py; one
+process per rank) Linear and FM train as the JAX package's kernel paths do
+(:684-790): every rank builds the same global epoch (the same generator,
+the same Feistel permutation, the in-batch sort by user and the in-step
+negatives of the whole batch), then keeps its contiguous ``data`` slice of
+every batch. The pairwise losses run the mesh wrappers of
+ops/fused_pairwise.py (B1-B4), sampled softmax the data-parallel CE
+(ops/softmax_ce.py::inbatch_softmax_ce_dp, B5) with its row gradients
+all-gathered over ``data`` and applied as the pairwise updates are; under
+a ``model`` axis the tables are row shards and every row arrives through
+parallel/embedding.py::sharded_lookup. Each step's loss is this rank's
+share; the epoch's are summed over ``data`` once, at its end. Evaluation
+scores each rank's ``data`` shard of the test rows and all-reduces the
+sums. What the JAX package runs on a mesh through its generic GSPMD step
+(the other nets, K > 1 negatives, ``warp``, ``adaptive_hinge``, ``sgd``,
+the unfused update, a batch that does not divide ``data``) raises
+``NotImplementedError`` naming ROADMAP.md §A item 14b.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -62,13 +80,16 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from torchrecsys_tpu_torch.config import TrainConfig
+from torchrecsys_tpu_torch.config import TrainConfig, _not_ported
 from torchrecsys_tpu_torch.data.features import Features, attach_features, feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore
 from torchrecsys_tpu_torch.data.sampling import alias_table, sample_negatives, sample_negatives_alias
 from torchrecsys_tpu_torch.models.base import Batch, RecModel
 from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 from torchrecsys_tpu_torch.ops import softmax_ce as sce
+from torchrecsys_tpu_torch.parallel.embedding import scatter_add_rows, sharded_lookup, sharded_scatter_add
+from torchrecsys_tpu_torch.parallel.mesh import Mesh, all_gather_many, all_reduce_
+from torchrecsys_tpu_torch.parallel.sharding import batch_rows, shard_state
 from torchrecsys_tpu_torch.train.losses import get_per_row_loss
 from torchrecsys_tpu_torch.train.optim import (
     apply_dense_update,
@@ -89,6 +110,34 @@ from torchrecsys_tpu_torch.utils.permute import random_permutation, round_keys
 log = logging.getLogger("torchrecsys_tpu_torch.train")
 
 TrainState = Dict[str, Any]
+
+MESH_ITEM = "§A item 14b (the generic step on a mesh)"
+
+
+def mesh_refusal(model: RecModel, cfg: TrainConfig, mesh: Mesh) -> Optional[str]:
+    """What of ``model`` and ``cfg`` the port does not yet run on ``mesh``
+    (the JAX package's GSPMD step, ROADMAP.md §A item 14b), or None."""
+    if model.name not in ("linear", "fm"):
+        return f"net_type={model.name!r} on a mesh"
+    if cfg.loss == "sampled_softmax":
+        if not (cfg.embedding_optimizer == "rowwise_adagrad" and cfg.fused_embedding_update):
+            return "sampled_softmax on a mesh without the fused rowwise-adagrad update"
+        if not sce.softmax_kernel_applicable(1, model.cfg.n_factors):
+            return f"sampled_softmax on a mesh at n_factors={model.cfg.n_factors} > {sce.LANES}"
+        if not fp.pairwise_kernel_applicable(model, dataclasses.replace(cfg, loss="hinge"), mesh):
+            return "a mesh whose model axis does not split every table's padded rows"
+        return None
+    if fp.pairwise_kernel_applicable(model, cfg, mesh):
+        return None
+    for cond, what in (
+        (cfg.num_negatives > 1, "num_negatives > 1"),
+        (cfg.loss not in fp.SUPPORTED_LOSSES, f"loss={cfg.loss!r}"),
+        (cfg.embedding_optimizer != "rowwise_adagrad", f"embedding_optimizer={cfg.embedding_optimizer!r}"),
+        (not cfg.fused_embedding_update, "fused_embedding_update=False"),
+    ):
+        if cond:
+            return f"{what} on a mesh"
+    return "this model and config on a mesh (the fused pairwise kernel does not take them)"
 
 
 def grow_state(state: TrainState, new_model: RecModel, generator: torch.Generator) -> TrainState:
@@ -152,9 +201,17 @@ class Trainer:
     config fit it, else through the autograd pairwise step; sampled softmax
     through the autograd step around the CE kernels."""
 
-    def __init__(self, model: RecModel, cfg: TrainConfig, device: Any = "cuda") -> None:
+    def __init__(self, model: RecModel, cfg: TrainConfig, device: Any = "cuda", mesh: Optional[Mesh] = None) -> None:
         self.model = model
         self.cfg = cfg
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a torchrecsys_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
+            why = mesh_refusal(model, cfg, mesh)
+            if why is not None:
+                raise _not_ported(why, MESH_ITEM)
+            device = mesh.device
+        self.mesh = mesh
         self.device = torch.device(device)
         self._softmax = cfg.loss == "sampled_softmax"
         self._fused = False  # the fused pairwise kernel step (else autograd)
@@ -195,7 +252,7 @@ class Trainer:
         draws every epoch's round keys and negatives."""
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         params, model_state = self.model.init(gen)
-        return {
+        state = {
             "tables": params["tables"],
             "dense": params["dense"],
             "model_state": model_state,
@@ -204,6 +261,9 @@ class Trainer:
             "step": 0,
             "rng": gen,
         }
+        if self.mesh is not None:  # every rank drew the whole state; each keeps its piece
+            state = shard_state(state, self.mesh)
+        return state
 
     def _rng(self, state: TrainState) -> torch.Generator:
         if state.get("rng") is None:  # a state carried over holds no generator
@@ -341,6 +401,12 @@ class Trainer:
                 batches["neg_item_id"] = torch.as_tensor(negatives, device=self.device).long()
             else:
                 batches["neg_item_id"] = self._sample_negs(gen, batches["pos_item_id"], feat)
+        if self.mesh is not None:  # the whole epoch drawn alike on every rank; keep this rank's rows
+            if b % self.mesh.shape["data"]:
+                raise _not_ported(f"a batch of {b} rows that does not divide data={self.mesh.shape['data']}",
+                                  MESH_ITEM)
+            lo, hi = batch_rows(b, self.mesh)
+            batches = {k: v[..., lo:hi].contiguous() for k, v in batches.items()}
         return Epoch(batches, nb, b, weight_sums)
 
     # ------------------------------------------------------------------
@@ -403,6 +469,14 @@ class Trainer:
                   sigmoid=model.pairwise_sigmoid, bf16=model.compute_dtype == torch.bfloat16,
                   loss_out=losses)
         user, item = packed["user"], packed["item"]
+        mesh = self.mesh
+        if mesh is not None and step_fn is None:
+            tp = mesh.shape["model"] > 1
+            if meta_names:
+                wrapper = fp.fused_pairwise_step_meta_tp if tp else fp.fused_pairwise_step_meta_dp
+            else:
+                wrapper = fp.fused_pairwise_step_tp if tp else fp.fused_pairwise_step_dp
+            step_fn = functools.partial(wrapper, mesh)
         if meta_names:
             step = step_fn or fp.fused_pairwise_step_meta
             lead = (user, item, [packed[f"meta_{nm}"] for nm in meta_names],
@@ -416,7 +490,14 @@ class Trainer:
             r = i - lo
             step(*lead, uids[r], pids[r], nids[r], None if ws is None else ws[r], self._lr_at(step0 + i),
                  weight_sum=None if ws is None else epoch.weight_sums[i], loss_index=j, **kw)
-        return losses
+        return self._sum_over_data(losses)
+
+    def _sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """On a mesh, each rank's shares of per-step losses (or sums) added
+        over ``data``: one collective for a whole epoch."""
+        if self.mesh is None:
+            return x
+        return all_reduce_(x.contiguous(), self.mesh.data)
 
     # ------------------------------------------------------------------
     def _softmax_rows(
@@ -435,6 +516,8 @@ class Trainer:
             vbq = vb.float()
             if logq is not None:
                 vbq = vbq - logq[pos]
+            if self.mesh is not None:  # this rank's rows against the whole batch
+                return sce.inbatch_softmax_ce_dp(self.mesh, h, v, vbq, pos, ce_fns)
             return sce.inbatch_softmax_ce(h, v, vbq, pos, ce_fns)
         return sce.inbatch_softmax_rows_plain(h, v, vb, pos, logq)
 
@@ -460,11 +543,22 @@ class Trainer:
                 )
         return gmap
 
+    def _take(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of a table: a sharded lookup on a mesh whose
+        ``model`` axis splits the tables."""
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            return sharded_lookup(table, ids, self.mesh, "model")
+        return table[ids]
+
+    def gather_rows(self, tables: Dict[str, torch.Tensor], side: Batch) -> Dict[str, torch.Tensor]:
+        """``model.gather_rows``, through :meth:`_take`."""
+        return {k: self._take(tables[t], ids) for k, (t, ids) in self.model.gathers(side).items()}
+
     def _rows(self, tables: Dict[str, torch.Tensor], gmap, augmented: bool):
         """The gathered rows of each site (``raw``; augmented rows carry the
         accumulator as the last column) and leaf copies of their parameter
         columns to differentiate."""
-        raw = {k: tables[t][ids] for k, (t, ids) in gmap.items()}
+        raw = {k: self._take(tables[t], ids) for k, (t, ids) in gmap.items()}
         rows = {k: (r[..., :-1] if augmented else r).detach().requires_grad_() for k, r in raw.items()}
         return raw, rows
 
@@ -487,6 +581,20 @@ class Trainer:
                 tname, ids = gmap[k]
                 site = (ids, g) if emb_opt is not None else (ids, g, raw[k][..., -1])
                 per_table.setdefault(tname, []).append(site)
+        if self.mesh is not None:  # the whole batch's sites on every rank, in a fixed order
+            sites = [(nm, site) for nm in sorted(per_table) for site in per_table[nm]]
+            # each site's ids, gradients and accumulators flattened to one row per occurrence
+            flat = [t.reshape((-1,) + t.shape[site[0].dim():]) for _, site in sites for t in site]
+            got = iter(all_gather_many(flat, self.mesh, "data"))
+            per_table = {}
+            for nm, site in sites:
+                per_table.setdefault(nm, []).append(tuple(next(got) for _ in site))
+            if self.mesh.shape["model"] > 1:
+                scatter = functools.partial(sharded_scatter_add, mesh=self.mesh, axis="model")
+            else:
+                scatter = scatter_add_rows
+            apply_embedding_updates_fused(lr, tables, per_table, scatter=scatter)
+            return
         if emb_opt is None:
             apply_embedding_updates_fused(lr, tables, per_table)
         else:
@@ -525,7 +633,8 @@ class Trainer:
         h, v, vb, _ = self.model.pair_vectors(dense, state["model_state"], rows, side, train=True)
         per_row = self._softmax_rows(h, v, vb, pos, feat.get("logq"), ce_fns)
         if w is None:
-            loss = per_row.mean()
+            # on a mesh this rank's share of the global batch's mean
+            loss = per_row.mean() if self.mesh is None else per_row.sum() / (pos.shape[0] * self.mesh.shape["data"])
         else:
             loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
         keys = list(rows)
@@ -576,7 +685,7 @@ class Trainer:
                 state, aug, bt["user_id"][i], bt["pos_item_id"][i], w, ws, feat, ce_fns,
                 lr=self._lr_at(state["step"] + i), emb_opt=emb_opt,
             ))
-        return torch.stack(losses)
+        return self._sum_over_data(torch.stack(losses))
 
     def _paired_side(
         self, user: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, feat: Optional[Features]
@@ -793,17 +902,18 @@ class Trainer:
             b = pos.shape[0]
             if self._softmax:
                 side_p = attach_features({"user_id": user, "item_id": pos}, feat)
-                rows_p = model.gather_rows(params["tables"], side_p)
+                rows_p = self.gather_rows(params["tables"], side_p)
                 h, vp, vbp, _ = model.pair_vectors(params["dense"], mstate, rows_p, side_p, train=False)
                 loss_rows = self._softmax_rows(h, vp, vbp, pos, feat.get("logq"))
                 side_n = attach_features({"user_id": user, "item_id": neg}, feat)
-                rows_n = model.gather_rows(params["tables"], side_n)
+                rows_n = self.gather_rows(params["tables"], side_n)
                 _, vn, vbn, _ = model.pair_vectors(params["dense"], mstate, rows_n, side_n, train=False)
                 ps = (torch.sum(h * vp, dim=-1) + vbp).float()
                 ns = (torch.sum(h * vn, dim=-1) + vbn).float()
             else:
                 side = self._paired_side(user, pos, neg, feat)
-                scores, _ = model.score(params, mstate, side, train=False)
+                rows = self.gather_rows(params["tables"], side)
+                scores, _ = model.score_rows(params["dense"], mstate, rows, side, train=False)
                 ps, ns_all = scores[:b], scores[b:]
                 if neg.dim() == 2:  # K draws: the AUC keeps the first
                     ns_all = ns_all.reshape(neg.shape[0], b)
@@ -815,6 +925,7 @@ class Trainer:
             tot_n = tot_n + torch.sum(w)
             tot_loss = tot_loss + torch.sum(loss_rows * w)
             tot_auc = tot_auc + torch.sum((ps > ns).float() * w)
+        tot_n, tot_loss, tot_auc = self._sum_over_data(torch.stack([tot_n, tot_loss, tot_auc]))
         n = torch.clamp_min(tot_n, 1.0)
         return {"loss": tot_loss / n, "auc": tot_auc / n}
 
@@ -847,6 +958,8 @@ class Trainer:
             return {}
         n = store.num_test
         b = min(batch_size or self.cfg.batch_size, n)
+        if self.mesh is not None:  # whole batches split over data; the filler rows are masked
+            b = -(-b // self.mesh.shape["data"]) * self.mesh.shape["data"]
         nb = -(-n // b)
         pad = nb * b - n
 
@@ -854,7 +967,7 @@ class Trainer:
             """(..., n) -> (nb, ..., b), the filler rows wrapped around."""
             arr = np.asarray(arr, np.int64)
             if pad:
-                arr = np.concatenate([arr, arr[..., :pad]], axis=-1)
+                arr = np.concatenate([arr, np.resize(arr, arr.shape[:-1] + (pad,))], axis=-1)
             t = torch.as_tensor(arr, device=self.device).reshape(arr.shape[:-1] + (nb, b))
             return t.movedim(-2, 0)
 
@@ -876,6 +989,10 @@ class Trainer:
             gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 0x5EED)
             batches["neg_item_id"] = self._sample_negs(gen, batches["pos_item_id"], feat, num=k)
         valid = (torch.arange(nb * b, device=self.device) < n).to(torch.float32).reshape(nb, b)
+        if self.mesh is not None:  # this rank's columns of every batch
+            lo, hi = batch_rows(b, self.mesh)
+            batches = {key: v[..., lo:hi].contiguous() for key, v in batches.items()}
+            valid = valid[:, lo:hi]
         if self._softmax and self.cfg.logq_correction:
             feat["logq"] = self._logq_from(store.test_items)
         out = self._eval_sums(state, batches, valid, feat)

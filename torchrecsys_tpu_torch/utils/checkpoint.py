@@ -20,6 +20,12 @@ A checkpoint directory holds
 raises ``ValueError`` naming the first that differs in shape or dtype:
 ``torch.load`` needs no target, so this is where a checkpoint of another
 dataset is caught.
+
+On a mesh (parallel/mesh.py) :func:`save_checkpoint` gathers the whole
+state on every rank (parallel/sharding.py::gather_state) and world rank 0
+writes the same files a single device writes; :func:`restore_checkpoint`
+reads the whole state and keeps this rank's piece of it, whatever mesh
+saved it, as Orbax re-shards in the JAX package (:8-9).
 """
 
 from __future__ import annotations
@@ -62,9 +68,24 @@ def save_checkpoint(
     state: Dict[str, Any],
     schema: Optional[DataSchema] = None,
     aux: Optional[Dict[str, Any]] = None,
+    mesh=None,
 ) -> None:
     """Write ``state`` to ``directory/state.pt`` and, when given, the
-    schema (``schema.json``) and ``aux`` (``aux.pkl``, :func:`save_aux`)."""
+    schema (``schema.json``) and ``aux`` (``aux.pkl``, :func:`save_aux`).
+    On a ``mesh`` every rank calls it with its piece of the state; the
+    whole state is gathered and world rank 0 writes, the others wait."""
+    if mesh is not None:
+        from torchrecsys_tpu_torch.parallel.sharding import gather_state
+
+        state = gather_state(state, mesh)
+        if mesh.rank != 0:
+            _barrier(mesh)
+            return
+        try:
+            save_checkpoint(directory, state, schema, aux)
+        finally:
+            _barrier(mesh)
+        return
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     torch.save(_to_cpu(state), os.path.join(directory, STATE_FILE))
@@ -73,6 +94,13 @@ def save_checkpoint(
             f.write(schema.to_json())
     if aux is not None:
         save_aux(directory, aux)
+
+
+def _barrier(mesh) -> None:
+    if mesh.world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def save_aux(directory: str, aux: Dict[str, Any]) -> None:
@@ -152,7 +180,7 @@ def _check(loaded: Any, target: Any, where: str) -> None:
 
 
 def restore_checkpoint(
-    directory: str, target_state: Dict[str, Any], device: Any, seed: int = 0
+    directory: str, target_state: Dict[str, Any], device: Any, seed: int = 0, mesh=None
 ) -> Dict[str, Any]:
     """The state of ``directory/state.pt`` on ``device``, checked leaf by
     leaf against ``target_state`` (tensors may live on the ``meta``
@@ -160,9 +188,14 @@ def restore_checkpoint(
     None in the checkpoint: a state that ``fit`` did not make. A generator
     saved on ``device``'s type comes back exactly (a resumed fit draws what
     an uninterrupted one would); one saved on another type (card -> CPU)
-    is replaced by a generator derived from ``(seed, step)``."""
+    is replaced by a generator derived from ``(seed, step)``. On a
+    ``mesh``, this rank's piece of the state, on the mesh's device."""
     from torchrecsys_tpu_torch.train.trainer import derived_generator
 
+    if mesh is not None:
+        from torchrecsys_tpu_torch.parallel.sharding import shard_state
+
+        return shard_state(restore_checkpoint(directory, target_state, mesh.device, seed), mesh)
     device = torch.device(device)
     path = os.path.join(os.path.abspath(directory), STATE_FILE)
     loaded = torch.load(path, weights_only=True, map_location=device)
