@@ -478,10 +478,13 @@ def check_topk_call(torch, fn, u_, i_, ib, k, m, exact):
 
 # Edge shapes of the top-k kernels: (U, N, D). A partial user tile (U = 1,
 # 257), a partial item tile and split (N = 1,000,003), rows that are not
-# whole 16-byte units (D = 13: the wrapper pads them), D = 84 and the
-# widest D = 128.
+# whole 16-byte units (D = 13: the wrapper pads them), D = 84, one whole
+# 128-lane slab (D = 128), and rows of two and three slabs (D = 160:
+# NeuCF's item table at n_factors = 80; 256; 300 with a partial user tile).
 TOPK_EDGES = ((1, 200_000, D), (257, 200_000, D), (U, 1_000_003, D), (U, 200_000, 13), (U, 200_000, 84),
-              (U, 200_000, 128))
+              (U, 200_000, 128), (U, 200_000, 160), (U, 200_000, 256), (257, 200_000, 300))
+WIDE_D = 160  # C1: the top-k kernels' D > 128 on the main path (Linear at n_factors=160; NeuCF's 2 x 80 items)
+WIDE_STEPS = 300  # the wide Linear's autograd steps of TRAIN_B before it serves
 TOPK_EDGE_KS = (10, 16, 17, 128, 1024)
 
 
@@ -2306,11 +2309,56 @@ def neucf_path(torch, data):
     ids, pred_s, pcounts = counted(torch, lambda: rs.predict(users, top_k=10))
     check(sum(pcounts.values()) == 0, f"{label}: predict launched {pcounts}")
     check_mlp_predict(torch, rs, users, ids, label)
+    items = st.item_encoder.to_list()[:16]
+    _, sim_s, scounts = counted(torch, lambda: check_similar(torch, rs, items))
+    check(nonzero(scounts) == {"dot_topk_small": len(items)}, f"{label}: similar_items launched {scounts}")
     log(f"[main] {label}: evaluate {ev} in {eval_s:.3f} s = {st.num_test / eval_s:.1f} rows/s, with fixed "
         f"negatives {direct}; predict 16 users x {N} items top_k=10 in {pred_s:.3f} s; launches {counts}, "
-        f"{pcounts}")
+        f"{pcounts}; similar_items of {len(items)} items over the {2 * D}-wide item table (#1 in two 128-lane "
+        f"slabs) in {sim_s:.3f} s, each against the plain top-k; launches {nonzero(scounts)}")
     return rs, {"examples_per_s": rate, "fit_s": fit_s, "eval_rows_per_s": st.num_test / eval_s,
-                "predict_s": pred_s, "auc": ev["auc"], "label": label}
+                "predict_s": pred_s, "auc": ev["auc"], "label": label, "similar_counts": scounts}
+
+
+def check_similar(torch, rs, items, k: int = 10):
+    """similar_items of each item (the top-k kernels over the item table)
+    against the plain top-k of the same dot products: each returned item
+    must score (f64) what the plain list holds at its rank."""
+    from torchrecsys_tpu_torch.ops.dot_topk import dot_topk_plain
+
+    n = rs.store.schema.num_items
+    vecs = rs.state["tables"]["item"][:n].float()
+    zero = torch.zeros((n,), dtype=torch.float32, device=vecs.device)
+    for item in items:
+        row = rs.store.item_encoder.encode_one(item)
+        got = torch.as_tensor(rs.similar_items(item, top_k=k, return_raw_ids=False), device=vecs.device).long()
+        pv, pi = dot_topk_plain(vecs[row][None, :], vecs, zero, k + 1)
+        pv = pv[0][pi[0] != row][:k].double()
+        true = (vecs[row].double()[None, :] * vecs[got].double()).sum(-1)
+        check(got.shape == (k,) and bool(((true - pv).abs() <= ATOL + RTOL * pv.abs()).all()),
+              f"similar_items({item!r}) disagrees with the plain top-k")
+
+
+def wide_path(torch, data):
+    """C1 on the main path: Linear at n_factors=WIDE_D from seeded tables,
+    WIDE_STEPS steps of TRAIN_B (the autograd step: the step kernel takes
+    124 lanes), then main_path's 40 predict batches of U users at top_k 10,
+    128 and exclude_seen through #1/#2 in two 128-lane slabs, a batch of
+    each held against the plain version. Returns the launches and rates."""
+    from torchrecsys_tpu_torch import RecSys
+
+    label = f" Linear D={WIDE_D}"
+    rs = RecSys({k: data[k] for k in ("user_id", "item_id")}, n_factors=WIDE_D, device=DEVICE,
+                dynamic_neg_sampling=True)
+    mesh_seed(rs)
+    loss, fit_s, counts = counted(torch, lambda: gen_steps(torch, rs, WIDE_STEPS, TRAIN_B))
+    check(np.isfinite(loss) and sum(counts.values()) == 0, f"{label}: loss {loss}, launches {counts}")
+    _, launches, rates = main_path(torch, rs, label)
+    log(f"[main] C1{label}: {WIDE_STEPS} steps of {TRAIN_B} in {fit_s:.3f} s (loss {loss:.5f}); predict users/s "
+        f"{json.dumps(rates)}; launches {launches}")
+    del rs
+    torch.cuda.empty_cache()
+    return launches, rates
 
 
 SMALL_OPTIONS = (
@@ -3606,6 +3654,24 @@ def timing_phase(torch, rs, users_raw, launches, errs):
             f"{max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms at the CUDA cores' "
             f"{PEAK_F32_FLOPS / 1e12:.0f}); plain {plain_ms:.4f} ms; torch.topk(matmul) {library_ms:.4f} ms"
         )
+    # C1: the same calls at D = WIDE_D (two 128-lane slabs), random f32 vectors
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    uw, qw, ibw = (torch.randn(u, WIDE_D, generator=gen, device=DEVICE),
+                   torch.randn(n, WIDE_D, generator=gen, device=DEVICE), torch.randn(n, generator=gen, device=DEVICE))
+    for row in rows_out:
+        fn, k = getattr(dt, row["name"]), KERNEL_ROWS[row["name"]][1]
+        ms = cuda_ms(torch, lambda: fn(uw, qw, ibw, k))
+        plain_ms = cuda_ms(torch, lambda: dt.dot_topk_plain(uw, qw, ibw, k), reps=5)
+        library_ms = cuda_ms(torch, lambda: torch.topk(torch.matmul(uw, qw.T) + ibw, k, dim=1), reps=5)
+        flops, nbytes = 2.0 * u * n * WIDE_D, (u + n) * WIDE_D * 4 + n * 4 + u * k * 8
+        bound = max(flops / SPLIT_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        row[f"d{WIDE_D}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                             "bound_by": "operations" if flops / SPLIT_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"}
+        log(f"[time] {row['name']} (U={u}, N={n}, D={WIDE_D}: two 128-lane slabs, k={k}, float32): {ms:.4f} ms; "
+            f"bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP at {SPLIT_F32_FLOPS / 1e12:.0f} TFLOP/s; the item "
+            f"stream {nbytes / PEAK_BYTES * 1e3:.4f} ms); plain {plain_ms:.4f} ms; torch.topk(matmul) "
+            f"{library_ms:.4f} ms")
+    del uw, qw, ibw
     for w in (dt.dot_topk_small, dt.dot_topk_large):  # timing launches are not main-path launches
         w.launches = saved[w.__name__]
     return rows_out
@@ -4305,7 +4371,16 @@ MESH_WRAPPERS = {  # the mesh wrappers that launch each kernel on a rank's shard
     "dot_topk_small": ["_sharded_catalog_topk (B6)"],
     "dot_topk_large": ["_sharded_catalog_topk (B6)"],
 }
+GEN_ROUTES = {  # 6s: what launches each kernel on a rank of the generic step's mesh
+    "fused_tower_fwd": ["the MLP's bf16 tower on a data rank's rows, Σz and Σz² summed over data before the next BN"],
+    "fused_tower_bwd": ["the same layers' backward; ds/dss the cotangents of the global sums"],
+    "softmax_ce_fwd": ["inbatch_softmax_ce_dp (B5) for SASRec's sampled softmax, Br=2048 against Bc=4096"],
+    "softmax_ce_bwd": ["inbatch_softmax_ce_dp (B5) for SASRec's sampled softmax, Br=2048 against Bc=4096"],
+    "dot_topk_small": ["_sharded_catalog_topk (B6) for SASRec, its histories by sharded lookup"],
+}
 MESH_FM_STEPS = 300  # FM with metadata on (2, 2): a few hundred steps of one epoch
+MESH_LINEAR_STEPS = 500  # Linear hinge on (4, 1): steps of TRAIN_B (the epoch's 2,344 until PR 16)
+MESH_SOFTMAX_STEPS = 200  # Linear sampled softmax on (4, 1): steps of SOFTMAX_B (the epoch's 586 until PR 16)
 MESH_WINDOW_STEPS = 50  # the steps of each run's second, collective-timed window
 MESH_PREDICT_BATCHES = 4  # (1, 4): predict batches of U = 256 users
 MESH_TIMEOUT_S = 600
@@ -4317,6 +4392,7 @@ sys.exit(chip_smoke.mesh_rank_main(int(sys.argv[1]), sys.argv[2]))
 """
 # the parent's sizes a rank takes over (settings.json): a rehearsal at a small size sets them in the parent
 MESH_SETTINGS = ("DEVICE", "N", "N_USERS", "N_INTERACTIONS", "U", "TRAIN_B", "SOFTMAX_B", "MESH_FM_STEPS",
+                 "MESH_LINEAR_STEPS", "MESH_SOFTMAX_STEPS",
                  "MESH_PREDICT_BATCHES", "MESH_WINDOW_STEPS")
 
 
@@ -4373,21 +4449,6 @@ def mesh_serve(torch, rs, users, ks, mesh=None, exclude=(False,)):
                                      seen_mask=mask, mesh=mesh)
             raw = rs.predict(users, top_k=k, exclude_seen=excl)
             out[(k, excl)] = (vals.float().cpu().numpy(), ids.cpu().numpy(), raw)
-    return out
-
-
-def mesh_recsys(rs, mesh, net_type: str):
-    """A RecSys over ``rs``'s store (its 7 s ingest once per rank) for
-    ``net_type`` on ``mesh``: what ``RecSys(data, net_type=..., mesh=mesh)``
-    builds from the same data."""
-    import copy
-    import dataclasses
-
-    out = copy.copy(rs)
-    out.mesh, out.device = mesh, mesh.device
-    out.model_cfg = dataclasses.replace(rs.model_cfg, net_type=net_type)
-    out.trainer, out.state = None, None
-    out._bind_store(rs.store)
     return out
 
 
@@ -4449,11 +4510,10 @@ def mesh_rank_main(rank: int, directory: str) -> int:
     data = synthetic_interactions()
     out = {"data_s": time.perf_counter() - t0}
 
-    def fit(rs, loss, batch, label):
-        losses, secs, counts = counted(torch, lambda: rs.fit(epochs=1, batch_size=batch, loss=loss, verbose=False))
-        steps = -(-rs.store.num_train // batch)
+    def fit(rs, loss, batch, label, steps):
+        losses, secs, counts = counted(torch, lambda: gen_steps(torch, rs, steps, batch, loss=loss))
         return {"label": label, "losses": losses, "fit_s": secs, "steps": steps, "counts": counts,
-                "examples_per_s": rs.store.num_train / secs, "hashes": table_hashes(rs.state),
+                "examples_per_s": steps * batch / secs, "hashes": table_hashes(rs.state),
                 **mesh_collective_window(torch, rs, loss, batch)}
 
     def keep(rs, name):  # the whole trained state, for the parent's comparison
@@ -4469,19 +4529,19 @@ def mesh_rank_main(rank: int, directory: str) -> int:
                 mesh=mesh)
     out["ingest_s"] = time.perf_counter() - t0
     mesh_seed(rs)
-    out["linear"] = fit(rs, "hinge", TRAIN_B, "Linear metadata hinge (4, 1)")
+    out["linear"] = fit(rs, "hinge", TRAIN_B, "Linear metadata hinge (4, 1)", MESH_LINEAR_STEPS)
     keep(rs, "linear.pt")
     rs.save(ckpt_dir("mesh_linear"))
     if rank == 0:
         open(os.path.join(directory, "linear.done"), "w").close()
     mesh_seed(rs)
-    out["softmax"] = fit(rs, "sampled_softmax", SOFTMAX_B, "Linear metadata sampled softmax (4, 1)")
+    out["softmax"] = fit(rs, "sampled_softmax", SOFTMAX_B, "Linear metadata sampled softmax (4, 1)",
+                         MESH_SOFTMAX_STEPS)
     keep(rs, "softmax.pt")
     base = rs
     # (2, 2): FM with metadata, MESH_FM_STEPS steps, evaluate, save (a cold load in 6n's child serves it)
     mesh = make_mesh(data=2, model=2, device=DEVICE)
-    fm = mesh_recsys(base, mesh, "fm")
-    mesh_seed(fm)
+    fm = net_recsys(base, mesh, "fm")
     losses, secs, counts = counted(torch, lambda: mesh_fm_steps(torch, fm))
     res = {"label": "FM metadata hinge (2, 2)", "losses": float(losses.mean()), "fit_s": secs,
            "steps": MESH_FM_STEPS, "counts": counts, "examples_per_s": MESH_FM_STEPS * TRAIN_B / secs,
@@ -4500,7 +4560,7 @@ def mesh_rank_main(rank: int, directory: str) -> int:
     torch.cuda.empty_cache()
     # (1, 4): the (4, 1) Linear's checkpoint served from 250,000-row shards
     mesh = make_mesh(data=1, model=4, device=DEVICE)
-    rs = mesh_recsys(base, mesh, "linear")
+    rs = net_recsys(base, mesh, "linear")  # seeded, then the checkpoint's state restored over it
     del base
     torch.cuda.empty_cache()
     rs.restore(ckpt_dir("mesh_linear"))
@@ -4520,15 +4580,16 @@ def mesh_rank_main(rank: int, directory: str) -> int:
     return 0
 
 
-def start_mesh_ranks(directory: str):
-    """The four rank processes of 6r, started together (the kernels are
-    built already: a rank only loads them)."""
+def start_mesh_ranks(directory: str, script: str = MESH_RANK, settings=MESH_SETTINGS):
+    """The four rank processes of 6r (or of 6s: its ``script`` and
+    ``settings``), started together (the kernels are built already: a rank
+    only loads them)."""
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, "settings.json"), "w") as f:
-        json.dump({k: globals()[k] for k in MESH_SETTINGS}, f)
+        json.dump({k: globals()[k] for k in settings}, f)
     root = os.path.dirname(os.path.abspath(__file__))
     logs = [open(os.path.join(directory, f"r{r}.log"), "w") for r in range(MESH_WORLD)]
-    procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK, str(r), directory], cwd=root, stdout=logs[r],
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), directory], cwd=root, stdout=logs[r],
                               stderr=subprocess.STDOUT) for r in range(MESH_WORLD)]
     return procs, logs
 
@@ -4555,7 +4616,7 @@ def wait_mesh_ranks(procs, logs, directory: str, t_start: float):
         r, rc = failed
         with open(os.path.join(directory, f"r{r}.log")) as f:
             tail = f.read()[-3000:]
-        check(False, f"6r: rank {r} failed (exit {rc}): {tail}")
+        check(False, f"mesh: rank {r} failed (exit {rc}): {tail}")
 
 
 def mesh_reference(torch, data, directory: str):
@@ -4568,10 +4629,10 @@ def mesh_reference(torch, data, directory: str):
     ref = {}
     rs = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE, dynamic_neg_sampling=True)
     mesh_seed(rs)
-    rs.fit(epochs=1, batch_size=TRAIN_B, verbose=False)
+    gen_steps(torch, rs, MESH_LINEAR_STEPS, TRAIN_B, loss="hinge")
     ref["linear"] = clone_state(torch, rs.state)
     mesh_seed(rs)
-    rs.fit(epochs=1, batch_size=SOFTMAX_B, loss="sampled_softmax", verbose=False)
+    gen_steps(torch, rs, MESH_SOFTMAX_STEPS, SOFTMAX_B, loss="sampled_softmax")
     ref["softmax"] = clone_state(torch, rs.state)
     fm = RecSys(data, metadata_id_col=["category_id"], n_factors=D, net_type="fm", device=DEVICE,
                 dynamic_neg_sampling=True)  # the user's entry point, as the ranks' (2, 2) copy builds it
@@ -4617,6 +4678,79 @@ def mesh_compare(torch, label, got_path, want, rtol, atol):
     return worst, bad
 
 
+def ce_rect_timing(torch, gen, br: int) -> dict:
+    """#4/#5 at a data rank's shape: Br = ``br`` rows against Bc = SOFTMAX_B
+    columns (D=80, f32); CUDA-event ms, device ms, bounds, plain ms."""
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+
+    out = {}
+    h, v, vbq, pos, g = ce_inputs(torch, gen, SOFTMAX_B, D, N)
+    args = (h[:br].contiguous(), v, vbq, pos[:br].contiguous())
+    lse = sce.softmax_ce_fwd_plain(*args, pos, 0)[1]
+    gr = g[:br].contiguous()
+    in_bytes = (br + SOFTMAX_B) * D * 4 + SOFTMAX_B * 4 + (br + SOFTMAX_B) * 8
+    for name, fn, plain, flops, nbytes in (
+        ("softmax_ce_fwd", lambda: sce.softmax_ce_fwd(*args, pos, 0), lambda: sce.softmax_ce_fwd_plain(*args, pos, 0),
+         2.0 * br * SOFTMAX_B * D, in_bytes + 2 * br * 4),
+        ("softmax_ce_bwd", lambda: sce.softmax_ce_bwd(*args, lse, gr, pos, 0),
+         lambda: sce.softmax_ce_bwd_plain(*args, lse, gr, pos, 0), 6.0 * br * SOFTMAX_B * D,
+         in_bytes + 2 * br * 4 + (br + SOFTMAX_B) * D * 4 + SOFTMAX_B * 4),
+    ):
+        ms = cuda_ms(torch, fn, reps=50)
+        dev_us, _ = device_call(torch, fn)
+        plain_ms = cuda_ms(torch, plain)
+        bound = max(flops / SPLIT_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if flops / SPLIT_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        out[f"{name} Br={br} Bc={SOFTMAX_B}"] = {"ms": ms, "device_ms": dev_us / 1e3, "plain_ms": plain_ms,
+                                                 "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def tower_rank_timing(torch, gen, rows: int) -> dict:
+    """#6/#7 at a data rank's shape of 6s's MLP: ``rows`` rows through both
+    hidden layers (the category column makes the input 3 x D wide)."""
+    from torchrecsys_tpu_torch.ops import fused_tower as ft
+
+    out = {}
+    for li, (din, dout, has_bn) in enumerate(((3 * D, MLP_HIDDEN[0], False), (MLP_HIDDEN[0], MLP_HIDDEN[1], True))):
+        x, w, b, bn, dz, dstat = tower_inputs(torch, gen, rows, din, dout)
+        z = ft.fused_tower_fwd_plain(x, w, b, bn, has_bn)[0]
+        for name, fn, plain, flops, nbytes in (
+            ("fused_tower_fwd", lambda: ft.fused_tower_fwd(x, w, b, bn, has_bn),
+             lambda: ft.fused_tower_fwd_plain(x, w, b, bn, has_bn), 2.0 * rows * din * dout,
+             2 * (rows * din + rows * dout + din * dout) + 4 * 2 * dout),
+            ("fused_tower_bwd", lambda: ft.fused_tower_bwd(x, z, dz, w, bn, dstat, has_bn),
+             lambda: ft.fused_tower_bwd_plain(x, z, dz, w, bn, dstat, has_bn), 4.0 * rows * din * dout,
+             2 * (2 * rows * din + 2 * rows * dout + din * dout) + 4 * (din * dout + dout + 4 * din)),
+        ):
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            dev_us, _ = device_call(torch, fn)
+            out[f"{name} R={rows} {din}->{dout}"] = {
+                "ms": cuda_ms(torch, fn, reps=50), "device_ms": dev_us / 1e3, "plain_ms": cuda_ms(torch, plain),
+                "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return out
+
+
+def generic_kernel_timing(torch, smi_line: str) -> dict:
+    """6s's kernel shapes on a rank: #4/#5 at Br = SOFTMAX_B / 2 (SASRec on
+    (2, 2)) and #6/#7 at 2 x MLP_B / 4 rows (the AMP MLP on (4, 1))."""
+    from torchrecsys_tpu_torch.ops import fused_tower as ft
+    from torchrecsys_tpu_torch.ops import softmax_ce as sce
+
+    gen = torch.Generator(device=DEVICE).manual_seed(37)
+    ws = (sce.softmax_ce_fwd, sce.softmax_ce_bwd, ft.fused_tower_fwd, ft.fused_tower_bwd)
+    saved = [w.launches for w in ws]
+    out = ce_rect_timing(torch, gen, SOFTMAX_B // 2)
+    out.update(tower_rank_timing(torch, gen, 2 * MLP_B // MESH_WORLD))
+    for w, n in zip(ws, saved):
+        w.launches = n
+    for k, r in out.items():
+        log(f"[time] {smi_line}: {k} (a 6s rank's shape): {r['ms']:.4f} ms (device {r['device_ms']:.5f} ms per "
+            f"call, torch.profiler); bound {r['bound_ms']:.5f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; "
+            "library: none")
+    return out
+
+
 def mesh_kernel_timing(torch, smi_line: str) -> dict:
     """The kernels at the mesh's shapes: the row-level #3 at 256 and 512
     rows (a rank's share of a 1024 batch at data 4 and 2) and #4/#5 at
@@ -4642,26 +4776,7 @@ def mesh_kernel_timing(torch, smi_line: str) -> dict:
         bound = max(nbytes / PEAK_BYTES, 10 * b * 128 / PEAK_F32_FLOPS) * 1e3
         out[f"pairwise_updates_rows B={b}"] = {"ms": ms, "device_ms": dev_us / 1e3, "plain_ms": plain,
                                                "bound_ms": bound, "bound_by": "bytes"}
-    h, v, vbq, pos, g = ce_inputs(torch, gen, SOFTMAX_B, D, N)
-    br = SOFTMAX_B // MESH_WORLD
-    args = (h[:br].contiguous(), v, vbq, pos[:br].contiguous())
-    lse = sce.softmax_ce_fwd_plain(*args, pos, 0)[1]
-    gr = g[:br].contiguous()
-    in_bytes = (br + SOFTMAX_B) * D * 4 + SOFTMAX_B * 4 + (br + SOFTMAX_B) * 8
-    for name, fn, plain, flops, nbytes in (
-        ("softmax_ce_fwd", lambda: sce.softmax_ce_fwd(*args, pos, 0), lambda: sce.softmax_ce_fwd_plain(*args, pos, 0),
-         2.0 * br * SOFTMAX_B * D, in_bytes + 2 * br * 4),
-        ("softmax_ce_bwd", lambda: sce.softmax_ce_bwd(*args, lse, gr, pos, 0),
-         lambda: sce.softmax_ce_bwd_plain(*args, lse, gr, pos, 0), 6.0 * br * SOFTMAX_B * D,
-         in_bytes + 2 * br * 4 + (br + SOFTMAX_B) * D * 4 + SOFTMAX_B * 4),
-    ):
-        ms = cuda_ms(torch, fn, reps=50)
-        dev_us, _ = device_call(torch, fn)
-        plain_ms = cuda_ms(torch, plain)
-        bound = max(flops / SPLIT_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        by = "operations" if flops / SPLIT_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        out[f"{name} Br={br} Bc={SOFTMAX_B}"] = {"ms": ms, "device_ms": dev_us / 1e3, "plain_ms": plain_ms,
-                                                 "bound_ms": bound, "bound_by": by}
+    out.update(ce_rect_timing(torch, gen, SOFTMAX_B // MESH_WORLD))
     fp.pairwise_updates_rows.launches, sce.softmax_ce_fwd.launches, sce.softmax_ce_bwd.launches = saved
     for k, r in out.items():
         log(f"[time] {smi_line}: {k} (D={D}, a mesh rank's shape): {r['ms']:.4f} ms (device "
@@ -4673,11 +4788,12 @@ def mesh_kernel_timing(torch, smi_line: str) -> dict:
 def mesh_path(torch, data, smi_line: str):
     """6r: four ranks on the one card over gloo (NCCL refuses two ranks on
     one device), one world, the three meshes in turn. (4, 1): Linear with
-    metadata, hinge, one epoch of 2,344 steps at batch 1024 (the row-level
+    metadata, hinge, MESH_LINEAR_STEPS steps at batch 1024 (the row-level
     #3 once per step on each rank's 256 rows, no other kernel), then
-    sampled softmax, one epoch of 586 steps at batch 4096 (#4/#5 once per
-    step at Br=1024 against Bc=4096); each against the single-device
-    port's epoch from the same seeded state (6n's rule; the softmax at
+    sampled softmax, MESH_SOFTMAX_STEPS steps at batch 4096 (#4/#5 once per
+    step at Br=1024 against Bc=4096), each fit's trainer over the first
+    steps x batch train rows (gen_steps), against the single-device
+    port's run from the same seeded state (6n's rule; the softmax at
     rtol 2e-4), every rank's tables bitwise equal. (2, 2): FM with
     metadata (B4) for 300 steps, evaluate against the single device, save
     (its cold load rides 6n's child). (1, 4): the (4, 1) model's
@@ -4772,6 +4888,380 @@ def mesh_path(torch, data, smi_line: str):
     return {"launches": launches, "job": job, "timing": timing, "ranks_s": ranks_s, "res": res}
 
 
+# ---------------------------------------------------------------------------
+# 6s: the generic step on a mesh (every net; the MLP's batch-norm sums over data)
+# ---------------------------------------------------------------------------
+
+GEN_MLP_STEPS = 200  # the north-star AMP MLP on (4, 1): steps of 8192
+GEN_SAS_STEPS = 100  # SASRec AMP sampled softmax on (2, 2): steps of 4096
+GEN_F32_STEPS = 20  # the f32 MLP on (2, 2)
+GEN_SHORT_STEPS = 50  # Linear K = 4 and WARP, LSTM, Linear at an uneven batch
+GEN_ODD_B = 1022  # a batch that does not divide data = 4
+GEN_WINDOW_STEPS = 20  # the AMP MLP's second, collective-timed window
+GEN_HISTORY = 20  # 6o's history_len
+GEN_EASE = (5_000, 2_000, 100_000)  # EASE on every rank: users, items, interactions
+GEN_DIST = 1e-3  # f32 runs: a leaf's change within this relative distance of one device's
+MESH_GENERIC_RANK = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.generic_rank_main(int(sys.argv[1]), sys.argv[2]))
+"""
+GEN_SETTINGS = MESH_SETTINGS + ("MLP_B", "MLP_HIDDEN", "GEN_MLP_STEPS", "GEN_SAS_STEPS", "GEN_F32_STEPS",
+                                "GEN_SHORT_STEPS", "GEN_ODD_B", "GEN_WINDOW_STEPS", "GEN_HISTORY", "GEN_EASE", "GEN_RUNS")
+# (run, net, mesh shape, steps, batch, fit keywords, use_amp, rule): every 6s training run, on the ranks and on
+# one device. rule "floor": 6f's noise-floor rule against a twin on one device in the other precision (the AMP
+# runs; the f32 MLP, whose one-pass batch-norm variance E[x^2] - mean^2 loses digits where a feature's mean
+# dwarfs its spread, so that two summation orders of 16,384 rows already part by ~0.2% after one step at
+# (1024, 128)); "tight": every leaf within GEN_DIST of one device's. Dense adagrad except for the north-star
+# MLP: adam turns the rounding of a gradient that is 0 up to rounding (SASRec's key bias, a hidden bias under
+# batch norm) into a step of lr, which then feeds every later step (tests/test_torch_lstm.py's AMP fits use
+# adagrad for the same reason). The f32 MLP takes bpr: under hinge a pair within rounding of the kink takes a
+# whole update on one side and none on the other (6o's small fits take bpr for the same reason).
+GEN_RUNS = (
+    ("mlp_amp", "mlp", (4, 1), "GEN_MLP_STEPS", "MLP_B", dict(learning_rate=0.05), True, "floor"),
+    ("lstm", "lstm", (4, 1), "GEN_SHORT_STEPS", "TRAIN_B", dict(learning_rate=0.05, dense_optimizer="adagrad"), False,
+     "tight"),
+    ("linear_odd", "linear", (4, 1), "GEN_SHORT_STEPS", "GEN_ODD_B", {}, False, "tight"),
+    ("sasrec_softmax", "sasrec", (2, 2), "GEN_SAS_STEPS", "SOFTMAX_B",
+     dict(learning_rate=0.05, loss="sampled_softmax", dense_optimizer="adagrad"), True, "floor"),
+    ("mlp_f32", "mlp", (2, 2), "GEN_F32_STEPS", "MLP_B", dict(learning_rate=0.05, dense_optimizer="adagrad", loss="bpr"),
+     False, "floor"),
+    ("linear_k4", "linear", (2, 2), "GEN_SHORT_STEPS", "TRAIN_B", dict(num_negatives=4), False, "tight"),
+    ("linear_warp", "linear", (2, 2), "GEN_SHORT_STEPS", "TRAIN_B", dict(loss="warp", num_negatives=4), False, "tight"),
+)
+GEN_SERVED = ("mlp_amp", "mlp_f32", "sasrec_softmax")  # the runs whose checkpoints predict on both sides
+
+
+def net_recsys(rs, mesh, net_type: str, use_amp: bool = False):
+    """A RecSys over ``rs``'s store (its ingest once per process) for
+    ``net_type`` on ``mesh`` (None: ``rs``'s device), with seeded tables
+    (mesh_seed): what ``RecSys(data, net_type=..., mesh=mesh)`` builds
+    from the same data (6r, 6s)."""
+    import copy
+    import dataclasses
+
+    out = copy.copy(rs)
+    out.mesh = mesh
+    out.device = rs.device if mesh is None else mesh.device
+    out.model_cfg = dataclasses.replace(rs.model_cfg, net_type=net_type, hidden_layers=MLP_HIDDEN,
+                                        history_len=GEN_HISTORY, compute_dtype="bfloat16" if use_amp else "float32")
+    out.trainer, out.state = None, None
+    out._bind_store(rs.store)
+    mesh_seed(out)
+    return out
+
+
+def gen_steps(torch, rs, steps: int, batch: int, **fit_kw):
+    """``steps`` steps of fit's trainer at ``batch``: one epoch over the first
+    steps x batch train rows (the same rows, generator and draws on every
+    rank and on one device), installed. Returns the epoch's mean loss."""
+    from torchrecsys_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=batch, epochs=1, dynamic_neg_sampling=rs.dynamic_neg_sampling, seed=rs.seed,
+                      **{"learning_rate": 1e-2, **fit_kw})
+    tr = rs._ensure_trainer(cfg)
+    data = {k: v[: steps * batch] for k, v in tr._device_train_data(rs.store).items()}
+    state, loss = tr.train_epoch(rs.state, data, tr.feature_tables(rs.store))
+    rs._install(state)
+    return float(loss)
+
+
+def gen_digests(state) -> dict:
+    """sha256 of what every replica must hold alike: this rank's table
+    shards and accumulators; the dense tree, its optimizer state and the
+    running statistics."""
+    import hashlib
+
+    def dig(d):
+        h = hashlib.sha256()
+        for k in sorted(d):
+            h.update(k.encode())
+            h.update(d[k].detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    flat = flat_state(state)
+    return {"tables": dig({k: v for k, v in flat.items() if k.startswith(("tables.", "acc."))}),
+            "dense": dig({k: v for k, v in flat.items() if not k.startswith(("tables.", "acc."))
+                          and not k.endswith("count")})}
+
+
+def gen_serve(torch, rs, users, k: int = 10) -> dict:
+    """serve_outputs' (values, item rows, raw ids) at top_k ``k``, scored on
+    ``rs``'s mesh: the data-sharded generic scorer."""
+    from torchrecsys_tpu_torch.eval.predict import catalog_topk
+
+    rows = torch.as_tensor([rs.store.user_encoder.encode_one(u) for u in users], device=rs.device)
+    vals, ids = catalog_topk(rs.model, rs._params(), rs.state["model_state"], rows, rs.store.schema.num_items,
+                             rs.feat, top_k=k, mesh=rs.mesh)
+    return {k: (vals.float().cpu().numpy(), ids.cpu().numpy(), rs.predict(users, top_k=k))}
+
+
+def gen_ease_data():
+    r = np.random.default_rng(5)
+    users, items, n = GEN_EASE
+    return {"user_id": r.integers(0, users, n), "item_id": np.minimum(r.geometric(1.0 / 300, n), items) - 1}
+
+
+def generic_rank_main(rank: int, directory: str) -> int:
+    """One rank of 6s: the (4, 1) and (2, 2) meshes of one 4-rank gloo world
+    on the card, each GEN_RUNS run on its mesh from the seeded state,
+    predict, the (2, 2) f32 MLP's checkpoint, EASE. Writes
+    ``r{rank}.pkl``; rank 0 also writes the trained states (``*.pt``) and
+    the checkpoints the parent serves from, each with a marker."""
+    import pickle
+
+    import torch
+
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.parallel import gather_state, init_distributed, make_mesh
+    from torchrecsys_tpu_torch.parallel.mesh import stats
+    from torchrecsys_tpu_torch.utils.checkpoint import _to_cpu
+
+    with open(os.path.join(directory, "settings.json")) as f:
+        globals().update(json.load(f))
+    torch.set_num_threads(1)
+    init_distributed(f"file://{os.path.join(directory, 'rendezvous')}", MESH_WORLD, rank, backend="gloo")
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    data = synthetic_interactions()
+    shapes = sorted({tuple(run[2]) for run in GEN_RUNS} | {(2, 2)})  # every rank makes the same groups
+    meshes = {shape: make_mesh(data=shape[0], model=shape[1], device=DEVICE) for shape in shapes}
+    base = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE, dynamic_neg_sampling=True,
+                  mesh=meshes[shapes[0]])
+    out = {"setup_s": time.perf_counter() - t0, "runs": {}}
+    users = base.store.user_encoder.to_list()[:U]
+
+    def save_marked(rs, name):  # every rank calls save; rank 0 writes, then marks it done
+        rs.save(ckpt_dir(name))
+        if rank == 0:
+            open(os.path.join(directory, f"{name}.done"), "w").close()
+
+    for run, net, shape, steps, batch, kw, amp, _ in GEN_RUNS:
+        steps, batch = globals()[steps], globals()[batch]
+        rs = net_recsys(base, meshes[tuple(shape)], net, use_amp=amp)
+        loss, secs, counts = counted(torch, lambda: gen_steps(torch, rs, steps, batch, **kw))
+        res = {"loss": loss, "fit_s": secs, "counts": counts, "steps": steps, "batch": batch,
+               "digests": gen_digests(rs.state)}
+        whole = gather_state(rs.state, rs.mesh)
+        if rank == 0:
+            torch.save(_to_cpu({k: whole[k] for k in ("tables", "emb_opt", "dense", "model_state")}),
+                       os.path.join(directory, f"{run}.pt"))
+        if run == "mlp_amp":  # the collectives' share, from a second window on a copy of the state
+            state = clone_state(torch, rs.state)
+            stats.reset()
+            stats.timing = True
+            try:
+                _, res["window_s"], _ = counted(torch, lambda: gen_steps(torch, rs, GEN_WINDOW_STEPS, batch, **kw))
+            finally:
+                stats.timing = False
+            res.update(window_steps=GEN_WINDOW_STEPS, coll_s=stats.seconds, coll_calls=stats.calls,
+                       coll_bytes=stats.bytes)
+            rs._install(state)
+        if run in ("mlp_amp", "mlp_f32"):  # the data-sharded generic scorer, at top_k 10 and exclude_seen
+            save_marked(rs, f"gen_{run}")
+            res["served"], res["serve_s"], res["serve_counts"] = counted(torch, lambda: {
+                excl: rs.predict(users, top_k=10, exclude_seen=excl) for excl in (False, True)})
+        if run == "sasrec_softmax":  # B6 over the item-table shards, the histories by sharded lookup
+            save_marked(rs, f"gen_{run}")
+            res["served"], res["serve_s"], res["serve_counts"] = counted(torch, lambda: {
+                excl: rs.predict(users, top_k=10, exclude_seen=excl) for excl in (False, True)})
+        if run == "mlp_f32":  # the cold load of 6n's child serves this checkpoint
+            res["warm"] = gen_serve(torch, rs, users[:16])
+            res["config"] = rs.config
+        out["runs"][run] = res
+        del rs, whole
+        torch.cuda.empty_cache()
+    ease = RecSys(gen_ease_data(), net_type="ease", ease_lam=50.0, device=DEVICE, mesh=meshes[(2, 2)])
+    (_, out["ease_fit_s"], _) = counted(torch, lambda: ease.fit())
+    e_users = ease.store.user_encoder.to_list()[:U]
+    out["ease"] = {excl: ease.predict(e_users, top_k=10, exclude_seen=excl) for excl in (False, True)}
+    save_marked(ease, "gen_ease")
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(directory, f"r{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def wait_marker(directory: str, name: str) -> None:
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    while not os.path.exists(os.path.join(directory, f"{name}.done")):
+        check(time.perf_counter() < deadline, f"6s: the mesh's {name} checkpoint never appeared")
+        time.sleep(0.5)
+
+
+def generic_reference(torch, data, directory: str):
+    """The single-device port 6s is held against, in the parent while the
+    ranks run: each GEN_RUNS run from the same seeded state (the AMP ones
+    also in f32, the noise floor's other end); then the mesh's checkpoints
+    restored and served on one device, and EASE fitted here."""
+    from torchrecsys_tpu_torch import RecSys
+
+    base = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE, dynamic_neg_sampling=True)
+    ref = {}
+    for run, net, shape, steps, batch, kw, amp, rule in GEN_RUNS:
+        for twin in ((False, True) if rule == "floor" else (False,)):
+            rs = net_recsys(base, None, net, use_amp=amp != twin)  # the twin in the other precision
+            if rule == "floor" and not twin:
+                ref[(run, "start")] = clone_state(torch, rs.state)
+            loss = gen_steps(torch, rs, globals()[steps], globals()[batch], **kw)
+            ref[(run, twin)] = {"loss": loss, "state": clone_state(torch, rs.state)}
+            if run in GEN_SERVED and not twin:
+                ref[(run, "rs")] = rs  # restored from the mesh's checkpoint below
+            del rs
+    ref["users"] = users = base.store.user_encoder.to_list()[:U]
+    for run in [r for r in GEN_SERVED if (r, "rs") in ref]:
+        rs = ref.pop((run, "rs"))
+        wait_marker(directory, f"gen_{run}")
+        rs.restore(ckpt_dir(f"gen_{run}"))
+        ref[(run, "served")] = {excl: rs.predict(users, top_k=10, exclude_seen=excl) for excl in (False, True)}
+        del rs
+        torch.cuda.empty_cache()
+    ease = RecSys(gen_ease_data(), net_type="ease", ease_lam=50.0, device=DEVICE)
+    ease.fit()
+    e_users = ease.store.user_encoder.to_list()[:U]
+    ref["ease"] = {excl: ease.predict(e_users, top_k=10, exclude_seen=excl) for excl in (False, True)}
+    del ease, base
+    torch.cuda.empty_cache()
+    return ref
+
+
+def gen_leaves(torch, state) -> dict:
+    flat = flat_state(state)
+    return {k: v for k, v in flat.items() if not k.startswith("dense_opt")}
+
+
+def gen_compare(torch, run, got, ref, floor: bool, adam: bool) -> dict:
+    """The mesh's state after ``run`` against one device's from the same
+    start: ``floor``, 6f's noise-floor rule (each leaf's change within
+    max(1.5 x the distance between one device's changes in the two
+    precisions, 0.02) of one device's), else each leaf within GEN_DIST.
+    Under ``adam`` or ``floor`` the hidden and output biases are not
+    compared (6f: their gradients are 0 up to rounding, which adam turns
+    into steps of lr and the floor's relative distances into noise over
+    noise). Returns {leaf: distance}."""
+    start = gen_leaves(torch, ref[(run, "start")]) if floor else None
+    want = gen_leaves(torch, ref[(run, False)]["state"])
+    twin = gen_leaves(torch, ref[(run, True)]["state"]) if floor else None
+    got = {f"tables.{k}": v for k, v in got["tables"].items()} | {
+        f"acc.{k}": o["acc"] for k, o in got["emb_opt"].items() if "acc" in o} | {
+        f"dense.{k}": v for k, v in flat_dense(got["dense"]).items()} | {
+        f"model_state.{k}": v for k, v in flat_dense(got["model_state"]).items()}
+    out = {}
+    for name, w in want.items():
+        g = got[name].to(w.device).float()
+        w = w.float()
+        check(g.shape == w.shape, f"6s {run}: {name} {tuple(g.shape)} != {tuple(w.shape)}")
+        if (adam or floor) and name.endswith(".b"):
+            continue
+        if floor:
+            s = start[name].float()
+            dg, dw, df = g - s, w - s, twin[name].float() - s
+            dist = float((dg - dw).norm() / dw.norm().clamp_min(1e-30))
+            noise = float((dw - df).norm() / df.norm().clamp_min(1e-30))
+            check(dist < max(1.5 * noise, 0.02), f"6s {run}: {name} mesh vs one device {dist:.3g}, floor {noise:.3g}")
+        else:
+            dist = float((g - w).norm() / w.norm().clamp_min(1e-30))
+            check(dist <= GEN_DIST, f"6s {run}: {name} differs from one device's by {dist:.3g} > {GEN_DIST}")
+        out[name] = dist
+    return out
+
+
+def generic_mesh_path(torch, data, smi_line: str):
+    """6s: four ranks on the one card over gloo, the generic step on the
+    (4, 1) and (2, 2) meshes. (4, 1): the north-star AMP MLP (hidden (1024,
+    128), batch norm, batch 8192, the category column) for GEN_MLP_STEPS
+    steps of hinge, #6 and #7 twice per step on each rank's 4096-row
+    paired side with their sums reduced over data; LSTM hinge and Linear at
+    batch 1022 (it does not divide data) for GEN_SHORT_STEPS steps. (2, 2):
+    SASRec AMP sampled softmax (#4/#5 once per step at Br = 2048 against Bc
+    = 4096), the f32 MLP (the plain tower, its statistics synced), Linear
+    with K = 4 negatives and WARP. Each run against the single-device port
+    from the same seeded state and draws (gen_compare); every rank's
+    replicated tables, dense tree and running statistics bitwise equal.
+    Predict at top_k 10 with and without exclude_seen from the mesh's
+    checkpoints (the MLP's data-sharded scorer on both meshes, SASRec's B6)
+    and EASE fitted on every rank: ids identical to one device's. Returns
+    the launches, the cold-load job and the numbers."""
+    import pickle
+
+    directory = ckpt_dir("mesh_generic")
+    shutil.rmtree(directory, ignore_errors=True)
+    t_start = time.perf_counter()
+    procs, logs = start_mesh_ranks(directory, MESH_GENERIC_RANK, GEN_SETTINGS)
+    try:
+        ref = generic_reference(torch, data, directory)
+    finally:
+        wait_mesh_ranks(procs, logs, directory, t_start)
+    ranks_s = time.perf_counter() - t_start
+    res = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(directory, f"r{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    launches: dict = {}
+    dists = {}
+    for run, net, shape, steps, batch, kw, amp, rule in GEN_RUNS:
+        m = shape[1]
+        for r, out in enumerate(res):
+            x = out["runs"][run]
+            for key in ("counts", "serve_counts"):
+                for k, n in x.get(key, {}).items():
+                    launches[k] = launches.get(k, 0) + n
+            want = {}
+            if run == "mlp_amp":
+                want = {"fused_tower_fwd": 2 * x["steps"], "fused_tower_bwd": 2 * x["steps"]}
+            elif run == "sasrec_softmax":
+                want = {"softmax_ce_fwd": x["steps"], "softmax_ce_bwd": x["steps"]}
+            check(nonzero(x["counts"]) == want, f"6s rank {r}: {run} launched {x['counts']}, want {want}")
+            check(np.isfinite(x["loss"]) and abs(x["loss"] - ref[(run, False)]["loss"]) <= (
+                0.08 if amp else 1e-3) * abs(ref[(run, False)]["loss"]),
+                f"6s rank {r}: {run} loss {x['loss']} against one device's {ref[(run, False)]['loss']}")
+            check(x["digests"]["dense"] == res[0]["runs"][run]["digests"]["dense"],
+                  f"6s {run}: rank {r}'s dense tree or running statistics differ from rank 0's")
+            check(x["digests"]["tables"] == res[r % m]["runs"][run]["digests"]["tables"],
+                  f"6s {run}: rank {r}'s tables differ from rank {r % m}'s, which hold the same rows")
+            if "served" in x:
+                for excl, ids in x["served"].items():
+                    check(np.array_equal(ids, ref[(run, "served")][excl]),
+                          f"6s rank {r}: {run} predict (exclude_seen={excl}) serves other ids than one device")
+                if run == "sasrec_softmax":
+                    check(nonzero(x["serve_counts"]) == {"dot_topk_small": 2},
+                          f"6s rank {r}: SASRec predict launched {x['serve_counts']}")
+        dists[run] = gen_compare(torch, run, torch.load(os.path.join(directory, f"{run}.pt"), weights_only=True),
+                                 ref, rule == "floor", kw.get("dense_optimizer", "adam") == "adam" and net != "linear")
+    for r, out in enumerate(res):
+        for excl, ids in out["ease"].items():
+            check(np.array_equal(ids, ref["ease"][excl]), f"6s rank {r}: EASE (exclude_seen={excl}) serves other "
+                  "ids than one device")
+    f0 = res[0]["runs"].get("mlp_f32")
+    job = f0 and {"name": "MLP f32 (2, 2) mesh", "dir": ckpt_dir("gen_mlp_f32"), "users": ref["users"][:16],
+                  "ks": (10,), "warm": f0["warm"], "config": f0["config"]}
+    for r, out in enumerate(res):
+        for run, *_ in GEN_RUNS:
+            x = out["runs"][run]
+            log(f"[mesh6s] {smi_line}: four ranks sharing one card over gloo (no scaling figure), rank {r}: {run}: "
+                f"{x['steps']} steps of {x['batch']} in {x['fit_s']:.3f} s = {x['fit_s'] / x['steps'] * 1e3:.3f} ms "
+                f"per step, {x['steps'] * x['batch'] / x['fit_s']:.1f} examples/s (timing off); loss {x['loss']:.6f}; "
+                f"launches {nonzero(x['counts'])}"
+                + (f"; predict 2 x {U} users {x['serve_s']:.3f} s" if "serve_s" in x else ""))
+        x = out["runs"].get("mlp_amp", {"window_steps": 1, "window_s": 1.0, "coll_s": 0.0, "coll_calls": 0,
+                                         "coll_bytes": 0})
+        w = x["window_steps"]
+        log(f"[mesh6s] {smi_line}: rank {r}: AMP MLP window of {w} steps with the collectives timed between device "
+            f"syncs: {x['window_s'] / w * 1e3:.3f} ms per step, collectives {x['coll_s'] / w * 1e3:.3f} ms per step "
+            f"(share {x['coll_s'] / x['window_s']:.3f}; {x['coll_calls'] / w:.1f} all-reduces, "
+            f"{x['coll_bytes'] / w / 2**20:.3f} MiB per step); setup {out['setup_s']:.1f} s; EASE fit "
+            f"{out['ease_fit_s']:.3f} s")
+    log("[mesh6s] one-device comparison (largest leaf distance per run): " + json.dumps(
+        {run: max(d.values()) for run, d in dists.items()}) + "; per leaf " + json.dumps(dists) + f"; every rank's replicas bitwise equal; predict and "
+        f"EASE ids identical; ranks ran {ranks_s:.1f} s")
+    return {"launches": launches, "job": job, "ranks_s": ranks_s, "res": res,
+            "timing": generic_kernel_timing(torch, smi_line)}
+
+
 def profile_phase(torch, rs, users_raw):
     """Device time per launch of each kernel and of the split merge, from
     torch.profiler, for K1 and K2 across k at the main-path shape."""
@@ -4823,11 +5313,13 @@ def main() -> int:
     log(smi_line)
     t_start = time.perf_counter()
     build_kernels()
+    log(f"[phase] kernel checks starts at {time.perf_counter() - t_start:.1f} s")
     errs = kernel_phase(torch)
     train_err = train_kernel_phase(torch)
     step_err = step_kernel_phase(torch)
     ce_errs, ce_inputs_main = ce_kernel_phase(torch)
     tower_errs, tower_inputs_main = tower_kernel_phase(torch)
+    log(f"[phase] card vs CPU starts at {time.perf_counter() - t_start:.1f} s")
     small_catalog_check(torch)
     small_train_check(torch)
     small_softmax_check(torch)
@@ -4835,6 +5327,7 @@ def main() -> int:
     t0 = time.perf_counter()
     data = synthetic_interactions()
     log(f"[main] {N_INTERACTIONS} synthetic interactions in {time.perf_counter() - t0:.2f} s")
+    log(f"[phase] main paths starts at {time.perf_counter() - t_start:.1f} s")
     rs, fit_meta = train_path(torch, data, meta=True)
     users_raw, launches, rates = main_path(torch, rs)
     kernels = timing_phase(torch, rs, users_raw, launches, errs)
@@ -4885,6 +5378,7 @@ def main() -> int:
     step_row["launches"] += fm[False]["launches"] + amp[("linear", False)]["launches"] + amp[("fm", False)]["launches"]
     step_meta_row["launches"] += amp[("linear", True)]["launches"]
     kernels.extend([train_row, step_row, step_meta_row])
+    log(f"[phase] softmax paths starts at {time.perf_counter() - t_start:.1f} s")
     rs, sm_meta = softmax_train_path(torch, data, meta=True, evaluate=True)
     split_sm_meta = softmax_breakdown(torch, rs, "softmax metadata")
     del rs
@@ -4906,6 +5400,7 @@ def main() -> int:
         "softmax_ce_bwd": sum(x["bwd_launches"] for x in sms),
     }))
     torch.cuda.empty_cache()
+    log(f"[phase] MLP path starts at {time.perf_counter() - t_start:.1f} s")
     rs, mlp = mlp_train_path(torch, data)
     split_mlp = mlp_breakdown(torch, rs)
     t0 = time.perf_counter()
@@ -4917,6 +5412,7 @@ def main() -> int:
     kernels.extend(tower_timing(torch, tower_inputs_main, tower_errs, {
         "fused_tower_fwd": mlp["fwd_launches"], "fused_tower_bwd": mlp["bwd_launches"],
     }))
+    log(f"[phase] 6j-6m starts at {time.perf_counter() - t_start:.1f} s")
     rs, pop = popularity_path(torch, data)
     step_meta_row["launches"] += pop["launches"]
     fit_kw = {k: v for k, v in pop["fit_kw"].items() if k not in ("epochs", "batch_size")}
@@ -4932,8 +5428,13 @@ def main() -> int:
     del rs
     torch.cuda.empty_cache()
     small_options_check(torch)
+    # C1: #1/#2 above D = 128 (NeuCF's similar_items above; Linear at n_factors=160 here)
+    t0 = time.perf_counter()
+    wide_launches, wide_rates = wide_path(torch, data)
+    secs_c1 = time.perf_counter() - t0
     # 6o: the sequence models at full width, then card against CPU at a small size
     t0 = time.perf_counter()
+    log(f"[phase] 6o starts at {time.perf_counter() - t_start:.1f} s")
     seq = {}
     for net in ("lstm", "sasrec"):
         rs, seq[net] = sequence_path(torch, data, net)
@@ -4947,26 +5448,36 @@ def main() -> int:
             seq_extra[kernel] = seq_extra.get(kernel, 0) + n
     # 6p: EASE at 100K users x 30K items (no kernel; its cold load rides 6n's child)
     t0 = time.perf_counter()
+    log(f"[phase] 6p starts at {time.perf_counter() - t_start:.1f} s")
     ease = ease_path(torch)
     secs_6p = time.perf_counter() - t0
     # 6q: the streaming fit through #3, #4/#5 and #6/#7
     t0 = time.perf_counter()
+    log(f"[phase] 6q starts at {time.perf_counter() - t_start:.1f} s")
     stream = streaming_path(torch, data)
     secs_6q = time.perf_counter() - t0
     # 6r: the mesh, four ranks sharing the card over gloo (its FM checkpoint's cold load rides 6n's child)
     t0 = time.perf_counter()
+    log(f"[phase] 6r starts at {time.perf_counter() - t_start:.1f} s")
     mesh = mesh_path(torch, data, smi_line)
     secs_6r = time.perf_counter() - t0
+    # 6s: the generic step on a mesh (the MLP's tower kernels with their sums over data, SASRec's B5, ...)
+    t0 = time.perf_counter()
+    log(f"[phase] 6s starts at {time.perf_counter() - t_start:.1f} s")
+    gen = generic_mesh_path(torch, data, smi_line)
+    secs_6s = time.perf_counter() - t0
     # 6n: the cold loads of a, c and d (and 6o's small LSTM) in one child process; 6n's launches
     linear_job = {"name": "Linear metadata", "dir": ckpt["dir"], "users": ckpt["users"], "ks": (10, 128),
                   "warm": ckpt["warm"], "config": ckpt["config"]}
     t0 = time.perf_counter()
-    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt, seq_job, ease["job"], mesh["job"]])
+    log(f"[phase] 6n's child starts at {time.perf_counter() - t_start:.1f} s")
+    cold = run_cold_children(torch, [linear_job, grown, mlp_ckpt, seq_job, ease["job"], mesh["job"], gen["job"]])
     shutil.rmtree(ckpt_dir(""), ignore_errors=True)
     secs_6n += time.perf_counter() - t0
     extra: dict = {}
     mesh_extra: dict = {}
     mesh_cold = cold.pop(mesh["job"]["name"])["counts"]
+    gen_cold = cold.pop(gen["job"]["name"])["counts"]
     for counts in (ckpt["launches"], grown["launches"], mlp_ckpt["launches"],
                    *(res["counts"] for name, res in cold.items() if name != "small LSTM")):
         for kernel, n in counts.items():
@@ -4976,13 +5487,28 @@ def main() -> int:
     for counts in (mesh["launches"], mesh_cold):
         for kernel, n in counts.items():
             mesh_extra[kernel] = mesh_extra.get(kernel, 0) + n
+    gen_extra: dict = {}
+    for counts in (gen["launches"], gen_cold):
+        for kernel, n in counts.items():
+            gen_extra[kernel] = gen_extra.get(kernel, 0) + n
+    for counts in (wide_launches, neucf["similar_counts"]):
+        for kernel, n in counts.items():
+            extra[kernel] = extra.get(kernel, 0) + n
     for row in kernels:
         row["launches"] += (extra.get(row["name"], 0) + seq_extra.get(row["name"], 0)
-                            + stream["launches"].get(row["name"], 0) + mesh_extra.get(row["name"], 0))
+                            + stream["launches"].get(row["name"], 0) + mesh_extra.get(row["name"], 0)
+                            + gen_extra.get(row["name"], 0))
         if row["name"] in MESH_WRAPPERS:
             row["mesh_wrappers"] = MESH_WRAPPERS[row["name"]]
             row["mesh_launches_6r"] = mesh_extra.get(row["name"], 0)
-        shapes = {k: v for k, v in mesh["timing"].items() if k.split(" ")[0] == row["name"]}
+        if row["name"] in GEN_ROUTES:
+            row["mesh_routes_6s"] = GEN_ROUTES[row["name"]]
+            row["mesh_launches_6s"] = gen_extra.get(row["name"], 0)
+        if row["name"].startswith("dot_topk"):
+            row["variants"] = ["D <= 128: one slab (k steps for D up to 32, 64, 80, 128)",
+                               f"D > 128: 128-lane slabs, the wgmma products of each slab added in registers, "
+                               f"every slab's user images resident (C1); timed at D={WIDE_D} as d{WIDE_D}"]
+        shapes = {k: v for k, v in {**mesh["timing"], **gen["timing"]}.items() if k.split(" ")[0] == row["name"]}
         if shapes:
             row["mesh_shapes"] = shapes
         if row["name"].startswith("softmax_ce"):
@@ -5055,6 +5581,11 @@ def main() -> int:
     log(f"[main] 6r {smi_line}: the mesh, four ranks sharing one card over gloo (no scaling figure): 6r took "
         f"{secs_6r:.1f} s of the run (the ranks {mesh['ranks_s']:.1f} s); 6r launches over all ranks "
         f"{nonzero(mesh['launches'])}, its FM checkpoint's cold load {nonzero(mesh_cold)}")
+    log(f"[main] C1 {smi_line}: Linear D={WIDE_D} predict users/s {json.dumps(wide_rates)}; NeuCF similar_items "
+        f"launches {nonzero(neucf['similar_counts'])}; C1 took {secs_c1:.1f} s of the run")
+    log(f"[main] 6s {smi_line}: the generic step on a mesh, four ranks sharing one card over gloo (no scaling "
+        f"figure): 6s took {secs_6s:.1f} s of the run (the ranks {gen['ranks_s']:.1f} s); 6s launches over all "
+        f"ranks {nonzero(gen['launches'])}, its MLP checkpoint's cold load {nonzero(gen_cold)}")
     log(f"[main] the popularity alias table at {N} items: {pop['alias_s']:.3f} s on the host (outside the "
         f"6j fit, inside 6k's); NeuCF AMP predict 16 users {neucf['predict_s']:.3f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -51,11 +51,17 @@ def test_stored_keywords_change_nothing_for_ported_nets():
 @pytest.mark.parametrize("kw, item", [({"mesh": object()}, "item 14")])
 def test_unported_constructor_values_name_their_item(kw, item):
     """A mesh that is not a parallel.Mesh is refused; on a Mesh the nets
-    the generic mesh step would run (item 14b) raise naming their item."""
+    of the generic mesh step (item 14b, now ported) run: an MLP on a
+    one-rank CPU mesh fits and serves as it does without one."""
     with pytest.raises(TypeError, match="Mesh"):
         RecSys(_data(), n_factors=4, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §A {item}b "):
-        RecSys(_data(), n_factors=4, device="cpu", net_type="mlp", mesh=make_mesh(device="cpu"))
+    runs = []
+    for mesh in (None, make_mesh(device="cpu")):
+        rs = RecSys(_data(), n_factors=4, device="cpu", net_type="mlp", hidden_layers=(8, 4), mesh=mesh)
+        losses = rs.fit(epochs=1, batch_size=32, verbose=False)
+        runs.append((losses, rs.predict(rs.store.user_encoder.to_list()[:3], top_k=4)))
+    assert runs[0][0] == runs[1][0]
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
 
 
 def test_load_takes_jax_parameters_then_device():

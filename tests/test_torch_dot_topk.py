@@ -189,6 +189,24 @@ def test_large_random_matches_thresh(k):
     _assert_close_topk(v, i, rv, ri)
 
 
+@pytest.mark.parametrize("d", [160, 300])
+def test_rows_wider_than_128_lanes_match_pallas(d):
+    """D above 128 (NeuCF's 2 x 80 item table; 300: a width the JAX
+    kernels pad to 384): exact integers give #1's ids and values exactly,
+    random normals stay within tolerance of #1 and #2."""
+    uv, iv, ib = _exact(9, 600, d, seed=d)
+    rv, ri = _jax(jdt.dot_topk_pallas, uv, iv, ib, 10, interpret=True, n_tile=256)
+    v, i = _port(tdt.dot_topk_small, uv, iv, ib, 10)
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(v, rv)
+    uv, iv, ib = _normal(9, 600, d, seed=d + 1)
+    for jfn, tfn, k in ((jdt.dot_topk_pallas, tdt.dot_topk_small, 16),
+                        (jdt.dot_topk_pallas_thresh, tdt.dot_topk_large, 40)):
+        rv, ri = _jax(jfn, uv, iv, ib, k, interpret=True, n_tile=256)
+        v, i = _port(tfn, uv, iv, ib, k)
+        _assert_close_topk(v, i, rv, ri)
+
+
 def test_large_k_exceeds_catalog_and_padding():
     uv, iv, ib = _normal(3, 90, 12)
     rv, ri = _jax(jdt.dot_topk_pallas_thresh, uv, iv, ib, 200, interpret=True, n_tile=256)
@@ -361,14 +379,14 @@ def cuda_device():
 @pytest.mark.parametrize(
     "u,n,d",
     [(40, 20000, 80), (1, 20000, 80), (257, 20000, 80), (40, 1_000_003, 80), (40, 20000, 13), (40, 20000, 84),
-     (40, 20000, 128)],
-    ids=["main", "U1", "U257", "N1000003", "D13", "D84", "D128"],
+     (40, 20000, 128), (40, 20000, 160), (40, 20000, 256)],
+    ids=["main", "U1", "U257", "N1000003", "D13", "D84", "D128", "D160", "D256"],
 )
 def test_kernel_matches_plain_on_card(cuda_device, k, dtype, masked, u, n, d):
     """Exact inputs: ids and values equal to the plain version's, at the
     main width and at edge shapes (a partial user tile, a partial item tile
-    and split, rows that are not whole 16-byte units, the widest D); a
-    repeated call gives the same bits."""
+    and split, rows that are not whole 16-byte units, one whole 128-lane
+    slab, rows of two slabs); a repeated call gives the same bits."""
     uv, iv, ib = (torch.from_numpy(a).to(cuda_device) for a in _exact(u, n, d, seed=k))
     uv, iv = uv.to(dtype), iv.to(dtype)
     mask = None

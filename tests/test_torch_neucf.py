@@ -164,3 +164,21 @@ def test_facade_fits_evaluates_predicts_and_refuses_the_softmax():
     with pytest.raises(ValueError, match="does not factorize"):
         rs.item_vectors()
     assert [tuple(l["w"].shape) for l in rs.state["dense"]["layers"]] == [(24, 64), (64, 32)]
+
+
+def test_similar_items_match_jax_at_the_default_width():
+    """similar_items at the default n_factors=80: the item table is 2 x 80
+    = 160 wide, so on the card the top-k kernels score it in two 128-lane
+    slabs; here their plain version, against JAX's RecSys from the same
+    tables."""
+    from torchrecsys_tpu import RecSys as JRecSys
+
+    data = _data(False)
+    jrs = JRecSys(data, net_type="neucf")
+    jrs.fit(epochs=1, batch_size=128, verbose=False)
+    tables = {k: np.asarray(v) for k, v in jrs.state["tables"].items()}
+    rs = RecSys(data, net_type="neucf", device="cpu")
+    rs.load_jax_tables(tables)
+    assert rs.state["tables"]["item"].shape[1] == 160
+    for item in jrs.store.item_encoder.to_list()[:8]:
+        np.testing.assert_array_equal(rs.similar_items(item, top_k=7), jrs.similar_items(item, top_k=7))

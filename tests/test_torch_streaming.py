@@ -73,11 +73,20 @@ def test_chunk_order_equals_jax_stream(seed):
 
 def test_a_sharding_raises_naming_item_14():
     """A sharding that is not parallel.sharding.batch_sharding(mesh) is
-    refused; an MLP on a mesh raises naming item 14b."""
+    refused; an MLP on a mesh (item 14b, now ported) streams: on a
+    one-rank CPU mesh as it does without one."""
     with pytest.raises(TypeError, match="batch_sharding"):
         SuperBatchStream({"x": np.arange(10)}, 4, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        RecSys(_data(False), n_factors=4, net_type="mlp", device="cpu", mesh=make_mesh(device="cpu"))
+    runs = []
+    for mesh in (None, make_mesh(device="cpu")):
+        rs = RecSys(_data(False), n_factors=4, net_type="mlp", hidden_layers=(8, 4), device="cpu", mesh=mesh)
+        fit = rs.fit(epochs=1, batch_size=32, verbose=False)
+        state, losses = rs.trainer.fit_streaming(rs.state, rs.store, superbatch_size=128, epochs=1,
+                                                 verbose=False)
+        runs.append((fit + losses, state))
+    assert runs[0][0] == runs[1][0]
+    for name, t in runs[0][1]["tables"].items():
+        assert torch.equal(t, runs[1][1]["tables"][name])
     with pytest.raises(ValueError, match="lengths differ"):
         SuperBatchStream({"x": np.arange(10), "y": np.arange(9)}, 4, device="cpu")
 

@@ -8,12 +8,15 @@ constructor :41-115, ``config`` :118-126, ``_ensure_trainer`` and ``fit``
 and ``save`` / ``restore`` / ``load`` :655-790).
 
 On a mesh (``mesh=make_mesh(...)``, parallel/mesh.py; one process per
-rank, every rank making the same calls) ``linear`` and ``fm`` fit
-(pairwise through the mesh wrappers of ops/fused_pairwise.py, sampled
-softmax through the data-parallel CE), evaluate, predict (the
-model-sharded top-k), stream, save and load; ``self.state`` is this rank's
-piece (tables row-split over ``model``). Other nets raise
-``NotImplementedError`` naming ROADMAP.md §A item 14b.
+rank, every rank making the same calls) every net fits (train/trainer.py:
+the mesh wrappers of ops/fused_pairwise.py where they apply, else the
+generic step on this rank's rows), evaluates, predicts (the
+model-sharded top-k for the linearizable nets, the ``data``-sharded
+generic scorer for the MLP and NeuCF, whose ``exclude_seen`` over-fetches
+``top_k + max|seen|`` and filters on the host as JAX's does), streams,
+saves and loads; ``self.state`` is this rank's piece (tables row-split
+over ``model``). EASE, whose JAX branch never reads the mesh, fits whole
+on every rank's device, and world rank 0 writes its checkpoint.
 
 Weights come from :meth:`RecSys.fit` (train/trainer.py: the fused
 pairwise step, the autograd pairwise step, e.g. the MLP's and NeuCF's, or
@@ -36,7 +39,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig, _not_ported
+from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
 from torchrecsys_tpu_torch.data.encoder import IdEncoder
 from torchrecsys_tpu_torch.data.features import feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore, extend_store, prepare_data
@@ -51,7 +54,7 @@ from torchrecsys_tpu_torch.parallel.mesh import Mesh, all_gather
 from torchrecsys_tpu_torch.parallel.sharding import gather_state, shard_state
 from torchrecsys_tpu_torch.eval.predict import _sharded_catalog_topk, shard_catalog
 from torchrecsys_tpu_torch.train.optim import init_dense_opt, init_embedding_opt
-from torchrecsys_tpu_torch.train.trainer import MESH_ITEM, Trainer, grow_state
+from torchrecsys_tpu_torch.train.trainer import Trainer, grow_state
 from torchrecsys_tpu_torch.utils.checkpoint import (
     load_aux,
     load_schema,
@@ -67,14 +70,10 @@ from torchrecsys_tpu_torch.utils.convert import (
 )
 
 
-def _check_mesh(mesh: Any, net_type: str) -> None:
-    """A mesh is a :class:`Mesh`, and only Linear and FM run on one yet."""
-    if mesh is None:
-        return
-    if not isinstance(mesh, Mesh):
+def _check_mesh(mesh: Any) -> None:
+    """A mesh is None or a :class:`Mesh`."""
+    if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a torchrecsys_tpu_torch.parallel.Mesh (make_mesh), got {type(mesh).__name__}")
-    if net_type not in ("linear", "fm"):
-        raise _not_ported(f"net_type={net_type!r} on a mesh", MESH_ITEM)
 
 
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -123,12 +122,11 @@ class RecSys:
         ``debug=True`` writes
         the store's ``config.json`` and ``meta.csv`` to ``path``
         (:meth:`InteractionStore.write_data`). ``mesh`` (a
-        :class:`~torchrecsys_tpu_torch.parallel.Mesh`) runs Linear and FM
-        on its ranks, on the mesh's device; any other object raises
-        ``TypeError``, another net on a mesh ``NotImplementedError`` naming
-        ROADMAP.md §A item 14b."""
+        :class:`~torchrecsys_tpu_torch.parallel.Mesh`) runs the net on its
+        ranks, on the mesh's device; any other object raises
+        ``TypeError``."""
         del use_cuda  # the device is `device`
-        _check_mesh(mesh, net_type)
+        _check_mesh(mesh)
         self.device = mesh.device if mesh is not None else _resolve_device(device)
         self.seed = seed
         self.debug, self.path, self.mesh = debug, path, mesh
@@ -474,15 +472,20 @@ class RecSys:
             return self._decode_items(ids, return_raw_ids, scalar)
         seen: Optional[List[np.ndarray]] = None
         seen_mask = None
+        k_fetch = min(top_k, num_items)
         if exclude_seen:
             seen = self._seen(rows)
-            pos = np.repeat(np.arange(len(rows)), [len(s) for s in seen])
-            seen_mask = pack_seen_mask_torch(
-                torch.as_tensor(pos, device=self.device),
-                torch.as_tensor(np.concatenate(seen), device=self.device),
-                len(rows),
-                num_items,
-            )
+            if self.mesh is not None and not self.model.supports_linearized_catalog:
+                # the generic scorer on a mesh takes no mask (api.py:354-362)
+                k_fetch = min(top_k + max(len(s) for s in seen), num_items)
+            else:
+                pos = np.repeat(np.arange(len(rows)), [len(s) for s in seen])
+                seen_mask = pack_seen_mask_torch(
+                    torch.as_tensor(pos, device=self.device),
+                    torch.as_tensor(np.concatenate(seen), device=self.device),
+                    len(rows),
+                    num_items,
+                )
         _, ids = catalog_topk(
             self.model,
             self._params(),
@@ -490,7 +493,7 @@ class RecSys:
             torch.as_tensor(rows, device=self.device),
             num_items,
             self.feat,
-            top_k=min(top_k, num_items),
+            top_k=k_fetch,
             chunk_size=prediction_batch_size,
             approx_recall=approx_recall,
             seen_mask=seen_mask,
@@ -500,6 +503,8 @@ class RecSys:
         ids = ids.cpu().numpy()
         if seen_mask is not None:
             ids = self._patch_short_unseen_rows(ids, seen, num_items)
+        elif seen is not None:
+            ids = self._filter_seen(ids, seen, top_k)
         return self._decode_items(ids, return_raw_ids, scalar)
 
     @staticmethod
@@ -734,8 +739,9 @@ class RecSys:
         constructor arguments (``aux.pkl``). EASE saves ``{"b"}`` and its
         interaction CSR as ``aux["ease_csr"]`` (api.py:676-685). Read it back
         with :meth:`restore` (same dataset) or :meth:`RecSys.load` (no
-        dataset). On a mesh every rank calls it: the state is gathered and
-        world rank 0 writes the files a single device writes."""
+        dataset). On a mesh every rank calls it: the state is gathered (EASE's
+        ``B`` is whole on every rank) and world rank 0 writes the files a
+        single device writes."""
         self._require_fitted("save()")
         aux = pack_store_aux(self.store, self.model_cfg, self.trainer.cfg if self.trainer else None)
         aux["dataset_cols"] = {
@@ -748,7 +754,7 @@ class RecSys:
         if self.ease is not None:
             state = {"b": self.ease.b}
             aux["ease_csr"] = {"user_ptr": self.ease.user_ptr, "item_idx": self.ease.item_idx}
-        save_checkpoint(directory, state, self.store.schema, aux=aux, mesh=None if self.ease else self.mesh)
+        save_checkpoint(directory, state, self.store.schema, aux=aux, mesh=self.mesh)
 
     def _train_cfg(self, aux: Optional[Dict[str, Any]]) -> TrainConfig:
         """The checkpoint's train config, else this RecSys's trainer's, else
@@ -810,9 +816,9 @@ class RecSys:
         utils/checkpoint.py::restore_checkpoint). EASE comes back with
         ``lam=100``, the default, whatever ``ease_lam`` it was fitted with,
         as JAX's cold load does (api.py:776-784). ``mesh`` re-shards the
-        state onto the loading process's mesh (Linear and FM; every rank
-        calls it), whatever mesh or device saved it."""
-        _check_mesh(mesh, "linear")  # a Mesh, before anything is read; the net is checked below
+        state onto the loading process's mesh (every rank calls it),
+        whatever mesh or device saved it; EASE loads whole on every rank."""
+        _check_mesh(mesh)  # before anything is read
         aux = load_aux(directory)
         if aux is None:
             raise FileNotFoundError(
@@ -839,7 +845,6 @@ class RecSys:
             history_override=(hist["ids"], hist["mask"]) if hist else None,
         )
         model_cfg = ModelConfig(**aux["model_cfg"])
-        _check_mesh(mesh, model_cfg.net_type)
         train_cfg = TrainConfig(**aux["train_cfg"]) if aux["train_cfg"] else TrainConfig()
         cols = aux.get("dataset_cols") or {}
         self = cls.__new__(cls)

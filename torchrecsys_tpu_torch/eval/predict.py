@@ -14,8 +14,18 @@ rows, not catalog rows), the padded rows at a -inf bias, the seen mask
 re-packed for the shard's items. The (U, k_local) winners of every shard
 are all-gathered over ``model`` and merged in (value desc, index asc)
 order, ``lax.top_k``'s over shard-ordered candidates, so ids and values
-are the single-device call's bit for bit. The generic scorer on a mesh
-(:311-326) is ROADMAP.md §A item 14b.
+are the single-device call's bit for bit. The sequence nets' user
+vectors encode history rows read through the sharded lookup.
+
+The generic scorer on a mesh (:311-326; the MLP, NeuCF) pads the users to
+a multiple of ``data``; each ``data`` rank scores its slice of them
+against the whole catalog, and the lists are all-gathered over ``data``,
+the padding dropped. Where ``model`` splits the tables, each ``model``
+rank scores the catalog rows of its item-table shard where they lie (the
+users' rows by one sharded lookup, the metadata vocabularies
+all-gathered) and the shards' lists merge as B6's do: JAX reads every
+item row of every chunk through the sharded lookup instead, one
+collective of the whole cross product's rows per chunk.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from torchrecsys_tpu_torch.models.base import Params, RecModel, State
 from torchrecsys_tpu_torch.ops.dot_topk import _MASK_TILE, _round_up, dot_topk, mask_bits_for_items
 from torchrecsys_tpu_torch.parallel.embedding import sharded_lookup
 from torchrecsys_tpu_torch.parallel.mesh import all_gather, all_gather_many
+from torchrecsys_tpu_torch.parallel.sharding import batch_rows
 
 
 def _score_chunk(
@@ -117,24 +128,41 @@ def _fused_catalog_topk(
     return transform(raw, user_const), ids
 
 
-class _UserRows(Mapping):
-    """Tables looked up at ``user_ids`` on first use, by a sharded lookup
-    over ``model``: what a linearized catalog's ``user_fn`` reads as
-    ``tables[name][arange(U)]``."""
+class _ShardedRows:
+    """A table row-sharded over ``model`` read as ``table[ids]``: a sharded
+    lookup of the distinct ids (a scorer's cross product repeats each user
+    and item row many times; the all-reduce carries each row once)."""
 
-    def __init__(self, tables, user_ids, mesh):
-        self._tables, self._ids, self._mesh, self._rows = tables, user_ids, mesh, {}
+    def __init__(self, table, mesh):
+        self._table, self._mesh = table, mesh
+
+    def __getitem__(self, ids):
+        if self._mesh.shape["model"] == 1:
+            return self._table[ids]
+        uniq, inv = torch.unique(ids, return_inverse=True)
+        return sharded_lookup(self._table, uniq, self._mesh, "model")[inv]
+
+
+class _ShardedTables(Mapping):
+    """Row-sharded tables as a model's scorers and a linearized catalog's
+    ``user_fn`` index them, ``tables[name][ids]``, every lookup a sharded
+    one."""
+
+    def __init__(self, tables, mesh):
+        self._tables, self._mesh = tables, mesh
 
     def __getitem__(self, name):
-        if name not in self._rows:
-            self._rows[name] = sharded_lookup(self._tables[name], self._ids, self._mesh, "model")
-        return self._rows[name]
+        return _ShardedRows(self._tables[name], self._mesh)
 
     def __iter__(self):
         return iter(self._tables)
 
     def __len__(self):
         return len(self._tables)
+
+
+def _sharded_params(params: Params, mesh) -> Params:
+    return {"tables": _ShardedTables(params["tables"], mesh), "dense": params.get("dense")}
 
 
 def shard_catalog(model: RecModel, params: Params, feat: Optional[Features], mesh):
@@ -155,7 +183,7 @@ def shard_catalog(model: RecModel, params: Params, feat: Optional[Features], mes
                 view[name] = all_gather(tables[name], mesh, "model")
     local = copy.copy(model)
     local.schema = dataclasses.replace(model.schema, num_items=n_loc)
-    sub = None
+    sub = feat  # the sequence nets' history windows: by user, whole on every rank
     if feat and "meta_ids" in feat:
         sub = dict(feat, meta_ids=feat["meta_ids"][start : start + n_loc],
                    meta_mask=feat["meta_mask"][start : start + n_loc])
@@ -166,8 +194,7 @@ def shard_catalog(model: RecModel, params: Params, feat: Optional[Features], mes
     item_bias[:n_loc] = bias
 
     def sharded_user_fn(params_, user_ids):
-        return user_fn({"tables": _UserRows(params_["tables"], user_ids, mesh)},
-                       torch.arange(user_ids.shape[0], device=user_ids.device))
+        return user_fn(_sharded_params(params_, mesh), user_ids)
 
     return item_vecs, item_bias, sharded_user_fn, transform, start
 
@@ -212,15 +239,93 @@ def _sharded_catalog_topk(
     if seen_mask is not None:
         mask = _shard_mask(seen_mask, start, max(0, min(num_items - start, rows)), rows)
     vals, ids = dot_topk(user_vecs, item_vecs, item_bias, min(k, rows), seen_mask=mask)
-    ids = ids.to(torch.int64) + start
+    raw, ids = _merge_shards(vals, ids.to(torch.int64) + start, k, mesh)
+    return transform(raw, user_const), ids.to(torch.int32)
+
+
+def _merge_shards(vals: torch.Tensor, ids: torch.Tensor, k: int, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every ``model`` shard's (U, k_local) winners all-gathered and merged
+    in (value desc, index asc) order: the stable sort keeps shard order,
+    which is index order, among ties."""
     m = mesh.shape["model"]
     if m > 1:
         u, kl = vals.shape
         vals, ids = (x.reshape(m, u, kl).permute(1, 0, 2).reshape(u, m * kl)
                      for x in all_gather_many([vals, ids], mesh, "model"))
-    # (value desc, index asc): the stable sort keeps shard order among ties
-    raw, pos = torch.sort(vals, dim=1, descending=True, stable=True)
-    return transform(raw[:, :k], user_const), torch.gather(ids, 1, pos[:, :k]).to(torch.int32)
+    vals, pos = torch.sort(vals, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(ids, 1, pos[:, :k])
+
+
+def _item_shard_topk(
+    model: RecModel,
+    params: Params,
+    state: State,
+    user_ids: torch.Tensor,
+    num_items: int,
+    feat: Optional[Features],
+    top_k: int,
+    chunk_size: int,
+    mesh,
+    seen_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`full_catalog_topk` of ``user_ids`` over the catalog rows of
+    this ``model`` rank's item-table shard, merged over ``model``: the
+    users' rows by one sharded lookup, the item rows where they lie, every
+    other table (the metadata vocabularies) all-gathered."""
+    tables = params["tables"]
+    rows = tables["item"].shape[0]
+    start = mesh.model_rank * rows
+    n_loc = max(0, min(num_items - start, rows))
+    view = {name: all_gather(t, mesh, "model") for name, t in tables.items() if name not in ("user", "item")}
+    view["user"] = sharded_lookup(tables["user"], user_ids, mesh, "model")
+    view["item"] = tables["item"]
+    sub = feat
+    if feat and "meta_ids" in feat:
+        sub = dict(feat, meta_ids=feat["meta_ids"][start : start + n_loc],
+                   meta_mask=feat["meta_mask"][start : start + n_loc])
+    mask = None if seen_mask is None else _shard_mask(seen_mask, start, n_loc, rows)
+    positions = torch.arange(user_ids.shape[0], device=user_ids.device)
+    vals, ids = full_catalog_topk(model, {"tables": view, "dense": params.get("dense")}, state, positions, n_loc,
+                                  sub, top_k=top_k, chunk_size=chunk_size, seen_mask=mask)
+    ids = ids.to(torch.int64)
+    fill = min(top_k, rows) - vals.shape[1]  # every shard's list as long (the catalog's last shard is short)
+    if fill > 0:  # -inf at rows past the catalog: they sort after every item
+        vals = torch.cat([vals, vals.new_full((vals.shape[0], fill), -torch.inf)], dim=1)
+        ids = torch.cat([ids, (n_loc + torch.arange(fill, device=ids.device)).expand(ids.shape[0], -1)], dim=1)
+    return _merge_shards(vals, ids + start, min(top_k, num_items), mesh)
+
+
+def _data_sharded_topk(
+    model: RecModel,
+    params: Params,
+    state: State,
+    user_ids: torch.Tensor,
+    num_items: int,
+    feat: Optional[Features],
+    top_k: int,
+    chunk_size: int,
+    mesh,
+    seen_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The generic scorer on a mesh (:311-326): the users padded to a
+    multiple of ``data`` (with row 0), this rank's contiguous slice of
+    them scored against the whole catalog (:func:`full_catalog_topk`; on
+    a row-sharded ``model`` axis shard by shard, :func:`_item_shard_topk`),
+    the (U, k) lists all-gathered over ``data`` and the padding dropped. A
+    ``seen_mask`` (U rows) is sliced with the users."""
+    u = user_ids.shape[0]
+    pad = (-u) % mesh.shape["data"]
+    users = torch.cat([user_ids, user_ids.new_zeros((pad,))])
+    lo, hi = batch_rows(users.shape[0], mesh)
+    mask = None
+    if seen_mask is not None:
+        mask = torch.cat([seen_mask, seen_mask.new_zeros((pad, seen_mask.shape[1]))])[lo:hi]
+    score = _item_shard_topk if mesh.shape["model"] > 1 else full_catalog_topk
+    kw = {"mesh": mesh} if mesh.shape["model"] > 1 else {}
+    vals, ids = score(model, params, state, users[lo:hi], num_items, feat, top_k=top_k, chunk_size=chunk_size,
+                      seen_mask=mask, **kw)
+    vals, ids = all_gather_many([vals, ids.to(torch.int32)], mesh, "data")
+    return vals[:u], ids[:u]
 
 
 def catalog_topk(
@@ -241,16 +346,13 @@ def catalog_topk(
     """Full-catalog top-k with kernel dispatch (predict.py:248-335):
     linearizable models take the fused kernels, on a ``mesh`` the
     model-sharded B6 (:func:`_sharded_catalog_topk`); everything else the
-    generic chunked scorer. ``approx_recall`` is exact in the port (see
+    generic chunked scorer, on a ``mesh`` sharded over ``data``
+    (:func:`_data_sharded_topk`). ``approx_recall`` is exact in the port (see
     ``ops.dot_topk.dot_topk``) and, as in JAX, refused off the fused path.
     ``catalog`` optionally passes a kept ``model.linearized_catalog`` (on a
     mesh, :func:`shard_catalog`) to the fused path (the facade keeps it
     between table installs)."""
-    if mesh is not None:
-        if not (use_fused and model.supports_linearized_catalog):
-            from torchrecsys_tpu_torch.config import _not_ported
-
-            raise _not_ported("the generic catalog scorer on a mesh", "§A item 14b (the generic step on a mesh)")
+    if mesh is not None and use_fused and model.supports_linearized_catalog:
         return _sharded_catalog_topk(model, params, user_ids, num_items, feat, top_k, mesh,
                                      seen_mask=seen_mask, catalog=catalog)
     if use_fused and model.supports_linearized_catalog:
@@ -265,6 +367,9 @@ def catalog_topk(
             f"{type(model).__name__} scores the catalog through the generic "
             f"chunked path, which is always exact -- drop approx_recall"
         )
+    if mesh is not None:
+        return _data_sharded_topk(model, params, state, user_ids, num_items, feat, top_k, chunk_size, mesh,
+                                  seen_mask)
     return full_catalog_topk(
         model, params, state, user_ids, num_items, feat,
         top_k=top_k, chunk_size=chunk_size, seen_mask=seen_mask,

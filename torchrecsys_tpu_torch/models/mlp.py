@@ -11,6 +11,15 @@ the fused layer kernels (ops/fused_tower.py: the layer's matmul with the
 next layer's batch sums in its epilogue, and its fused backward), as
 ``_score_rows_fused`` (mlp.py:154-202) does; f32 compute and eval take
 the plain tower (``torch.matmul``, as the JAX package leaves it to XLA).
+
+On a mesh whose ``data`` axis splits the batch, the training statistics
+cover the global batch, as JAX's ``jnp.mean`` over the ``data``-sharded
+rows does: the trainer passes ``batch["_bn_sum"]``, which takes this
+rank's Σx and Σx² of a layer and its row count and returns the sums over
+``data`` (parallel/mesh.py::sum_shares, differentiable) and the global
+count. Both towers divide by that count; in the fused tower the
+reduction sits between kernel #6's sums and the next layer, so autograd
+hands kernel #7 the cotangents of the global sums.
 """
 
 from __future__ import annotations
@@ -40,6 +49,13 @@ def _running(bn_s: Dict[str, torch.Tensor], mean: torch.Tensor, var: torch.Tenso
         "mean": (1 - _BN_MOMENTUM) * bn_s["mean"] + _BN_MOMENTUM * mean,
         "var": (1 - _BN_MOMENTUM) * bn_s["var"] + _BN_MOMENTUM * unbiased,
     }
+
+
+def _global_sums(reduce, s: torch.Tensor, ss: torch.Tensor, n: int):
+    """(Σx, Σx²) of this rank's n rows -> ((Σx, Σx²) of the global batch,
+    its row count), in one collective."""
+    sums, n = reduce(torch.stack([s, ss]), n)
+    return sums.unbind(0), n
 
 
 class MLPModel(RecModel):
@@ -111,8 +127,9 @@ class MLPModel(RecModel):
             m = rows[f"meta:{fname}"].to(cd)  # (B, W, D)
             parts.append(masked_mean(m, batch["meta_mask"][:, f, :]))
         x = torch.cat(parts, dim=-1)
+        reduce = batch.get("_bn_sum") if train else None
         if train and cd == torch.bfloat16 and ft.tower_applicable(self.cfg):
-            return self._score_rows_fused(dense, state, x)
+            return self._score_rows_fused(dense, state, x, reduce)
 
         use_bn = self.cfg.use_batch_norm
         new_bn = []
@@ -123,10 +140,16 @@ class MLPModel(RecModel):
                 if train:
                     # one pass: mean and E[x^2] in f32 over the bf16 or f32
                     # activation, var = E[x^2] - mean^2 (mlp.py:127-143)
-                    mean = torch.mean(x, dim=0, dtype=torch.float32)
-                    msq = torch.mean(x * x, dim=0, dtype=torch.float32)
+                    n = x.shape[0]
+                    if reduce is None:
+                        mean = torch.mean(x, dim=0, dtype=torch.float32)
+                        msq = torch.mean(x * x, dim=0, dtype=torch.float32)
+                    else:  # over the global batch
+                        sums, n = _global_sums(reduce, torch.sum(x, dim=0, dtype=torch.float32),
+                                               torch.sum(x * x, dim=0, dtype=torch.float32), n)
+                        mean, msq = sums[0] / n, sums[1] / n
                     var = torch.clamp_min(msq - mean * mean, 0.0)
-                    new_bn.append(_running(bn_s, mean, var, x.shape[0]))
+                    new_bn.append(_running(bn_s, mean, var, n))
                 else:
                     mean, var = bn_s["mean"], bn_s["var"]
                 inv = torch.rsqrt(var + _BN_EPS).to(cd)
@@ -138,13 +161,13 @@ class MLPModel(RecModel):
         return score[:, 0].float(), new_state
 
     def _score_rows_fused(
-        self, dense: Any, state: State, x: torch.Tensor
+        self, dense: Any, state: State, x: torch.Tensor, reduce=None
     ) -> Tuple[torch.Tensor, State]:
         """The training tower through the fused layer (mlp.py:154-202): per
         hidden layer one :func:`~torchrecsys_tpu_torch.ops.fused_tower.
         fused_layer` (the layer's matmul with its output's Σz and Σz² in the
         epilogue; BN and ReLU of its input inside), then the statistics math
-        in plain torch, then the head."""
+        in plain torch (on a mesh after ``reduce``), then the head."""
         cd = self.compute_dtype
         n = x.shape[0]
         new_bn = []
@@ -152,6 +175,8 @@ class MLPModel(RecModel):
         z = x
         for li, layer in enumerate(dense["layers"]):
             z, s, ss = ft.fused_layer(z, layer["w"].to(cd), layer["b"].to(cd), bnvec, li > 0)
+            if reduce is not None:
+                (s, ss), n = _global_sums(reduce, s, ss, x.shape[0])
             mean = s / n
             var = torch.clamp_min(ss / n - mean * mean, 0.0)
             new_bn.append(_running(state["bn"][li], mean, var, n))

@@ -16,13 +16,22 @@
 // 98-109). Both TPU kernels become one kernel here, dot_topk_tc_kernel,
 // whose per-user list length is 16 for #1 and k for #2.
 //
+// Any D (a multiple of 4 for f32, 8 for bf16: the wrapper zero-pads): a
+// row wider than 128 lanes is scored in 128-lane slabs, the last one
+// zero-padded, with the wgmma accumulators carried from slab to slab. Each
+// slab of an item tile is one ring slot, filled by one bulk copy per row
+// (a slab's lanes are not contiguous in the (N, D) table); the users'
+// images of every slab stay resident, in the same permuted-k layout per
+// slab, so the user tile shrinks as D grows (plan_nk).
+//
 // Bound at the main path (U=256, N=1,000,000, D=80): 2.U.N.D = 40.96 GFLOP
 // of f32-accurate products. As 3xTF32 on the tensor cores (three TF32
 // products per f32 product at 495 TFLOP/s) that is 0.2482 ms; on the CUDA
 // cores' f32 FMA (67 TFLOP/s) 0.6113 ms. The item stream (items + bias,
 // 324 MB) takes 0.097 ms at 3.35 TB/s: bound by operations. bf16 vectors
 // take one exact bf16 product per pair (989 TFLOP/s, 0.041 ms) and stream
-// 164 MB (0.049 ms): bound by bytes.
+// 164 MB (0.049 ms): bound by bytes. At D = 160 (NeuCF's item table at
+// n_factors = 80): 81.92 GFLOP, 0.4965 ms of 3xTF32; the stream 0.191 ms.
 //
 // What the design does about it:
 // - Scores run on wgmma. Items are the M operand (64-item tiles), the
@@ -99,7 +108,7 @@ constexpr float kNegInf = -3.40282346638528859811704183484516925e+38f;
 constexpr int kIntMax = 0x7fffffff;
 constexpr int kMaskTile = 4096;             // ops/dot_topk.py:59
 constexpr int kMaskWords = kMaskTile / 32;  // 128 words per mask tile
-constexpr int kMaxDim = 128;
+constexpr int kSlab = 128;                  // lanes of one D slab: wider rows are scored slab by slab
 constexpr int kTile = 64;                   // items per tile: wgmma's M
 constexpr int kConsumers = 128;             // threads of one warpgroup
 constexpr int kSmemLimit = 232448;          // a block's shared memory on sm_90
@@ -402,6 +411,15 @@ __device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int acc, float) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, " TRS_WGMMA_TF32_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma(float (&d)[4], const uint32_t (&a)[4], uint64_t db, int acc, float) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
@@ -437,6 +455,16 @@ __device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], ui
       "{%16, %17, %18, %19}, %20, " TRS_WGMMA_BF16_TAIL
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int acc,
+                                      __nv_bfloat16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, " TRS_WGMMA_BF16_TAIL
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
@@ -529,14 +557,18 @@ struct Elt<__nv_bfloat16> {
 };
 
 // k steps of each variant: D up to 32, 64, 80 (the reference default
-// n_factors) and 128, zero-padded past D.
+// n_factors) and 128, zero-padded past D; a wider D takes the 128-lane
+// variant once per slab (the last slab zero-padded).
 template <typename T>
 int pick_nk(int D) {
   const int s = Elt<T>::step;
-  for (int dmax : {32, 64, 80, 128})
+  for (int dmax : {32, 64, 80})
     if (D <= dmax) return dmax / s;
-  return 0;
+  return kSlab / s;
 }
+
+// 128-lane slabs of a row of D.
+__host__ __device__ inline int slabs_of(int D) { return D > kSlab ? (D + kSlab - 1) / kSlab : 1; }
 
 // Bytes of one user's image row: the logical k extent rounded up to whole
 // 128-byte swizzle rows.
@@ -589,8 +621,10 @@ struct Args {
   int L;                 // entries kept per (user, split)
   int cap;               // candidate buffer entries per user (a power of two)
   int tiles_per_split;
-  int stages;            // ring slots
+  int stages;            // ring slots, stages / NWG per consumer warpgroup
   int slot_bytes;
+  int nslab;             // 128-lane slabs of a row (1 for D <= 128)
+  int rs;                // a ring slot's row stride in elements: D, or kSlab for slabs
   float* part_v;         // (U, S, L)
   int* part_i;
 };
@@ -619,19 +653,22 @@ __device__ __forceinline__ void load_run(const T* row, int t, int D, int w0, uin
 __device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(__float_as_uint(x) & 0xffffe000u); }
 
 // Block (user tile of UT, catalog split): NWG consumer warpgroups and one
-// producer warpgroup. See the file header for the design.
-template <typename T, int NK, int UT, int NWG, int CAP>
+// producer warpgroup. See the file header for the design. SLABS: rows
+// wider than 128 lanes, scored slab by slab (NK = 128 lanes' k steps).
+template <typename T, int NK, int UT, int NWG, int CAP, bool SLABS>
 __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(const Args a) {
   constexpr int NA = UT / 2;  // accumulators per thread
   constexpr int NJ = UT / 8;  // 8-user column groups
   constexpr int KB = image_row_bytes<T, NK>();
-  constexpr int IMG = UT * KB;  // bytes of one user image
+  constexpr int IMG = UT * KB;  // bytes of one user image of one slab
+  constexpr int IMGS = Elt<T>::imgs * IMG;  // bytes of a slab's images
   constexpr int NC = NWG * kConsumers;
   constexpr bool F32 = Elt<T>::step == 8;
   constexpr int KC = NK > 10 ? NK / 2 : NK;  // k steps per pass
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const Layout lay = layout(Elt<T>::imgs * IMG, a.slot_bytes, a.stages, NWG * UT, a.cap);
+  const int ns = SLABS ? a.nslab : 1, R = a.stages / NWG;  // slabs; ring slots of a warpgroup
+  const Layout lay = layout(ns * IMGS, a.slot_bytes, a.stages, NWG * UT, a.cap);
   uint8_t* ring = base + lay.ring;
   float* buf_v = reinterpret_cast<float*>(base + lay.buf);
   int* buf_i = reinterpret_cast<int*>(buf_v + NWG * UT * a.cap);
@@ -654,18 +691,20 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (tid < NC) {
-    // the users' images, 16 bytes at a time: unit q of user n's row sits
-    // at (q / 8) * IMG / (KB / 128) + n * 128 + ((q ^ n) & 7) * 16
+    // the users' images, slab by slab, 16 bytes at a time: unit q of user
+    // n's row of slab sl sits at sl * IMGS + (q / 8) * IMG / (KB / 128) +
+    // n * 128 + ((q ^ n) & 7) * 16
     const T* users = static_cast<const T*>(a.users);
     constexpr int EPU = 16 / sizeof(T);  // elements per 16-byte unit
-    for (int e = tid; e < UT * (KB / 16); e += NC) {
-      const int n = e / (KB / 16), q = e - n * (KB / 16), u = u0 + n;
-      uint8_t* dst = base + (q >> 3) * (UT * 128) + n * 128 + (((q & 7) ^ (n & 7)) << 4);
+    constexpr int UNITS = UT * (KB / 16);  // units of one slab's image
+    for (int e = tid; e < ns * UNITS; e += NC) {
+      const int sl = e / UNITS, n = (e - sl * UNITS) / (KB / 16), q = e - sl * UNITS - n * (KB / 16), u = u0 + n;
+      uint8_t* dst = base + sl * IMGS + (q >> 3) * (UT * 128) + n * 128 + (((q & 7) ^ (n & 7)) << 4);
       alignas(16) T x[EPU];
 #pragma unroll
       for (int i = 0; i < EPU; ++i) {
         const int l = q * EPU + i;
-        const int d = l < Elt<T>::step * NK ? perm_k<T, NK>(l) : D;
+        const int d = l < Elt<T>::step * NK ? sl * kSlab + perm_k<T, NK>(l) : D;
         x[i] = (u < a.U && d < D) ? users[(size_t)u * D + d] : T(0.0f);
       }
       if constexpr (F32) {
@@ -695,17 +734,37 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
   }
   __syncthreads();
 
-  if (tid >= NC) {  // the producer warpgroup: one thread, one bulk copy per item tile
+  if (tid >= NC) {  // the producer warpgroup: its first warp fills the ring
     if (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == NC) {
+    if (tid < NC + 32) {
+      // Tile i goes to warpgroup i % NWG, whose ring is slots w, w + NWG,
+      // ...: its jj-th (tile, slab) lands in slot w + NWG (jj % R), so each
+      // warpgroup waits on its own slots in order and no wait can see a
+      // phase a lap ahead. A row of D <= 128 arrives as one contiguous
+      // copy of the tile; a slab as one copy per row (its 128 lanes are
+      // not contiguous in the (N, D) table), issued by the warp's lanes.
+      const int lane = tid - NC;
       const T* items = static_cast<const T*>(a.items);
       for (int i = 0; i < nt; ++i) {
-        const int slot = i % a.stages;
-        if (i >= a.stages) mbar_wait(empty + slot, (i / a.stages - 1) & 1);
-        const int g0 = (tile0 + i) * kTile;
-        const int bytes = min(kTile, a.N - g0) * D * (int)sizeof(T);
-        mbar_expect_tx(full + slot, bytes);
-        bulk_load(ring + slot * a.slot_bytes, items + (size_t)g0 * D, bytes, full + slot);
+        const int g0 = (tile0 + i) * kTile, rows = min(kTile, a.N - g0);
+        for (int sl = 0; sl < ns; ++sl) {
+          const int jj = (i / NWG) * ns + sl, slot = i % NWG + NWG * (jj % R);
+          if (jj >= R) mbar_wait(empty + slot, (jj / R - 1) & 1);
+          uint8_t* dst = ring + slot * a.slot_bytes;
+          if (ns == 1) {
+            if (lane == 0) {
+              const int bytes = rows * D * (int)sizeof(T);
+              mbar_expect_tx(full + slot, bytes);
+              bulk_load(dst, items + (size_t)g0 * D, bytes, full + slot);
+            }
+            continue;
+          }
+          const int rb = min(kSlab, D - sl * kSlab) * (int)sizeof(T);
+          if (lane == 0) mbar_expect_tx(full + slot, rows * rb);
+          __syncwarp();
+          for (int r = lane; r < rows; r += 32)
+            bulk_load(dst + r * kSlab * (int)sizeof(T), items + (size_t)(g0 + r) * D + sl * kSlab, rb, full + slot);
+        }
       }
     }
     return;
@@ -723,8 +782,6 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
   int* bi = buf_i + wg * UT * cap;
   unsigned long long* tkey = tkeys + wg * UT;  // the users' thresholds
   int* fill = fills + wg * UT;
-  const uint8_t* img_big = base;
-  const uint8_t* img_small = base + IMG;
 
   // threshold values of the thread's users (columns 8 j + 2 t + q), in
   // registers for the gate's first compare (+inf past the user tile: no
@@ -800,71 +857,95 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
   load_bias(wg, next_bias);
 
   // two accumulator chains (even and odd k steps), so that two products
-  // of a warpgroup are in flight at a time
+  // of a warpgroup are in flight at a time. Across slabs the scores carry
+  // over in sc, outside the accumulators: each slab's products start
+  // from zero, so no accumulator lives across the runtime slab loop (ptxas
+  // would serialise the wgmmas of such a loop)
   float acc0[NA], acc1[NA];
+  float sc[SLABS ? NA : 1];
+  int jj = 0;  // this warpgroup's (tile, slab) count: its ring position
   for (int i = wg; i < nt; i += NWG) {
     const float bias[2] = {next_bias[0], next_bias[1]};
     load_bias(i + NWG, next_bias);
-    const int slot = i % a.stages;
-    mbar_wait(full + slot, (i / a.stages) & 1);
-    const T* tile = reinterpret_cast<const T*>(ring + slot * a.slot_bytes);
-    // the products in passes of KC k steps: each pass's A fragments (rows
-    // 16 warp + g, +8) come from the slot into registers, and a pass waits
-    // for the one before it, so that D = 128 keeps its registers
+    // slab by slab (one slab for D <= 128)
+    for (int sl = 0; sl < ns; ++sl, ++jj) {
+      const int slot = wg + NWG * (jj % R);
+      mbar_wait(full + slot, (jj / R) & 1);
+      const T* tile = reinterpret_cast<const T*>(ring + slot * a.slot_bytes);
+      const int dl = ns == 1 ? D : min(kSlab, D - sl * kSlab);  // this slab's lanes
+      const uint8_t* img_big = base + sl * IMGS;
+      const uint8_t* img_small = img_big + IMG;
+      // the products in passes of KC k steps: each pass's A fragments (rows
+      // 16 warp + g, +8) come from the slot into registers, and a pass waits
+      // for the one before it, so that D = 128 keeps its registers
 #pragma unroll
-    for (int k0 = 0; k0 < NK; k0 += KC) {
-      uint32_t w0[2 * KC], w1[2 * KC];
-      load_run<T, NK, 2 * KC>(tile + (16 * warp + g) * D, t, D, 2 * k0, w0);
-      load_run<T, NK, 2 * KC>(tile + (16 * warp + g + 8) * D, t, D, 2 * k0, w1);
-      if (k0 + KC >= NK) {
-        // the tile now lives in registers: order these reads before the
-        // producer's next bulk copy (another proxy) into the slot
-        fence_async();
-        mbar_arrive(empty + slot);
-      }
-      uint32_t ab[KC][4];
+      for (int k0 = 0; k0 < NK; k0 += KC) {
+        uint32_t w0[2 * KC], w1[2 * KC];
+        load_run<T, NK, 2 * KC>(tile + (16 * warp + g) * a.rs, t, dl, 2 * k0, w0);
+        load_run<T, NK, 2 * KC>(tile + (16 * warp + g + 8) * a.rs, t, dl, 2 * k0, w1);
+        if (k0 + KC >= NK) {
+          // the tile now lives in registers: order these reads before the
+          // producer's next bulk copy (another proxy) into the slot
+          fence_async();
+          mbar_arrive(empty + slot);
+        }
+        uint32_t ab[KC][4];
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        ab[kk][0] = w0[2 * kk];
-        ab[kk][1] = w1[2 * kk];
-        ab[kk][2] = w0[2 * kk + 1];
-        ab[kk][3] = w1[2 * kk + 1];
-      }
-      uint32_t as[F32 ? KC : 1][4];  // f32: the items' small parts
-      if constexpr (F32) {
+        for (int kk = 0; kk < KC; ++kk) {
+          ab[kk][0] = w0[2 * kk];
+          ab[kk][1] = w1[2 * kk];
+          ab[kk][2] = w0[2 * kk + 1];
+          ab[kk][3] = w1[2 * kk + 1];
+        }
+        uint32_t as[F32 ? KC : 1][4];  // f32: the items' small parts
+        if constexpr (F32) {
 #pragma unroll
-        for (int kk = 0; kk < KC; ++kk)
+          for (int kk = 0; kk < KC; ++kk)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float x = __uint_as_float(ab[kk][r]);
-            as[kk][r] = __float_as_uint(x - tf32_big(x));
-          }
-      }
-      wg_fence();
-#define TRS_MMA(A, IMG, FIRST)                                                                 \
-  _Pragma("unroll") for (int kc = 0; kc < KC; ++kc) {                                          \
-    const int kk = k0 + kc;                                                                    \
-    const uint64_t db = kmajor_desc((IMG) + (kk >> 2) * (UT * 128) + (kk & 3) * 32);           \
-    if (kk & 1)                                                                                \
-      wgmma(acc1, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                                      \
-    else                                                                                       \
-      wgmma(acc0, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                                      \
+            for (int r = 0; r < 4; ++r) {
+              const float x = __uint_as_float(ab[kk][r]);
+              as[kk][r] = __float_as_uint(x - tf32_big(x));
+            }
+        }
+        wg_fence();
+#define TRS_MMA(A, IMG, FIRST)                                                         \
+  _Pragma("unroll") for (int kc = 0; kc < KC; ++kc) {                                  \
+    const int kk = k0 + kc;                                                            \
+    const uint64_t db = kmajor_desc((IMG) + (kk >> 2) * (UT * 128) + (kk & 3) * 32);   \
+    if (kk & 1)                                                                        \
+      wgmma(acc1, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                               \
+    else                                                                               \
+      wgmma(acc0, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                               \
   }
-      if constexpr (F32) {
-        // items . users: the small terms first
-        TRS_MMA(as, img_big, true)
-        TRS_MMA(ab, img_small, false)
-        TRS_MMA(ab, img_big, false)
-      } else {
-        TRS_MMA(ab, img_big, true)
-      }
+        if constexpr (F32) {
+          // items . users: the small terms first
+          TRS_MMA(as, img_big, true)
+          TRS_MMA(ab, img_small, false)
+          TRS_MMA(ab, img_big, false)
+        } else {
+          TRS_MMA(ab, img_big, true)
+        }
 #undef TRS_MMA
-      wg_commit();
-      wg_wait0();
-      // the tensor cores read A from these registers until the wait: keep
-      // the compiler from reusing them before it
-      fence_regs(ab);
-      if constexpr (F32) fence_regs(as);
+        wg_commit();
+        wg_wait0();
+        // the tensor cores read A from these registers until the wait: keep
+        // the compiler from reusing them before it
+        fence_regs(ab);
+        if constexpr (F32) fence_regs(as);
+      }
+      if constexpr (SLABS) {
+        fence_acc(acc0);
+        fence_acc(acc1);
+#pragma unroll
+        for (int x = 0; x < NA; ++x) sc[x] = (sl > 0 ? sc[x] : 0.0f) + (acc0[x] + acc1[x]);
+      }
+    }
+    if constexpr (SLABS) {  // the gate reads the scores from acc0 + acc1
+#pragma unroll
+      for (int x = 0; x < NA; ++x) {
+        acc0[x] = sc[x];
+        acc1[x] = 0.0f;
+      }
     }
     const int gi[2] = {(tile0 + i) * kTile + 16 * warp + g, (tile0 + i) * kTile + 16 * warp + g + 8};
     // refreshes after this warpgroup's kRefresh-th tile and then at each
@@ -1032,17 +1113,18 @@ struct Plan {
   int ut, nwg, L, cap, stages, slot_bytes, smem, user_tiles, total_tiles;
 };
 
-template <typename T, int NK, int UT, int NWG, int CAP>
+template <typename T, int NK, int UT, int NWG, int CAP, bool SLABS = false>
 Plan plan_t(int N, int D, int L, int cap) {
   Plan p;
-  p.fn = reinterpret_cast<const void*>(dot_topk_tc_kernel<T, NK, UT, NWG, CAP>);
+  p.fn = reinterpret_cast<const void*>(dot_topk_tc_kernel<T, NK, UT, NWG, CAP, SLABS>);
   p.ut = UT;
   p.nwg = NWG;
   p.L = L;
   p.cap = cap;
-  p.slot_bytes = (kTile * D * (int)sizeof(T) + 127) / 128 * 128;
+  const int ns = slabs_of(D);
+  p.slot_bytes = ns == 1 ? (kTile * D * (int)sizeof(T) + 127) / 128 * 128 : kTile * kSlab * (int)sizeof(T);
   p.total_tiles = cdiv(N, kTile);
-  const int img = Elt<T>::imgs * UT * image_row_bytes<T, NK>();
+  const int img = ns * Elt<T>::imgs * UT * image_row_bytes<T, NK>();
   const int fixed = 1024 + layout(img, p.slot_bytes, 0, NWG * UT, cap).total;
   p.stages = std::min(4, (kSmemLimit - fixed) / (p.slot_bytes + 16));
   // two warpgroups take alternate tiles: an even ring gives each slot to
@@ -1057,8 +1139,24 @@ Plan plan_t(int N, int D, int L, int cap) {
 // in 256-entry buffers (both warpgroups' buffers fit); k > 128 keeps k over
 // 8-user tiles with one warpgroup, in buffers of the next power of two of
 // k + 64. The first two sort their buffers in registers.
+// Above D = 128 (the slab variants) the users' images of every slab stay
+// resident, so the user tile is the largest that fits beside a ring of two
+// slots: k <= 16 takes 32-user tiles, k <= 128 16-user tiles, both then
+// the 8-user tile of one warpgroup, as k > 128 does (shared memory bounds D
+// at about 2,400 lanes of f32 for k <= 128 and 512 for k = 1024; bf16 at
+// 8 times that).
 template <typename T, int NK>
 Plan plan_nk(int large, int N, int D, int k) {
+  if (D > kSlab) {
+    if constexpr (NK * Elt<T>::step == kSlab) {  // pick_nk's choice for every D > 128
+      Plan p{};
+      const int L = large ? k : kSmallList;
+      if (!large) p = plan_t<T, NK, 32, 2, 64, true>(N, D, L, 64);
+      else if (k <= kWideMaxK) p = plan_t<T, NK, 16, 2, 256, true>(N, D, L, 256);
+      if (p.fn == nullptr || p.stages < 2) p = plan_t<T, NK, 8, 1, 0, true>(N, D, L, next_pow2(L + 64));
+      return p;
+    }
+  }
   if (!large) return plan_t<T, NK, 64, 2, 64>(N, D, kSmallList, 64);
   if (k <= kWideMaxK) return plan_t<T, NK, 32, 2, 256>(N, D, k, 256);
   return plan_t<T, NK, 8, 1, 0>(N, D, k, next_pow2(k + 64));
@@ -1071,8 +1169,7 @@ Plan plan_of(int large, int N, int D, int k) {
     case 32 / s: return plan_nk<T, 32 / s>(large, N, D, k);
     case 64 / s: return plan_nk<T, 64 / s>(large, N, D, k);
     case 80 / s: return plan_nk<T, 80 / s>(large, N, D, k);
-    case 128 / s: return plan_nk<T, 128 / s>(large, N, D, k);
-    default: return Plan{nullptr, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+    default: return plan_nk<T, kSlab / s>(large, N, D, k);
   }
 }
 
@@ -1093,7 +1190,7 @@ Plan make_plan(int large, int U, int N, int D, int bf16, int k) {
 }
 
 bool bad_args(int large, int U, int N, int D, int bf16, int k) {
-  return D < 1 || D > kMaxDim || D % (bf16 ? 8 : 4) != 0 || U < 1 || N < 1 || k < 1 || k > N ||
+  return D < 1 || D % (bf16 ? 8 : 4) != 0 || U < 1 || N < 1 || k < 1 || k > N ||
          (!large && k > kSmallList) || (large && k > 1024);
 }
 
@@ -1111,9 +1208,6 @@ cudaError_t launch_merge(const float* part_v, const int* part_i, int U, int C,
 
 extern "C" {
 
-// Widest D the kernel takes.
-int trs_dot_topk_max_dim() { return kMaxDim; }
-
 // Launch plan for (U, N, D, dtype, k) on the current device, made once per
 // shape by the wrapper: the number of catalog splits S (tile-aligned, one
 // wave of resident blocks), the per-(user, split) list length L (the
@@ -1121,7 +1215,7 @@ int trs_dot_topk_max_dim() { return kMaxDim; }
 // per user, the kernel's dynamic shared memory per block and its ring
 // slots. Also opts both kernels into their shared memory. D must be a
 // multiple of 4 (f32) or 8 (bf16): whole 16-byte rows. Returns a
-// cudaError_t.
+// cudaError_t (cudaErrorInvalidValue where no user tile's images fit).
 int trs_dot_topk_plan(int large, int U, int N, int D, int bf16, int k,
                       int* S, int* list_len, int* cap, int* smem_bytes, int* stages,
                       int* keys_per_user) {
@@ -1186,6 +1280,8 @@ int trs_dot_topk(int large, const void* users, const void* items,
   a.tiles_per_split = cdiv(p.total_tiles, S);
   a.stages = p.stages;
   a.slot_bytes = p.slot_bytes;
+  a.nslab = slabs_of(D);
+  a.rs = a.nslab == 1 ? D : kSlab;
   a.part_v = part_v;
   a.part_i = part_i;
   a.gtop = static_cast<unsigned long long*>(gtop);

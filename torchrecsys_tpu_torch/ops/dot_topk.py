@@ -183,8 +183,6 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dot_topk.cu")
     if not getattr(lib, "_trs_bound", False):
-        lib.trs_dot_topk_max_dim.argtypes = []
-        lib.trs_dot_topk_max_dim.restype = _CI
         lib.trs_dot_topk_plan.argtypes = [_CI] * 6 + [ctypes.POINTER(_CI)] * 6
         lib.trs_dot_topk_plan.restype = _CI
         lib.trs_dot_topk.argtypes = [_CI] + [_VP] * 4 + [_CI] * 7 + [_VP] * 6
@@ -224,15 +222,19 @@ def plan(large: bool, u: int, n: int, d: int, bf16: bool, k: int) -> Tuple[int, 
     that the lists publish to each other). Made once per shape
     and device: the C call also opts the kernels into their shared memory
     and queries occupancy. ``d`` is the row width the kernel sees (a
-    multiple of 4 for f32, of 8 for bf16)."""
+    multiple of 4 for f32, of 8 for bf16); above 128 the kernel scores it
+    in 128-lane slabs with every slab's user images resident, so a width
+    at which not even an 8-user tile fits shared memory raises."""
     key = (bool(large), u, n, d, bool(bf16), k, _device_index(torch.device("cuda")))
     got = _PLANS.get(key)
     if got is None:
         out = [_CI() for _ in range(6)]
-        _check(
-            _lib().trs_dot_topk_plan(int(large), u, n, d, int(bf16), k, *map(ctypes.byref, out)),
-            "dot_topk plan",
-        )
+        rc = _lib().trs_dot_topk_plan(int(large), u, n, d, int(bf16), k, *map(ctypes.byref, out))
+        if rc != 0:
+            raise ValueError(
+                f"dot_topk plan: no kernel variant takes U={u}, N={n}, D={d}, "
+                f"{'bf16' if bf16 else 'f32'}, k={k} (cudaError {rc})"
+            )
         got = _PLANS[key] = tuple(v.value for v in out)
     return got
 
@@ -267,8 +269,6 @@ def _launch(name, user_vecs, item_vecs, item_bias, k, seen_mask, large):
     if u < 1 or n < 1 or k < 1:
         raise ValueError(f"{name}: empty input (U={u}, N={n}, k={k})")
     lib = _lib()
-    if d > lib.trs_dot_topk_max_dim():
-        raise ValueError(f"{name}: the CUDA kernel takes D <= {lib.trs_dot_topk_max_dim()}, got {d}")
     vdt = _vector_dtype(user_vecs, item_vecs)
     bf16 = vdt == torch.bfloat16
     width = _round_up(d, 8 if bf16 else 4)

@@ -45,7 +45,7 @@ cores, f32-accurate to ~2^-21).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,18 +88,22 @@ def inbatch_softmax_rows_plain(
     vb: torch.Tensor,
     pos: torch.Tensor,
     logq: Optional[torch.Tensor],
+    pos_col: Optional[torch.Tensor] = None,
+    off: int = 0,
 ) -> torch.Tensor:
     """(B,) per-row in-batch CE, the XLA formulation (trainer.py:107-139):
     one ``h @ v.T``, the logQ correction of every column, duplicates masked
     to -inf off the diagonal, logsumexp minus the diagonal label.
-    Differentiable by torch autograd."""
+    Differentiable by torch autograd. With ``pos_col`` the rows ``h``/``pos``
+    score against columns ``v``/``vb``/``pos_col``, row r's label in column
+    ``r + off`` (a mesh rank's rows against the whole batch)."""
     with _ieee_f32_matmul(h.device):
         logits = (h @ v.T).float() + vb.float()[None, :]
     if logq is not None:
-        logits = logits - logq[pos][None, :]
-    dup, _ = _dup_mask(pos)
+        logits = logits - logq[pos if pos_col is None else pos_col][None, :]
+    dup, eye = _dup_mask(pos, pos_col, off)
     logits = logits.masked_fill(dup, -torch.inf)
-    return torch.logsumexp(logits, dim=1) - torch.diagonal(logits)
+    return torch.logsumexp(logits, dim=1) - logits[eye]
 
 
 def _masked_logits(h, v, vbq, pos, pos_col=None, off=0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -337,18 +341,20 @@ def inbatch_softmax_ce_dp(
     vbq: torch.Tensor,
     pos: torch.Tensor,
     fns: Optional[CeFns] = None,
+    rows: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Data-parallel in-batch CE on a mesh (:240-264): this rank's (B/n,)
     per-row losses of its rows ``h``/``pos`` against the whole batch's
     columns. ``v``, ``vbq`` and ``pos`` are all-gathered over ``data``
     (:func:`parallel.mesh.all_gather`, whose backward all-reduces the
     cotangent and takes this rank's slice, so ``dv`` and ``dvb`` sum every
-    rank's rows) and the kernels run at ``off = data rank x B/n``: the
+    rank's rows) and the kernels run at ``off`` = the rows of the ranks
+    before this one (``rows``: every rank's row count; default even): the
     single-device call on the whole batch, row block by row block."""
     from torchrecsys_tpu_torch.parallel.mesh import all_gather
 
-    v_g = all_gather(v, mesh, "data")
-    vbq_g = all_gather(vbq, mesh, "data")
-    pos_g = all_gather(pos, mesh, "data")
-    off = mesh.data_rank * h.shape[0]
+    v_g = all_gather(v, mesh, "data", rows)
+    vbq_g = all_gather(vbq, mesh, "data", rows)
+    pos_g = all_gather(pos, mesh, "data", rows)
+    off = sum(rows[: mesh.data_rank]) if rows is not None else mesh.data_rank * h.shape[0]
     return InBatchSoftmaxCE.apply(h, v_g, vbq_g, pos, fns, pos_g, off)

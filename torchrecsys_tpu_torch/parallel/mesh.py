@@ -15,10 +15,20 @@ world, and the collectives the port builds on it (port of
   all-reduces a zeroed ``(n, ...)`` buffer in which each rank has filled
   its own slot, which is exact (each slot has one non-zero term; only a
   ``-0.0`` comes back as ``+0.0``), the zeros-plus-``psum`` of JAX's own
-  row-sharded gather. :func:`all_gather` and :func:`psum` are
+  row-sharded gather. The slots take uneven lengths too: given every
+  rank's row count, each slot is padded to the longest and the filler
+  dropped. :func:`all_gather`, :func:`psum` and :func:`sum_shares` are
   ``torch.autograd.Function``\\ s: the backward of the tiled all-gather
   all-reduces the cotangent and takes this rank's slice; a ``psum`` whose
   result every rank then uses alike passes its cotangent through.
+- :func:`sum_shares` adds per-rank shares of a sum (a rank's part of the
+  dense gradients, of the batch-norm statistics over ``data``): every
+  rank's share in its slot, then the slots added in rank order, so every
+  rank holds the same bits and replicas of what is computed from the sum
+  (the dense parameters, the running statistics) stay bitwise equal. Its
+  backward does the same to the cotangent: with each rank holding its
+  share of the loss, the cotangent of the global sum is the sum of the
+  ranks' cotangents.
 - :data:`stats` counts the collectives and, when ``stats.timing`` is on,
   their seconds between two device syncs (a measurement mode: the syncs
   cost time of their own).
@@ -187,29 +197,51 @@ def all_reduce_(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     return x
 
 
-def _slots(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """(n, *x.shape): every rank's ``x`` in its slot, by one all-reduce of
+def _slots(x: torch.Tensor, ax: Axis, length: Optional[int] = None) -> torch.Tensor:
+    """(n, length, *x.shape[1:]): every rank's ``x`` in its slot (its first
+    ``x.shape[0]`` rows; ``length`` defaults to them), by one all-reduce of
     zeros with this rank's slot filled."""
-    buf = torch.zeros((ax.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    buf[ax.index] = x
+    length = x.shape[0] if length is None else length
+    buf = torch.zeros((ax.size, length) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    buf[ax.index, : x.shape[0]] = x
     return all_reduce_(buf, ax)
 
 
-def _tiled(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    return _slots(x, ax).reshape((ax.size * x.shape[0],) + tuple(x.shape[1:]))
+def _unslot(slots: torch.Tensor, rows: Optional[Sequence[int]]) -> torch.Tensor:
+    """The slots' rows in rank order, each slot cut to its rank's count."""
+    if rows is None:
+        return slots.reshape((-1,) + tuple(slots.shape[2:]))
+    return torch.cat([slots[r, :n] for r, n in enumerate(rows)])
+
+
+def _rank_sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """Every rank's ``x`` added in rank order: the same bits on every rank."""
+    slots = _slots(x.reshape(1, -1), ax)[:, 0]
+    out = slots[0]
+    for r in range(1, ax.size):
+        out = out + slots[r]
+    return out.reshape(x.shape)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ax):
-        ctx.ax = ax
-        return _tiled(x, ax)
+    def forward(ctx, x, ax, rows):
+        ctx.ax, ctx.rows = ax, rows
+        return _unslot(_slots(x, ax, None if rows is None else max(rows)), rows)
 
     @staticmethod
     def backward(ctx, g):
-        ax = ctx.ax
-        g = all_reduce_(g.contiguous().clone(), ax)
-        return g.reshape((ax.size, -1) + tuple(g.shape[1:]))[ax.index], None
+        ax, rows = ctx.ax, ctx.rows
+        # the ranks' partial cotangents (a bf16 dv under AMP) summed in f32,
+        # rounded to their dtype once, as one device's single sum is
+        dt = g.dtype
+        g = all_reduce_(g.to(torch.float32 if g.is_floating_point() else dt).contiguous().clone(), ax)
+        if rows is None:
+            g = g.reshape((ax.size, -1) + tuple(g.shape[1:]))[ax.index]
+        else:
+            start = sum(rows[: ax.index])
+            g = g[start : start + rows[ax.index]]
+        return g.to(dt), None, None
 
 
 class _PSum(torch.autograd.Function):
@@ -222,12 +254,49 @@ class _PSum(torch.autograd.Function):
         return g, None
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+class _SumShares(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _rank_sum(x.contiguous(), ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_sum(g.contiguous(), ctx.ax), None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "data", rows: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, tiled=True)``: every rank's ``x``
-    concatenated along dim 0 in rank order. Differentiable: the backward
-    all-reduces the cotangent and takes this rank's rows."""
+    concatenated along dim 0 in rank order; ``rows`` gives every rank's
+    row count where they differ. Differentiable: the backward all-reduces
+    the cotangent and takes this rank's rows."""
     ax = mesh.axis(axis)
-    return x if ax.size == 1 else _AllGather.apply(x, ax)
+    return x if ax.size == 1 else _AllGather.apply(x, ax, None if rows is None else tuple(rows))
+
+
+def sum_shares(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """The sum over the ranks of ``axis`` of each rank's share ``x``, added
+    in rank order (the same bits on every rank). Differentiable: the
+    cotangent is summed the same way (each rank's loss is its share)."""
+    ax = mesh.axis(axis)
+    return x if ax.size == 1 else _SumShares.apply(x, ax)
+
+
+def sum_shares_many(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str = "data") -> List[torch.Tensor]:
+    """:func:`sum_shares` of several tensors (no gradient) in one
+    collective per dtype."""
+    ax = mesh.axis(axis)
+    if ax.size == 1:
+        return list(tensors)
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        total = _rank_sum(torch.cat([tensors[i].reshape(-1) for i in idx]), ax)
+        for i, part in zip(idx, torch.split(total, [tensors[i].numel() for i in idx])):
+            out[i] = part.reshape(tensors[i].shape)
+    return out
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
@@ -237,23 +306,36 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
     return x if ax.size == 1 else _PSum.apply(x, ax)
 
 
-def all_gather_many(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str = "data") -> List[torch.Tensor]:
+def all_gather_many(
+    tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str = "data", rows: Optional[Sequence[int]] = None
+) -> List[torch.Tensor]:
     """:func:`all_gather` of several tensors (no gradient) in one
-    collective per dtype: each rank's tensors flattened into one slot."""
+    collective per dtype: each rank's tensors flattened into one slot.
+    ``rows``: every rank's count of the rows the tensors are laid out by,
+    where they differ; each tensor's dim 0 is then a whole multiple of
+    this rank's count, the same multiple on every rank."""
     ax = mesh.axis(axis)
     if ax.size == 1:
         return list(tensors)
+    counts = [1] * ax.size if rows is None else list(rows)
+    own = counts[ax.index]
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, t in enumerate(tensors):
+        if rows is not None and t.shape[0] % own:
+            raise ValueError(f"all_gather_many: dim 0 of {tuple(t.shape)} is not a multiple of {own} rows")
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
-        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        slots = _slots(flat, ax)  # (n, total)
-        at = 0
-        for i in idx:
+        # rank r's slot: each tensor's numel scaled to r's rows, in order
+        per = [tensors[i].numel() // own for i in idx]  # elements per row of each tensor
+        length = max(sum(per) * c for c in counts)
+        slots = _slots(torch.cat([tensors[i].reshape(-1) for i in idx]), ax, length)
+        at = [0] * ax.size
+        for i, k in zip(idx, per):
             t = tensors[i]
-            k = t.numel()
-            out[i] = slots[:, at : at + k].reshape((ax.size * t.shape[0],) + tuple(t.shape[1:]))
-            at += k
+            parts = []
+            for r, c in enumerate(counts):
+                parts.append(slots[r, at[r] : at[r] + k * c])
+                at[r] += k * c
+            out[i] = torch.cat(parts).reshape((-1,) + tuple(t.shape[1:]))
     return out

@@ -15,7 +15,7 @@ the whole state on every rank (for ``save`` and for checks).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -120,11 +120,18 @@ def gather_state(state: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     return out
 
 
-def batch_rows(n: int, mesh: Mesh) -> Tuple[int, int]:
-    """[start, stop) of this rank's 'data' shard of n batch rows; n must
-    divide over the axis."""
+def batch_splits(n: int, mesh: Mesh) -> List[Tuple[int, int]]:
+    """Every ``data`` rank's [start, stop) of n batch rows, in rank order:
+    ``[r n // d, (r + 1) n // d)``, contiguous, so a batch that does not
+    divide the axis splits as evenly as it can (JAX's GSPMD step takes
+    such a batch whole, its loss and statistics over every row)."""
     d = mesh.shape["data"]
-    if n % d:
-        raise ValueError(f"a batch of {n} rows does not split over data={d}")
-    rows = n // d
-    return mesh.data_rank * rows, (mesh.data_rank + 1) * rows
+    if n < d:
+        raise ValueError(f"a batch of {n} rows cannot give each of data={d} ranks a row")
+    return [(r * n // d, (r + 1) * n // d) for r in range(d)]
+
+
+def batch_rows(n: int, mesh: Mesh) -> Tuple[int, int]:
+    """[start, stop) of this rank's 'data' shard of n batch rows
+    (:func:`batch_splits`)."""
+    return batch_splits(n, mesh)[mesh.data_rank]

@@ -55,11 +55,18 @@ def apply_embedding_updates(
     opt_state: Mapping[str, Any],
     grads: Mapping[str, RowGrads],
     eps: float = 1e-10,
+    scatter: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Any]] = None,
+    take: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> None:
     """Sparse row updates of the plain (R, D) tables and their optimizer
     state, IN PLACE (:49-121). Rowwise adagrad: ``acc[ids] += mean(g^2)``
     (every duplicate added first), then each occurrence adds
-    ``-lr * g * rsqrt(acc[ids] + eps)``; sgd adds ``-lr * g``."""
+    ``-lr * g * rsqrt(acc[ids] + eps)``; sgd adds ``-lr * g``.
+    ``scatter(target, ids, rows)`` replaces each ``index_add_`` and
+    ``take(acc, ids)`` the accumulator read (a mesh's fixed-order or
+    shard-masked scatter and its sharded lookup)."""
+    if scatter is None:
+        scatter = lambda target, ids, rows: target.index_add_(0, ids, rows.to(target.dtype))  # noqa: E731
     for name, sites in grads.items():
         if not sites:
             continue
@@ -69,14 +76,14 @@ def apply_embedding_updates(
         g = torch.cat([gr.reshape(-1, d).float() for _, gr in sites])
         if kind == "rowwise_adagrad":
             acc = opt_state[name]["acc"]
-            acc.index_add_(0, ids, torch.mean(g * g, dim=-1))
-            scale = torch.rsqrt(acc[ids] + eps)
+            scatter(acc, ids, torch.mean(g * g, dim=-1))
+            scale = torch.rsqrt((acc[ids] if take is None else take(acc, ids)) + eps)
             delta = (-lr * g) * scale[:, None]
         elif kind == "sgd":
             delta = -lr * g
         else:
             raise ValueError(f"unknown embedding optimizer {kind!r}")
-        table.index_add_(0, ids, delta.to(table.dtype))
+        scatter(table, ids, delta.to(table.dtype))
 
 
 def supports_fused_layout(kind: str, tables: Mapping[str, torch.Tensor]) -> bool:

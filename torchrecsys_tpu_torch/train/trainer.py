@@ -51,22 +51,30 @@ batches). Here an epoch is
 vocabularies (``RecSys.update_data``).
 
 On a mesh (``Trainer(..., mesh=make_mesh(...))``, parallel/mesh.py; one
-process per rank) Linear and FM train as the JAX package's kernel paths do
-(:684-790): every rank builds the same global epoch (the same generator,
-the same Feistel permutation, the in-batch sort by user and the in-step
-negatives of the whole batch), then keeps its contiguous ``data`` slice of
-every batch. The pairwise losses run the mesh wrappers of
-ops/fused_pairwise.py (B1-B4), sampled softmax the data-parallel CE
-(ops/softmax_ce.py::inbatch_softmax_ce_dp, B5) with its row gradients
-all-gathered over ``data`` and applied as the pairwise updates are; under
-a ``model`` axis the tables are row shards and every row arrives through
-parallel/embedding.py::sharded_lookup. Each step's loss is this rank's
-share; the epoch's are summed over ``data`` once, at its end. Evaluation
-scores each rank's ``data`` shard of the test rows and all-reduces the
-sums. What the JAX package runs on a mesh through its generic GSPMD step
-(the other nets, K > 1 negatives, ``warp``, ``adaptive_hinge``, ``sgd``,
-the unfused update, a batch that does not divide ``data``) raises
-``NotImplementedError`` naming ROADMAP.md §A item 14b.
+process per rank) every net trains: every rank builds the same global
+epoch (the same generator, the same Feistel permutation, the in-batch
+sort by user and the in-step negatives of the whole batch), then keeps
+its contiguous ``data`` slice of every batch, ``[r b // d, (r + 1) b //
+d)`` (a batch that does not divide ``data`` splits unevenly; its loss
+normalizer, weight sum and batch-norm row count stay global). Under a
+``model`` axis the tables are row shards and every row arrives through
+parallel/embedding.py::sharded_lookup. Where the fused pairwise kernel
+takes the model and config and the batch divides ``data``, the pairwise
+losses run the mesh wrappers of ops/fused_pairwise.py (B1-B4), as the
+JAX package's kernel paths do (:684-790). Everything else runs the JAX
+package's generic GSPMD step (:405-574) as the autograd steps on this
+rank's rows: the rank's share of the global mean loss, the dense
+gradients summed over ``data`` in rank order
+(parallel/mesh.py::sum_shares_many: every rank the same bits, so the
+replicated dense parameters stay bitwise equal), the MLP's batch-norm
+statistics over the global batch (``side["_bn_sum"]``, models/mlp.py),
+and the embedding row updates all-gathered over ``data`` and scattered
+in a fixed order on every replica. Sampled softmax runs the
+data-parallel CE (ops/softmax_ce.py::inbatch_softmax_ce_dp, B5; above
+128 factors its plain formulation against the all-gathered columns).
+Each step's loss is this rank's share; the epoch's are summed over
+``data`` once, at its end. Evaluation scores each rank's ``data`` shard
+of the test rows and all-reduces the sums.
 """
 
 from __future__ import annotations
@@ -80,7 +88,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from torchrecsys_tpu_torch.config import TrainConfig, _not_ported
+from torchrecsys_tpu_torch.config import TrainConfig
 from torchrecsys_tpu_torch.data.features import Features, attach_features, feature_tables
 from torchrecsys_tpu_torch.data.interactions import InteractionStore
 from torchrecsys_tpu_torch.data.sampling import alias_table, sample_negatives, sample_negatives_alias
@@ -88,8 +96,15 @@ from torchrecsys_tpu_torch.models.base import Batch, RecModel
 from torchrecsys_tpu_torch.ops import fused_pairwise as fp
 from torchrecsys_tpu_torch.ops import softmax_ce as sce
 from torchrecsys_tpu_torch.parallel.embedding import scatter_add_rows, sharded_lookup, sharded_scatter_add
-from torchrecsys_tpu_torch.parallel.mesh import Mesh, all_gather_many, all_reduce_
-from torchrecsys_tpu_torch.parallel.sharding import batch_rows, shard_state
+from torchrecsys_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    all_gather_many,
+    all_reduce_,
+    sum_shares,
+    sum_shares_many,
+)
+from torchrecsys_tpu_torch.parallel.sharding import batch_rows, batch_splits, shard_state
 from torchrecsys_tpu_torch.train.losses import get_per_row_loss
 from torchrecsys_tpu_torch.train.optim import (
     apply_dense_update,
@@ -110,35 +125,6 @@ from torchrecsys_tpu_torch.utils.permute import random_permutation, round_keys
 log = logging.getLogger("torchrecsys_tpu_torch.train")
 
 TrainState = Dict[str, Any]
-
-MESH_ITEM = "§A item 14b (the generic step on a mesh)"
-
-
-def mesh_refusal(model: RecModel, cfg: TrainConfig, mesh: Mesh) -> Optional[str]:
-    """What of ``model`` and ``cfg`` the port does not yet run on ``mesh``
-    (the JAX package's GSPMD step, ROADMAP.md §A item 14b), or None."""
-    if model.name not in ("linear", "fm"):
-        return f"net_type={model.name!r} on a mesh"
-    if cfg.loss == "sampled_softmax":
-        if not (cfg.embedding_optimizer == "rowwise_adagrad" and cfg.fused_embedding_update):
-            return "sampled_softmax on a mesh without the fused rowwise-adagrad update"
-        if not sce.softmax_kernel_applicable(1, model.cfg.n_factors):
-            return f"sampled_softmax on a mesh at n_factors={model.cfg.n_factors} > {sce.LANES}"
-        if not fp.pairwise_kernel_applicable(model, dataclasses.replace(cfg, loss="hinge"), mesh):
-            return "a mesh whose model axis does not split every table's padded rows"
-        return None
-    if fp.pairwise_kernel_applicable(model, cfg, mesh):
-        return None
-    for cond, what in (
-        (cfg.num_negatives > 1, "num_negatives > 1"),
-        (cfg.loss not in fp.SUPPORTED_LOSSES, f"loss={cfg.loss!r}"),
-        (cfg.embedding_optimizer != "rowwise_adagrad", f"embedding_optimizer={cfg.embedding_optimizer!r}"),
-        (not cfg.fused_embedding_update, "fused_embedding_update=False"),
-    ):
-        if cond:
-            return f"{what} on a mesh"
-    return "this model and config on a mesh (the fused pairwise kernel does not take them)"
-
 
 def grow_state(state: TrainState, new_model: RecModel, generator: torch.Generator) -> TrainState:
     """``state`` grown to ``new_model``'s vocabularies (:59-105): every
@@ -187,12 +173,15 @@ class Epoch:
     """One epoch's batches: (nb, b) tensors ``user_id``, ``pos_item_id``,
     ``neg_item_id`` (pairwise losses only; (nb, K, b) for K > 1 draws) and,
     when the last batch is padded, ``_w`` (1 for real rows, 0 for filler),
-    with each batch's weight sum known on the host."""
+    with each batch's weight sum known on the host. On a mesh the tensors
+    hold this rank's ``data`` slice of every batch, ``b`` is the global
+    batch and ``rows`` every ``data`` rank's count of its rows."""
 
     batches: Dict[str, torch.Tensor]
     nb: int
     b: int
     weight_sums: Optional[List[int]] = None
+    rows: Optional[List[int]] = None
 
 
 class Trainer:
@@ -207,9 +196,6 @@ class Trainer:
         if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a torchrecsys_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
-            why = mesh_refusal(model, cfg, mesh)
-            if why is not None:
-                raise _not_ported(why, MESH_ITEM)
             device = mesh.device
         self.mesh = mesh
         self.device = torch.device(device)
@@ -233,7 +219,7 @@ class Trainer:
                 )
             self.per_row_fn = None
         else:
-            self._fused = fp.pairwise_kernel_applicable(model, cfg)
+            self._fused = fp.pairwise_kernel_applicable(model, cfg, mesh)
             self.per_row_fn = get_per_row_loss(cfg.loss, model.schema.num_items)
         self._data_cache_key = None
         self._data_cache: Dict[str, torch.Tensor] = {}
@@ -401,13 +387,13 @@ class Trainer:
                 batches["neg_item_id"] = torch.as_tensor(negatives, device=self.device).long()
             else:
                 batches["neg_item_id"] = self._sample_negs(gen, batches["pos_item_id"], feat)
+        rows = None
         if self.mesh is not None:  # the whole epoch drawn alike on every rank; keep this rank's rows
-            if b % self.mesh.shape["data"]:
-                raise _not_ported(f"a batch of {b} rows that does not divide data={self.mesh.shape['data']}",
-                                  MESH_ITEM)
-            lo, hi = batch_rows(b, self.mesh)
+            splits = batch_splits(b, self.mesh)
+            lo, hi = splits[self.mesh.data_rank]
             batches = {k: v[..., lo:hi].contiguous() for k, v in batches.items()}
-        return Epoch(batches, nb, b, weight_sums)
+            rows = [stop - start for start, stop in splits]
+        return Epoch(batches, nb, b, weight_sums, rows)
 
     # ------------------------------------------------------------------
     def pack_state(self, state: TrainState) -> Dict[str, torch.Tensor]:
@@ -508,17 +494,25 @@ class Trainer:
         pos: torch.Tensor,
         logq: Optional[torch.Tensor],
         ce_fns: Optional[sce.CeFns] = None,
+        rows: Optional[Sequence[int]] = None,
     ) -> torch.Tensor:
         """Per-row in-batch CE (:285-318): the CE kernels when the shape
         allows (``d <= 128``), else the XLA formulation in plain torch. The
-        choice is made by shape alone."""
+        choice is made by shape alone. On a mesh this rank's rows against
+        the whole batch's columns (``rows``: every ``data`` rank's row
+        count)."""
+        mesh = self.mesh if self.mesh is not None and self.mesh.shape["data"] > 1 else None
         if sce.softmax_kernel_applicable(h.shape[0], h.shape[1]):
             vbq = vb.float()
             if logq is not None:
                 vbq = vbq - logq[pos]
-            if self.mesh is not None:  # this rank's rows against the whole batch
-                return sce.inbatch_softmax_ce_dp(self.mesh, h, v, vbq, pos, ce_fns)
+            if mesh is not None:
+                return sce.inbatch_softmax_ce_dp(mesh, h, v, vbq, pos, ce_fns, rows=rows)
             return sce.inbatch_softmax_ce(h, v, vbq, pos, ce_fns)
+        if mesh is not None:
+            v_g, vb_g, pos_g = (all_gather(t, mesh, "data", rows) for t in (v, vb, pos))
+            off = sum(rows[: mesh.data_rank]) if rows is not None else mesh.data_rank * h.shape[0]
+            return sce.inbatch_softmax_rows_plain(h, v_g, vb_g, pos, logq, pos_col=pos_g, off=off)
         return sce.inbatch_softmax_rows_plain(h, v, vb, pos, logq)
 
     def _gather_sites(self, side: Batch) -> Dict[str, Tuple[str, torch.Tensor]]:
@@ -570,11 +564,15 @@ class Trainer:
         raw: Dict[str, torch.Tensor],
         grads: Dict[str, Optional[torch.Tensor]],
         lr: float,
+        rows: Optional[Sequence[int]] = None,
     ) -> None:
         """The embedding update of one step, in place: rowwise adagrad on
         the augmented tables (``emb_opt`` None: one ``index_add_`` per
         table, :541-549) or ``embedding_optimizer`` on the plain tables and
-        ``emb_opt`` (:550-561). A site without a gradient is skipped."""
+        ``emb_opt`` (:550-561). A site without a gradient is skipped. On a
+        mesh the sites of every ``data`` rank (``rows``: their row counts)
+        are all-gathered and every replica applies the whole batch's in the
+        same order."""
         per_table: Dict[str, list] = {}
         for k, g in grads.items():
             if g is not None:
@@ -585,15 +583,20 @@ class Trainer:
             sites = [(nm, site) for nm in sorted(per_table) for site in per_table[nm]]
             # each site's ids, gradients and accumulators flattened to one row per occurrence
             flat = [t.reshape((-1,) + t.shape[site[0].dim():]) for _, site in sites for t in site]
-            got = iter(all_gather_many(flat, self.mesh, "data"))
+            got = iter(all_gather_many(flat, self.mesh, "data", rows))
             per_table = {}
             for nm, site in sites:
                 per_table.setdefault(nm, []).append(tuple(next(got) for _ in site))
             if self.mesh.shape["model"] > 1:
                 scatter = functools.partial(sharded_scatter_add, mesh=self.mesh, axis="model")
+                take = functools.partial(sharded_lookup, mesh=self.mesh, axis="model")
             else:
-                scatter = scatter_add_rows
-            apply_embedding_updates_fused(lr, tables, per_table, scatter=scatter)
+                scatter, take = scatter_add_rows, None
+            if emb_opt is None:
+                apply_embedding_updates_fused(lr, tables, per_table, scatter=scatter)
+            else:
+                apply_embedding_updates(self.cfg.embedding_optimizer, lr, tables, emb_opt, per_table,
+                                        scatter=scatter, take=take)
             return
         if emb_opt is None:
             apply_embedding_updates_fused(lr, tables, per_table)
@@ -612,6 +615,7 @@ class Trainer:
         ce_fns: Optional[sce.CeFns] = None,
         lr: Optional[float] = None,
         emb_opt: Optional[Dict[str, Any]] = None,
+        rows: Optional[Sequence[int]] = None,
     ) -> torch.Tensor:
         """One sampled-softmax step (``_step_impl``, :405-574) on the tables
         ``aug``, updated in place: the augmented tables (``emb_opt`` None),
@@ -625,25 +629,43 @@ class Trainer:
         ``dense`` and ``dense_opt`` replaced). Returns the loss as a device
         scalar. A site whose rows get no gradient (Linear's user bias: row-constant under
         the softmax) is not scattered: its update would be exactly 0.
-        ``ce_fns`` replaces the CE kernels (see ops/softmax_ce.py)."""
+        ``ce_fns`` replaces the CE kernels (see ops/softmax_ce.py). On a
+        mesh ``rows`` holds every ``data`` rank's row count of the batch
+        (default: even) and the loss is this rank's share."""
         side = attach_features({"user_id": user, "item_id": pos}, feat)
         gmap = self._gather_sites(side)
-        raw, rows = self._rows(aug, gmap, emb_opt is None)
+        raw, grows = self._rows(aug, gmap, emb_opt is None)
         leaves, dense = self._dense_leaves(state)
-        h, v, vb, _ = self.model.pair_vectors(dense, state["model_state"], rows, side, train=True)
-        per_row = self._softmax_rows(h, v, vb, pos, feat.get("logq"), ce_fns)
-        if w is None:
-            # on a mesh this rank's share of the global batch's mean
-            loss = per_row.mean() if self.mesh is None else per_row.sum() / (pos.shape[0] * self.mesh.shape["data"])
-        else:
-            loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
-        keys = list(rows)
-        grads = torch.autograd.grad(loss, [rows[k] for k in keys] + leaves, allow_unused=True)
+        h, v, vb, _ = self.model.pair_vectors(dense, state["model_state"], grows, side, train=True)
+        rows = self._batch_rows(pos.shape[0], rows)
+        per_row = self._softmax_rows(h, v, vb, pos, feat.get("logq"), ce_fns, rows)
+        loss = self._share(per_row, w, weight_sum, rows)
+        keys = list(grows)
+        grads = torch.autograd.grad(loss, [grows[k] for k in keys] + leaves, allow_unused=True)
         lr = self.cfg.learning_rate if lr is None else lr
-        self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr)
+        self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr, rows)
         if leaves:  # the sequence encoders; Linear and FM have no dense
             self._dense_step(state, leaves, grads[len(keys):])
         return loss.detach()
+
+    def _batch_rows(self, b_local: int, rows: Optional[Sequence[int]]) -> Optional[List[int]]:
+        """Every ``data`` rank's row count of a batch of which this rank
+        holds ``b_local`` rows (``rows`` as given, else an even split); None
+        off a mesh."""
+        if self.mesh is None:
+            return None
+        return list(rows) if rows is not None else [b_local] * self.mesh.shape["data"]
+
+    def _share(self, per_row: torch.Tensor, w: Optional[torch.Tensor], weight_sum: Optional[float],
+               rows: Optional[Sequence[int]]) -> torch.Tensor:
+        """The step loss: the weighted mean ``sum(per_row * w) / max(sum(w),
+        1)`` (the weight sum of the global batch, known on the host) or the
+        mean; on a mesh this rank's share of it (the global row count)."""
+        if w is not None:
+            return torch.sum(per_row * w) / max(float(weight_sum), 1.0)
+        if rows is None or len(rows) == 1:
+            return per_row.mean()
+        return per_row.sum() / sum(rows)
 
     @staticmethod
     def _dense_leaves(state: TrainState) -> Tuple[List[torch.Tensor], Any]:
@@ -655,8 +677,11 @@ class Trainer:
     def _dense_step(self, state: TrainState, leaves, grads) -> None:
         """The dense optimizer's step on ``state`` (replaced): a leaf
         without a gradient steps with zeros; at the schedule's count under
-        an lr schedule."""
+        an lr schedule. On a mesh each rank's gradient is its share: the
+        shares are summed over ``data`` in rank order first."""
         g_dense = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if self.mesh is not None:
+            g_dense = sum_shares_many(g_dense, self.mesh, "data")
         state["dense"], state["dense_opt"] = apply_dense_update(
             self.cfg.dense_optimizer, self.cfg.learning_rate, state["dense"],
             tree_unflatten(state["dense"], g_dense), self._dense_opt(state), schedule=self.lr_fn,
@@ -683,7 +708,7 @@ class Trainer:
             ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
             losses.append(self.softmax_step(
                 state, aug, bt["user_id"][i], bt["pos_item_id"][i], w, ws, feat, ce_fns,
-                lr=self._lr_at(state["step"] + i), emb_opt=emb_opt,
+                lr=self._lr_at(state["step"] + i), emb_opt=emb_opt, rows=epoch.rows,
             ))
         return self._sum_over_data(torch.stack(losses))
 
@@ -714,6 +739,7 @@ class Trainer:
         feat: Features,
         lr: Optional[float] = None,
         emb_opt: Optional[Dict[str, Any]] = None,
+        rows: Optional[Sequence[int]] = None,
     ) -> torch.Tensor:
         """One pairwise step through autograd (``_step_impl``, :405-574) for
         the models and configs the fused pairwise kernel does not take (the
@@ -729,30 +755,34 @@ class Trainer:
         repeat them 1+K times inside the loss, so the embedding optimizer
         sees one occurrence with the summed gradient. ``state``'s
         ``dense``, ``dense_opt`` and ``model_state`` (batch-norm running
-        statistics) are replaced. Returns the loss as a device scalar."""
+        statistics) are replaced. Returns the loss as a device scalar. On a
+        mesh the step runs on this rank's rows (``rows``: every ``data``
+        rank's row count, default even): the loss is its share of the
+        global mean and the batch-norm statistics cover the global batch."""
         model, cfg = self.model, self.cfg
         b = pos.shape[0]
         side = self._paired_side(user, pos, neg, feat)
         reps = side["item_id"].shape[0] // b
+        rows = self._batch_rows(b, rows)
+        if rows is not None and len(rows) > 1:  # statistics over the global batch
+            mesh, total = self.mesh, sum(rows)
+            side["_bn_sum"] = lambda sums, n: (sum_shares(sums, mesh, "data"), n // b * total)
         gmap = self._gather_sites(side)
         halved = model.user_gather_sites & set(gmap)
         gmap = {k: (t, user if k in halved else ids) for k, (t, ids) in gmap.items()}
-        raw, rows = self._rows(aug, gmap, emb_opt is None)
+        raw, grows = self._rows(aug, gmap, emb_opt is None)
         leaves, dense = self._dense_leaves(state)
-        full = {k: torch.cat([v] * reps) if k in halved else v for k, v in rows.items()}
+        full = {k: torch.cat([v] * reps) if k in halved else v for k, v in grows.items()}
         scores, new_ms = model.score_rows(dense, state["model_state"], full, side, train=True)
         ns = scores[b:]
         if reps > 2:  # K negative blocks -> (K, B) for the loss
             ns = ns.reshape(reps - 1, b)
         per_row = self.per_row_fn(scores[:b], ns, cfg.margin)
-        if w is None:
-            loss = per_row.mean()
-        else:
-            loss = torch.sum(per_row * w) / max(float(weight_sum), 1.0)
-        keys = list(rows)
-        grads = torch.autograd.grad(loss, [rows[k] for k in keys] + leaves, allow_unused=True)
+        loss = self._share(per_row, w, weight_sum, rows)
+        keys = list(grows)
+        grads = torch.autograd.grad(loss, [grows[k] for k in keys] + leaves, allow_unused=True)
         lr = cfg.learning_rate if lr is None else lr
-        self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr)
+        self._update_tables(aug, emb_opt, gmap, raw, dict(zip(keys, grads)), lr, rows)
         self._dense_step(state, leaves, grads[len(keys):])
         state["model_state"] = tree_map(torch.Tensor.detach, new_ms)
         return loss.detach()
@@ -787,9 +817,9 @@ class Trainer:
             ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
             losses.append(self.pairwise_step(
                 state, aug, bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i], w, ws, feat,
-                lr=self._lr_at(step0 + i), emb_opt=emb_opt,
+                lr=self._lr_at(step0 + i), emb_opt=emb_opt, rows=epoch.rows,
             ))
-        return torch.stack(losses)
+        return self._sum_over_data(torch.stack(losses))
 
     def train_epoch(
         self,
@@ -811,7 +841,8 @@ class Trainer:
         if keys is None:
             keys = round_keys(gen)
         epoch = self.build_epoch(data, keys.to(self.device), gen, feat, negatives)
-        if self._fused:
+        # the mesh wrappers take a batch that divides data; JAX's XLA step the rest (:690-691)
+        if self._fused and (self.mesh is None or epoch.b % self.mesh.shape["data"] == 0):
             packed = self.pack_state(state)
             losses = self.run_steps(packed, epoch, feat, step0=state["step"])
             return self.unpack_state(state, packed, epoch.nb), losses.mean()

@@ -73,11 +73,13 @@ def save_checkpoint(
     """Write ``state`` to ``directory/state.pt`` and, when given, the
     schema (``schema.json``) and ``aux`` (``aux.pkl``, :func:`save_aux`).
     On a ``mesh`` every rank calls it with its piece of the state; the
-    whole state is gathered and world rank 0 writes, the others wait."""
+    whole state is gathered (a state without tables, EASE's, is whole on
+    every rank) and world rank 0 writes, the others wait."""
     if mesh is not None:
         from torchrecsys_tpu_torch.parallel.sharding import gather_state
 
-        state = gather_state(state, mesh)
+        if "tables" in state:
+            state = gather_state(state, mesh)
         if mesh.rank != 0:
             _barrier(mesh)
             return
