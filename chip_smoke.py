@@ -270,9 +270,39 @@ result line:
       per step (timed between device syncs) and examples/s, labelled as
       four ranks sharing one card: no scaling figure. A rank that fails,
       or a rank still running after 600 s, fails the phase.
+   s. the generic step on a mesh (ROADMAP.md §A item 14b): the same four
+      ranks, every other net and config (``GEN_RUNS``), each against one
+      device.
+   t. logging, profiling and the examples (ROADMAP.md §A item 15), at the
+      main path's width. Three fits, each run three times from the same
+      seeded tables under torch's deterministic algorithms: verbose, with
+      ``profile_epochs=1`` (verbose), and not verbose: Linear with the
+      category column, hinge, batch 1024, two epochs (#3); Linear sampled
+      softmax at 4096, one epoch (#4/#5); the north-star AMP MLP, one epoch
+      (#6/#7). The train logger sees one ``epoch k: loss=`` record per
+      epoch in the verbose fits, the digest once in the profiled one, and
+      nothing in the last; the verbose fit's stdout carries the
+      ``[torchrecsys_tpu_torch.train]`` prefix; evaluate logs one ``eval:``
+      record with verbose and none without. The profiled epoch's trace
+      (utils/trace_files.py::op_totals) counts each kernel of the fit's
+      wrappers exactly as often as the wrappers launched it in that epoch
+      (a take whose trace lost records runs again, up to 3); the profiled
+      fit's losses and state equal the first fit's bit for bit, or, where
+      the unprofiled fits differ from each other too (#3's atomics), lie
+      within that noise floor by 6n's rule. Printed: the digest, the
+      profiled and unprofiled epoch's examples/s, the trace's MiB. Then
+      ``quickstart``, ``retrieval_training`` and ``production_serving``
+      in process through ``main(["--device", "cuda"])`` at their own
+      sizes, their asserts held, each launching its kernels (quickstart:
+      the row-level kernel's bf16 variant and #1 on a bf16 catalog;
+      retrieval: #4/#5 and #1; serving: #3, #1 and #2); and
+      ``multihost_train`` as four gloo rank processes on the card (its
+      default 200,000 rows, two streamed epochs): every rank exits 0 and
+      rank 0 prints finite losses and eval.
 7. times: per-kernel CUDA-event ms and device us per call from
    torch.profiler (each top-k wrapper: at most 3 kernels per call), beside the bound, the plain version
-   and, where one exists, one library call the port never uses; predict
+   and, where one exists, one library call the port never uses (the top-k
+   rows also at D=160 and on a bf16 catalog); predict
    users/s, fit examples/s (hinge, softmax, MLP) and evaluate rows/s; per-call
    breakdowns; device time per kernel and the device's idle share over a
    window of train steps (torch.profiler); the hinge fit's window must hold
@@ -3672,6 +3702,22 @@ def timing_phase(torch, rs, users_raw, launches, errs):
             f"stream {nbytes / PEAK_BYTES * 1e3:.4f} ms); plain {plain_ms:.4f} ms; torch.topk(matmul) "
             f"{library_ms:.4f} ms")
     del uw, qw, ibw
+    # the same calls on a bf16 catalog (the AMP models' predict): the users and items rounded to bf16
+    ub, qb = uv.to(torch.bfloat16), q.to(torch.bfloat16)
+    for row in rows_out:
+        fn, k = getattr(dt, row["name"]), KERNEL_ROWS[row["name"]][1]
+        ms = cuda_ms(torch, lambda: fn(ub, qb, ib, k))
+        plain_ms = cuda_ms(torch, lambda: dt.dot_topk_plain(ub, qb, ib, k), reps=5)
+        library_ms = cuda_ms(torch, lambda: torch.topk(torch.matmul(ub, qb.T).float() + ib, k, dim=1), reps=5)
+        flops, nbytes = 2.0 * u * n * d, (u + n) * d * 2 + n * 4 + u * k * 8
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        row["bf16"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                       "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"}
+        log(f"[time] {row['name']} (U={u}, N={n}, D={d}, k={k}, bfloat16): {ms:.4f} ms; bound {bound:.4f} ms "
+            f"({flops / 1e9:.2f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; the item stream "
+            f"{nbytes / PEAK_BYTES * 1e3:.4f} ms); plain {plain_ms:.4f} ms; torch.topk(bf16 matmul) "
+            f"{library_ms:.4f} ms")
+    del ub, qb
     for w in (dt.dot_topk_small, dt.dot_topk_large):  # timing launches are not main-path launches
         w.launches = saved[w.__name__]
     return rows_out
@@ -4892,8 +4938,8 @@ def mesh_path(torch, data, smi_line: str):
 # 6s: the generic step on a mesh (every net; the MLP's batch-norm sums over data)
 # ---------------------------------------------------------------------------
 
-GEN_MLP_STEPS = 200  # the north-star AMP MLP on (4, 1): steps of 8192
-GEN_SAS_STEPS = 100  # SASRec AMP sampled softmax on (2, 2): steps of 4096
+GEN_MLP_STEPS = 120  # the north-star AMP MLP on (4, 1): steps of 8192 (depth cut for the run's time limit)
+GEN_SAS_STEPS = 60  # SASRec AMP sampled softmax on (2, 2): steps of 4096 (depth cut as above)
 GEN_F32_STEPS = 20  # the f32 MLP on (2, 2)
 GEN_SHORT_STEPS = 50  # Linear K = 4 and WARP, LSTM, Linear at an uneven batch
 GEN_ODD_B = 1022  # a batch that does not divide data = 4
@@ -5262,6 +5308,324 @@ def generic_mesh_path(torch, data, smi_line: str):
             "timing": generic_kernel_timing(torch, smi_line)}
 
 
+# ---------------------------------------------------------------------------
+# phase 6t: logging, profile_epochs and the examples
+# ---------------------------------------------------------------------------
+
+# wrapper -> the kernels each of its calls launches once (their function names in a trace)
+TRACE_KERNELS = {
+    "fused_pairwise_step": ("fused_pairwise_step_kernel", "fused_pairwise_apply_kernel"),
+    "fused_pairwise_step_meta": ("fused_pairwise_step_kernel", "fused_pairwise_apply_kernel"),
+    "softmax_ce_fwd": ("softmax_ce_fwd_split_kernel", "softmax_ce_fwd_kernel", "softmax_ce_fwd_combine_kernel"),
+    "softmax_ce_bwd": ("softmax_ce_bwd_kernel", "softmax_ce_bwd_sum_kernel"),
+    "fused_tower_fwd": ("fused_tower_fwd_kernel",),
+    "fused_tower_bwd": ("fused_tower_bwd_dh_kernel", "fused_tower_bwd_dw_kernel", "fused_tower_bwd_sum_kernel"),
+    "dot_topk_small": ("dot_topk_tc_kernel",),
+    "dot_topk_large": ("dot_topk_tc_kernel",),
+}
+PROFILE_TAKES = 3  # a profiled fit whose trace lost kernel records runs again, up to this many times
+# the wrappers each in-process example must launch (PERF.md §6's table)
+EXAMPLE_KERNELS = {
+    "quickstart": ("pairwise_updates_rows", "dot_topk_small"),
+    "retrieval_training": ("softmax_ce_fwd", "softmax_ce_bwd", "dot_topk_small"),
+    "production_serving": ("fused_pairwise_step", "dot_topk_small", "dot_topk_large"),
+}
+MULTIHOST_ROWS = 200_000  # examples/multihost_train.py's default --rows
+
+
+def log_records():
+    """A logging handler that keeps every record it sees (``.records``)."""
+    import logging
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    return Records()
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def trace_counts(path: str) -> dict:
+    """Launches per kernel function name over every device of a trace file
+    (utils/trace_files.py::op_totals, the lead-in set aside)."""
+    from torchrecsys_tpu_torch.utils import trace_files
+
+    out: dict = {}
+    for rows in trace_files.op_totals(path).values():
+        for name, _, n in rows:
+            base = trace_files.kernel_base_name(name)
+            out[base] = out.get(base, 0) + n
+    return out
+
+
+def states_equal(torch, a, b) -> bool:
+    """Every leaf of two train states (flat_state), bit for bit."""
+    fa, fb = flat_state(a), flat_state(b)
+    return fa.keys() == fb.keys() and all(
+        torch.equal(x, fb[k]) if isinstance(x, torch.Tensor) else x == fb[k] for k, x in fa.items())
+
+
+def profiled_fit(torch, rs, tables, fit_kw, label: str, smi_line: str, records, expect: dict):
+    """6t (a) and (b) for one fit of ``rs`` from seeded ``tables``: an
+    unprofiled verbose fit (its stdout captured), the fit with
+    ``profile_epochs=1``, and an unprofiled fit without ``verbose``, each
+    from the same tables and generator seed, all under torch's
+    deterministic algorithms. The train logger (``records``) must see one
+    epoch record per epoch in the verbose fits and the digest once in the
+    profiled one, and nothing in the last. The profiled trace's kernel
+    counts must equal the wrappers' launches over the same epoch exactly
+    (a take whose trace lost records runs again, up to PROFILE_TAKES). The
+    profiled fit's losses and state must equal the first fit's bit for
+    bit, unless the last fit differs from the first too (the step kernel's
+    atomics add in no fixed order): then they are held to that noise floor
+    by 6n's rule. ``expect``: each wrapper's launches in the profiled epoch
+    (no other wrapper may launch). Returns the launches of all its fits and
+    the timings."""
+    import contextlib
+    import io
+
+    from torchrecsys_tpu_torch.train import trainer as trainer_mod
+    from torchrecsys_tpu_torch.utils import trace_files
+
+    emb_opt = {k: {"acc": np.zeros(v.shape[0], np.float32)} for k, v in tables.items()}
+    epochs = fit_kw["epochs"]
+    real_trace, real_dir = trainer_mod.trace, trainer_mod.default_trace_dir
+    window: dict = {}
+    total: dict = {}
+
+    @contextlib.contextmanager
+    def counting_trace(directory):
+        ws = wrappers()
+        before = {w.__name__: w.launches for w in ws}
+        with real_trace(directory):
+            yield
+            window.update({w.__name__: w.launches - before[w.__name__] for w in ws})
+
+    def run(verbose: bool, profile_dir=None):
+        rs.load_jax_tables(tables, emb_opt)
+        n0 = len(records.records)
+        if profile_dir:
+            trainer_mod.trace, trainer_mod.default_trace_dir = counting_trace, lambda: profile_dir
+        try:
+            losses, secs, counts = counted(torch, lambda: rs.fit(
+                verbose=verbose, profile_epochs=1 if profile_dir else 0, **fit_kw))
+        finally:
+            trainer_mod.trace, trainer_mod.default_trace_dir = real_trace, real_dir
+        add_counts(total, counts)
+        return losses, clone_state(torch, rs.state), records.records[n0:]
+
+    def epoch_records(recs):
+        return [r for r in recs if r.getMessage().startswith("epoch ")]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            plain, plain_state, recs = run(True)
+        out = buf.getvalue()
+        for line in out.splitlines():
+            log(f"[6t] {label}: stdout: {line}")
+        check(len(epoch_records(recs)) == len(recs) == epochs, f"{label}: the verbose fit logged "
+              f"{[r.getMessage() for r in recs]}, want one epoch record per epoch ({epochs})")
+        check(len(re.findall(r"^\[torchrecsys_tpu_torch\.train\] epoch \d+: loss=", out, re.M)) == epochs,
+              f"{label}: stdout lacks the [torchrecsys_tpu_torch.train] epoch lines: {out[-500:]!r}")
+        plain_epoch_s = epoch_records(recs)[0].args[2]
+        bad, takes = None, 0
+        while takes < PROFILE_TAKES and bad != {}:
+            takes += 1
+            d = ckpt_dir(f"trace_{label.replace(' ', '_')}_{takes}")
+            window.clear()
+            prof, prof_state, precs = run(True, d)
+            path = trace_files.latest_trace_file(d)
+            check(path is not None, f"{label}: the profiled fit wrote no trace under {d}")
+            got = trace_counts(path)
+            want: dict = {}
+            for w, kernels in TRACE_KERNELS.items():
+                for k in kernels:
+                    want[k] = want.get(k, 0) + window.get(w, 0)
+            bad = {k: (got.get(k, 0), n) for k, n in want.items() if got.get(k, 0) != n}
+            if bad and takes < PROFILE_TAKES:
+                log(f"[6t] {label}: take {takes}: the trace's kernel counts (trace, wrappers) {bad}; taken again")
+                shutil.rmtree(d, ignore_errors=True)
+        check(not bad, f"{label}: after {takes} takes the trace's kernel counts (trace, wrappers) are {bad}")
+        check(nonzero(window) == expect, f"{label}: the profiled epoch launched {nonzero(window)}, want {expect}")
+        check("spin_kernel" not in got, f"{label}: the lead-in's spin kernels are in the digest: {got}")
+        digests = [r for r in precs if r.getMessage().startswith("per-op device time digest:")]
+        check(len(digests) == 1 and len(epoch_records(precs)) == epochs == len(precs) - 1,
+              f"{label}: the profiled fit logged {[r.getMessage()[:60] for r in precs]}")
+        check("failed to parse" not in digests[0].getMessage() and "TOTAL" in digests[0].getMessage(),
+              f"{label}: digest {digests[0].getMessage()[:300]}")
+        prof_epoch_s = epoch_records(precs)[0].args[2]
+        again, again_state, arecs = run(False)
+        check(not arecs, f"{label}: verbose=False logged {[r.getMessage() for r in arecs]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bitwise = prof == plain and states_equal(torch, prof_state, plain_state)
+    reproducible = again == plain and states_equal(torch, again_state, plain_state)
+    if not bitwise:
+        check(not reproducible, f"{label}: the profiled fit's losses {prof} or state differ from the "
+              f"unprofiled fit's {plain}, which an unprofiled fit reproduces bit for bit")
+        for a, b in zip(prof, plain):
+            check(abs(a - b) <= RESUME_ATOL + RESUME_RTOL * abs(b), f"{label}: profiled loss {a} vs {b}")
+        resume_compare(torch, f"{label} profiled", prof_state, plain_state,
+                       floor=state_diff(torch, again_state, plain_state))
+    size = os.path.getsize(path)
+    rows = rs.store.num_train
+    log(f"[6t] {smi_line}: {label}: profiled epoch {prof_epoch_s:.3f} s = {rows / prof_epoch_s:.1f} examples/s "
+        f"against {plain_epoch_s:.3f} s = {rows / plain_epoch_s:.1f} examples/s unprofiled (epoch 0 of each, "
+        f"host clock, deterministic algorithms; the profiled epoch includes the trace's start, lead-in and "
+        f"export); trace {size / 2**20:.1f} MiB ({takes} take(s)); wrapper launches in the profiled epoch "
+        f"{nonzero(window)}, the trace's kernel counts {dict(sorted((k, v) for k, v in got.items() if k in want))}; "
+        f"losses {prof} vs {plain} unprofiled: bit for bit {bitwise} (two unprofiled fits bit for bit: "
+        f"{reproducible})")
+    log(f"[6t] {smi_line}: {label}: the fit's {digests[0].getMessage()}")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    del plain_state, prof_state, again_state
+    torch.cuda.empty_cache()
+    return {"launches": total, "window": dict(window), "plain_epoch_s": plain_epoch_s, "prof_epoch_s": prof_epoch_s,
+            "trace_mib": size / 2**20, "bitwise": bitwise, "reproducible": reproducible, "takes": takes}
+
+
+def example_runs(torch, smi_line: str) -> dict:
+    """6t (c), in process: ``quickstart``, ``retrieval_training`` and
+    ``production_serving`` through ``main(["--device", "cuda"])`` at their
+    own sizes, each under ``counted`` and with its own asserts; each must
+    launch the wrappers EXAMPLE_KERNELS names (quickstart: the row-level
+    kernel's bf16 bpr variant, then #1 on a bf16 catalog). Returns the
+    launches of all of them and each one's seconds."""
+    import contextlib
+    import importlib
+    import io
+
+    from torchrecsys_tpu_torch.ops import fused_pairwise as fp
+
+    total: dict = {}
+    secs: dict = {}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"torchrecsys_tpu_torch.examples.{name}")
+        argv = ["--device", DEVICE] + (["--ckpt", ckpt_dir("quickstart")] if name == "quickstart" else [])
+        fp.pairwise_updates_rows.variant = None
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            models, secs[name], counts = counted(torch, lambda: mod.main(argv))
+        for line in buf.getvalue().splitlines():
+            log(f"[6t] {name}: {line}")
+        check(all(counts[k] > 0 for k in kernels), f"example {name}: launches {nonzero(counts)}, want each of {kernels}")
+        if name == "quickstart":
+            want = fp.row_variant("bpr", True, True, True, False, True)
+            check(fp.pairwise_updates_rows.variant == want,
+                  f"quickstart: the row-level kernel ran variant {fp.pairwise_updates_rows.variant}, want {want}")
+            q = models["model"]._linearized()[0]
+            check(q.dtype == torch.bfloat16, f"quickstart: the catalog is {q.dtype}, want bfloat16")
+        add_counts(total, counts)
+        log(f"[6t] {smi_line}: example {name}: {secs[name]:.3f} s in process; launches {nonzero(counts)}")
+        del models
+        torch.cuda.empty_cache()
+    return {"launches": total, "secs": secs}
+
+
+def multihost_example(torch, smi_line: str) -> float:
+    """6t (c): ``multihost_train`` as MESH_WORLD rank processes on this one
+    card over gloo (as 6r runs), its default 200,000 rows and two streamed
+    epochs: every rank exits 0, each logs ``distributed initialized``, and
+    rank 0 alone prints two finite losses and a finite eval. Returns the
+    seconds from the first start to the last exit."""
+    import ast
+
+    d = ckpt_dir("multihost")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    url = f"file://{os.path.join(d, 'rendezvous')}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(d, f"r{r}.log"), "w") for r in range(MESH_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torchrecsys_tpu_torch.examples.multihost_train", "--coordinator", url,
+         "--num-processes", str(MESH_WORLD), "--process-id", str(r), "--backend", "gloo", "--device", DEVICE],
+        cwd=root, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(MESH_WORLD)]
+    wait_mesh_ranks(procs, logs, d, t0)
+    secs = time.perf_counter() - t0
+    texts = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(d, f"r{r}.log")) as f:
+            texts.append(f.read())
+        check(f"[torchrecsys_tpu_torch.distributed] distributed initialized: process {r}/{MESH_WORLD} over gloo"
+              in texts[r], f"multihost rank {r}: no distributed log line: {texts[r][-1500:]}")
+        check(r == 0 or "losses:" not in texts[r], f"multihost rank {r} printed the results: {texts[r][-800:]}")
+    m_loss = re.search(r"^losses: \[(.*)\]$", texts[0], re.M)
+    m_eval = re.search(r"^eval: (\{.*\})$", texts[0], re.M)
+    check(m_loss is not None and m_eval is not None, f"multihost rank 0 printed no results: {texts[0][-1500:]}")
+    losses = [float(x) for x in m_loss.group(1).split(",")]
+    ev = ast.literal_eval(m_eval.group(1))
+    check(len(losses) == 2 and np.isfinite(losses).all(), f"multihost losses {losses}")
+    check(set(ev) == {"loss", "auc"} and np.isfinite(list(ev.values())).all(), f"multihost eval {ev}")
+    log(f"[6t] {smi_line}: example multihost_train: {MESH_WORLD} gloo ranks on one card, {MULTIHOST_ROWS} rows, "
+        f"two streamed epochs: losses {losses}, eval {ev}; {secs:.1f} s from the first start to the last exit")
+    return secs
+
+
+def profiling_path(torch, data, smi_line: str) -> dict:
+    """6t: (a) and (b) on three fits at the main path's width (Linear with
+    the category column, hinge, batch 1024, two epochs; Linear sampled
+    softmax at 4096, one epoch; the north-star AMP MLP, one epoch), the
+    train logger's eval records, then (c) the four examples. Returns the
+    launches of every run and the timings."""
+    from torchrecsys_tpu_torch import RecSys
+    from torchrecsys_tpu_torch.utils.logging import get_logger
+
+    records = log_records()
+    train_log = get_logger("torchrecsys_tpu_torch.train")
+    train_log.addHandler(records)
+    fits = {}
+    try:
+        rs = RecSys(data, metadata_id_col=["category_id"], n_factors=D, device=DEVICE, dynamic_neg_sampling=True)
+        tables = seeded_tables(rs.model, seed=1)
+        n = rs.store.num_train
+        label = "Linear metadata hinge"
+        fits[label] = profiled_fit(torch, rs, tables, dict(epochs=2, batch_size=TRAIN_B), label, smi_line, records,
+                                   {"fused_pairwise_step_meta": -(-n // TRAIN_B)})
+        for verbose in (True, False):
+            n0 = len(records.records)
+            ev = rs.evaluate(batch_size=SOFTMAX_B, eval_metrics=("loss", "auc"), verbose=verbose)
+            msgs = [r.getMessage() for r in records.records[n0:]]
+            check(len(msgs) == int(verbose) and all(re.match(r"^eval: loss=\d+\.\d{5} auc=\d+\.\d{5}$", m)
+                                                    for m in msgs),
+                  f"{label}: evaluate(verbose={verbose}) logged {msgs}")
+        log(f"[6t] {label}: evaluate {ev}: one eval record with verbose=True, none without")
+        label = "Linear metadata softmax"
+        sm_steps = -(-n // SOFTMAX_B)
+        fits[label] = profiled_fit(torch, rs, tables, dict(epochs=1, batch_size=SOFTMAX_B, loss="sampled_softmax"),
+                                   label, smi_line, records, {"softmax_ce_fwd": sm_steps, "softmax_ce_bwd": sm_steps})
+        del rs
+        torch.cuda.empty_cache()
+        rs, _ = seeded_mlp(data, use_amp=True)
+        label = "MLP AMP"
+        mlp_steps = -(-rs.store.num_train // MLP_B)
+        fits[label] = profiled_fit(torch, rs, seeded_tables(rs.model, seed=4),
+                                   dict(epochs=1, batch_size=MLP_B, learning_rate=0.05, loss="hinge"), label,
+                                   smi_line, records,
+                                   {"fused_tower_fwd": 2 * mlp_steps, "fused_tower_bwd": 2 * mlp_steps})
+        del rs
+        torch.cuda.empty_cache()
+    finally:
+        train_log.removeHandler(records)
+    examples = example_runs(torch, smi_line)
+    multihost_s = multihost_example(torch, smi_line)
+    total: dict = {}
+    for out in (*fits.values(), examples):
+        add_counts(total, out["launches"])
+    return {"launches": total, "fits": fits, "examples": examples["secs"], "multihost_s": multihost_s}
+
+
 def profile_phase(torch, rs, users_raw):
     """Device time per launch of each kernel and of the split merge, from
     torch.profiler, for K1 and K2 across k at the main-path shape."""
@@ -5466,6 +5830,11 @@ def main() -> int:
     log(f"[phase] 6s starts at {time.perf_counter() - t_start:.1f} s")
     gen = generic_mesh_path(torch, data, smi_line)
     secs_6s = time.perf_counter() - t0
+    # 6t: logging, profile_epochs on three fits (#3, #4/#5, #6/#7) and the four examples
+    t0 = time.perf_counter()
+    log(f"[phase] 6t starts at {time.perf_counter() - t_start:.1f} s")
+    prof = profiling_path(torch, data, smi_line)
+    secs_6t = time.perf_counter() - t0
     # 6n: the cold loads of a, c and d (and 6o's small LSTM) in one child process; 6n's launches
     linear_job = {"name": "Linear metadata", "dir": ckpt["dir"], "users": ckpt["users"], "ks": (10, 128),
                   "warm": ckpt["warm"], "config": ckpt["config"]}
@@ -5497,7 +5866,7 @@ def main() -> int:
     for row in kernels:
         row["launches"] += (extra.get(row["name"], 0) + seq_extra.get(row["name"], 0)
                             + stream["launches"].get(row["name"], 0) + mesh_extra.get(row["name"], 0)
-                            + gen_extra.get(row["name"], 0))
+                            + gen_extra.get(row["name"], 0) + prof["launches"].get(row["name"], 0))
         if row["name"] in MESH_WRAPPERS:
             row["mesh_wrappers"] = MESH_WRAPPERS[row["name"]]
             row["mesh_launches_6r"] = mesh_extra.get(row["name"], 0)
@@ -5586,6 +5955,11 @@ def main() -> int:
     log(f"[main] 6s {smi_line}: the generic step on a mesh, four ranks sharing one card over gloo (no scaling "
         f"figure): 6s took {secs_6s:.1f} s of the run (the ranks {gen['ranks_s']:.1f} s); 6s launches over all "
         f"ranks {nonzero(gen['launches'])}, its MLP checkpoint's cold load {nonzero(gen_cold)}")
+    log(f"[main] 6t {smi_line}: profiled / unprofiled epoch s " + "; ".join(
+        f"{k} {v['prof_epoch_s']:.3f} / {v['plain_epoch_s']:.3f} (trace {v['trace_mib']:.1f} MiB, bit for bit "
+        f"{v['bitwise']})" for k, v in prof["fits"].items())
+        + f"; examples s {json.dumps({k: round(v, 3) for k, v in prof['examples'].items()})}, multihost_train "
+        f"{prof['multihost_s']:.1f} s; 6t took {secs_6t:.1f} s of the run; 6t launches {nonzero(prof['launches'])}")
     log(f"[main] the popularity alias table at {N} items: {pop['alias_s']:.3f} s on the host (outside the "
         f"6j fit, inside 6k's); NeuCF AMP predict 16 users {neucf['predict_s']:.3f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")

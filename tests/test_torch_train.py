@@ -14,6 +14,8 @@ every accumulator are held within rtol=1e-5, atol=1e-6, as the JAX package
 holds its own two paths (tests/test_fused_pairwise.py:50-142).
 """
 
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -236,11 +238,16 @@ def test_fit_continues_from_carried_over_state():
 
 
 @pytest.mark.parametrize("kw", [dict(profile_epochs=1)])
-def test_unported_fit_options_raise(kw):
+def test_unported_fit_options_raise(kw, tmp_path, monkeypatch):
+    """``profile_epochs``, once refused, now runs: the fit trains and its
+    first epoch writes a torch.profiler trace into the default directory
+    under the temp dir."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     rs = RecSys(_data(False), n_factors=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rs.fit(**kw)
-    assert rs.state is None
+    losses = rs.fit(epochs=2, verbose=False, **kw)
+    assert rs.state is not None and len(losses) == 2 and np.isfinite(losses).all()
+    traces = list((tmp_path / "torchrecsys_tpu_torch_trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
 
 
 @pytest.mark.parametrize("kw", [dict(num_negatives=2), dict(neg_sampling="popularity")])

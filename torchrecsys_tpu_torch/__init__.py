@@ -1,10 +1,18 @@
 """torchrecsys_tpu_torch -- the PyTorch/CUDA port of torchrecsys_tpu.
 
-The port lives beside the JAX package and imports nothing from it. This
-slice serves: ``RecSys(data)`` -> ``load_jax_tables(...)`` ->
-``predict(users, top_k)``, with the fused score + top-k as hand-written
-Hopper kernels (ops/csrc/dot_topk.cu). Entry points run on the card
-(``device="cuda"``) unless the caller passes ``device="cpu"``.
+The port lives beside the JAX package and imports nothing from it. It
+does what the JAX package does behind the same ``RecSys`` surface: id
+encoding, metadata and the seeded split; the seven nets (linear, fm, mlp,
+neucf, lstm, sasrec, ease); the pairwise, K-negative and sampled-softmax
+losses with rowwise-adagrad embeddings; evaluation; full-catalog top-k
+serving; checkpoints, incremental training, the streaming fit, every net
+on a ('data', 'model') mesh of ranks; logging, profiling and the
+examples. Each TPU kernel of the JAX package is a hand-written Hopper
+kernel (ops/csrc/: the fused score + top-k, the fused pairwise step, the
+in-batch softmax CE forward and backward, the BN-tower layer forward and
+backward), each with its plain torch version beside it for CPU tensors.
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

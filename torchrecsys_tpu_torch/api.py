@@ -294,8 +294,8 @@ class RecSys:
         train/optim.py::make_lr_schedule) sets every step's lr, sparse and
         dense. Training starts from the installed tables and accumulators,
         or from fresh seeded ones; afterwards ``predict`` serves the trained
-        tables. ``profile_epochs > 0`` raises ``NotImplementedError`` naming
-        its ROADMAP.md item (config.py).
+        tables. The first ``profile_epochs`` epochs run under torch.profiler
+        and the per-op digest is logged once (``Trainer.fit``).
 
         ``net_type="ease"`` has no gradient loop: fit() runs the
         closed-form solve on the train split (models/ease.py; the other

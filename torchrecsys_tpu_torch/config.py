@@ -3,9 +3,7 @@
 Only the fields the ported slices read are kept. ``TrainConfig`` carries
 the fields ``RecSys.fit`` sets plus the epoch knobs of the fused pairwise
 and sampled-softmax steps; the kernel is chosen by the device, so the JAX
-package's ``pallas_*`` switches have no counterpart. Values the port cannot
-run yet (``profile_epochs``) raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+package's ``pallas_*`` switches have no counterpart.
 """
 
 from __future__ import annotations
@@ -29,6 +27,11 @@ class DataSchema:
     metadata_names: Tuple[str, ...] = ()
     metadata_vocab_sizes: Tuple[int, ...] = ()
     metadata_width: int = 0
+
+    @property
+    def num_metadata_features(self) -> int:
+        """The number of metadata features (:40-42)."""
+        return len(self.metadata_names)
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -81,12 +84,6 @@ PORTED_LOSSES = ("hinge", "bpr", "logistic", "adaptive_hinge", "warp", "sampled_
 DENSE_OPTIMIZERS = ("adam", "adamw", "adagrad", "sgd")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to torchrecsys_tpu_torch yet: ROADMAP.md {item}"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training-loop hyperparameters (config.py:117-208).
@@ -109,7 +106,8 @@ class TrainConfig:
     parameters take ``dense_optimizer`` (train/optim.py, optax's defaults).
     ``drop_remainder=False`` trains the remainder rows in a zero-weighted,
     wrap-around-padded last batch; ``sort_batch_by_user`` orders each
-    batch's rows by user id (stable)."""
+    batch's rows by user id (stable). The first ``profile_epochs`` epochs
+    of ``Trainer.fit`` run under torch.profiler (utils/profiling.py)."""
 
     batch_size: int = 1024
     epochs: int = 1
@@ -157,7 +155,5 @@ class TrainConfig:
             raise ValueError(f"unknown embedding optimizer {self.embedding_optimizer!r}")
         if self.dense_optimizer not in DENSE_OPTIMIZERS:
             raise ValueError(f"unknown dense optimizer {self.dense_optimizer!r}")
-        if self.profile_epochs > 0:
-            raise _not_ported("profile_epochs > 0", "§A item 15 (utils)")
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")

@@ -84,6 +84,11 @@ class IdEncoder:
     def __contains__(self, value: Any) -> bool:
         return value in self._to_index
 
+    @classmethod
+    def from_values(cls, values: Iterable[Any]) -> "IdEncoder":
+        """An encoder fitted on ``values``, rows in first-seen order (:90-92)."""
+        return cls().fit(values)
+
     def to_list(self) -> List[Any]:
         """The vocabulary in row order: enough to rebuild the encoder."""
         return list(self._to_raw)

@@ -16,7 +16,7 @@ import csv
 import dataclasses
 import itertools
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -75,6 +75,29 @@ class InteractionStore:
         if self.test_neg_items is not None:
             d["neg_item_id"] = self.test_neg_items
         return d
+
+    def batches(
+        self,
+        batch_size: int,
+        split: str = "train",
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_remainder: bool = False,
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Host-side batches of a split for the caller's own loop, the
+        ``FastDataLoader`` surface (:82-108): dicts of numpy arrays (the
+        columns of :meth:`train_arrays` or :meth:`test_arrays`), rows in
+        ``np.random.default_rng(seed).shuffle`` order, the last batch short
+        unless ``drop_remainder``. ``Trainer.fit`` does not use it."""
+        arrays = self.train_arrays() if split == "train" else self.test_arrays()
+        n = next(iter(arrays.values())).shape[0]
+        idx = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        stop = (n // batch_size) * batch_size if drop_remainder else n
+        for s in range(0, stop, batch_size):
+            sel = idx[s : s + batch_size]
+            yield {k: v[sel] for k, v in arrays.items()}
 
     def write_data(self, path: str) -> None:
         """Dataset stats and the item metadata map (:110-133): ``config.json``

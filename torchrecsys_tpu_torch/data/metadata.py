@@ -195,6 +195,10 @@ class MetadataTable:
                     mask[it, f, :k] = True
         return cls(ids, mask, names, tuple(e for _, e in per_col))
 
+    def gather(self, item_batch: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(B,) item rows -> ((B, F, W) ids, (B, F, W) mask) (:191-193)."""
+        return self.ids[item_batch], self.mask[item_batch]
+
     def extend(
         self,
         item_rows: np.ndarray,  # (N,) encoded item rows of the new interactions

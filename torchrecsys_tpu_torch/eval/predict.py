@@ -66,6 +66,22 @@ def _score_chunk(
     return scores.reshape(u, c)
 
 
+def full_catalog_scores(
+    model: RecModel,
+    params: Params,
+    state: State,
+    user_ids: torch.Tensor,
+    num_items: int,
+    feat: Optional[Features] = None,
+) -> torch.Tensor:
+    """The dense (U, num_items) score matrix (for recall@k-style metrics;
+    :436-452): :func:`_score_chunk` over the whole catalog."""
+    device = next(iter(params["tables"].values())).device
+    user_ids = torch.as_tensor(user_ids, device=device).long()
+    items = torch.arange(num_items, dtype=torch.int64, device=device)
+    return _score_chunk(model, params, state, user_ids, items, feat)
+
+
 def full_catalog_topk(
     model: RecModel,
     params: Params,

@@ -26,14 +26,15 @@ block of rows (local-rows mode, the rows of :func:`process_row_range`).
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-log = logging.getLogger("torchrecsys_tpu_torch.distributed")
+from torchrecsys_tpu_torch.utils.logging import get_logger
+
+log = get_logger("torchrecsys_tpu_torch.distributed")
 
 BACKENDS = ("nccl", "gloo")
 

@@ -31,7 +31,6 @@ host split already.
 
 from __future__ import annotations
 
-import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
@@ -40,8 +39,9 @@ import numpy as np
 import torch
 
 from torchrecsys_tpu_torch.parallel.sharding import Sharding, batch_rows
+from torchrecsys_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("torchrecsys_tpu_torch.streaming")
+log = get_logger("torchrecsys_tpu_torch.streaming")
 
 Chunk = Dict[str, torch.Tensor]
 

@@ -79,9 +79,9 @@ of the test rows and all-reduces the sums.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-import logging
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -120,9 +120,11 @@ from torchrecsys_tpu_torch.train.optim import (
     tree_map,
     tree_unflatten,
 )
+from torchrecsys_tpu_torch.utils.logging import get_logger
 from torchrecsys_tpu_torch.utils.permute import random_permutation, round_keys
+from torchrecsys_tpu_torch.utils.profiling import default_trace_dir, op_summary, trace
 
-log = logging.getLogger("torchrecsys_tpu_torch.train")
+log = get_logger("torchrecsys_tpu_torch.train")
 
 TrainState = Dict[str, Any]
 
@@ -387,13 +389,20 @@ class Trainer:
                 batches["neg_item_id"] = torch.as_tensor(negatives, device=self.device).long()
             else:
                 batches["neg_item_id"] = self._sample_negs(gen, batches["pos_item_id"], feat)
-        rows = None
-        if self.mesh is not None:  # the whole epoch drawn alike on every rank; keep this rank's rows
-            splits = batch_splits(b, self.mesh)
-            lo, hi = splits[self.mesh.data_rank]
-            batches = {k: v[..., lo:hi].contiguous() for k, v in batches.items()}
-            rows = [stop - start for start, stop in splits]
+        batches, rows = self._rank_rows(batches, b)
         return Epoch(batches, nb, b, weight_sums, rows)
+
+    def _rank_rows(
+        self, batches: Dict[str, torch.Tensor], b: int
+    ) -> Tuple[Dict[str, torch.Tensor], Optional[List[int]]]:
+        """On a mesh, this rank's ``data`` slice of every batch (the whole
+        batches are drawn alike on every rank) and every ``data`` rank's
+        row count; off a mesh the batches as they are and None."""
+        if self.mesh is None:
+            return batches, None
+        splits = batch_splits(b, self.mesh)
+        lo, hi = splits[self.mesh.data_rank]
+        return {k: v[..., lo:hi].contiguous() for k, v in batches.items()}, [stop - start for start, stop in splits]
 
     # ------------------------------------------------------------------
     def pack_state(self, state: TrainState) -> Dict[str, torch.Tensor]:
@@ -833,19 +842,28 @@ class Trainer:
         device scalar. ``keys`` (six Feistel round keys) default to a draw
         from the state's generator, and the in-training negatives to draws
         from it too; tests pass the JAX package's keys and ``negatives``
-        (see :meth:`build_epoch`). The autograd steps run on the augmented
-        tables under rowwise adagrad with ``fused_embedding_update`` and f32
-        tables (:801-819), else on copies of the plain tables and their
-        optimizer state."""
+        (see :meth:`build_epoch`); :meth:`run_epoch` trains it."""
         gen = self._rng(state)
         if keys is None:
             keys = round_keys(gen)
         epoch = self.build_epoch(data, keys.to(self.device), gen, feat, negatives)
+        state, losses = self.run_epoch(state, epoch, feat)
+        return state, losses.mean()
+
+    def run_epoch(
+        self, state: TrainState, epoch: Epoch, feat: Optional[Features]
+    ) -> Tuple[TrainState, torch.Tensor]:
+        """Every batch of ``epoch`` through the step this config trains
+        with; returns the new state and the step losses as a device tensor.
+        The fused pairwise step runs on the packed tables; the autograd
+        steps on the augmented tables under rowwise adagrad with
+        ``fused_embedding_update`` and f32 tables (:801-819), else on copies
+        of the plain tables and their optimizer state."""
         # the mesh wrappers take a batch that divides data; JAX's XLA step the rest (:690-691)
         if self._fused and (self.mesh is None or epoch.b % self.mesh.shape["data"] == 0):
             packed = self.pack_state(state)
             losses = self.run_steps(packed, epoch, feat, step0=state["step"])
-            return self.unpack_state(state, packed, epoch.nb), losses.mean()
+            return self.unpack_state(state, packed, epoch.nb), losses
         augmented = self.cfg.fused_embedding_update and supports_fused_layout(
             self.cfg.embedding_optimizer, state["tables"]
         )
@@ -860,7 +878,41 @@ class Trainer:
         if augmented:
             tables, emb_opt = split_augmented(tables)
         new.update(tables=tables, emb_opt=emb_opt, step=state["step"] + epoch.nb)
-        return new, losses.mean()
+        return new, losses
+
+    def train_step(
+        self, state: TrainState, batch: Dict[str, Any], feat: Optional[Features] = None
+    ) -> Tuple[TrainState, torch.Tensor]:
+        """One batch through the step the epoch runs for this config
+        (:358-366); returns the new state (``step`` + 1) and the loss as a
+        device scalar. ``batch`` holds (b,) arrays or tensors ``user_id``,
+        ``pos_item_id`` and, for a pairwise loss, ``neg_item_id``: the
+        static negatives, used unless the config draws its negatives in
+        training (:436-439; (K, b) for K draws), else drawn from the
+        state's generator; optional ``_w`` (per-row weights) and
+        ``_order`` (the row order to apply first). ``feat``: the model's
+        :meth:`feature_tables` (needed with metadata or history). On the
+        card a Linear/FM pairwise batch is one call of the fused step
+        kernel, a softmax batch launches the CE kernels, an MLP batch under
+        AMP the tower kernels."""
+        bt = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        order = bt.pop("_order", None)
+        if order is not None:
+            bt = {k: v[..., order.long()] for k, v in bt.items()}
+        w = bt.pop("_w", None)
+        b = int(bt["pos_item_id"].shape[-1])
+        batches = {k: bt[k].long().unsqueeze(0) for k in ("user_id", "pos_item_id", "neg_item_id") if k in bt}
+        if self._softmax or self._in_step_negs:
+            batches.pop("neg_item_id", None)
+        if not self._softmax and "neg_item_id" not in batches:
+            batches["neg_item_id"] = self._sample_negs(self._rng(state), batches["pos_item_id"], feat)
+        weight_sums = None
+        if w is not None:
+            batches["_w"] = w.float().unsqueeze(0)
+            weight_sums = [float(batches["_w"].sum())]
+        batches, rows = self._rank_rows(batches, b)
+        state, losses = self.run_epoch(state, Epoch(batches, 1, b, weight_sums, rows), feat)
+        return state, losses[0]
 
     def fit(
         self,
@@ -868,25 +920,38 @@ class Trainer:
         store: InteractionStore,
         epochs: Optional[int] = None,
         verbose: bool = True,
+        profile_dir: Optional[str] = None,
     ) -> Tuple[TrainState, List[float]]:
-        """Host loop over epochs (:822-869): per-epoch mean losses. With
-        ``verbose`` each epoch's loss is read (one sync per epoch) and
-        logged; otherwise all are read at the end."""
+        """Host loop over epochs (:822-869): per-epoch mean losses. Without
+        ``verbose`` or profiling every epoch is dispatched back to back and
+        the losses are read once at the end. Otherwise each epoch's loss is
+        read at its end (one sync per epoch) and, with ``verbose``, logged;
+        each epoch below ``cfg.profile_epochs`` runs inside
+        :func:`~torchrecsys_tpu_torch.utils.profiling.trace` into
+        ``profile_dir`` (default ``<temp dir>/torchrecsys_tpu_torch_trace``),
+        its loss read inside the trace, and after the last of them the
+        per-op digest is logged once. Profiling changes no number."""
         epochs = self.cfg.epochs if epochs is None else epochs
         data = self._device_train_data(store)
         feat = self.feature_tables(store)
-        device_losses = []
+        if not verbose and self.cfg.profile_epochs <= 0:
+            device_losses = []
+            for _ in range(epochs):
+                state, loss = self.train_epoch(state, data, feat)
+                device_losses.append(loss)
+            return state, [float(x) for x in torch.stack(device_losses).cpu()] if device_losses else []
+        profile_dir = profile_dir or default_trace_dir()
         out: List[float] = []
         for epoch in range(epochs):
+            profiling = epoch < self.cfg.profile_epochs
             t0 = time.perf_counter()
-            state, loss = self.train_epoch(state, data, feat)
+            with trace(profile_dir) if profiling else contextlib.nullcontext():
+                state, loss = self.train_epoch(state, data, feat)
+                out.append(float(loss))  # blocks: the trace holds the whole epoch
             if verbose:
-                out.append(float(loss))
                 log.info("epoch %d: loss=%.5f (%.2fs)", epoch, out[-1], time.perf_counter() - t0)
-            else:
-                device_losses.append(loss)
-        if not verbose:
-            out = [float(x) for x in torch.stack(device_losses).cpu()] if device_losses else []
+            if profiling and epoch == self.cfg.profile_epochs - 1:
+                log.info("per-op device time digest:\n%s", op_summary(profile_dir))
         return state, out
 
     def fit_streaming(

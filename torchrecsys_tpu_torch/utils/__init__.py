@@ -1,1 +1,2 @@
-"""Weight carry-over from the JAX package."""
+"""Checkpoints, weight carry-over from the JAX package, the Feistel
+permutation, logging, profiling and the trace reader."""
