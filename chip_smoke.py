@@ -508,14 +508,27 @@ def check_topk_call(torch, fn, u_, i_, ib, k, m, exact):
 
 # Edge shapes of the top-k kernels: (U, N, D). A partial user tile (U = 1,
 # 257), a partial item tile and split (N = 1,000,003), rows that are not
-# whole 16-byte units (D = 13: the wrapper pads them), D = 84, one whole
-# 128-lane slab (D = 128), and rows of two and three slabs (D = 160:
-# NeuCF's item table at n_factors = 80; 256; 300 with a partial user tile).
+# whole 16-byte units (D = 13: the wrapper pads them), D = 84, the widest
+# one-unit row (D = 128), and the slab path (128-byte TMA boxes, two per
+# ring unit, an odd last box a tail unit): D = 136 (a tail of 8 f32
+# lanes), 160 (NeuCF's item table at n_factors = 80; a tail of 32), 192
+# (f32 without a tail), 256, and 300 with a partial user tile and the
+# stepped-down user tiles.
 TOPK_EDGES = ((1, 200_000, D), (257, 200_000, D), (U, 1_000_003, D), (U, 200_000, 13), (U, 200_000, 84),
-              (U, 200_000, 128), (U, 200_000, 160), (U, 200_000, 256), (257, 200_000, 300))
+              (U, 200_000, 128), (U, 200_000, 136), (U, 200_000, 160), (U, 200_000, 192), (U, 200_000, 256),
+              (257, 200_000, 300))
 WIDE_D = 160  # C1: the top-k kernels' D > 128 on the main path (Linear at n_factors=160; NeuCF's 2 x 80 items)
+TIMED_WIDE_DS = (WIDE_D, 256)  # the slab path's timed widths (256: a common retrieval width)
 WIDE_STEPS = 300  # the wide Linear's autograd steps of TRAIN_B before it serves
 TOPK_EDGE_KS = (10, 16, 17, 128, 1024)
+# The widest D that the top-k plan took with 128-lane slabs (before the
+# slab path's TMA boxes), per list length k (each k a buffer size of its
+# own): (k, f32, bf16). Every D up to it (a multiple of 4 for f32, 8 for
+# bf16) must still plan; TOPK_PAST_REACH must raise, for every k.
+TOPK_REACH = ((1, 2432, 11776), (16, 2432, 11776), (17, 2432, 11776), (64, 2432, 11776), (128, 2304, 11264),
+              (129, 2304, 11264), (192, 2304, 11264), (193, 2048, 10240), (448, 2048, 10240), (449, 1536, 8192),
+              (960, 1536, 8192), (961, 512, 4096), (1024, 512, 4096))
+TOPK_PAST_REACH = (8192, 32768)  # f32, bf16
 
 
 def kernel_phase(torch):
@@ -532,10 +545,10 @@ def kernel_phase(torch):
             for k in (10, 128, 1024):
                 fn = dt.dot_topk_small if k <= 16 else dt.dot_topk_large
                 if dev.type == "cuda" and not exact and m is None:
-                    splits, list_len, cap, smem, stages, keys = dt.plan(k > 16, U, N, D, dtype == torch.bfloat16, k)
-                    log(f"[kernel] {fn.__name__} k={k} {str(dtype).removeprefix('torch.')}: {splits} catalog "
-                        f"splits, lists of {list_len}, buffers of {cap} per user, {smem} B dynamic shared memory "
-                        f"per block, {stages} ring slots, {keys} published keys per user")
+                    p = dt.plan(k > 16, U, N, D, dtype == torch.bfloat16, k)
+                    log(f"[kernel] {fn.__name__} k={k} {str(dtype).removeprefix('torch.')}: {p.splits} catalog "
+                        f"splits, lists of {p.list_len}, buffers of {p.cap} per user, {p.smem} B dynamic shared "
+                        f"memory per block, {p.stages} ring slots, {p.keys} published keys per user")
                 err, mism = check_topk_call(torch, fn, u_, i_, ib, k, m, exact)
                 if not exact:
                     errs[fn.__name__] = max(errs[fn.__name__], err)
@@ -563,7 +576,28 @@ def kernel_phase(torch):
         log(f"[kernel] edge shape U={u} N={n} D={d}: random and exact, f32 and bf16, with and without a mask, "
             f"k in {TOPK_EDGE_KS}: every call matches, repeated calls bit-identical; max|dv|={worst:.3g}")
     log(f"[kernel] {edges} edge-shape calls checked")
+    plan_reach(dt)
     return errs
+
+
+def plan_reach(dt):
+    """Every (D, k, dtype) of TOPK_REACH still plans; a width past the
+    reach raises from the plan (no fallback)."""
+    t0, planned = time.perf_counter(), 0
+    for k, *reach in TOPK_REACH:
+        for bf16, most in ((False, reach[0]), (True, reach[1])):
+            for d in range(8 if bf16 else 4, most + 1, 8 if bf16 else 4):
+                dt.plan(k > 16, U, N, d, bf16, k)
+                planned += 1
+            past = TOPK_PAST_REACH[bf16]
+            try:
+                dt.plan(k > 16, U, N, past, bf16, k)
+            except ValueError:
+                continue
+            raise SmokeFailure(f"dot_topk plan: D={past} {'bf16' if bf16 else 'f32'} k={k} planned past the reach")
+    log(f"[kernel] plan reach: {planned} (D, k, dtype) of TOPK_REACH plan (every D up to the 128-lane slabs' widest, "
+        f"k in {[r[0] for r in TOPK_REACH]}), and D={TOPK_PAST_REACH[0]} f32 / {TOPK_PAST_REACH[1]} bf16 raises "
+        f"for every k, in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2344,8 +2378,8 @@ def neucf_path(torch, data):
     check(nonzero(scounts) == {"dot_topk_small": len(items)}, f"{label}: similar_items launched {scounts}")
     log(f"[main] {label}: evaluate {ev} in {eval_s:.3f} s = {st.num_test / eval_s:.1f} rows/s, with fixed "
         f"negatives {direct}; predict 16 users x {N} items top_k=10 in {pred_s:.3f} s; launches {counts}, "
-        f"{pcounts}; similar_items of {len(items)} items over the {2 * D}-wide item table (#1 in two 128-lane "
-        f"slabs) in {sim_s:.3f} s, each against the plain top-k; launches {nonzero(scounts)}")
+        f"{pcounts}; similar_items of {len(items)} items over the {2 * D}-wide item table (#1 on the slab "
+        f"path) in {sim_s:.3f} s, each against the plain top-k; launches {nonzero(scounts)}")
     return rs, {"examples_per_s": rate, "fit_s": fit_s, "eval_rows_per_s": st.num_test / eval_s,
                 "predict_s": pred_s, "auc": ev["auc"], "label": label, "similar_counts": scounts}
 
@@ -2373,8 +2407,8 @@ def wide_path(torch, data):
     """C1 on the main path: Linear at n_factors=WIDE_D from seeded tables,
     WIDE_STEPS steps of TRAIN_B (the autograd step: the step kernel takes
     124 lanes), then main_path's 40 predict batches of U users at top_k 10,
-    128 and exclude_seen through #1/#2 in two 128-lane slabs, a batch of
-    each held against the plain version. Returns the launches and rates."""
+    128 and exclude_seen through #1/#2 on the slab path, a batch of each
+    held against the plain version. Returns the launches and rates."""
     from torchrecsys_tpu_torch import RecSys
 
     label = f" Linear D={WIDE_D}"
@@ -3684,24 +3718,32 @@ def timing_phase(torch, rs, users_raw, launches, errs):
             f"{max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms at the CUDA cores' "
             f"{PEAK_F32_FLOPS / 1e12:.0f}); plain {plain_ms:.4f} ms; torch.topk(matmul) {library_ms:.4f} ms"
         )
-    # C1: the same calls at D = WIDE_D (two 128-lane slabs), random f32 vectors
+    # the slab path: the same calls at D = 160 and 256, random f32 vectors
     gen = torch.Generator(device=DEVICE).manual_seed(41)
-    uw, qw, ibw = (torch.randn(u, WIDE_D, generator=gen, device=DEVICE),
-                   torch.randn(n, WIDE_D, generator=gen, device=DEVICE), torch.randn(n, generator=gen, device=DEVICE))
-    for row in rows_out:
-        fn, k = getattr(dt, row["name"]), KERNEL_ROWS[row["name"]][1]
-        ms = cuda_ms(torch, lambda: fn(uw, qw, ibw, k))
-        plain_ms = cuda_ms(torch, lambda: dt.dot_topk_plain(uw, qw, ibw, k), reps=5)
-        library_ms = cuda_ms(torch, lambda: torch.topk(torch.matmul(uw, qw.T) + ibw, k, dim=1), reps=5)
-        flops, nbytes = 2.0 * u * n * WIDE_D, (u + n) * WIDE_D * 4 + n * 4 + u * k * 8
-        bound = max(flops / SPLIT_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        row[f"d{WIDE_D}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-                             "bound_by": "operations" if flops / SPLIT_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"}
-        log(f"[time] {row['name']} (U={u}, N={n}, D={WIDE_D}: two 128-lane slabs, k={k}, float32): {ms:.4f} ms; "
-            f"bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP at {SPLIT_F32_FLOPS / 1e12:.0f} TFLOP/s; the item "
-            f"stream {nbytes / PEAK_BYTES * 1e3:.4f} ms); plain {plain_ms:.4f} ms; torch.topk(matmul) "
-            f"{library_ms:.4f} ms")
-    del uw, qw, ibw
+    for wd in TIMED_WIDE_DS:
+        uw, qw, ibw = (torch.randn(u, wd, generator=gen, device=DEVICE),
+                       torch.randn(n, wd, generator=gen, device=DEVICE), torch.randn(n, generator=gen, device=DEVICE))
+        for row in rows_out:
+            fn, k = getattr(dt, row["name"]), KERNEL_ROWS[row["name"]][1]
+            ms = cuda_ms(torch, lambda: fn(uw, qw, ibw, k))
+            plain_ms = cuda_ms(torch, lambda: dt.dot_topk_plain(uw, qw, ibw, k), reps=5)
+            library_ms = cuda_ms(torch, lambda: torch.topk(torch.matmul(uw, qw.T) + ibw, k, dim=1), reps=5)
+            flops, nbytes = 2.0 * u * n * wd, (u + n) * wd * 4 + n * 4 + u * k * 8
+            bound = max(flops / SPLIT_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+            p = dt.plan(k > 16, u, n, wd, False, k)
+            row[f"d{wd}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                             "bound_by": "operations" if flops / SPLIT_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+                             "user_tile": p.user_tile, "ring_slots": p.stages, "slot_bytes": p.slot_bytes,
+                             "smem": p.smem}
+            log(f"[time] {row['name']} (U={u}, N={n}, D={wd}: the slab path, k={k}, float32): {ms:.4f} ms; "
+                f"bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP at {SPLIT_F32_FLOPS / 1e12:.0f} TFLOP/s; the item "
+                f"stream {nbytes / PEAK_BYTES * 1e3:.4f} ms); plain {plain_ms:.4f} ms; torch.topk(matmul) "
+                f"{library_ms:.4f} ms ({library_ms / ms:.2f}x the kernel's time)")
+            log(f"[kernel] slab plan D={wd} {row['name']} k={k} float32: {p.user_tile} users per block, "
+                f"{p.stages} ring slots of {p.slot_bytes} B (two 128-byte TMA boxes of 64 rows"
+                f"{'; the tail unit one' if -(-wd // 32) % 2 else ''}), {p.smem} B dynamic shared memory, "
+                f"{p.splits} catalog splits")
+        del uw, qw, ibw
     # the same calls on a bf16 catalog (the AMP models' predict): the users and items rounded to bf16
     ub, qb = uv.to(torch.bfloat16), q.to(torch.bfloat16)
     for row in rows_out:
@@ -5874,9 +5916,11 @@ def main() -> int:
             row["mesh_routes_6s"] = GEN_ROUTES[row["name"]]
             row["mesh_launches_6s"] = gen_extra.get(row["name"], 0)
         if row["name"].startswith("dot_topk"):
-            row["variants"] = ["D <= 128: one slab (k steps for D up to 32, 64, 80, 128)",
-                               f"D > 128: 128-lane slabs, the wgmma products of each slab added in registers, "
-                               f"every slab's user images resident (C1); timed at D={WIDE_D} as d{WIDE_D}"]
+            row["variants"] = ["D <= 128: one ring unit per tile (k steps for D up to 32, 64, 80, 128)",
+                               "D > 128: the slab path, 128-byte TMA boxes in the 128-byte swizzle, two per "
+                               "16 KB ring unit and an odd last one a tail unit, each unit's products added in "
+                               "registers, every unit's user images resident; timed at D="
+                               + " and ".join(f"{wd} as d{wd}" for wd in TIMED_WIDE_DS)]
         shapes = {k: v for k, v in {**mesh["timing"], **gen["timing"]}.items() if k.split(" ")[0] == row["name"]}
         if shapes:
             row["mesh_shapes"] = shapes

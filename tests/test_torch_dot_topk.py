@@ -189,9 +189,10 @@ def test_large_random_matches_thresh(k):
     _assert_close_topk(v, i, rv, ri)
 
 
-@pytest.mark.parametrize("d", [160, 300])
+@pytest.mark.parametrize("d", [136, 160, 192, 300])
 def test_rows_wider_than_128_lanes_match_pallas(d):
-    """D above 128 (NeuCF's 2 x 80 item table; 300: a width the JAX
+    """D above 128 (136: the card's slab path ends in a tail of 8 f32
+    lanes; NeuCF's 2 x 80 item table; 192: no tail; 300: a width the JAX
     kernels pad to 384): exact integers give #1's ids and values exactly,
     random normals stay within tolerance of #1 and #2."""
     uv, iv, ib = _exact(9, 600, d, seed=d)
@@ -379,14 +380,19 @@ def cuda_device():
 @pytest.mark.parametrize(
     "u,n,d",
     [(40, 20000, 80), (1, 20000, 80), (257, 20000, 80), (40, 1_000_003, 80), (40, 20000, 13), (40, 20000, 84),
-     (40, 20000, 128), (40, 20000, 160), (40, 20000, 256)],
-    ids=["main", "U1", "U257", "N1000003", "D13", "D84", "D128", "D160", "D256"],
+     (40, 20000, 128), (40, 20000, 136), (40, 20000, 160), (40, 20000, 192), (40, 20000, 256), (40, 20000, 300),
+     (257, 20000, 300), (40, 20000, 1000)],
+    ids=["main", "U1", "U257", "N1000003", "D13", "D84", "D128", "D136", "D160", "D192", "D256", "D300",
+         "D300U257", "D1000"],
 )
 def test_kernel_matches_plain_on_card(cuda_device, k, dtype, masked, u, n, d):
     """Exact inputs: ids and values equal to the plain version's, at the
     main width and at edge shapes (a partial user tile, a partial item tile
-    and split, rows that are not whole 16-byte units, one whole 128-lane
-    slab, rows of two slabs); a repeated call gives the same bits."""
+    and split, rows that are not whole 16-byte units, the widest one-unit
+    row), and on the slab path: a tail unit of 8 f32 lanes (136), of 32
+    (160), none (192, 256), half-size user tiles (300, also with a partial
+    user tile) and the 8-user tile of one warpgroup (1000 f32, k <= 16); a
+    repeated call gives the same bits."""
     uv, iv, ib = (torch.from_numpy(a).to(cuda_device) for a in _exact(u, n, d, seed=k))
     uv, iv = uv.to(dtype), iv.to(dtype)
     mask = None
@@ -401,3 +407,34 @@ def test_kernel_matches_plain_on_card(cuda_device, k, dtype, masked, u, n, d):
     assert fn.launches == before + 2
     assert torch.equal(i, pi) and torch.equal(v, pv)
     assert torch.equal(i2, i) and torch.equal(v2, v)
+
+
+# The widest D that the plan took with 128-lane slabs (before the slab
+# path's TMA boxes), per list length k (each k a buffer size of its own):
+# (k, f32, bf16). chip_smoke.py's TOPK_REACH holds the same grid.
+_PLAN_REACH = ((1, 2432, 11776), (16, 2432, 11776), (17, 2432, 11776), (64, 2432, 11776), (128, 2304, 11264),
+               (129, 2304, 11264), (192, 2304, 11264), (193, 2048, 10240), (448, 2048, 10240),
+               (449, 1536, 8192), (960, 1536, 8192), (961, 512, 4096), (1024, 512, 4096))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_plan_keeps_its_reach_on_card(cuda_device, bf16):
+    """Every (D, k, dtype) of _PLAN_REACH plans (every D up to the old
+    widest, a multiple of 4 for f32, 8 for bf16), and a row past the reach
+    raises from the plan: no fallback. A call planned before the grid
+    launches again after it: planning smaller shapes of the same kernel
+    variant leaves its shared memory opt-in where the cached plan needs it."""
+    step, past = (8, 32768) if bf16 else (4, 8192)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    uv, iv, ib = (torch.from_numpy(a).to(cuda_device) for a in _exact(256, 20000, 80, seed=3))
+    uv, iv = uv.to(dtype), iv.to(dtype)
+    v0, i0 = tdt.dot_topk_large(uv, iv, ib, 128)
+    for k, *reach in _PLAN_REACH:
+        for d in range(step, reach[bf16] + 1, step):
+            tdt.plan(k > 16, 256, 20000, d, bf16, k)
+        with pytest.raises(ValueError, match="no kernel variant"):
+            tdt.plan(k > 16, 256, 20000, past, bf16, k)
+    v1, i1 = tdt.dot_topk_large(uv, iv, ib, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(i1, i0) and torch.equal(v1, v0)

@@ -16,13 +16,14 @@
 // 98-109). Both TPU kernels become one kernel here, dot_topk_tc_kernel,
 // whose per-user list length is 16 for #1 and k for #2.
 //
-// Any D (a multiple of 4 for f32, 8 for bf16: the wrapper zero-pads): a
-// row wider than 128 lanes is scored in 128-lane slabs, the last one
-// zero-padded, with the wgmma accumulators carried from slab to slab. Each
-// slab of an item tile is one ring slot, filled by one bulk copy per row
-// (a slab's lanes are not contiguous in the (N, D) table); the users'
-// images of every slab stay resident, in the same permuted-k layout per
-// slab, so the user tile shrinks as D grows (plan_nk).
+// Any D (a multiple of 4 for f32, 8 for bf16: the wrapper zero-pads). A
+// row wider than 128 lanes (the slab path) is cut into 128-byte columns
+// (32 f32 or 64 bf16 lanes): a tile's column is one TMA box of 64 rows x
+// 128 bytes, loaded in the 128-byte swizzle with rows past N and lanes past
+// D zero-filled. Two boxes make a ring unit (8 k steps), and an odd last
+// box is a narrow tail unit (4 k steps), so D = 160 f32 computes 160 lanes.
+// The users' images of every unit stay resident, each in its own
+// permuted-k layout; the user tile is the largest that fits (plan_slabs).
 //
 // Bound at the main path (U=256, N=1,000,000, D=80): 2.U.N.D = 40.96 GFLOP
 // of f32-accurate products. As 3xTF32 on the tensor cores (three TF32
@@ -56,6 +57,20 @@
 //   permutation, so the dot products are unchanged. The producer
 //   warpgroup gives its registers to the two consumer warpgroups
 //   (setmaxnreg).
+// - The slab path (D > 128) keeps that shape. The producer's thread loads
+//   each unit of a tile with one cp.async.bulk.tensor per 128-byte box
+//   from a TMA map (a __grid_constant__ parameter, encoded once per table
+//   by the wrapper), which zero-fills rows past N and lanes past D and
+//   lays each box row out in the 128-byte swizzle: a warp's 16-byte loads
+//   (chunk c of row r at (c ^ (r & 7)) * 16) then fall on 8 distinct bank
+//   groups, where plain rows of 256 or 512 bytes would put them on 1 or 2.
+//   A 16 KB unit is two boxes (8 k steps, one pass); an odd last box is a
+//   tail unit (4 k steps), so a row computes its width rounded up to 32
+//   f32 or 64 bf16 lanes, not to 128. Each unit's products start from zero
+//   and are added into registers after its pass. Every unit's user images
+//   stay resident: the plan keeps the D <= 128 tiles (64 users for k <=
+//   16, 32 for k <= 128) while they fit beside two ring slots, then halves
+//   them, then takes the 8-user tile of one warpgroup.
 // - Two warpgroups take alternate item tiles, so one's selection runs
 //   under the other's products; each keeps its own per-user state and the
 //   two lists are merged at the end of the block.
@@ -85,17 +100,24 @@
 //   the merge: three launches per call, and no atomic decides a result
 //   (the published bounds only prune items that cannot be in the top k):
 //   repeated calls give the same bits.
-// What still holds it back (PERF.md): the products reach about 40% of the
-// 3xTF32 rate (a 64 x 64 x 8 wgmma with A from registers does little work
-// per instruction, and each warpgroup waits for its products before its
-// selection); the selection's slow path, the compactions and the sorts of
-// published keys run on the CUDA cores beside them; the 32-user tiles of
-// 16 < k <= 128 do half the work per A fragment.
+// What still holds it back (PERF.md): a call of #1 runs at about 28% of
+// the 3xTF32 bound, at D = 80 and 160 alike (a 64 x 64 x 8 wgmma with A
+// from registers does little work per instruction, and each warpgroup
+// waits for its products before its selection and, on the slab path,
+// after every unit); the selection's slow path, the compactions and the
+// sorts of published keys run on the CUDA cores beside them; the 32-user
+// tiles of 16 < k <= 128 do half the work per A fragment, and on the slab
+// path their 256-entry buffers leave room for only two ring slots (fewer
+// entries or fewer users, for four slots, measured slower). A D <= 128
+// row is read unswizzled (rows of 512 bytes at D = 128 put a warp's loads
+// on one bank group).
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <algorithm>
 
@@ -108,8 +130,12 @@ constexpr float kNegInf = -3.40282346638528859811704183484516925e+38f;
 constexpr int kIntMax = 0x7fffffff;
 constexpr int kMaskTile = 4096;             // ops/dot_topk.py:59
 constexpr int kMaskWords = kMaskTile / 32;  // 128 words per mask tile
-constexpr int kSlab = 128;                  // lanes of one D slab: wider rows are scored slab by slab
+constexpr int kSlab = 128;                  // lanes up to which a row is one ring unit; wider rows take the slab path
 constexpr int kTile = 64;                   // items per tile: wgmma's M
+constexpr int kBoxBytes = 128;              // slab path: bytes of a TMA box's row (the 128-byte swizzle's span)
+constexpr int kBoxTile = kTile * kBoxBytes; // bytes of one box: 64 rows
+constexpr int kUnitK = 8;                   // slab path: k steps of a two-box ring unit (a tail unit takes 4)
+constexpr int kSlabStages = 2;              // ring slots a slab-path user tile needs before a smaller tile is tried
 constexpr int kConsumers = 128;             // threads of one warpgroup
 constexpr int kSmemLimit = 232448;          // a block's shared memory on sm_90
 constexpr int kSmallList = 16;              // entries kept per (user, split) for k <= 16
@@ -514,6 +540,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
                : "memory");
 }
 
+// One TMA box of ``map`` (a __grid_constant__ parameter: the copy engine
+// reads the map there) at element column x, row y, into shared memory at
+// ``dst``, counted on ``bar``. Lanes and rows outside the tensor arrive as
+// zeros and count as bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Named barriers: 3 + wg synchronises one warpgroup, 5 the two consumer
 // warpgroups.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -557,8 +595,7 @@ struct Elt<__nv_bfloat16> {
 };
 
 // k steps of each variant: D up to 32, 64, 80 (the reference default
-// n_factors) and 128, zero-padded past D; a wider D takes the 128-lane
-// variant once per slab (the last slab zero-padded).
+// n_factors) and 128, zero-padded past D (a wider D takes the slab path).
 template <typename T>
 int pick_nk(int D) {
   const int s = Elt<T>::step;
@@ -567,8 +604,16 @@ int pick_nk(int D) {
   return kSlab / s;
 }
 
-// 128-lane slabs of a row of D.
-__host__ __device__ inline int slabs_of(int D) { return D > kSlab ? (D + kSlab - 1) / kSlab : 1; }
+// Slab path: lanes of one 128-byte box, and the boxes of a row of D (the
+// last one zero-filled past D by the copy engine).
+template <typename T>
+__host__ __device__ constexpr int box_lanes() {
+  return kBoxBytes / (int)sizeof(T);
+}
+template <typename T>
+int boxes_of(int D) {
+  return (D + box_lanes<T>() - 1) / box_lanes<T>();
+}
 
 // Bytes of one user's image row: the logical k extent rounded up to whole
 // 128-byte swizzle rows.
@@ -623,8 +668,8 @@ struct Args {
   int tiles_per_split;
   int stages;            // ring slots, stages / NWG per consumer warpgroup
   int slot_bytes;
-  int nslab;             // 128-lane slabs of a row (1 for D <= 128)
-  int rs;                // a ring slot's row stride in elements: D, or kSlab for slabs
+  int units;             // slab path: two-box units of a row
+  int tail;              // slab path: 1 where an odd last box makes a tail unit of NK / 2 k steps
   float* part_v;         // (U, S, L)
   int* part_i;
 };
@@ -652,23 +697,160 @@ __device__ __forceinline__ void load_run(const T* row, int t, int D, int w0, uin
 
 __device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(__float_as_uint(x) & 0xffffe000u); }
 
+// The users' image of one unit of NK k steps (a D <= 128 row, or one
+// slab-path unit starting at dim d0), written by ``nthreads`` threads in
+// the 128-byte swizzle, 16 bytes at a time: unit q of user n's row sits at
+// (q / 8) * UT * 128 + n * 128 + ((q ^ n) & 7) * 16 from ``img``; f32
+// keeps the big parts there and the small parts UT * KB bytes on.
+template <typename T, int NK, int UT>
+__device__ __forceinline__ void fill_image(uint8_t* img, const T* users, int u0, int U, int D, int d0, int tid,
+                                           int nthreads) {
+  constexpr int KB = image_row_bytes<T, NK>();
+  constexpr int EPU = 16 / sizeof(T);  // elements per 16-byte unit
+  constexpr int QU = KB / 16;          // units of one user's row
+  for (int e = tid; e < UT * QU; e += nthreads) {
+    const int n = e / QU, q = e - n * QU, u = u0 + n;
+    uint8_t* dst = img + (q >> 3) * (UT * 128) + n * 128 + (((q & 7) ^ (n & 7)) << 4);
+    alignas(16) T x[EPU];
+#pragma unroll
+    for (int i = 0; i < EPU; ++i) {
+      const int l = q * EPU + i;
+      const int d = l < Elt<T>::step * NK ? d0 + perm_k<T, NK>(l) : D;
+      x[i] = (u < U && d < D) ? users[(size_t)u * D + d] : T(0.0f);
+    }
+    if constexpr (Elt<T>::step == 8) {
+      float4 big, small;
+      float* bp = reinterpret_cast<float*>(&big);
+      float* sp = reinterpret_cast<float*>(&small);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        bp[i] = tf32_big(x[i]);
+        sp[i] = tf32_big(x[i] - bp[i]);
+      }
+      *reinterpret_cast<float4*>(dst) = big;
+      *reinterpret_cast<float4*>(dst + UT * KB) = small;
+    } else {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(x);
+    }
+  }
+}
+
+// Slab path: the 2 NK words of lane t's run (C = step NK / 4 elements from
+// t C, as load_run gives them) of row r of a ring unit, whose boxes lie
+// kBoxTile bytes apart, each row's 16-byte chunks placed by the copy
+// engine's 128-byte swizzle (chunk c at (c ^ (r & 7)) * 16). Rows r and
+// r + 8 share that pattern, and a warp's 32 loads of one step fall on 8
+// distinct chunks of 4 banks: no bank conflicts.
+template <typename T, int NK>
+__device__ __forceinline__ void load_box_run(const uint8_t* unit, int r, int t, uint32_t (&w)[2 * NK]) {
+  constexpr int RB = Elt<T>::step * NK / 4 * (int)sizeof(T);  // bytes of a lane's run: 64 or 32
+  const uint8_t* row = unit + (t * RB / kBoxBytes) * kBoxTile + r * kBoxBytes;
+  const int c0 = (t * RB % kBoxBytes) / 16;
+#pragma unroll
+  for (int v = 0; v < RB / 16; ++v) {
+    const uint4 x = *reinterpret_cast<const uint4*>(row + (((c0 + v) ^ (r & 7)) << 4));
+    w[4 * v] = x.x;
+    w[4 * v + 1] = x.y;
+    w[4 * v + 2] = x.z;
+    w[4 * v + 3] = x.w;
+  }
+}
+
+// acc0 (even k steps) and acc1 (odd) (+)= A . image for the KC k steps
+// from k0; ``first`` starts each chain from zero at k steps 0 and 1.
+template <typename T, int UT, int KC, int NA>
+__device__ __forceinline__ void mma_chain(float (&acc0)[NA], float (&acc1)[NA], const uint32_t (&A)[KC][4],
+                                          const uint8_t* img, int k0, bool first) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    const int kk = k0 + kc;
+    const uint64_t db = kmajor_desc(img + (kk >> 2) * (UT * 128) + (kk & 3) * 32);
+    if (kk & 1)
+      wgmma(acc1, A[kc], db, first ? kk > 1 : 1, T{});
+    else
+      wgmma(acc0, A[kc], db, first ? kk > 1 : 1, T{});
+  }
+}
+
+// One pass of KC k steps from k0: the A fragments (rows 16 warp + g and
+// + 8) from the words w0 / w1 of load_run or load_box_run, split for f32
+// into big and small parts in registers, times the users' image (big at
+// img_big; f32: small at img_small), into acc0 + acc1; returns once the
+// products are done.
+template <typename T, int UT, int KC, int NA>
+__device__ __forceinline__ void pass_products(float (&acc0)[NA], float (&acc1)[NA], const uint32_t (&w0)[2 * KC],
+                                              const uint32_t (&w1)[2 * KC], const uint8_t* img_big,
+                                              const uint8_t* img_small, int k0) {
+  constexpr bool F32 = Elt<T>::step == 8;
+  uint32_t ab[KC][4];
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    ab[kk][0] = w0[2 * kk];
+    ab[kk][1] = w1[2 * kk];
+    ab[kk][2] = w0[2 * kk + 1];
+    ab[kk][3] = w1[2 * kk + 1];
+  }
+  uint32_t as[F32 ? KC : 1][4];  // f32: the items' small parts
+  if constexpr (F32) {
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = __uint_as_float(ab[kk][r]);
+        as[kk][r] = __float_as_uint(x - tf32_big(x));
+      }
+  }
+  wg_fence();
+  if constexpr (F32) {  // items . users: the small terms first
+    mma_chain<T, UT>(acc0, acc1, as, img_big, k0, true);
+    mma_chain<T, UT>(acc0, acc1, ab, img_small, k0, false);
+    mma_chain<T, UT>(acc0, acc1, ab, img_big, k0, false);
+  } else {
+    mma_chain<T, UT>(acc0, acc1, ab, img_big, k0, true);
+  }
+  wg_commit();
+  wg_wait0();
+  // the tensor cores read A from these registers until the wait: keep the
+  // compiler from reusing them before it
+  fence_regs(ab);
+  if constexpr (F32) fence_regs(as);
+}
+
+// Slab path: the products of one ring unit of NK k steps with the users'
+// image at ``img``, into acc0 + acc1 from zero, as one pass. The slot is
+// freed as soon as the A fragments are in registers (after a proxy fence:
+// the next TMA write into it is another proxy's).
+template <typename T, int NK, int UT, int NA>
+__device__ __forceinline__ void unit_products(float (&acc0)[NA], float (&acc1)[NA], const uint8_t* unit,
+                                              const uint8_t* img, uint64_t* empty_bar, int warp, int g, int t) {
+  uint32_t w0[2 * NK], w1[2 * NK];
+  load_box_run<T, NK>(unit, 16 * warp + g, t, w0);
+  load_box_run<T, NK>(unit, 16 * warp + g + 8, t, w1);
+  fence_async();
+  mbar_arrive(empty_bar);
+  pass_products<T, UT, NK>(acc0, acc1, w0, w1, img, img + UT * image_row_bytes<T, NK>(), 0);
+}
+
 // Block (user tile of UT, catalog split): NWG consumer warpgroups and one
 // producer warpgroup. See the file header for the design. SLABS: rows
-// wider than 128 lanes, scored slab by slab (NK = 128 lanes' k steps).
+// wider than 128 lanes, scored in two-box units of NK = kUnitK k steps,
+// then, with a.tail, one tail unit of NK / 2 (one box).
 template <typename T, int NK, int UT, int NWG, int CAP, bool SLABS>
-__global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(const Args a) {
+__global__ void __launch_bounds__((NWG + 1) * kConsumers, 1)
+    dot_topk_tc_kernel(const Args a, const __grid_constant__ CUtensorMap items_map) {
   constexpr int NA = UT / 2;  // accumulators per thread
   constexpr int NJ = UT / 8;  // 8-user column groups
-  constexpr int KB = image_row_bytes<T, NK>();
-  constexpr int IMG = UT * KB;  // bytes of one user image of one slab
-  constexpr int IMGS = Elt<T>::imgs * IMG;  // bytes of a slab's images
+  constexpr int IMG = UT * image_row_bytes<T, NK>();  // bytes of one user image of one unit
+  constexpr int IMGS = Elt<T>::imgs * IMG;            // bytes of a unit's images
+  constexpr int IMGS_TAIL = Elt<T>::imgs * UT * image_row_bytes<T, NK / 2>();
   constexpr int NC = NWG * kConsumers;
-  constexpr bool F32 = Elt<T>::step == 8;
-  constexpr int KC = NK > 10 ? NK / 2 : NK;  // k steps per pass
+  constexpr int KC = NK > 10 ? NK / 2 : NK;  // k steps per pass (D <= 128)
+  static_assert(!SLABS || NK == kUnitK, "the slab path's units take kUnitK k steps");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int ns = SLABS ? a.nslab : 1, R = a.stages / NWG;  // slabs; ring slots of a warpgroup
-  const Layout lay = layout(ns * IMGS, a.slot_bytes, a.stages, NWG * UT, a.cap);
+  // the slab path's two-box units and tail unit; ring slots of a warpgroup
+  const int nu = SLABS ? a.units : 1, tail = SLABS ? a.tail : 0, R = a.stages / NWG;
+  const Layout lay = layout(nu * IMGS + tail * IMGS_TAIL, a.slot_bytes, a.stages, NWG * UT, a.cap);
   uint8_t* ring = base + lay.ring;
   float* buf_v = reinterpret_cast<float*>(base + lay.buf);
   int* buf_i = reinterpret_cast<int*>(buf_v + NWG * UT * a.cap);
@@ -691,37 +873,13 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (tid < NC) {
-    // the users' images, slab by slab, 16 bytes at a time: unit q of user
-    // n's row of slab sl sits at sl * IMGS + (q / 8) * IMG / (KB / 128) +
-    // n * 128 + ((q ^ n) & 7) * 16
+    // the users' images: unit j (dims from j * 2 box_lanes) at j * IMGS,
+    // the tail after the last
     const T* users = static_cast<const T*>(a.users);
-    constexpr int EPU = 16 / sizeof(T);  // elements per 16-byte unit
-    constexpr int UNITS = UT * (KB / 16);  // units of one slab's image
-    for (int e = tid; e < ns * UNITS; e += NC) {
-      const int sl = e / UNITS, n = (e - sl * UNITS) / (KB / 16), q = e - sl * UNITS - n * (KB / 16), u = u0 + n;
-      uint8_t* dst = base + sl * IMGS + (q >> 3) * (UT * 128) + n * 128 + (((q & 7) ^ (n & 7)) << 4);
-      alignas(16) T x[EPU];
-#pragma unroll
-      for (int i = 0; i < EPU; ++i) {
-        const int l = q * EPU + i;
-        const int d = l < Elt<T>::step * NK ? sl * kSlab + perm_k<T, NK>(l) : D;
-        x[i] = (u < a.U && d < D) ? users[(size_t)u * D + d] : T(0.0f);
-      }
-      if constexpr (F32) {
-        float4 big, small;
-        float* bp = reinterpret_cast<float*>(&big);
-        float* sp = reinterpret_cast<float*>(&small);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          bp[i] = tf32_big(x[i]);
-          sp[i] = tf32_big(x[i] - bp[i]);
-        }
-        *reinterpret_cast<float4*>(dst) = big;
-        *reinterpret_cast<float4*>(dst + IMG) = small;
-      } else {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(x);
-      }
-    }
+    for (int j = 0; j < nu; ++j)
+      fill_image<T, NK, UT>(base + j * IMGS, users, u0, a.U, D, j * 2 * box_lanes<T>(), tid, NC);
+    if (SLABS && tail)
+      fill_image<T, NK / 2, UT>(base + nu * IMGS, users, u0, a.U, D, nu * 2 * box_lanes<T>(), tid, NC);
     for (int i = tid; i < NWG * UT * cap; i += NC) {
       buf_v[i] = sentinel_value();
       buf_i[i] = kIntMax;
@@ -734,36 +892,33 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
   }
   __syncthreads();
 
-  if (tid >= NC) {  // the producer warpgroup: its first warp fills the ring
+  if (tid >= NC) {  // the producer warpgroup: one thread fills the ring
     if (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid < NC + 32) {
+    if (tid == NC) {
       // Tile i goes to warpgroup i % NWG, whose ring is slots w, w + NWG,
-      // ...: its jj-th (tile, slab) lands in slot w + NWG (jj % R), so each
+      // ...: its jj-th (tile, unit) lands in slot w + NWG (jj % R), so each
       // warpgroup waits on its own slots in order and no wait can see a
       // phase a lap ahead. A row of D <= 128 arrives as one contiguous
-      // copy of the tile; a slab as one copy per row (its 128 lanes are
-      // not contiguous in the (N, D) table), issued by the warp's lanes.
-      const int lane = tid - NC;
+      // bulk copy of the tile; a slab-path unit as one TMA box per 128-byte
+      // column (two, or one for the tail).
       const T* items = static_cast<const T*>(a.items);
+      const int units = nu + tail;
       for (int i = 0; i < nt; ++i) {
-        const int g0 = (tile0 + i) * kTile, rows = min(kTile, a.N - g0);
-        for (int sl = 0; sl < ns; ++sl) {
-          const int jj = (i / NWG) * ns + sl, slot = i % NWG + NWG * (jj % R);
+        const int g0 = (tile0 + i) * kTile;
+        for (int j = 0; j < units; ++j) {
+          const int jj = (i / NWG) * units + j, slot = i % NWG + NWG * (jj % R);
           if (jj >= R) mbar_wait(empty + slot, (jj / R - 1) & 1);
           uint8_t* dst = ring + slot * a.slot_bytes;
-          if (ns == 1) {
-            if (lane == 0) {
-              const int bytes = rows * D * (int)sizeof(T);
-              mbar_expect_tx(full + slot, bytes);
-              bulk_load(dst, items + (size_t)g0 * D, bytes, full + slot);
-            }
-            continue;
+          if constexpr (SLABS) {
+            const int boxes = j < nu ? 2 : 1;
+            mbar_expect_tx(full + slot, boxes * kBoxTile);
+            for (int b = 0; b < boxes; ++b)
+              tma_load(dst + b * kBoxTile, &items_map, (2 * j + b) * box_lanes<T>(), g0, full + slot);
+          } else {
+            const int bytes = min(kTile, a.N - g0) * D * (int)sizeof(T);
+            mbar_expect_tx(full + slot, bytes);
+            bulk_load(dst, items + (size_t)g0 * D, bytes, full + slot);
           }
-          const int rb = min(kSlab, D - sl * kSlab) * (int)sizeof(T);
-          if (lane == 0) mbar_expect_tx(full + slot, rows * rb);
-          __syncwarp();
-          for (int r = lane; r < rows; r += 32)
-            bulk_load(dst + r * kSlab * (int)sizeof(T), items + (size_t)(g0 + r) * D + sl * kSlab, rb, full + slot);
         }
       }
     }
@@ -857,23 +1012,48 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
   load_bias(wg, next_bias);
 
   // two accumulator chains (even and odd k steps), so that two products
-  // of a warpgroup are in flight at a time. Across slabs the scores carry
-  // over in sc, outside the accumulators: each slab's products start
-  // from zero, so no accumulator lives across the runtime slab loop (ptxas
-  // would serialise the wgmmas of such a loop)
+  // of a warpgroup are in flight at a time. On the slab path the scores
+  // carry over from unit to unit in sc, outside the accumulators: each
+  // unit's products start from zero, so no accumulator lives across the
+  // runtime unit loop (ptxas would serialise the wgmmas of such a loop)
   float acc0[NA], acc1[NA];
   float sc[SLABS ? NA : 1];
-  int jj = 0;  // this warpgroup's (tile, slab) count: its ring position
+  int jj = 0;  // this warpgroup's (tile, unit) count: its ring position
   for (int i = wg; i < nt; i += NWG) {
     const float bias[2] = {next_bias[0], next_bias[1]};
     load_bias(i + NWG, next_bias);
-    // slab by slab (one slab for D <= 128)
-    for (int sl = 0; sl < ns; ++sl, ++jj) {
+    if constexpr (SLABS) {
+      auto add_unit = [&](bool first) {
+        fence_acc(acc0);
+        fence_acc(acc1);
+#pragma unroll
+        for (int x = 0; x < NA; ++x) sc[x] = (first ? 0.0f : sc[x]) + (acc0[x] + acc1[x]);
+      };
+      for (int j = 0; j < nu; ++j, ++jj) {
+        const int slot = wg + NWG * (jj % R);
+        mbar_wait(full + slot, (jj / R) & 1);
+        unit_products<T, NK, UT>(acc0, acc1, ring + slot * a.slot_bytes, base + j * IMGS, empty + slot, warp, g, t);
+        add_unit(j == 0);
+      }
+      if (tail) {  // a kernel parameter: uniform, so its wgmmas stay asynchronous
+        const int slot = wg + NWG * (jj % R);
+        mbar_wait(full + slot, (jj / R) & 1);
+        ++jj;
+        unit_products<T, NK / 2, UT>(acc0, acc1, ring + slot * a.slot_bytes, base + nu * IMGS, empty + slot, warp,
+                                     g, t);
+        add_unit(false);
+      }
+#pragma unroll
+      for (int x = 0; x < NA; ++x) {  // the gate reads the scores from acc0 + acc1
+        acc0[x] = sc[x];
+        acc1[x] = 0.0f;
+      }
+    } else {
       const int slot = wg + NWG * (jj % R);
       mbar_wait(full + slot, (jj / R) & 1);
+      ++jj;
       const T* tile = reinterpret_cast<const T*>(ring + slot * a.slot_bytes);
-      const int dl = ns == 1 ? D : min(kSlab, D - sl * kSlab);  // this slab's lanes
-      const uint8_t* img_big = base + sl * IMGS;
+      const uint8_t* img_big = base;
       const uint8_t* img_small = img_big + IMG;
       // the products in passes of KC k steps: each pass's A fragments (rows
       // 16 warp + g, +8) come from the slot into registers, and a pass waits
@@ -881,70 +1061,15 @@ __global__ void __launch_bounds__((NWG + 1) * kConsumers, 1) dot_topk_tc_kernel(
 #pragma unroll
       for (int k0 = 0; k0 < NK; k0 += KC) {
         uint32_t w0[2 * KC], w1[2 * KC];
-        load_run<T, NK, 2 * KC>(tile + (16 * warp + g) * a.rs, t, dl, 2 * k0, w0);
-        load_run<T, NK, 2 * KC>(tile + (16 * warp + g + 8) * a.rs, t, dl, 2 * k0, w1);
+        load_run<T, NK, 2 * KC>(tile + (16 * warp + g) * D, t, D, 2 * k0, w0);
+        load_run<T, NK, 2 * KC>(tile + (16 * warp + g + 8) * D, t, D, 2 * k0, w1);
         if (k0 + KC >= NK) {
           // the tile now lives in registers: order these reads before the
           // producer's next bulk copy (another proxy) into the slot
           fence_async();
           mbar_arrive(empty + slot);
         }
-        uint32_t ab[KC][4];
-#pragma unroll
-        for (int kk = 0; kk < KC; ++kk) {
-          ab[kk][0] = w0[2 * kk];
-          ab[kk][1] = w1[2 * kk];
-          ab[kk][2] = w0[2 * kk + 1];
-          ab[kk][3] = w1[2 * kk + 1];
-        }
-        uint32_t as[F32 ? KC : 1][4];  // f32: the items' small parts
-        if constexpr (F32) {
-#pragma unroll
-          for (int kk = 0; kk < KC; ++kk)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float x = __uint_as_float(ab[kk][r]);
-              as[kk][r] = __float_as_uint(x - tf32_big(x));
-            }
-        }
-        wg_fence();
-#define TRS_MMA(A, IMG, FIRST)                                                         \
-  _Pragma("unroll") for (int kc = 0; kc < KC; ++kc) {                                  \
-    const int kk = k0 + kc;                                                            \
-    const uint64_t db = kmajor_desc((IMG) + (kk >> 2) * (UT * 128) + (kk & 3) * 32);   \
-    if (kk & 1)                                                                        \
-      wgmma(acc1, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                               \
-    else                                                                               \
-      wgmma(acc0, A[kc], db, (FIRST) ? kk > 1 : 1, T{});                               \
-  }
-        if constexpr (F32) {
-          // items . users: the small terms first
-          TRS_MMA(as, img_big, true)
-          TRS_MMA(ab, img_small, false)
-          TRS_MMA(ab, img_big, false)
-        } else {
-          TRS_MMA(ab, img_big, true)
-        }
-#undef TRS_MMA
-        wg_commit();
-        wg_wait0();
-        // the tensor cores read A from these registers until the wait: keep
-        // the compiler from reusing them before it
-        fence_regs(ab);
-        if constexpr (F32) fence_regs(as);
-      }
-      if constexpr (SLABS) {
-        fence_acc(acc0);
-        fence_acc(acc1);
-#pragma unroll
-        for (int x = 0; x < NA; ++x) sc[x] = (sl > 0 ? sc[x] : 0.0f) + (acc0[x] + acc1[x]);
-      }
-    }
-    if constexpr (SLABS) {  // the gate reads the scores from acc0 + acc1
-#pragma unroll
-      for (int x = 0; x < NA; ++x) {
-        acc0[x] = sc[x];
-        acc1[x] = 0.0f;
+        pass_products<T, UT, KC>(acc0, acc1, w0, w1, img_big, img_small, k0);
       }
     }
     const int gi[2] = {(tile0 + i) * kTile + 16 * warp + g, (tile0 + i) * kTile + 16 * warp + g + 8};
@@ -1110,7 +1235,7 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 // One call's plan: the kernel variant, its shared memory and grid.
 struct Plan {
   const void* fn;
-  int ut, nwg, L, cap, stages, slot_bytes, smem, user_tiles, total_tiles;
+  int ut, nwg, L, cap, stages, slot_bytes, smem, user_tiles, total_tiles, units, tail;
 };
 
 template <typename T, int NK, int UT, int NWG, int CAP, bool SLABS = false>
@@ -1121,10 +1246,19 @@ Plan plan_t(int N, int D, int L, int cap) {
   p.nwg = NWG;
   p.L = L;
   p.cap = cap;
-  const int ns = slabs_of(D);
-  p.slot_bytes = ns == 1 ? (kTile * D * (int)sizeof(T) + 127) / 128 * 128 : kTile * kSlab * (int)sizeof(T);
   p.total_tiles = cdiv(N, kTile);
-  const int img = ns * Elt<T>::imgs * UT * image_row_bytes<T, NK>();
+  int img;
+  if (SLABS) {  // two-box units of 16 KB, and an odd last box's tail unit
+    p.units = boxes_of<T>(D) / 2;
+    p.tail = boxes_of<T>(D) % 2;
+    p.slot_bytes = 2 * kBoxTile;
+    img = Elt<T>::imgs * UT * (p.units * image_row_bytes<T, NK>() + p.tail * image_row_bytes<T, NK / 2>());
+  } else {
+    p.units = 1;
+    p.tail = 0;
+    p.slot_bytes = (kTile * D * (int)sizeof(T) + 127) / 128 * 128;
+    img = Elt<T>::imgs * UT * image_row_bytes<T, NK>();
+  }
   const int fixed = 1024 + layout(img, p.slot_bytes, 0, NWG * UT, cap).total;
   p.stages = std::min(4, (kSmemLimit - fixed) / (p.slot_bytes + 16));
   // two warpgroups take alternate tiles: an even ring gives each slot to
@@ -1134,37 +1268,42 @@ Plan plan_t(int N, int D, int L, int cap) {
   return p;
 }
 
-// The variant for (large, k): k <= 16 keeps 16 per (user, split) over
-// 64-user tiles in 64-entry buffers; k <= 128 keeps k over 32-user tiles
-// in 256-entry buffers (both warpgroups' buffers fit); k > 128 keeps k over
-// 8-user tiles with one warpgroup, in buffers of the next power of two of
-// k + 64. The first two sort their buffers in registers.
-// Above D = 128 (the slab variants) the users' images of every slab stay
-// resident, so the user tile is the largest that fits beside a ring of two
-// slots: k <= 16 takes 32-user tiles, k <= 128 16-user tiles, both then
-// the 8-user tile of one warpgroup, as k > 128 does (shared memory bounds D
-// at about 2,400 lanes of f32 for k <= 128 and 512 for k = 1024; bf16 at
-// 8 times that).
+// The variant for (large, k) at D <= 128: k <= 16 keeps 16 per (user,
+// split) over 64-user tiles in 64-entry buffers; k <= 128 keeps k over
+// 32-user tiles in 256-entry buffers (both warpgroups' buffers fit); k >
+// 128 keeps k over 8-user tiles with one warpgroup, in buffers of the next
+// power of two of k + 64. The first two sort their buffers in registers.
 template <typename T, int NK>
 Plan plan_nk(int large, int N, int D, int k) {
-  if (D > kSlab) {
-    if constexpr (NK * Elt<T>::step == kSlab) {  // pick_nk's choice for every D > 128
-      Plan p{};
-      const int L = large ? k : kSmallList;
-      if (!large) p = plan_t<T, NK, 32, 2, 64, true>(N, D, L, 64);
-      else if (k <= kWideMaxK) p = plan_t<T, NK, 16, 2, 256, true>(N, D, L, 256);
-      if (p.fn == nullptr || p.stages < 2) p = plan_t<T, NK, 8, 1, 0, true>(N, D, L, next_pow2(L + 64));
-      return p;
-    }
-  }
   if (!large) return plan_t<T, NK, 64, 2, 64>(N, D, kSmallList, 64);
   if (k <= kWideMaxK) return plan_t<T, NK, 32, 2, 256>(N, D, k, 256);
   return plan_t<T, NK, 8, 1, 0>(N, D, k, next_pow2(k + 64));
 }
 
+// The slab path (D > 128): the same tiles and buffers while every unit's
+// user images fit beside kSlabStages ring slots, then half the users (32
+// for k <= 16, 16 for k <= 128), then the 8-user tile of one warpgroup
+// (shared memory bounds D at about 2,800 lanes of f32 for k <= 128 and
+// 1,000 for k = 1024; bf16 at 4 times that).
+template <typename T>
+Plan plan_slabs(int large, int N, int D, int k) {
+  const int L = large ? k : kSmallList;
+  Plan p{};
+  if (!large) {
+    p = plan_t<T, kUnitK, 64, 2, 64, true>(N, D, L, 64);
+    if (p.stages < kSlabStages) p = plan_t<T, kUnitK, 32, 2, 64, true>(N, D, L, 64);
+  } else if (k <= kWideMaxK) {
+    p = plan_t<T, kUnitK, 32, 2, 256, true>(N, D, L, 256);
+    if (p.stages < kSlabStages) p = plan_t<T, kUnitK, 16, 2, 256, true>(N, D, L, 256);
+  }
+  if (p.fn == nullptr || p.stages < 2) p = plan_t<T, kUnitK, 8, 1, 0, true>(N, D, L, next_pow2(L + 64));
+  return p;
+}
+
 template <typename T>
 Plan plan_of(int large, int N, int D, int k) {
   constexpr int s = Elt<T>::step;
+  if (D > kSlab) return plan_slabs<T>(large, N, D, k);
   switch (pick_nk<T>(D)) {
     case 32 / s: return plan_nk<T, 32 / s>(large, N, D, k);
     case 64 / s: return plan_nk<T, 64 / s>(large, N, D, k);
@@ -1204,29 +1343,80 @@ cudaError_t launch_merge(const float* part_v, const int* part_i, int U, int C,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda
+// link).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  return fn;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The slab path's TMA map of an (N, D) item table (f32, or bf16 when
+// bf16 != 0; 16-byte aligned; D a multiple of 4 or 8): boxes of 64 rows x
+// 128 bytes in the 128-byte swizzle, out-of-range lanes and rows read as
+// zeros. Writes the 128-byte CUtensorMap to ``map``; the wrapper keeps it
+// per (table, N, D, dtype) and passes it to trs_dot_topk. Returns 0, the
+// encoder's CUresult, or -1 where the lookup finds no encoder.
+int trs_dot_topk_tensor_map(const void* items, int N, int D, int bf16, void* map) {
+  if (N < 1 || D < 1 || D % (bf16 ? 8 : 4) != 0 || (reinterpret_cast<uintptr_t>(items) & 15) != 0)
+    return CUDA_ERROR_INVALID_VALUE;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  const cuuint64_t esz = bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)N};  // innermost first
+  const cuuint64_t strides[1] = {(cuuint64_t)D * esz};        // bytes between rows
+  const cuuint32_t box[2] = {(cuuint32_t)(kBoxBytes / esz), (cuuint32_t)kTile};
+  const cuuint32_t unit[2] = {1, 1};
+  CUtensorMap m;
+  const CUresult r = encode(&m, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                            const_cast<void*>(items), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) memcpy(map, &m, sizeof(m));
+  return (int)r;
+}
 
 // Launch plan for (U, N, D, dtype, k) on the current device, made once per
 // shape by the wrapper: the number of catalog splits S (tile-aligned, one
 // wave of resident blocks), the per-(user, split) list length L (the
 // wrapper allocates U * S * L entries of scratch), the candidate buffer
 // per user, the kernel's dynamic shared memory per block and its ring
-// slots. Also opts both kernels into their shared memory. D must be a
-// multiple of 4 (f32) or 8 (bf16): whole 16-byte rows. Returns a
-// cudaError_t (cudaErrorInvalidValue where no user tile's images fit).
+// slots, the keys per user its lists publish, its users per block and
+// the bytes of a ring slot. Also opts both kernels into the most shared
+// memory a block may have. D must be a multiple of 4 (f32) or 8 (bf16): whole 16-byte rows.
+// Returns a cudaError_t (cudaErrorInvalidValue where no user tile's images
+// fit).
 int trs_dot_topk_plan(int large, int U, int N, int D, int bf16, int k,
                       int* S, int* list_len, int* cap, int* smem_bytes, int* stages,
-                      int* keys_per_user) {
+                      int* keys_per_user, int* user_tile, int* slot_bytes) {
   if (bad_args(large, U, N, D, bf16, k)) return cudaErrorInvalidValue;
   const Plan p = make_plan(large, U, N, D, bf16, k);
   if (p.fn == nullptr || p.stages < 2) return cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the variant is opted into the whole limit, not p.smem: the wrapper
+  // keeps plans per shape, and a later plan of a smaller shape of the same
+  // variant must not lower what an earlier, cached plan launches with
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    e = cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(reinterpret_cast<const void*>(dot_topk_merge_kernel),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1246,6 +1436,8 @@ int trs_dot_topk_plan(int large, int U, int N, int D, int bf16, int k,
   *smem_bytes = p.smem;
   *stages = p.stages;
   *keys_per_user = *S * p.nwg * top_p(*S, p.nwg, p.L);
+  *user_tile = p.ut;
+  *slot_bytes = p.slot_bytes;
   return cudaSuccess;
 }
 
@@ -1254,16 +1446,23 @@ int trs_dot_topk_plan(int large, int U, int N, int D, int bf16, int k,
 // null. S as trs_dot_topk_plan gave it (which also opted the kernels into
 // their shared memory on this device); part_*: U * S * L entries of
 // scratch; gtop: U * keys_per_user 8-byte words of scratch (zeroed here,
-// keys_per_user as the plan gave it); out_*: (U, k).
+// keys_per_user as the plan gave it); out_*: (U, k); items_map: for D >
+// 128, trs_dot_topk_tensor_map's map of ``items`` (else null).
 // large = 0 runs #1's list of 16, 1 #2's list of k; then the split merge:
 // a memset and two launches. Returns the cudaError_t of the launches (0 =
 // cudaSuccess).
 int trs_dot_topk(int large, const void* users, const void* items,
                  const float* bias, const int* mask, int mask_words, int U,
                  int N, int D, int bf16, int k, int S, float* part_v,
-                 int* part_i, void* gtop, float* out_v, int* out_i, void* stream) {
-  if (bad_args(large, U, N, D, bf16, k) || S < 1 || (reinterpret_cast<uintptr_t>(items) & 15) != 0)
+                 int* part_i, void* gtop, float* out_v, int* out_i, const void* items_map, void* stream) {
+  if (bad_args(large, U, N, D, bf16, k) || S < 1 || (reinterpret_cast<uintptr_t>(items) & 15) != 0 ||
+      (D > kSlab && items_map == nullptr))
     return cudaErrorInvalidValue;
+  CUtensorMap map;  // unread for D <= 128
+  if (D > kSlab)
+    memcpy(&map, items_map, sizeof(map));
+  else
+    memset(&map, 0, sizeof(map));
   const Plan p = make_plan(large, U, N, D, bf16, k);
   if (p.fn == nullptr || p.stages < 2) return cudaErrorInvalidValue;
   Args a;
@@ -1280,8 +1479,8 @@ int trs_dot_topk(int large, const void* users, const void* items,
   a.tiles_per_split = cdiv(p.total_tiles, S);
   a.stages = p.stages;
   a.slot_bytes = p.slot_bytes;
-  a.nslab = slabs_of(D);
-  a.rs = a.nslab == 1 ? D : kSlab;
+  a.units = p.units;
+  a.tail = p.tail;
   a.part_v = part_v;
   a.part_i = part_i;
   a.gtop = static_cast<unsigned long long*>(gtop);
@@ -1290,7 +1489,7 @@ int trs_dot_topk(int large, const void* users, const void* items,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(gtop, 0, (size_t)U * S * p.nwg * a.top_p * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return e;
-  void* args[] = {&a};
+  void* args[] = {&a, &map};
   e = cudaLaunchKernel(p.fn, dim3(p.user_tiles, S), dim3((p.nwg + 1) * kConsumers), args,
                                    (size_t)p.smem, st);
   if (e != cudaSuccess) return e;

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,10 @@ _NEG_INF = float(np.finfo(np.float32).min)  # ops/dot_topk.py:36
 # Dispatch limits of ops/dot_topk.py:350-351.
 _PALLAS_UNROLLED_MAX_K = 16
 _PALLAS_THRESH_MAX_K = 1024
+
+# Widest row the kernel takes as one ring unit; wider rows take the slab
+# path, whose item tiles arrive as TMA boxes (csrc/dot_topk.cu, kSlab).
+_SLAB_WIDTH = 128
 
 # Items per step of the plain version's running merge (a 256-user step
 # holds a 64 MB score block).
@@ -183,9 +187,11 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dot_topk.cu")
     if not getattr(lib, "_trs_bound", False):
-        lib.trs_dot_topk_plan.argtypes = [_CI] * 6 + [ctypes.POINTER(_CI)] * 6
+        lib.trs_dot_topk_plan.argtypes = [_CI] * 6 + [ctypes.POINTER(_CI)] * 8
         lib.trs_dot_topk_plan.restype = _CI
-        lib.trs_dot_topk.argtypes = [_CI] + [_VP] * 4 + [_CI] * 7 + [_VP] * 6
+        lib.trs_dot_topk_tensor_map.argtypes = [_VP] + [_CI] * 3 + [_VP]
+        lib.trs_dot_topk_tensor_map.restype = _CI
+        lib.trs_dot_topk.argtypes = [_CI] + [_VP] * 4 + [_CI] * 7 + [_VP] * 7
         lib.trs_dot_topk.restype = _CI
         lib._trs_bound = True
     return lib
@@ -215,27 +221,59 @@ def _check(rc: int, name: str) -> None:
 _PLANS: dict = {}
 
 
-def plan(large: bool, u: int, n: int, d: int, bf16: bool, k: int) -> Tuple[int, int, int, int, int, int]:
-    """The kernel's launch plan on the current device: (catalog splits, list
-    length per (user, split), candidate buffer entries per user, dynamic
-    shared memory bytes per block, item ring slots, threshold keys per user
-    that the lists publish to each other). Made once per shape
+class Plan(NamedTuple):
+    """The kernel's launch plan for one shape (``trs_dot_topk_plan``)."""
+
+    splits: int  # catalog splits, one wave of (user tile x split) blocks
+    list_len: int  # entries kept per (user, split)
+    cap: int  # candidate buffer entries per user
+    smem: int  # dynamic shared memory bytes per block
+    stages: int  # item ring slots
+    keys: int  # threshold keys per user that the lists publish to each other
+    user_tile: int  # users per block
+    slot_bytes: int  # bytes of a ring slot: a tile of D <= 128, else a 16 KB unit of two boxes
+
+
+def plan(large: bool, u: int, n: int, d: int, bf16: bool, k: int) -> Plan:
+    """The kernel's launch plan on the current device, made once per shape
     and device: the C call also opts the kernels into their shared memory
     and queries occupancy. ``d`` is the row width the kernel sees (a
     multiple of 4 for f32, of 8 for bf16); above 128 the kernel scores it
-    in 128-lane slabs with every slab's user images resident, so a width
-    at which not even an 8-user tile fits shared memory raises."""
+    in two-box units of 128-byte TMA boxes with every unit's user images
+    resident, so a width at which not even an 8-user tile fits shared
+    memory raises."""
     key = (bool(large), u, n, d, bool(bf16), k, _device_index(torch.device("cuda")))
     got = _PLANS.get(key)
     if got is None:
-        out = [_CI() for _ in range(6)]
+        out = [_CI() for _ in Plan._fields]
         rc = _lib().trs_dot_topk_plan(int(large), u, n, d, int(bf16), k, *map(ctypes.byref, out))
         if rc != 0:
             raise ValueError(
                 f"dot_topk plan: no kernel variant takes U={u}, N={n}, D={d}, "
                 f"{'bf16' if bf16 else 'f32'}, k={k} (cudaError {rc})"
             )
-        got = _PLANS[key] = tuple(v.value for v in out)
+        got = _PLANS[key] = Plan(*(v.value for v in out))
+    return got
+
+
+# The slab path's TMA maps (128 bytes each) by (table address, N, D, bf16,
+# device): a map holds only the table's address and shape, so a table at a
+# reused address takes the same map.
+_TENSOR_MAPS: dict = {}
+_MAX_TENSOR_MAPS = 64
+
+
+def _tensor_map(items: torch.Tensor, n: int, d: int, bf16: bool):
+    key = (items.data_ptr(), n, d, bool(bf16), _device_index(items.device))
+    got = _TENSOR_MAPS.get(key)
+    if got is None:
+        if len(_TENSOR_MAPS) >= _MAX_TENSOR_MAPS:
+            _TENSOR_MAPS.clear()
+        got = ctypes.create_string_buffer(128)
+        rc = _lib().trs_dot_topk_tensor_map(items.data_ptr(), n, d, int(bf16), got)
+        if rc != 0:
+            raise RuntimeError(f"dot_topk: the TMA map of the ({n}, {d}) item table failed (CUresult {rc})")
+        _TENSOR_MAPS[key] = got
     return got
 
 
@@ -285,7 +323,9 @@ def _launch(name, user_vecs, item_vecs, item_bias, k, seen_mask, large):
             )
         mask = seen_mask.contiguous()
     with torch.cuda.device(dev):
-        s, list_len, _, _, _, keys = plan(large, u, n, width, bf16, k)
+        p = plan(large, u, n, width, bf16, k)
+        s, list_len, keys = p.splits, p.list_len, p.keys
+        tmap = _tensor_map(iv, n, width, bf16) if width > _SLAB_WIDTH else None
         # scratch: the (user, split) lists' values and rows, then the
         # 8-byte keys they publish
         npart = u * s * list_len
@@ -298,7 +338,7 @@ def _launch(name, user_vecs, item_vecs, item_bias, k, seen_mask, large):
             mask.data_ptr() if mask is not None else None, mw,
             u, n, width, int(bf16), k, s,
             part.data_ptr(), part.data_ptr() + 4 * npart, part.data_ptr() + 8 * npart,
-            out_v.data_ptr(), out_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), tmap,
             _stream(dev),
         )
     _check(rc, name)
