@@ -1,0 +1,8 @@
+"""Share of the traced training window in which no operation ran on the
+card, in %."""
+
+
+def read(run):
+    if run.kind != "fit" or run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
