@@ -68,6 +68,7 @@ from torchrecsys_tpu_torch.utils.convert import (
     model_state_from_jax,
     tables_from_jax,
 )
+from torchrecsys_tpu_torch.utils.profiling import annotate, count
 
 
 def _check_mesh(mesh: Any) -> None:
@@ -419,6 +420,7 @@ class RecSys:
                 "this RecSys has none (cold RecSys.load?)"
             )
         if self._seen_index is None:
+            count("seen_index.builds")
             tu, ti = self.store.train_users, self.store.train_items
             order = np.argsort(tu, kind="stable")
             offsets = np.searchsorted(
@@ -453,59 +455,65 @@ class RecSys:
         candidates under ``exclude_seen`` and drops the seen ones on the host
         (api.py:354-366).
         Returns (top_k,) for a scalar user or (U, top_k) for a sequence."""
-        self._require_fitted("predict()")
-        scalar = not isinstance(user_id, (list, tuple, np.ndarray))
-        users_raw = [user_id] if scalar else list(user_id)
-        try:
-            rows = np.asarray(
-                [self.store.user_encoder.encode_one(u) for u in users_raw], np.int64
+        with annotate("predict"):
+            self._require_fitted("predict()")
+            scalar = not isinstance(user_id, (list, tuple, np.ndarray))
+            users_raw = [user_id] if scalar else list(user_id)
+            with annotate("predict.encode"):
+                try:
+                    rows = np.asarray(
+                        [self.store.user_encoder.encode_one(u) for u in users_raw], np.int64
+                    )
+                except KeyError as e:
+                    raise KeyError(f"predict: unknown user_id -- {e.args[0]}") from None
+                users = torch.as_tensor(rows, device=self.device) if self.ease is None else None
+            num_items = self.store.schema.num_items
+            if self.ease is not None:
+                seen = self._seen(rows) if exclude_seen else None
+                k_fetch = min(top_k + (max(len(s) for s in seen) if seen else 0), num_items)
+                ids = topk_rows(self.ease.scores(rows), k_fetch)[1].cpu().numpy()
+                if seen is not None:
+                    ids = self._filter_seen(ids, seen, top_k)
+                return self._decode_items(ids, return_raw_ids, scalar)
+            seen: Optional[List[np.ndarray]] = None
+            seen_mask = None
+            k_fetch = min(top_k, num_items)
+            if exclude_seen:
+                with annotate("predict.seen"):
+                    seen = self._seen(rows)
+                    if self.mesh is not None and not self.model.supports_linearized_catalog:
+                        # the generic scorer on a mesh takes no mask (api.py:354-362)
+                        k_fetch = min(top_k + max(len(s) for s in seen), num_items)
+                    else:
+                        pos = np.repeat(np.arange(len(rows)), [len(s) for s in seen])
+                        seen_mask = pack_seen_mask_torch(
+                            torch.as_tensor(pos, device=self.device),
+                            torch.as_tensor(np.concatenate(seen), device=self.device),
+                            len(rows),
+                            num_items,
+                        )
+            _, ids = catalog_topk(
+                self.model,
+                self._params(),
+                self.state["model_state"],
+                users,
+                num_items,
+                self.feat,
+                top_k=k_fetch,
+                chunk_size=prediction_batch_size,
+                approx_recall=approx_recall,
+                seen_mask=seen_mask,
+                catalog=self._linearized() if self.model.supports_linearized_catalog else None,
+                mesh=self.mesh,
             )
-        except KeyError as e:
-            raise KeyError(f"predict: unknown user_id -- {e.args[0]}") from None
-        num_items = self.store.schema.num_items
-        if self.ease is not None:
-            seen = self._seen(rows) if exclude_seen else None
-            k_fetch = min(top_k + (max(len(s) for s in seen) if seen else 0), num_items)
-            ids = topk_rows(self.ease.scores(rows), k_fetch)[1].cpu().numpy()
-            if seen is not None:
-                ids = self._filter_seen(ids, seen, top_k)
-            return self._decode_items(ids, return_raw_ids, scalar)
-        seen: Optional[List[np.ndarray]] = None
-        seen_mask = None
-        k_fetch = min(top_k, num_items)
-        if exclude_seen:
-            seen = self._seen(rows)
-            if self.mesh is not None and not self.model.supports_linearized_catalog:
-                # the generic scorer on a mesh takes no mask (api.py:354-362)
-                k_fetch = min(top_k + max(len(s) for s in seen), num_items)
-            else:
-                pos = np.repeat(np.arange(len(rows)), [len(s) for s in seen])
-                seen_mask = pack_seen_mask_torch(
-                    torch.as_tensor(pos, device=self.device),
-                    torch.as_tensor(np.concatenate(seen), device=self.device),
-                    len(rows),
-                    num_items,
-                )
-        _, ids = catalog_topk(
-            self.model,
-            self._params(),
-            self.state["model_state"],
-            torch.as_tensor(rows, device=self.device),
-            num_items,
-            self.feat,
-            top_k=k_fetch,
-            chunk_size=prediction_batch_size,
-            approx_recall=approx_recall,
-            seen_mask=seen_mask,
-            catalog=self._linearized() if self.model.supports_linearized_catalog else None,
-            mesh=self.mesh,
-        )
-        ids = ids.cpu().numpy()
-        if seen_mask is not None:
-            ids = self._patch_short_unseen_rows(ids, seen, num_items)
-        elif seen is not None:
-            ids = self._filter_seen(ids, seen, top_k)
-        return self._decode_items(ids, return_raw_ids, scalar)
+            with annotate("predict.fetch"):
+                ids = ids.cpu().numpy()
+            with annotate("predict.decode"):
+                if seen_mask is not None:
+                    ids = self._patch_short_unseen_rows(ids, seen, num_items)
+                elif seen is not None:
+                    ids = self._filter_seen(ids, seen, top_k)
+                return self._decode_items(ids, return_raw_ids, scalar)
 
     @staticmethod
     def _patch_short_unseen_rows(
@@ -600,6 +608,7 @@ class RecSys:
                 "item-item B matrix); use predict()/similar_items()"
             )
         if self._catalog is None:
+            count("catalog.builds")
             if self.mesh is not None and self.model.supports_linearized_catalog:
                 self._catalog = shard_catalog(self.model, self._params(), self.feat, self.mesh)
             else:

@@ -45,6 +45,7 @@ from torchrecsys_tpu_torch.ops.dot_topk import _MASK_TILE, _round_up, dot_topk, 
 from torchrecsys_tpu_torch.parallel.embedding import sharded_lookup
 from torchrecsys_tpu_torch.parallel.mesh import all_gather, all_gather_many
 from torchrecsys_tpu_torch.parallel.sharding import batch_rows
+from torchrecsys_tpu_torch.utils.profiling import annotate
 
 
 def _score_chunk(
@@ -136,11 +137,13 @@ def _fused_catalog_topk(
     if catalog is None:
         catalog = model.linearized_catalog(params, feat)
     item_vecs, item_bias, user_fn, transform = catalog
-    user_vecs, user_const = user_fn(params, user_ids)
-    raw, ids = dot_topk(
-        user_vecs, item_vecs, item_bias, min(top_k, num_items),
-        approx_recall=approx_recall, seen_mask=seen_mask,
-    )
+    with annotate("predict.user_vectors"):
+        user_vecs, user_const = user_fn(params, user_ids)
+    with annotate("predict.topk"):
+        raw, ids = dot_topk(
+            user_vecs, item_vecs, item_bias, min(top_k, num_items),
+            approx_recall=approx_recall, seen_mask=seen_mask,
+        )
     return transform(raw, user_const), ids
 
 

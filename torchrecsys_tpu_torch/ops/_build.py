@@ -20,6 +20,8 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from torchrecsys_tpu_torch.utils.profiling import count
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -86,6 +88,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, BuildResult]:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
+        count("kernels.built")
         running.append((name, out, tmp, proc, time.perf_counter()))
     failures = []
     for name, out, tmp, proc, t0 in running:

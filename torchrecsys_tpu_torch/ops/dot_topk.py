@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from torchrecsys_tpu_torch.ops import _build
+from torchrecsys_tpu_torch.utils.profiling import count
 
 _NEG_INF = float(np.finfo(np.float32).min)  # ops/dot_topk.py:36
 
@@ -245,6 +246,7 @@ def plan(large: bool, u: int, n: int, d: int, bf16: bool, k: int) -> Plan:
     key = (bool(large), u, n, d, bool(bf16), k, _device_index(torch.device("cuda")))
     got = _PLANS.get(key)
     if got is None:
+        count("dot_topk.plans")
         out = [_CI() for _ in Plan._fields]
         rc = _lib().trs_dot_topk_plan(int(large), u, n, d, int(bf16), k, *map(ctypes.byref, out))
         if rc != 0:
@@ -267,6 +269,7 @@ def _tensor_map(items: torch.Tensor, n: int, d: int, bf16: bool):
     key = (items.data_ptr(), n, d, bool(bf16), _device_index(items.device))
     got = _TENSOR_MAPS.get(key)
     if got is None:
+        count("dot_topk.tensor_maps")
         if len(_TENSOR_MAPS) >= _MAX_TENSOR_MAPS:
             _TENSOR_MAPS.clear()
         got = ctypes.create_string_buffer(128)

@@ -122,7 +122,7 @@ from torchrecsys_tpu_torch.train.optim import (
 )
 from torchrecsys_tpu_torch.utils.logging import get_logger
 from torchrecsys_tpu_torch.utils.permute import random_permutation, round_keys
-from torchrecsys_tpu_torch.utils.profiling import default_trace_dir, op_summary, trace
+from torchrecsys_tpu_torch.utils.profiling import annotate, count, default_trace_dir, op_summary, trace
 
 log = get_logger("torchrecsys_tpu_torch.train")
 
@@ -265,6 +265,7 @@ class Trainer:
         training (K > 1, popularity, in-batch softmax; :883-888)."""
         key = (store.token, store.num_train)
         if self._data_cache_key != key:
+            count("fit.train_data_uploads")
             self._data_cache = {
                 k: torch.as_tensor(np.asarray(v, np.int64), device=self.device)
                 for k, v in store.train_arrays().items()
@@ -281,6 +282,7 @@ class Trainer:
         (:904-925); under sampled softmax with
         ``logq_correction``, ``logq``: the train split's log item
         frequency."""
+        count("fit.feature_table_builds")
         feat = feature_tables(store, self.model, self.device)
         if self.cfg.neg_sampling == "popularity":
             feat.update(self._popularity_tables(store))
@@ -482,9 +484,10 @@ class Trainer:
             step = step_fn or fp.fused_pairwise_step
             lead = (user, item)
         for j, i in enumerate(steps):
-            r = i - lo
-            step(*lead, uids[r], pids[r], nids[r], None if ws is None else ws[r], self._lr_at(step0 + i),
-                 weight_sum=None if ws is None else epoch.weight_sums[i], loss_index=j, **kw)
+            with annotate("step"):
+                r = i - lo
+                step(*lead, uids[r], pids[r], nids[r], None if ws is None else ws[r], self._lr_at(step0 + i),
+                     weight_sum=None if ws is None else epoch.weight_sums[i], loss_index=j, **kw)
         return self._sum_over_data(losses)
 
     def _sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
@@ -713,12 +716,13 @@ class Trainer:
         bt = epoch.batches
         losses = []
         for i in range(epoch.nb) if steps is None else steps:
-            w = bt["_w"][i] if "_w" in bt else None
-            ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
-            losses.append(self.softmax_step(
-                state, aug, bt["user_id"][i], bt["pos_item_id"][i], w, ws, feat, ce_fns,
-                lr=self._lr_at(state["step"] + i), emb_opt=emb_opt, rows=epoch.rows,
-            ))
+            with annotate("step"):
+                w = bt["_w"][i] if "_w" in bt else None
+                ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
+                losses.append(self.softmax_step(
+                    state, aug, bt["user_id"][i], bt["pos_item_id"][i], w, ws, feat, ce_fns,
+                    lr=self._lr_at(state["step"] + i), emb_opt=emb_opt, rows=epoch.rows,
+                ))
         return self._sum_over_data(torch.stack(losses))
 
     def _paired_side(
@@ -822,12 +826,13 @@ class Trainer:
         losses = []
         step0 = state["step"]
         for i in range(epoch.nb) if steps is None else steps:
-            w = bt["_w"][i] if "_w" in bt else None
-            ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
-            losses.append(self.pairwise_step(
-                state, aug, bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i], w, ws, feat,
-                lr=self._lr_at(step0 + i), emb_opt=emb_opt, rows=epoch.rows,
-            ))
+            with annotate("step"):
+                w = bt["_w"][i] if "_w" in bt else None
+                ws = epoch.weight_sums[i] if epoch.weight_sums is not None else None
+                losses.append(self.pairwise_step(
+                    state, aug, bt["user_id"][i], bt["pos_item_id"][i], bt["neg_item_id"][i], w, ws, feat,
+                    lr=self._lr_at(step0 + i), emb_opt=emb_opt, rows=epoch.rows,
+                ))
         return self._sum_over_data(torch.stack(losses))
 
     def train_epoch(
@@ -843,12 +848,14 @@ class Trainer:
         from the state's generator, and the in-training negatives to draws
         from it too; tests pass the JAX package's keys and ``negatives``
         (see :meth:`build_epoch`); :meth:`run_epoch` trains it."""
-        gen = self._rng(state)
-        if keys is None:
-            keys = round_keys(gen)
-        epoch = self.build_epoch(data, keys.to(self.device), gen, feat, negatives)
-        state, losses = self.run_epoch(state, epoch, feat)
-        return state, losses.mean()
+        with annotate("epoch"):
+            gen = self._rng(state)
+            with annotate("epoch.build"):
+                if keys is None:
+                    keys = round_keys(gen)
+                epoch = self.build_epoch(data, keys.to(self.device), gen, feat, negatives)
+            state, losses = self.run_epoch(state, epoch, feat)
+            return state, losses.mean()
 
     def run_epoch(
         self, state: TrainState, epoch: Epoch, feat: Optional[Features]
@@ -861,22 +868,28 @@ class Trainer:
         of the plain tables and their optimizer state."""
         # the mesh wrappers take a batch that divides data; JAX's XLA step the rest (:690-691)
         if self._fused and (self.mesh is None or epoch.b % self.mesh.shape["data"] == 0):
-            packed = self.pack_state(state)
-            losses = self.run_steps(packed, epoch, feat, step0=state["step"])
-            return self.unpack_state(state, packed, epoch.nb), losses
+            with annotate("epoch.pack"):
+                packed = self.pack_state(state)
+            with annotate("epoch.steps"):
+                losses = self.run_steps(packed, epoch, feat, step0=state["step"])
+            with annotate("epoch.unpack"):
+                return self.unpack_state(state, packed, epoch.nb), losses
         augmented = self.cfg.fused_embedding_update and supports_fused_layout(
             self.cfg.embedding_optimizer, state["tables"]
         )
         new = dict(state)
-        if augmented:
-            tables, emb_opt = augment_tables(state["tables"], state["emb_opt"]), None
-        else:
-            tables = {k: v.clone() for k, v in state["tables"].items()}
-            emb_opt = {k: {n: a.clone() for n, a in o.items()} for k, o in state["emb_opt"].items()}
+        with annotate("epoch.pack"):
+            if augmented:
+                tables, emb_opt = augment_tables(state["tables"], state["emb_opt"]), None
+            else:
+                tables = {k: v.clone() for k, v in state["tables"].items()}
+                emb_opt = {k: {n: a.clone() for n, a in o.items()} for k, o in state["emb_opt"].items()}
         run = self.run_softmax_steps if self._softmax else self.run_pairwise_steps
-        losses = run(new, tables, epoch, feat or {}, emb_opt=emb_opt)
-        if augmented:
-            tables, emb_opt = split_augmented(tables)
+        with annotate("epoch.steps"):
+            losses = run(new, tables, epoch, feat or {}, emb_opt=emb_opt)
+        with annotate("epoch.unpack"):
+            if augmented:
+                tables, emb_opt = split_augmented(tables)
         new.update(tables=tables, emb_opt=emb_opt, step=state["step"] + epoch.nb)
         return new, losses
 
@@ -931,28 +944,33 @@ class Trainer:
         ``profile_dir`` (default ``<temp dir>/torchrecsys_tpu_torch_trace``),
         its loss read inside the trace, and after the last of them the
         per-op digest is logged once. Profiling changes no number."""
-        epochs = self.cfg.epochs if epochs is None else epochs
-        data = self._device_train_data(store)
-        feat = self.feature_tables(store)
-        if not verbose and self.cfg.profile_epochs <= 0:
-            device_losses = []
-            for _ in range(epochs):
-                state, loss = self.train_epoch(state, data, feat)
-                device_losses.append(loss)
-            return state, [float(x) for x in torch.stack(device_losses).cpu()] if device_losses else []
-        profile_dir = profile_dir or default_trace_dir()
-        out: List[float] = []
-        for epoch in range(epochs):
-            profiling = epoch < self.cfg.profile_epochs
-            t0 = time.perf_counter()
-            with trace(profile_dir) if profiling else contextlib.nullcontext():
-                state, loss = self.train_epoch(state, data, feat)
-                out.append(float(loss))  # blocks: the trace holds the whole epoch
-            if verbose:
-                log.info("epoch %d: loss=%.5f (%.2fs)", epoch, out[-1], time.perf_counter() - t0)
-            if profiling and epoch == self.cfg.profile_epochs - 1:
-                log.info("per-op device time digest:\n%s", op_summary(profile_dir))
-        return state, out
+        with annotate("fit"):
+            epochs = self.cfg.epochs if epochs is None else epochs
+            with annotate("fit.train_data"):
+                data = self._device_train_data(store)
+            with annotate("fit.feature_tables"):
+                feat = self.feature_tables(store)
+            if not verbose and self.cfg.profile_epochs <= 0:
+                device_losses = []
+                for _ in range(epochs):
+                    state, loss = self.train_epoch(state, data, feat)
+                    device_losses.append(loss)
+                with annotate("fit.losses"):
+                    return state, [float(x) for x in torch.stack(device_losses).cpu()] if device_losses else []
+            profile_dir = profile_dir or default_trace_dir()
+            out: List[float] = []
+            for epoch in range(epochs):
+                profiling = epoch < self.cfg.profile_epochs
+                t0 = time.perf_counter()
+                with trace(profile_dir) if profiling else contextlib.nullcontext():
+                    state, loss = self.train_epoch(state, data, feat)
+                    with annotate("fit.losses"):
+                        out.append(float(loss))  # blocks: the trace holds the whole epoch
+                if verbose:
+                    log.info("epoch %d: loss=%.5f (%.2fs)", epoch, out[-1], time.perf_counter() - t0)
+                if profiling and epoch == self.cfg.profile_epochs - 1:
+                    log.info("per-op device time digest:\n%s", op_summary(profile_dir))
+            return state, out
 
     def fit_streaming(
         self,
