@@ -207,7 +207,8 @@ result line:
    o. the sequence models (ROADMAP.md §A item 10; bench.py:266-296 and
       :415-418's rows): the LSTM and SASRec (2 blocks x 2 heads), d=80,
       history_len=20, AMP, hinge, adam, lr 0.05, batch 8192, one epoch
-      each through the autograd step (293 steps, no kernel); evaluate
+      each through the autograd step (293 steps; SASRec's five norms a
+      step through the layer-norm kernels #8, no other kernel); evaluate
       (loss, auc, recall@10: #1 once per 512 test users) with the loss and
       AUC held to a direct recomputation by the paired-side rule; predict
       at top_k=10 (#1), 128 (#2) and exclude_seen from 256-user batches,
@@ -311,7 +312,9 @@ result line:
    row-level kernel's row is timed at FM's metadata shape. The step's own row: ms,
    device us, the bound from the bytes its batch needs, the device time of
    an empty kernel on the same grid (the launch floor), the plain step,
-   host us per call against the bare C call.
+   host us per call against the bare C call. The layer-norm pair (#8,
+   SASRec's encoder) at the SASRec cell's shape (409,600 x 50, f32 and
+   bf16): ms, device us, the bound from its bytes, the plain chain's ms.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -362,6 +365,10 @@ TOWER_REPLACES = {
 }
 # the main path's layers: (rows, Din, Dout, BN on the input) at 2 x MLP_B rows
 TOWER_LAYERS = ((2 * MLP_B, 2 * D, MLP_HIDDEN[0], False), (2 * MLP_B, MLP_HIDDEN[0], MLP_HIDDEN[1], True))
+LN_SOURCE = "torchrecsys_tpu_torch/ops/csrc/layer_norm.cu"
+LN_REPLACES = "none (the JAX package's norm is jnp ops that XLA fuses: torchrecsys_tpu/models/sasrec.py)"
+LN_ROWS, LN_D, LN_EPS = 8192 * 50, 50, 1e-6  # the SASRec cell's encoder: batch 8192 x history 50, d = 50
+LN_AMP_ROWS = MLP_B * 20  # 6o's AMP SASRec encoder: batch 8192 x history 20, d = D, bf16
 DEVICE = "cuda"
 
 
@@ -2144,6 +2151,15 @@ POP_SCHEDULE = {"kind": "cosine", "decay_steps": 2344}
 POP_DRAWS = 1 << 24
 
 
+def ln_launches() -> tuple:
+    """(forward, backward) launches of the layer-norm kernels so far. They
+    are counted apart from :func:`wrappers`: every SASRec encode launches
+    them, beside whatever kernel a path's check counts."""
+    from torchrecsys_tpu_torch.ops import layer_norm as ln
+
+    return ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches
+
+
 def counted(torch, fn):
     """``fn()`` with every launch count set to 0 just before and read just
     after: (result, seconds, counts)."""
@@ -2585,7 +2601,9 @@ def sequence_path(torch, data, net: str):
     """6o, bench.py:266-296 and :415-418's rows at full width: ``net``
     (d=80, history_len=20; SASRec 2 blocks x 2 heads) with AMP, hinge, adam,
     lr 0.05, batch 8192, dynamic negatives: one epoch through the autograd
-    step (no kernel: the encoder is plain torch), the loss and a fixed
+    step (no kernel but SASRec's layer norms, #8 in bf16, 2 x blocks + 1
+    launches of each a step; the rest of the encoder is plain torch), the
+    loss and a fixed
     sample's hinge loss finite (printed before and after: one epoch on this
     data need not lower it); evaluate(loss, auc, recall@10) with the loss
     and AUC held to a direct recomputation and the
@@ -2602,9 +2620,14 @@ def sequence_path(torch, data, net: str):
     check(tuple(rs.feat["hist_ids"].shape) == (N_USERS, 20), f"{label}: history {tuple(rs.feat['hist_ids'].shape)}")
     fresh = sample_loss(torch, rs, sample)
     kw = dict(epochs=1, batch_size=MLP_B, learning_rate=0.05, optimizer="adam", verbose=False)
+    ln0 = ln_launches()
     losses, fit_s, counts = counted(torch, lambda: rs.fit(**kw))
     steps = -(-st.num_train // MLP_B)
     check(not rs.trainer._fused and sum(counts.values()) == 0, f"{label}: fit launched {counts}")
+    norms = 2 * rs.model.cfg.sasrec_blocks + 1 if net == "sasrec" else 0
+    ln_fit = tuple(b - a for a, b in zip(ln0, ln_launches()))
+    check(ln_fit == (norms * steps,) * 2, f"{label}: fit launched the layer-norm kernels {ln_fit} times, "
+          f"want {norms} of each a step ({steps} steps)")
     check(len(losses) == 1 and np.isfinite(losses[0]), f"{label}: epoch loss {losses} is not finite")
     trained = sample_loss(torch, rs, sample)
     check(np.isfinite(trained), f"{label}: sample loss {trained}")
@@ -2625,7 +2648,7 @@ def sequence_path(torch, data, net: str):
     users, launches, rates = main_path(torch, rs, " " + label)
     topk_in_profile(torch, rs, users)
     out = {"examples_per_s": rate, "fit_s": fit_s, "eval_rows_per_s": st.num_test / eval_s, "rates": rates,
-           "label": label, "launches": {k: launches[k] + ecounts[k] for k in launches}}
+           "label": label, "launches": {k: launches[k] + ecounts[k] for k in launches}, "ln_launches": ln_fit}
     out["split"] = mlp_breakdown(torch, rs, window=20, label=label)
     if net == "sasrec":
         sm_label = "SASRec AMP softmax"
@@ -4242,6 +4265,121 @@ def ce_timing(torch, inputs, errs, launches):
     return rows
 
 
+def _ln_inputs(torch, gen, rows: int, d: int, dtype):
+    """x and dy (rows, d) with 30% of the rows zero (padding), scale ~ 1 +
+    N(0, 0.1^2), bias ~ N(0, 0.1^2), all in ``dtype``; and the zero rows."""
+    x = torch.randn((rows, d), generator=gen, device=DEVICE)
+    zero = torch.rand((rows,), generator=gen, device=DEVICE) < 0.3
+    x[zero] = 0.0
+    dy = torch.randn((rows, d), generator=gen, device=DEVICE)
+    dy[zero] = 0.0
+    scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=DEVICE)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=DEVICE)
+    return [t.to(dtype) for t in (x, dy, scale, bias)] + [zero]
+
+
+def layer_norm_accuracy(torch, gen, rows: int, d: int, dtype) -> dict:
+    """#8 against float64: y, dx, dscale and dbias of the kernels and of
+    layer_norm_plain's autograd in ``dtype``, each as ||got - ref|| /
+    ||ref|| against layer_norm_plain's autograd in float64 on the same
+    inputs. Each kernel gap must be within max(2 x the plain gap, 1e-6);
+    padded rows give y == bias and dx == 0 exactly. Returns the gaps and
+    max |kernel - plain| of y and dx."""
+    from torchrecsys_tpu_torch.ops import layer_norm as ln
+
+    x, dy, scale, bias, zero = _ln_inputs(torch, gen, rows, d, dtype)
+    y, mean, rstd = ln.layer_norm_fwd(x, scale, bias, LN_EPS)
+    got = (y,) + ln.layer_norm_bwd(x, dy, scale, mean, rstd)
+
+    def plain(dt):
+        leaves = [t.detach().to(dt).requires_grad_() for t in (x, scale, bias)]
+        yp = ln.layer_norm_plain(*leaves, LN_EPS)
+        return (yp.detach(),) + torch.autograd.grad(yp, leaves, dy.to(dt))
+
+    low, ref = plain(dtype), plain(torch.float64)
+
+    def gap(a, r):
+        den = float(r.norm())
+        return float((a.double() - r).norm()) / (den if den > 0 else 1.0)
+
+    out = {"rows": rows, "d": d}
+    for name, k, p, r in zip(("y", "dx", "dscale", "dbias"), got, low, ref):
+        check(bool(torch.isfinite(k.float()).all()), f"layer_norm {rows} x {d} {dtype}: {name} not finite")
+        k_gap, p_gap = gap(k, r), gap(p, r)
+        check(k_gap <= max(2 * p_gap, 1e-6), f"layer_norm {rows} x {d} {dtype}: {name} {k_gap:.3e} off float64, "
+              f"beyond max(2 x the plain version's {p_gap:.3e}, 1e-6)")
+        out[name] = {"gap": k_gap, "plain_gap": p_gap}
+    check(torch.equal(y[zero], bias.expand(int(zero.sum()), d)) and not bool(got[1][zero].any()),
+          f"layer_norm {rows} x {d} {dtype}: a padded row's y is not bias or its dx not 0")
+    out["err"] = {"fwd": float((y.float() - low[0].float()).abs().max()),
+                  "bwd": float((got[1].float() - low[1].float()).abs().max())}
+    log(f"[check] layer_norm ({rows} x {d}, {str(dtype)[6:]}): gap to float64, kernel (plain) "
+        + ", ".join(f"{n} {out[n]['gap']:.3e} ({out[n]['plain_gap']:.3e})" for n in ("y", "dx", "dscale", "dbias"))
+        + f"; max |kernel - plain| y {out['err']['fwd']:.3g}, dx {out['err']['bwd']:.3g}")
+    return out
+
+
+def layer_norm_timing(torch):
+    """The layer-norm kernels' JSON rows (#8, which replace no TPU kernel).
+    Each is first held to float64 (:func:`layer_norm_accuracy`) at the
+    SASRec cell's shape (LN_ROWS x LN_D) in f32 and bf16 and at 6o's AMP
+    encoder (LN_AMP_ROWS x D) in bf16. Then CUDA-event ms and device us a
+    call at the cell's shape (30% of the rows zero), f32 and bf16, beside
+    the bound (x and y forward, x, dy and dx backward, each moved once,
+    plus the f32 mean and rstd, over 3.35 TB/s) and the plain chain's ms
+    (layer_norm_plain's forward; the autograd backward of its ops) and of
+    ``F.layer_norm`` (library, which the port never calls). launches are
+    filled in by main from 6o's SASRec fit."""
+    import torch.nn.functional as F
+
+    from torchrecsys_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    rows_, d = LN_ROWS, LN_D
+    saved = (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
+    acc = {dt: layer_norm_accuracy(torch, gen, rows_, d, dt) for dt in (torch.float32, torch.bfloat16)}
+    amp_acc = layer_norm_accuracy(torch, gen, LN_AMP_ROWS, D, torch.bfloat16)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, scale, bias, _ = _ln_inputs(torch, gen, rows_, d, dtype)
+        y, mean, rstd = ln.layer_norm_fwd(x, scale, bias, LN_EPS)
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        yp = ln.layer_norm_plain(*leaves, LN_EPS)
+        yl = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], LN_EPS)
+        calls = {"fwd": lambda: ln.layer_norm_fwd(x, scale, bias, LN_EPS),
+                 "bwd": lambda: ln.layer_norm_bwd(x, dy, scale, mean, rstd)}
+        plain = {"fwd": lambda: ln.layer_norm_plain(x, scale, bias, LN_EPS),
+                 "bwd": lambda: torch.autograd.grad(yp, leaves, dy, retain_graph=True)}
+        library = {"fwd": lambda: F.layer_norm(x, (d,), scale, bias, LN_EPS),
+                   "bwd": lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True)}
+        es, n = x.element_size(), rows_ * d
+        nbytes = {"fwd": 2 * n * es + 8 * rows_ + 2 * d * es, "bwd": 3 * n * es + 8 * rows_ + 3 * d * es}
+        for part in ("fwd", "bwd"):
+            us, n_k = device_call(torch, calls[part])
+            check(n_k == (1 if part == "fwd" else 2), f"layer_norm_{part} {dtype}: {n_k} kernels per call "
+                  "(forward: one; backward: the rows and the column sums)")
+            out[(part, dtype)] = r = {
+                "ms": cuda_ms(torch, calls[part], reps=50), "device_us": us, "plain_ms": cuda_ms(torch, plain[part]),
+                "library_ms": cuda_ms(torch, library[part]), "bound_ms": nbytes[part] / PEAK_BYTES * 1e3,
+                "err": acc[dtype]["err"][part], "gap_f64": acc[dtype],
+            }
+            log(f"[time] layer_norm_{part} ({rows_} x {d}, {str(dtype)[6:]}): {r['ms']:.4f} ms (device "
+                f"{us:.2f} us per call over {n_k} kernel(s), torch.profiler); bound {r['bound_ms']:.4f} ms "
+                f"(bytes, {nbytes[part] / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s); plain chain "
+                f"{r['plain_ms']:.4f} ms; library (F.layer_norm) {r['library_ms']:.4f} ms")
+    ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches = saved
+    rows = []
+    for part in ("fwd", "bwd"):
+        f32, b16 = out[(part, torch.float32)], out[(part, torch.bfloat16)]
+        rows.append({
+            "name": f"layer_norm_{part}", "route": "cuda", "source": LN_SOURCE, "replaces": LN_REPLACES,
+            "launches": 0, "max_abs_err": f32["err"], "gap_f64": f32["gap_f64"], "ms": f32["ms"],
+            "device_us": f32["device_us"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": "bytes", "library_ms": f32["library_ms"], "bf16": b16, "amp_6o_gap_f64": amp_acc,
+        })
+    return rows
+
+
 def softmax_breakdown(torch, rs, label: str, window: int = 60):
     """Per-step breakdown of the softmax fit: epoch build and table
     augmentation (host clock, per epoch), host ms per step, and device us
@@ -5818,6 +5956,7 @@ def main() -> int:
     kernels.extend(tower_timing(torch, tower_inputs_main, tower_errs, {
         "fused_tower_fwd": mlp["fwd_launches"], "fused_tower_bwd": mlp["bwd_launches"],
     }))
+    kernels.extend(layer_norm_timing(torch))
     log(f"[phase] 6j-6m starts at {time.perf_counter() - t_start:.1f} s")
     rs, pop = popularity_path(torch, data)
     step_meta_row["launches"] += pop["launches"]
@@ -5928,6 +6067,8 @@ def main() -> int:
             row["variants"] = ["square (one device: B rows against B columns)",
                                f"rectangular (a data rank: Br={SOFTMAX_B // MESH_WORLD} rows against Bc={SOFTMAX_B} "
                                "columns from off = rank x Br), the same kernels"]
+    for row, n in zip((r for r in kernels if r["name"].startswith("layer_norm")), seq["sasrec"]["ln_launches"]):
+        row["launches"] = n  # the main path's counted run: 6o's AMP SASRec fit
     log(f"[ckpt] {smi_line}: Linear metadata checkpoint {ckpt['bytes'] / 2**20:.1f} MiB, save "
         f"{ckpt['save_s']:.3f} s, load {ckpt['load_s']:.3f} s in process / "
         f"{cold['Linear metadata']['load_s']:.3f} s cold in the child, restore {ckpt['restore_s']:.3f} s; "

@@ -8,8 +8,9 @@ valid position (an empty history encodes to zeros). The positions ``pos``
 are a dense parameter, sliced ``[:L]``: their gradient goes to the dense
 optimizer, not to an embedding update. The attention is written out as the
 JAX package does: an additive ``-1e9`` causal + key-padding mask in the
-compute dtype, a softmax in f32 cast back. Tables, gathers, scoring and
-serving: models/sequence.py.
+compute dtype, a softmax in f32 cast back. The layer norms go through
+ops/layer_norm.py: its kernels on CUDA tensors, the plain formula on the
+CPU. Tables, gathers, scoring and serving: models/sequence.py.
 """
 
 from __future__ import annotations
@@ -20,14 +21,15 @@ import torch
 
 from torchrecsys_tpu_torch.models.base import uniform_linear_init
 from torchrecsys_tpu_torch.models.sequence import SequenceModel
+from torchrecsys_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 
 _LN_EPS = 1e-6
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    m = torch.mean(x, dim=-1, keepdim=True)
-    v = torch.mean(torch.square(x - m), dim=-1, keepdim=True)
-    return (x - m) * torch.rsqrt(v + _LN_EPS) * scale + bias
+    """The plain layer norm at the encoder's eps (the CPU path of
+    :func:`layer_norm`)."""
+    return layer_norm_plain(x, scale, bias, _LN_EPS)
 
 
 class SASRecModel(SequenceModel):
@@ -85,17 +87,17 @@ class SASRecModel(SequenceModel):
             return z @ blk[name]["w"].to(cd) + blk[name]["b"].to(cd)
 
         for blk in dense["blocks"]:
-            z = _layer_norm(x, blk["ln1"]["scale"].to(cd), blk["ln1"]["bias"].to(cd))
+            z = layer_norm(x, blk["ln1"]["scale"].to(cd), blk["ln1"]["bias"].to(cd), _LN_EPS)
             qkv = lin(blk, "qkv", z).reshape(bsz, l, 3, nh, dh)
             q, k, v = (qkv[:, :, i].movedim(1, 2) for i in range(3))  # (B, h, L, dh)
             scores = (q @ k.transpose(-1, -2)) * (dh**-0.5) + bias
             attn = torch.softmax(scores.float(), dim=-1).to(cd)
             ctx = (attn @ v).movedim(1, 2).reshape(bsz, l, d)
             x = x + lin(blk, "attn_out", ctx)
-            z = _layer_norm(x, blk["ln2"]["scale"].to(cd), blk["ln2"]["bias"].to(cd))
+            z = layer_norm(x, blk["ln2"]["scale"].to(cd), blk["ln2"]["bias"].to(cd), _LN_EPS)
             x = x + lin(blk, "ffn2", torch.relu(lin(blk, "ffn1", z)))
             x = x * mask_f  # padded positions stay inert through the stack
-        x = _layer_norm(x, dense["ln_out"]["scale"].to(cd), dense["ln_out"]["bias"].to(cd))
+        x = layer_norm(x, dense["ln_out"]["scale"].to(cd), dense["ln_out"]["bias"].to(cd), _LN_EPS)
         pos_idx = torch.arange(l, device=x.device)
         last = torch.max(torch.where(hist_mask, pos_idx[None, :], -1), dim=1).values
         h_last = torch.gather(x, 1, last.clamp_min(0)[:, None, None].expand(bsz, 1, d))[:, 0]
