@@ -369,6 +369,7 @@ LN_SOURCE = "torchrecsys_tpu_torch/ops/csrc/layer_norm.cu"
 LN_REPLACES = "none (the JAX package's norm is jnp ops that XLA fuses: torchrecsys_tpu/models/sasrec.py)"
 LN_ROWS, LN_D, LN_EPS = 8192 * 50, 50, 1e-6  # the SASRec cell's encoder: batch 8192 x history 50, d = 50
 LN_AMP_ROWS = MLP_B * 20  # 6o's AMP SASRec encoder: batch 8192 x history 20, d = D, bf16
+LN_HSTU_ROWS = 8192 * 200  # the HSTU cell's encoder: batch 8192 x history 200, d = 50, unit affine, f32
 DEVICE = "cuda"
 
 
@@ -4278,17 +4279,24 @@ def _ln_inputs(torch, gen, rows: int, d: int, dtype):
     return [t.to(dtype) for t in (x, dy, scale, bias)] + [zero]
 
 
-def layer_norm_accuracy(torch, gen, rows: int, d: int, dtype) -> dict:
+def layer_norm_accuracy(torch, gen, rows: int, d: int, dtype, unit: bool = False) -> dict:
     """#8 against float64: y, dx, dscale and dbias of the kernels and of
     layer_norm_plain's autograd in ``dtype``, each as ||got - ref|| /
     ||ref|| against layer_norm_plain's autograd in float64 on the same
     inputs. Each kernel gap must be within max(2 x the plain gap, 1e-6);
-    padded rows give y == bias and dx == 0 exactly. Returns the gaps and
-    max |kernel - plain| of y and dx."""
+    padded rows give y == bias and dx == 0 exactly. With ``unit`` the
+    scale and bias are the ones and zeros that ``layer_norm_unit`` keeps
+    (HSTU's norms), and that entry's forward must equal the kernel's y
+    exactly. Returns the gaps and max |kernel - plain| of y and dx."""
     from torchrecsys_tpu_torch.ops import layer_norm as ln
 
     x, dy, scale, bias, zero = _ln_inputs(torch, gen, rows, d, dtype)
+    if unit:
+        y_unit = ln.layer_norm_unit(x, LN_EPS)
+        scale, bias = ln._UNIT[(d, dtype, x.device)]
     y, mean, rstd = ln.layer_norm_fwd(x, scale, bias, LN_EPS)
+    if unit:
+        check(torch.equal(y_unit, y), f"layer_norm_unit {rows} x {d} {dtype}: its forward is not the kernel's y")
     got = (y,) + ln.layer_norm_bwd(x, dy, scale, mean, rstd)
 
     def plain(dt):
@@ -4313,7 +4321,9 @@ def layer_norm_accuracy(torch, gen, rows: int, d: int, dtype) -> dict:
           f"layer_norm {rows} x {d} {dtype}: a padded row's y is not bias or its dx not 0")
     out["err"] = {"fwd": float((y.float() - low[0].float()).abs().max()),
                   "bwd": float((got[1].float() - low[1].float()).abs().max())}
-    log(f"[check] layer_norm ({rows} x {d}, {str(dtype)[6:]}): gap to float64, kernel (plain) "
+    out["unit"] = unit
+    log(f"[check] layer_norm ({rows} x {d}, {str(dtype)[6:]}{', unit affine' if unit else ''}): gap to float64, "
+        "kernel (plain) "
         + ", ".join(f"{n} {out[n]['gap']:.3e} ({out[n]['plain_gap']:.3e})" for n in ("y", "dx", "dscale", "dbias"))
         + f"; max |kernel - plain| y {out['err']['fwd']:.3g}, dx {out['err']['bwd']:.3g}")
     return out
@@ -4322,9 +4332,10 @@ def layer_norm_accuracy(torch, gen, rows: int, d: int, dtype) -> dict:
 def layer_norm_timing(torch):
     """The layer-norm kernels' JSON rows (#8, which replace no TPU kernel).
     Each is first held to float64 (:func:`layer_norm_accuracy`) at the
-    SASRec cell's shape (LN_ROWS x LN_D) in f32 and bf16 and at 6o's AMP
-    encoder (LN_AMP_ROWS x D) in bf16. Then CUDA-event ms and device us a
-    call at the cell's shape (30% of the rows zero), f32 and bf16, beside
+    SASRec cell's shape (LN_ROWS x LN_D) in f32 and bf16, at 6o's AMP
+    encoder (LN_AMP_ROWS x D) in bf16 and at the HSTU cell's (LN_HSTU_ROWS
+    x LN_D) in f32 with ``layer_norm_unit``'s ones and zeros. Then
+    CUDA-event ms and device us a call at the SASRec cell's shape (30% of the rows zero), f32 and bf16, beside
     the bound (x and y forward, x, dy and dx backward, each moved once,
     plus the f32 mean and rstd, over 3.35 TB/s) and the plain chain's ms
     (layer_norm_plain's forward; the autograd backward of its ops) and of
@@ -4339,6 +4350,8 @@ def layer_norm_timing(torch):
     saved = (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
     acc = {dt: layer_norm_accuracy(torch, gen, rows_, d, dt) for dt in (torch.float32, torch.bfloat16)}
     amp_acc = layer_norm_accuracy(torch, gen, LN_AMP_ROWS, D, torch.bfloat16)
+    hstu_acc = layer_norm_accuracy(torch, gen, LN_HSTU_ROWS, d, torch.float32, unit=True)
+    torch.cuda.empty_cache()
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         x, dy, scale, bias, _ = _ln_inputs(torch, gen, rows_, d, dtype)
@@ -4376,6 +4389,7 @@ def layer_norm_timing(torch):
             "launches": 0, "max_abs_err": f32["err"], "gap_f64": f32["gap_f64"], "ms": f32["ms"],
             "device_us": f32["device_us"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": "bytes", "library_ms": f32["library_ms"], "bf16": b16, "amp_6o_gap_f64": amp_acc,
+            "hstu_gap_f64": hstu_acc,
         })
     return rows
 

@@ -3,7 +3,7 @@
 The port lives beside the JAX package and imports nothing from it. It
 does what the JAX package does behind the same ``RecSys`` surface: id
 encoding, metadata and the seeded split; the seven nets (linear, fm, mlp,
-neucf, lstm, sasrec, ease); the pairwise, K-negative and sampled-softmax
+neucf, lstm, sasrec, ease) and HSTU, its own; the pairwise, K-negative and sampled-softmax
 losses with rowwise-adagrad embeddings; evaluation; full-catalog top-k
 serving; checkpoints, incremental training, the streaming fit, every net
 on a ('data', 'model') mesh of ranks; logging, profiling and the

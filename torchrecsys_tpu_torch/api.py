@@ -118,7 +118,7 @@ class RecSys:
         """The JAX constructor's keywords, in its order and with its
         defaults, then ``device``. ``fm_sigmoid`` goes to FM's config,
         ``history_len`` (each user's window of train items) to the sequence
-        nets' (lstm, sasrec); ``ease_lam`` is EASE's ridge ``lam``
+        nets' (lstm, sasrec, hstu); ``ease_lam`` is EASE's ridge ``lam``
         (``net_type="ease"``: no model, ``self.ease`` instead, api.py:93-104).
         ``debug=True`` writes
         the store's ``config.json`` and ``meta.csv`` to ``path``
@@ -617,7 +617,7 @@ class RecSys:
             raise ValueError(
                 f"net_type {self.model_cfg.net_type!r} does not factorize "
                 "into user/item vectors (joint-tower scoring); factor "
-                "export needs linear/fm/lstm/sasrec"
+                "export needs linear/fm/lstm/sasrec/hstu"
             )
         return self._catalog
 

@@ -65,7 +65,10 @@ class ModelConfig:
     ``neucf_hidden_layers`` are NeuCF's MLP-tower widths (config.py:80).
     ``history_len`` is the sequence models' window of each user's last
     train items, ``sasrec_blocks`` and ``sasrec_heads`` SASRec's encoder
-    shape (``n_factors`` divisible by the heads) (config.py:81-87)."""
+    shape (``n_factors`` divisible by the heads) (config.py:81-87);
+    ``hstu_blocks`` and ``hstu_heads`` HSTU's (models/hstu.py; no JAX
+    counterpart), whose defaults are HSTU's base setting, SASRec's
+    published 2 blocks of 1 head."""
 
     net_type: str = "linear"
     n_factors: int = 80
@@ -78,6 +81,8 @@ class ModelConfig:
     history_len: int = 20
     sasrec_blocks: int = 2
     sasrec_heads: int = 2
+    hstu_blocks: int = 2
+    hstu_heads: int = 1
 
 
 PORTED_LOSSES = ("hinge", "bpr", "logistic", "adaptive_hinge", "warp", "sampled_softmax")

@@ -1,9 +1,10 @@
 """Model factory (port of ``torchrecsys_tpu/models/__init__.py``).
 
 ``build_model`` builds the gradient-trained nets: ``linear``, ``fm``,
-``mlp``, ``neucf``, ``lstm`` and ``sasrec``. ``ease`` has no gradient
-training: :class:`EASE` is built directly (the facade does so for
-``net_type="ease"``), and ``build_model`` refuses it as JAX's does.
+``mlp``, ``neucf``, ``lstm``, ``sasrec`` and ``hstu`` (the last has no
+JAX counterpart). ``ease`` has no gradient training: :class:`EASE` is
+built directly (the facade does so for ``net_type="ease"``), and
+``build_model`` refuses it as JAX's does.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from torchrecsys_tpu_torch.config import DataSchema, ModelConfig
 from torchrecsys_tpu_torch.models.base import RecModel, TableSpec
 from torchrecsys_tpu_torch.models.ease import EASE
 from torchrecsys_tpu_torch.models.fm import FMModel
+from torchrecsys_tpu_torch.models.hstu import HSTUModel
 from torchrecsys_tpu_torch.models.linear import LinearModel
 from torchrecsys_tpu_torch.models.lstm import LSTMModel
 from torchrecsys_tpu_torch.models.mlp import MLPModel
@@ -20,7 +22,7 @@ from torchrecsys_tpu_torch.models.sasrec import SASRecModel
 
 MODEL_REGISTRY = {
     "linear": LinearModel, "fm": FMModel, "mlp": MLPModel, "neucf": NeuCFModel,
-    "lstm": LSTMModel, "sasrec": SASRecModel,
+    "lstm": LSTMModel, "sasrec": SASRecModel, "hstu": HSTUModel,
 }
 
 
@@ -37,5 +39,5 @@ def build_model(schema: DataSchema, cfg: ModelConfig) -> RecModel:
 
 __all__ = [
     "MODEL_REGISTRY", "build_model", "RecModel", "TableSpec", "LinearModel", "FMModel", "MLPModel",
-    "NeuCFModel", "LSTMModel", "SASRecModel", "EASE",
+    "NeuCFModel", "LSTMModel", "SASRecModel", "HSTUModel", "EASE",
 ]

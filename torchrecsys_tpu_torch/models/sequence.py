@@ -1,5 +1,6 @@
-"""What the two sequence models share (ports of the common parts of
-``torchrecsys_tpu/models/lstm.py`` and ``models/sasrec.py``).
+"""What the sequence models share (ports of the common parts of
+``torchrecsys_tpu/models/lstm.py`` and ``models/sasrec.py``, which HSTU,
+models/hstu.py, shares too).
 
 A sequence model encodes each user's last ``history_len`` train items (the
 ``(num_users, L)`` tables ``hist_ids``/``hist_mask`` of

@@ -25,12 +25,15 @@ bytes and what their design does about it). Over the last dim of x, with
 - :class:`LayerNorm` is the ``torch.autograd.Function`` over the two;
   :func:`layer_norm` the entry: CPU tensors take :func:`layer_norm_plain`,
   CUDA tensors the kernels, with no fallback.
+- :func:`layer_norm_unit` is the entry for a norm without affine
+  parameters (HSTU's two a block): :func:`layer_norm` with a constant
+  scale of ones and bias of zeros, kept per width, type and device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -40,6 +43,7 @@ from torchrecsys_tpu_torch.ops.dot_topk import _stream
 
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DTYPES = (torch.float32, torch.bfloat16)
+_UNIT: Dict[Tuple[int, torch.dtype, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -197,3 +201,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     return LayerNorm.apply(x, scale, bias, eps)
+
+
+def layer_norm_unit(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`layer_norm` without affine parameters: scale 1 and bias 0,
+    constants made once per (d, type, device) and kept."""
+    key = (x.shape[-1], x.dtype, x.device)
+    params = _UNIT.get(key)
+    if params is None:
+        params = _UNIT[key] = (torch.ones(key[0], dtype=x.dtype, device=x.device),
+                               torch.zeros(key[0], dtype=x.dtype, device=x.device))
+    return layer_norm(x, *params, eps)

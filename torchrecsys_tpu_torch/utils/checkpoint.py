@@ -126,7 +126,7 @@ def load_schema(directory: str) -> DataSchema:
 
 def pack_store_aux(store, model_cfg: ModelConfig, train_cfg: Optional[TrainConfig]) -> Dict[str, Any]:
     """The raw-id vocabularies, the item metadata table, the configs and,
-    for the nets that read one (lstm, sasrec), each user's history window
+    for the nets that read one (lstm, sasrec, hstu), each user's history window
     ``history: {ids, mask}`` (:59-86): it derives from the train split,
     which a cold process does not have."""
     from torchrecsys_tpu_torch.models import MODEL_REGISTRY

@@ -33,7 +33,8 @@ always on: ``catalog.builds`` (the facade's kept serving catalog built),
 and ``dot_topk.tensor_maps`` (the top-k kernels' plan and TMA-map cache
 misses), ``kernels.built`` (``nvcc`` runs), ``fit.train_data_uploads``
 (the trainer's train split uploaded), ``fit.feature_table_builds``
-(``Trainer.feature_tables`` calls) and ``spans.dropped``. The kernel
+(``Trainer.feature_tables`` calls), ``hstu.encodes`` (HSTU's encoder
+calls: one a paired training step) and ``spans.dropped``. The kernel
 wrappers' ``.launches`` attributes count launches apart from these.
 
 torch.profiler can drop the first kernels of its active phase and
@@ -126,6 +127,7 @@ COUNTERS = (
     "kernels.built",
     "fit.train_data_uploads",
     "fit.feature_table_builds",
+    "hstu.encodes",
     "spans.dropped",
 )
 
