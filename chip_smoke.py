@@ -315,6 +315,13 @@ result line:
    host us per call against the bare C call. The layer-norm pair (#8,
    SASRec's encoder) at the SASRec cell's shape (409,600 x 50, f32 and
    bf16): ms, device us, the bound from its bytes, the plain chain's ms.
+   HSTU's attention pair (#9) at the HSTU cell's shape (8192 histories x 2
+   heads x 200 x 25, f32, its windows), first held to float64 and bit for
+   bit across two backward runs: ms, device us, the bounds over the full
+   square and over the unmasked pairs, the share of tile pairs computed,
+   the plain chain's ms; then one epoch of HSTU's fit at the cell's widths
+   through the Trainer (4 steps of 8192), #9's launches counted from 0
+   before it (8 + 8 a step) and reported as #9's launches.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -370,6 +377,12 @@ LN_REPLACES = "none (the JAX package's norm is jnp ops that XLA fuses: torchrecs
 LN_ROWS, LN_D, LN_EPS = 8192 * 50, 50, 1e-6  # the SASRec cell's encoder: batch 8192 x history 50, d = 50
 LN_AMP_ROWS = MLP_B * 20  # 6o's AMP SASRec encoder: batch 8192 x history 20, d = D, bf16
 LN_HSTU_ROWS = 8192 * 200  # the HSTU cell's encoder: batch 8192 x history 200, d = 50, unit affine, f32
+HA_SOURCE = "torchrecsys_tpu_torch/ops/csrc/hstu_attention.cu"
+HA_REPLACES = "none (HSTU exists only in the port: torchrecsys_tpu_torch/models/hstu.py)"
+HA_B, HA_L, HA_HEADS, HA_DH = 8192, 200, 2, 25  # the HSTU cell's attention: batch 8192, window 200, 2 heads of 25
+HA_MIN_LEN = 62  # window lengths drawn from 62 .. 200 (mean ~131 valid keys, as the cell's), from position 0
+HA_CHUNK = 1024  # histories a float64 reference chunk holds
+HA_FIT_USERS, HA_FIT_ITEMS, HA_FIT_ROWS = 240, 3706, 40_960  # #9's fit: ~136 train items a user, 4 steps of 8192
 DEVICE = "cuda"
 
 
@@ -4394,6 +4407,217 @@ def layer_norm_timing(torch):
     return rows
 
 
+def _ha_inputs(torch, gen, b: int, length: int, dtype):
+    """q, k, v as strided views of one (B, L, 4 h dh) projection (as the
+    model passes them), w (2L - 1,), dO, each N(0, 0.45^2) (q . k of order
+    one, so every SiLU bends), and the cell's windows: from position 0,
+    lengths HA_MIN_LEN .. L, the positive's hole (1% of positions)."""
+    width = HA_HEADS * HA_DH
+    uvqk = torch.randn((b, length, 4 * width), generator=gen, device=DEVICE) * 0.45
+    _, v, q, k = torch.split(uvqk.to(dtype), width, dim=-1)
+    w = (torch.randn((2 * length - 1,), generator=gen, device=DEVICE) * 0.45).to(dtype)
+    dout = torch.randn((b, length, width), generator=gen, device=DEVICE).to(dtype)
+    n = torch.randint(HA_MIN_LEN, length + 1, (b,), generator=gen, device=DEVICE)
+    valid = torch.arange(length, device=DEVICE)[None] < n[:, None]
+    valid &= torch.rand((b, length), generator=gen, device=DEVICE) > 0.01
+    return q, k, v, w, valid.contiguous(), dout
+
+
+def hstu_attention_accuracy(torch, q, k, v, w, valid, dout) -> dict:
+    """#9 against float64 at the cell's shape: o, dq, dk, dv and dw of the
+    kernels and of pointwise_attention_plain's autograd in f32 (TF32 off),
+    each as ||got - ref|| / ||ref|| against the plain version's autograd in
+    float64 (in chunks of HA_CHUNK histories, dw summed over them in
+    float64). Each kernel gap must be within max(2 x the plain gap, 1e-6),
+    dw past L - 1 must be 0, and a second backward must give the same bits.
+    Returns the gaps and max |kernel - plain f32| of o and dq."""
+    from torchrecsys_tpu_torch.ops import hstu_attention as ha
+
+    names = ("o", "dq", "dk", "dv", "dw")
+    o = ha.hstu_attention_fwd(q, k, v, w, valid, HA_HEADS)
+    grads = ha.hstu_attention_bwd(q, k, v, w, valid, dout, HA_HEADS)
+    again = ha.hstu_attention_bwd(q, k, v, w, valid, dout, HA_HEADS)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)), "hstu_attention_bwd: two runs differ")
+    got = (o,) + grads
+    del again
+
+    def plain(rows, dt):
+        leaves = [t[rows].detach().to(dt).requires_grad_() for t in (q, k, v)] + [w.detach().to(dt).requires_grad_()]
+        op = ha.pointwise_attention_plain(*leaves, valid[rows], HA_HEADS)
+        return (op.detach(),) + torch.autograd.grad(op, leaves, dout[rows].to(dt))
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        low = plain(slice(None), torch.float32)
+        torch.cuda.empty_cache()
+        sq = {n: [0.0, 0.0, 0.0] for n in names}  # sum (kernel - ref)^2, (plain - ref)^2, ref^2
+        dw_ref = torch.zeros_like(w, dtype=torch.float64)
+        for r0 in range(0, q.shape[0], HA_CHUNK):
+            rows = slice(r0, r0 + HA_CHUNK)
+            ref = plain(rows, torch.float64)
+            for n, g, lo, r in zip(names[:4], got[:4], low[:4], ref[:4]):
+                sq[n][0] += float((g[rows].double() - r).square().sum())
+                sq[n][1] += float((lo[rows].double() - r).square().sum())
+                sq[n][2] += float(r.square().sum())
+            dw_ref += ref[4]
+            del ref
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    sq["dw"] = [float((got[4].double() - dw_ref).square().sum()), float((low[4].double() - dw_ref).square().sum()),
+                float(dw_ref.square().sum())]
+    out = {"shape": [int(q.shape[0]), int(q.shape[1]), HA_HEADS, HA_DH]}
+    for n in names:
+        den = sq[n][2] ** 0.5 or 1.0
+        k_gap, p_gap = sq[n][0] ** 0.5 / den, sq[n][1] ** 0.5 / den
+        check(bool(torch.isfinite(got[names.index(n)]).all()), f"hstu_attention: {n} not finite")
+        check(k_gap <= max(2 * p_gap, 1e-6), f"hstu_attention: {n} {k_gap:.3e} off float64, beyond max(2 x the "
+              f"plain version's {p_gap:.3e}, 1e-6)")
+        out[n] = {"gap": k_gap, "plain_gap": p_gap}
+    check(not bool(grads[3][q.shape[1]:].any()), "hstu_attention_bwd: dw past L - 1 is not 0")
+    out["err"] = {"fwd": float((o - low[0]).abs().max()), "bwd": float((grads[0] - low[1]).abs().max())}
+    log(f"[check] hstu_attention ({' x '.join(map(str, out['shape']))}, f32): gap to float64, kernel (plain) "
+        + ", ".join(f"{n} {out[n]['gap']:.3e} ({out[n]['plain_gap']:.3e})" for n in names)
+        + f"; max |kernel - plain| o {out['err']['fwd']:.3g}, dq {out['err']['bwd']:.3g}; two backward runs "
+        "bit for bit")
+    return out
+
+
+def tile_pairs(torch, valid) -> dict:
+    """(pairs computed, pairs in the square) a head, summed over the (B, L)
+    mask's histories, by kernel pair #9's skipping rule
+    (ops/csrc/hstu_attention.cu), in 16 x 16 (tile, block) pairs. Forward
+    and the backward's dq units: a 16-row query tile against a 16-key
+    block, computed when the block starts at or before the tile's last row
+    below L and holds a valid key. The backward's dk / dv units: a 16-key
+    tile against a 16-query block, computed when the key tile holds a valid
+    key and the block ends at or after the tile's first key. The square:
+    ((L padded to 16) / 16)^2 pairs a history."""
+    bsz, length = valid.shape
+    nb = -(-length // 16)
+    padded_valid = torch.zeros((bsz, nb * 16), dtype=torch.bool, device=valid.device)
+    padded_valid[:, :length] = valid
+    blocks = padded_valid.reshape(bsz, nb, 16).any(dim=2)  # (B, nb)
+    c = torch.arange(nb, device=valid.device)
+    last = torch.clamp(16 * c + 15, max=length - 1) // 16  # a query tile's last key block
+    fwd = int((blocks[:, None, :] & (c[None, None, :] <= last[None, :, None])).sum())
+    blocks_from = ((length - 1) // 16 + 1 - c).clamp_min(0)  # query blocks kt .. (L - 1) // 16
+    bwd_kv = int((blocks.long() * blocks_from[None]).sum())
+    square = bsz * nb * nb
+    return {"fwd": (fwd, square), "bwd_dq": (fwd, square), "bwd_dkdv": (bwd_kv, square)}
+
+
+def hstu_attention_timing(torch):
+    """Kernel pair #9's JSON rows (HSTU's pointwise attention, which
+    replaces no TPU kernel). First held to float64 at the HSTU cell's shape
+    (:func:`hstu_attention_accuracy`: 8192 histories x 2 heads x 200 x 25,
+    f32, the cell's windows). Then CUDA-event ms and device us a call,
+    beside two bounds (operations over the 3xTF32-held f32 rate of 165
+    TFLOP/s, or bytes over 3.35 TB/s, whichever is larger): over the full
+    L x L square (forward 2 products, backward 5, each 2 dh flops a pair;
+    q, k, v, o and dO, dq, dk, dv moved once) and over the pairs the masks
+    leave; the share of (tile, block) pairs the kernels compute, counted on
+    the host by their rule (:func:`tile_pairs`); the plain chain's ms
+    (pointwise_attention_plain's forward; the autograd backward of its ops).
+    No single PyTorch call computes a pointwise, unnormalised, masked
+    attention, so library is none. launches: filled in by main from
+    :func:`hstu_fit_path`'s fit."""
+    from torchrecsys_tpu_torch.ops import hstu_attention as ha
+
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    q, k, v, w, valid, dout = _ha_inputs(torch, gen, HA_B, HA_L, torch.float32)
+    acc = hstu_attention_accuracy(torch, q, k, v, w, valid, dout)
+    torch.cuda.empty_cache()
+    i = torch.arange(HA_L, device=DEVICE)
+    pairs = int(((i[None, :] <= i[:, None])[None] & valid[:, None, :]).sum()) * HA_HEADS
+    square = HA_B * HA_HEADS * HA_L * HA_L
+    tiles = {kk: a / b for kk, (a, b) in tile_pairs(torch, valid).items()}
+    elems = HA_B * HA_L * HA_HEADS * HA_DH
+    nbytes = {"fwd": 4 * elems * 4, "bwd": 7 * elems * 4}
+    flops = {"fwd": 2 * 2 * HA_DH * square, "bwd": 5 * 2 * HA_DH * square}
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, w)]
+    op = ha.pointwise_attention_plain(*leaves, valid, HA_HEADS)
+    calls = {"fwd": lambda: ha.hstu_attention_fwd(q, k, v, w, valid, HA_HEADS),
+             "bwd": lambda: ha.hstu_attention_bwd(q, k, v, w, valid, dout, HA_HEADS)}
+    plain = {"fwd": lambda: ha.pointwise_attention_plain(q, k, v, w, valid, HA_HEADS),
+             "bwd": lambda: torch.autograd.grad(op, leaves, dout, retain_graph=True)}
+    rows = []
+    for part in ("fwd", "bwd"):
+        us, n_k = device_call(torch, calls[part], calls=10)
+        check(n_k == (1 if part == "fwd" else 2), f"hstu_attention_{part}: {n_k} kernels per call "
+              "(forward: one; backward: the problems and dw's column sums)")
+        t_ops, t_bytes = flops[part] / SPLIT_F32_FLOPS * 1e3, nbytes[part] / PEAK_BYTES * 1e3
+        t_masked = t_ops * pairs / square
+        bound, masked = max(t_ops, t_bytes), max(t_masked, t_bytes)
+        r = {"ms": cuda_ms(torch, calls[part], reps=10), "device_us": us,
+             "plain_ms": cuda_ms(torch, plain[part], reps=3), "bound_ms": bound, "bound_masked_ms": masked,
+             "pairs_share": pairs / square}
+        r["tile_share"] = tiles["fwd"] if part == "fwd" else (tiles["bwd_dq"] + tiles["bwd_dkdv"]) / 2
+        log(f"[time] hstu_attention_{part} ({HA_B} x {HA_HEADS} x {HA_L} x {HA_DH}, f32): {r['ms']:.4f} ms (device "
+            f"{us:.2f} us per call over {n_k} kernel(s), torch.profiler); bound {bound:.4f} ms over the square "
+            f"({flops[part] / 1e9:.1f} GFLOP at {SPLIT_F32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes[part] / 1e9:.2f} GB at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s), {masked:.4f} ms over the unmasked pairs ({pairs / square:.3f} of the "
+            f"square); tile pairs computed {r['tile_share']:.3f} of the square; plain chain {r['plain_ms']:.4f} ms; "
+            "library none")
+        rows.append({
+            "name": f"hstu_attention_{part}", "route": "cuda", "source": HA_SOURCE, "replaces": HA_REPLACES,
+            "launches": 0, "max_abs_err": acc["err"][part], "gap_f64": acc, "ms": r["ms"], "device_us": us,
+            "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_masked_ms": masked,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_masked_by": "operations" if t_masked > t_bytes else "bytes",
+            "pairs_share": r["pairs_share"], "tile_share": r["tile_share"], "library_ms": None,
+        })
+    return rows
+
+
+def hstu_fit_path(torch):
+    """Kernel pair #9 on the main path: one epoch of HSTU's fit at the
+    benchmark cell's widths (d = 50, window 200, 8 blocks of 2 heads; BCE
+    against one dynamic negative, adam at lr 0.001, batch 8192) through
+    build_model and the Trainer, over HA_FIT_ROWS uniform interactions of
+    HA_FIT_USERS users and HA_FIT_ITEMS items (windows of ~136 train items,
+    as the cell's ~131). #9's launch counts are set to 0 just before the
+    fit and must read 8 + 8 a step (a forward and a backward a block), #8's
+    16 + 16; the epoch loss must be finite. Returns #9's (forward,
+    backward) launches, the steps and the fit's seconds."""
+    from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
+    from torchrecsys_tpu_torch.data import prepare_data
+    from torchrecsys_tpu_torch.models import build_model
+    from torchrecsys_tpu_torch.ops import hstu_attention as ha
+    from torchrecsys_tpu_torch.train import Trainer
+
+    r = np.random.default_rng(25)
+    users = np.concatenate([np.arange(HA_FIT_USERS), r.integers(0, HA_FIT_USERS, HA_FIT_ROWS - HA_FIT_USERS)])
+    items = np.concatenate([np.arange(HA_FIT_ITEMS), r.integers(0, HA_FIT_ITEMS, HA_FIT_ROWS - HA_FIT_ITEMS)])
+    store = prepare_data({"user_id": users, "item_id": items}, "user_id", "item_id", split_ratio=0.8,
+                         dynamic_neg_sampling=True, seed=25)
+    blocks = 8
+    model = build_model(store.schema, ModelConfig(net_type="hstu", n_factors=HA_HEADS * HA_DH, history_len=HA_L,
+                                                  hstu_blocks=blocks, hstu_heads=HA_HEADS)).to(DEVICE)
+    trainer = Trainer(model, TrainConfig(batch_size=HA_B, learning_rate=0.001, loss="logistic",
+                                         dense_optimizer="adam", dynamic_neg_sampling=True, seed=25), DEVICE)
+    state = trainer.init_state()
+    steps = -(-store.num_train // HA_B)
+    ln0 = ln_launches()
+    ha.hstu_attention_fwd.launches = ha.hstu_attention_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.fit(state, store, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    attn = (ha.hstu_attention_fwd.launches, ha.hstu_attention_bwd.launches)
+    norms = tuple(b - a for a, b in zip(ln0, ln_launches()))
+    check(attn == (blocks * steps,) * 2, f"HSTU fit: #9 launched {attn} times, want {blocks} of each a step "
+          f"({steps} steps)")
+    check(norms == (2 * blocks * steps,) * 2, f"HSTU fit: #8 launched {norms} times, want {2 * blocks} of each a "
+          f"step ({steps} steps)")
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"HSTU fit: epoch loss {losses} is not finite")
+    log(f"[train] HSTU (d {HA_HEADS * HA_DH}, window {HA_L}, {blocks} blocks of {HA_HEADS} heads): fit {steps} "
+        f"steps of {HA_B} in {fit_s:.3f} s (first epoch, builds included); epoch loss {losses[0]:.5f}; #9 "
+        f"launches {attn[0]} + {attn[1]}, #8 {norms[0]} + {norms[1]}, counted from 0 before the fit")
+    return {"launches": attn, "steps": steps, "fit_s": fit_s}
+
+
 def softmax_breakdown(torch, rs, label: str, window: int = 60):
     """Per-step breakdown of the softmax fit: epoch build and table
     augmentation (host clock, per epoch), host ms per step, and device us
@@ -5971,6 +6195,10 @@ def main() -> int:
         "fused_tower_fwd": mlp["fwd_launches"], "fused_tower_bwd": mlp["bwd_launches"],
     }))
     kernels.extend(layer_norm_timing(torch))
+    kernels.extend(hstu_attention_timing(torch))
+    torch.cuda.empty_cache()
+    ha_fit = hstu_fit_path(torch)
+    torch.cuda.empty_cache()
     log(f"[phase] 6j-6m starts at {time.perf_counter() - t_start:.1f} s")
     rs, pop = popularity_path(torch, data)
     step_meta_row["launches"] += pop["launches"]
@@ -6083,6 +6311,8 @@ def main() -> int:
                                "columns from off = rank x Br), the same kernels"]
     for row, n in zip((r for r in kernels if r["name"].startswith("layer_norm")), seq["sasrec"]["ln_launches"]):
         row["launches"] = n  # the main path's counted run: 6o's AMP SASRec fit
+    for row, n in zip((r for r in kernels if r["name"].startswith("hstu_attention")), ha_fit["launches"]):
+        row["launches"] = n  # the main path's counted run: HSTU's fit at the cell's widths
     log(f"[ckpt] {smi_line}: Linear metadata checkpoint {ckpt['bytes'] / 2**20:.1f} MiB, save "
         f"{ckpt['save_s']:.3f} s, load {ckpt['load_s']:.3f} s in process / "
         f"{cold['Linear metadata']['load_s']:.3f} s cold in the child, restore {ckpt['restore_s']:.3f} s; "

@@ -34,6 +34,7 @@ from torchrecsys_tpu_torch.config import ModelConfig, TrainConfig
 from torchrecsys_tpu_torch.data import prepare_data
 from torchrecsys_tpu_torch.data.features import attach_features
 from torchrecsys_tpu_torch.models import build_model, hstu
+from torchrecsys_tpu_torch.ops import hstu_attention as ha
 from torchrecsys_tpu_torch.ops import layer_norm as ln
 from torchrecsys_tpu_torch.train import Trainer
 from torchrecsys_tpu_torch.utils import profiling
@@ -358,7 +359,7 @@ def test_facade_fits_evaluates_and_predicts_the_plain_ranking():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the layer-norm kernels run only there")
+        pytest.skip("needs a CUDA card: the layer-norm and attention kernels run only there")
     return torch.device("cuda")
 
 
@@ -382,9 +383,10 @@ def _gap(got, want):
 def test_encoder_at_the_cell_widths_matches_float64_on_card(cuda_device):
     """d = 50, L = 200, 8 blocks of 2 heads (the benchmark's configuration)
     on 512 histories, ~30% of positions padded, holes, 16 empty: the user
-    vectors and every leaf's gradient, port f32 (kernel #8, recompute)
+    vectors and every leaf's gradient, port f32 (kernels #8 and #9)
     against the reference in float64, within 1e-6 or twice the reference's
-    own f32 gap, whichever is larger. 16 + 16 launches of #8."""
+    own f32 gap, whichever is larger. 16 + 16 launches of #8 and 8 + 8 of
+    #9 (the attention)."""
     b, length, d = 512, 200, 50
     store = prepare_data({"user_id": np.arange(100) % 10, "item_id": np.arange(100)}, "user_id", "item_id")
     model = build_model(store.schema, ModelConfig(net_type="hstu", n_factors=d, history_len=length,
@@ -400,12 +402,14 @@ def test_encoder_at_the_cell_widths_matches_float64_on_card(cuda_device):
 
     with ph.ieee_f32():
         f0, b0 = ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches
+        af0, ab0 = ha.hstu_attention_fwd.launches, ha.hstu_attention_bwd.launches
         h, port = _grads(lambda dn, e: model._encode(dn, e, mask), dense, emb, q, torch.float32)
         torch.cuda.synchronize()
         launches = (ln.layer_norm_fwd.launches - f0, ln.layer_norm_bwd.launches - b0)
+        attn_launches = (ha.hstu_attention_fwd.launches - af0, ha.hstu_attention_bwd.launches - ab0)
         h32, plain = _grads(lambda dn, e: ph.encode(dn, e, mask, 2), dense, emb, q, torch.float32)
         h64, ref = _grads(lambda dn, e: ph.encode(dn, e, mask, 2), dense, emb, q, torch.float64)
-    assert launches == (16, 16)
+    assert launches == (16, 16) and attn_launches == (8, 8)
     assert not h[:16].any() and torch.isfinite(h).all()
     gaps = {"h": (_gap(h, h64), _gap(h32, h64))}
     gaps.update({k: (_gap(port[k], ref[k]), _gap(plain[k], ref[k])) for k in ref})
@@ -413,3 +417,39 @@ def test_encoder_at_the_cell_widths_matches_float64_on_card(cuda_device):
         print(f"[hstu] {k}: port {gp:.3e}, plain f32 {gpl:.3e}")
     bad = {k: v for k, v in gaps.items() if v[0] > max(1e-6, 2 * v[1])}
     assert not bad, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("history_len", [20, 300], ids=["default_window", "window_past_256"])
+def test_facade_at_its_default_width_runs_on_card(cuda_device, history_len):
+    """RecSys(net_type="hstu") on the card at its defaults: n_factors 80 in
+    one head (the facade sets no heads), 2 blocks, the default window of 20
+    and one of 300 (past the staged kernels' 256, so both take #9's
+    streamed kernels). The fit launches #9 once a block each way a step,
+    evaluate and predict run, and the fitted model's user vectors lie
+    within max(1e-6, 2 x the plain f32 gap) of the reference's in float64."""
+    data = _data(n=800)
+    rs = RecSys(data, net_type="hstu", history_len=history_len, seed=3)
+    assert rs.model_cfg.n_factors == 80 and rs.model_cfg.hstu_heads == 1 and str(rs.device).startswith("cuda")
+    f0, b0 = ha.hstu_attention_fwd.launches, ha.hstu_attention_bwd.launches
+    rs.fit(epochs=1, batch_size=64, loss="logistic", learning_rate=0.02, verbose=False)
+    steps = -(-rs.store.num_train // 64)
+    blocks = rs.model_cfg.hstu_blocks
+    assert (ha.hstu_attention_fwd.launches - f0, ha.hstu_attention_bwd.launches - b0) == (blocks * steps,) * 2
+    metrics = rs.evaluate(eval_metrics=("loss", "auc", "recall@5"), verbose=False)
+    assert all(np.isfinite(list(metrics.values())))
+    users = rs.store.user_encoder.to_list()[:12]
+    assert np.asarray(rs.predict(users, top_k=7, return_raw_ids=False)).shape == (12, 7)
+    vecs, _ = rs.user_vectors(users)
+    dev = rs.feat["hist_ids"].device
+    rows = torch.as_tensor([rs.store.user_encoder.encode_one(u) for u in users], device=dev)
+    item = rs.state["tables"]["item"][: rs.store.schema.num_items]
+    hist, mask = item[rs.feat["hist_ids"][rows]], rs.feat["hist_mask"][rows]
+    dense = rs.state["dense"]
+    with ph.ieee_f32():
+        h32 = ph.encode(dense, hist.float(), mask, 1)
+        h64 = ph.encode(ph.rebuild(dense, {k: t.double() for k, t in ph.flatten(dense).items()}), hist.double(),
+                        mask, 1)
+    port, plain = _gap(torch.as_tensor(vecs, device=dev), h64), _gap(h32, h64)
+    print(f"[hstu] facade window {history_len}: port {port:.3e}, plain f32 {plain:.3e}")
+    assert port <= max(1e-6, 2 * plain), (port, plain)

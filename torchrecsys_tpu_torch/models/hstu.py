@@ -20,13 +20,16 @@ the last valid position over its L2 norm (the published
 ``user_embedding_norm = "l2_norm"``): h / max(|h|, 1e-6), so an empty
 history encodes to zeros. Both norms a block (eps 1e-6) go through
 ops/layer_norm.py: kernel #8 on CUDA tensors, the plain formula on the
-CPU. The attention is plain torch (:func:`pointwise_attention`), and its
-backward recomputes it (``torch.utils.checkpoint``): autograd keeps no
-(B, h, L, L) tensor between the forward and the backward, only the
-block's (B, L, ·) activations. At the benchmark's B = 8192, L = 200, d =
-50, 8 blocks of 2 heads, keeping the SiLU's input and the weights of
-every block would hold ~42 GB of them on top of ~43 GB of the rest, more
-than the card has.
+CPU. The attention goes through ops/hstu_attention.py
+(:func:`~torchrecsys_tpu_torch.ops.hstu_attention.pointwise_attention`):
+on CUDA tensors kernel pair #9 (at any window and head width), whose
+forward writes only o and whose
+backward recomputes the scores on chip from q, k, w and the (B, L) mask, so
+autograd keeps no (B, h, L, L) tensor and the forward runs once (at the
+benchmark's B = 8192, L = 200, 8 blocks of 2 heads, the plain version's
+saved SiLU inputs and weights would take ~42 GB beside ~43 GB of the rest,
+more than the card has); on the CPU the plain torch version
+(``pointwise_attention_plain``) under autograd.
 
 Departures from the published model: no time-bucket bias rab^t (the
 port's interactions carry no timestamps), no dropout (published
@@ -44,9 +47,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from torchrecsys_tpu_torch.models.sequence import SequenceModel
+from torchrecsys_tpu_torch.ops.hstu_attention import pointwise_attention
 from torchrecsys_tpu_torch.ops.layer_norm import layer_norm_unit
 from torchrecsys_tpu_torch.utils.profiling import annotate, count
 
@@ -62,26 +65,6 @@ def relative_bias(w: torch.Tensor, length: int) -> torch.Tensor:
     n = length
     t = F.pad(w[: 2 * n - 1], [0, n]).repeat(n)[:-n].reshape(n, 3 * n - 2)
     return t[:, n - 1: 2 * n - 1]
-
-
-def pointwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rab: torch.Tensor,
-                        blocked: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, L, h * dh) q, k, v, the (L, L) relative bias and the (B, 1, L, L)
-    mask of blocked (query, key) pairs -> (B, L, h * dv): per head
-    ``(SiLU(q k^T + R) / L) * M`` times v. In place where autograd allows
-    (each op's saved tensors are not the ones overwritten)."""
-    bsz, length, width = q.shape
-
-    def split(t):  # (B, L, h * dh) -> (B, h, L, dh)
-        return t.reshape(bsz, length, heads, width // heads).transpose(1, 2)
-
-    scores = split(q) @ split(k).transpose(-1, -2)
-    scores += rab
-    attn = F.silu(scores)
-    attn *= 1.0 / length
-    attn.masked_fill_(blocked, 0.0)
-    o = attn @ split(v)
-    return o.transpose(1, 2).reshape(bsz, length, o.shape[1] * o.shape[3])
 
 
 class HSTUModel(SequenceModel):
@@ -137,13 +120,11 @@ class HSTUModel(SequenceModel):
         bsz, l, _ = hist_emb.shape
         mask_f = hist_mask.to(cd)[..., None]
         x = (hist_emb.to(cd) * math.sqrt(d) + dense["pos"][:l].to(cd)[None]) * mask_f
-        causal = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
-        blocked = ~(causal[None] & hist_mask[:, None, :])[:, None]  # (B, 1, L, L)
+        valid = hist_mask.contiguous()
         for blk in dense["blocks"]:
             z = layer_norm_unit(x, _LN_EPS)
             u, v, q, k = torch.split(F.silu(z @ blk["uvqk"]["w"].to(cd)), d, dim=-1)
-            o = checkpoint(pointwise_attention, q, k, v, relative_bias(blk["rab_pos"].to(cd), l), blocked, nh,
-                           use_reentrant=False, preserve_rng_state=False)
+            o = pointwise_attention(q, k, v, blk["rab_pos"].to(cd), valid, nh)
             y = (layer_norm_unit(o, _LN_EPS) * u) @ blk["o"]["w"].to(cd) + blk["o"]["b"].to(cd)
             x = (x + y) * mask_f  # padded positions stay inert through the stack
         return x

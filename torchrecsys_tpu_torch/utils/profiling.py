@@ -34,7 +34,9 @@ and ``dot_topk.tensor_maps`` (the top-k kernels' plan and TMA-map cache
 misses), ``kernels.built`` (``nvcc`` runs), ``fit.train_data_uploads``
 (the trainer's train split uploaded), ``fit.feature_table_builds``
 (``Trainer.feature_tables`` calls), ``hstu.encodes`` (HSTU's encoder
-calls: one a paired training step) and ``spans.dropped``. The kernel
+calls: one a paired training step), ``hstu_attention.fwd_launches`` and
+``hstu_attention.bwd_launches`` (kernel pair #9, HSTU's attention: one of
+each a block a step) and ``spans.dropped``. The kernel
 wrappers' ``.launches`` attributes count launches apart from these.
 
 torch.profiler can drop the first kernels of its active phase and
@@ -128,6 +130,8 @@ COUNTERS = (
     "fit.train_data_uploads",
     "fit.feature_table_builds",
     "hstu.encodes",
+    "hstu_attention.fwd_launches",
+    "hstu_attention.bwd_launches",
     "spans.dropped",
 )
 
